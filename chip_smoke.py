@@ -25,7 +25,21 @@ Phases, each of which raises (and so exits non-zero) on failure:
    chunked engine with 8 requests of 300 prompt tokens: wall and device
    milliseconds per decode step, the device's idle share, the host's
    enqueue time, the top device kernels;
-5. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
+5. the head-batched flash attention kernels (B1 forward, B2 backward) at
+   the ``bench.py`` attention shape (b 6, s 1024, 16 q heads over 4 kv
+   heads, head dim 128, causal) in bf16 and fp32, held against their plain
+   versions (per-row error gate) and timed beside their bounds, their plain
+   versions and one ``scaled_dot_product_attention`` call (forward, and
+   forward+backward for B2; a yardstick the port never calls);
+6. training at the full width and depth of the ``bench.py`` configuration
+   (``TRAIN_CFG``): bf16 params, fp32 AdamW masters from the unrounded init,
+   accum 64 with the bf16 carry, one warm-up and three timed steps on one
+   batch.  Every attention call of the steps must be a kernel launch (no
+   plain-version call), the losses finite and falling, and the bf16 kernel
+   path's loss on micro-batch 0 within 2e-2 of a plain fp32 forward on the
+   same weights.  Prints ms per step, tokens/s and MFU (6 N per token over
+   989 TFLOP/s), and profiles one micro-step;
+7. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
 
 Exits non-zero, printing no result, when CUDA is not available or the
 package is not beside the script.  Writes the full record to
@@ -68,6 +82,37 @@ H, KVH, D = 32, 8, 128
 PAGE, N_PAGES, MAX_PAGES = 16, 1025, 128
 KERNEL_CASES = {"bf16": "bf16", "int8": "bf16", "fp32": "fp32"}  # -> q kind
 PROFILE_CHUNKS = 3            # profiled window: 3 chunks of 8 decode steps
+# B1/B2 at the bench.py attention shape: b, s, q heads, kv heads, head dim
+FLASH_SHAPE = (6, 1024, 16, 4, 128)
+# flash kernel error gate, with row_error's per-row measure: o and dq per q
+# row of each head, dk and dv per kv row; lse (fp32 on both sides) as its
+# largest |kernel - plain| over its largest |plain|.  fp32 1e-4, as the
+# decode kernels.  bf16 outputs: two bf16 ulps, as the decode kernels.  Both
+# sides round the same fp32 sums, taken in another order, to bf16 (o, and
+# the gradients at the end), and round p or ds to bf16 from fp32 values a
+# hair apart before a product; the sound kernels read at most one ulp
+# (7.8e-3) on every card-test shape and at the bench.py shape.
+FLASH_ROW_TOL = {"fp32": {"o": 1e-4, "lse": 1e-4, "dq": 1e-4, "dk": 1e-4,
+                          "dv": 1e-4},
+                 "bf16": {"o": 1.6e-2, "lse": 1e-4, "dq": 1.6e-2,
+                          "dk": 1.6e-2, "dv": 1.6e-2}}
+# A gradient row can be 0 in exact arithmetic and rounding noise on both
+# sides: causal position 0 sees only key 0, so p = 1 and dp = delta, and
+# its dq row is ds * k with ds = p (dp - delta) * scale of order 1e-7.  The
+# gradient gate therefore divides each row's error by at least this share
+# of the tensor's largest magnitude.
+GRAD_ROW_FLOOR = 1e-3
+# the one-chip train step of bench.py:57-67 (vocab 32000, hidden 2048,
+# intermediate 5504, 10 layers, 16 q heads over 4 kv heads, seq 1024,
+# batch 6, accum 64), AdamW lr 1e-4
+TRAIN_CFG = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5504,
+                 num_hidden_layers=10, num_attention_heads=16,
+                 num_key_value_heads=4, max_position_embeddings=2048)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM = 6, 1024, 64
+TRAIN_WARMUP, TRAIN_STEPS, TRAIN_LR = 1, 3, 1e-4
+# step-0 loss of the bf16 kernel path against a plain fp32 forward
+TRAIN_LOSS_TOL = 2e-2
+H100_BF16_PEAK = 989e12       # dense bf16 tensor-core rate, the MFU yardstick
 
 
 def _sync():
@@ -103,13 +148,15 @@ def bound(nbytes, ops, kind):
 
 # ------------------------------------------------------------- kernel phase
 
-def row_error(got, want):
+def row_error(got, want, floor=0.0):
     """(gate error, max-abs error) of a kernel output against its plain
     version.  The gate error is the largest, over output rows (the last
     axis is the head dim), of the row's largest |got - want| over its
     largest |want|: a long row's small outputs are held as tightly as a
     short row's large ones.  A row whose plain output is exactly 0 (no
-    visible key, a padding row) must be exactly 0 (error inf otherwise)."""
+    visible key, a padding row) must be exactly 0 (error inf otherwise).
+    ``floor`` > 0 divides instead by at least ``floor`` times the whole
+    output's largest |want| (for gradients, see GRAD_ROW_FLOOR)."""
     import torch
     g = got.float().reshape(-1, got.shape[-1])
     w = want.float().reshape(-1, want.shape[-1])
@@ -117,6 +164,8 @@ def row_error(got, want):
         return float("inf"), float("inf")
     diff = (g - w).abs().amax(-1)
     den = w.abs().amax(-1)
+    if floor > 0:
+        den = den.clamp_min(floor * den.max())
     rel = torch.where(den > 0, diff / den.clamp_min(1e-30),
                       torch.where(diff > 0, float("inf"), 0.0))
     return rel.max().item(), diff.max().item()
@@ -535,6 +584,280 @@ def profile_decode(cfg, params, dev, chunks):
                          "calls_per_step": e.count / steps} for e in top]}
 
 
+# ------------------------------------------------------ flash kernel phase
+
+def flash_inputs(kind, dev, shape=FLASH_SHAPE):
+    """(q, k, v, do) of the HB launchers for ``shape`` = (b, s, h, kvh, d)
+    in bf16 or fp32, from SEED: q, do [b*kvh, h/kvh, s, d]; k, v
+    [b*kvh, s, d]; N(0, 1), so the scaled scores are O(1)."""
+    import torch
+    b, s, h, kvh, d = shape
+    dtype = torch.bfloat16 if kind == "bf16" else torch.float32
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def r(*sh):
+        return torch.randn(sh, generator=g, device=dev).to(dtype)
+
+    return (r(b * kvh, h // kvh, s, d), r(b * kvh, s, d), r(b * kvh, s, d),
+            r(b * kvh, h // kvh, s, d))
+
+
+def flash_work(q, k):
+    """(forward bytes, backward bytes, forward flops) of causal HB
+    attention: each input read once and each output written once (forward
+    q, k, v -> o, lse; backward q, k, v, o, do, lse -> dq, dk, dv); the
+    flops of the two products over the s(s+1)/2 visible pairs per head
+    (the backward does 2.5 times as many)."""
+    bkv, rep, s, d = q.shape
+    item = q.element_size()
+    lse = 4 * bkv * rep * s
+    fwd = item * (2 * q.numel() + 2 * k.numel()) + lse
+    bwd = item * (4 * q.numel() + 4 * k.numel()) + lse
+    return fwd, bwd, 4 * d * (s * (s + 1) // 2) * bkv * rep
+
+
+def flash_errors(kind, got, want):
+    """{output: gate error} and the largest absolute error, raising when a
+    reading is above FLASH_ROW_TOL[kind]."""
+    import torch
+    errs, worst = {}, 0.0
+    for name, g in got.items():
+        w = want[name]
+        if name == "lse":
+            diff = (g - w).abs().max().item()
+            err = diff / w.abs().max().item() if torch.isfinite(g).all() \
+                else float("inf")
+        else:
+            err, diff = row_error(g, w, 0.0 if name == "o"
+                                  else GRAD_ROW_FLOOR)
+        errs[name], worst = err, max(worst, diff)
+        if not err <= FLASH_ROW_TOL[kind][name]:
+            raise AssertionError(f"flash {name}[{kind}]: error {err} > "
+                                 f"{FLASH_ROW_TOL[kind][name]}")
+    return errs, worst
+
+
+def flash_cases(dev, flush):
+    """B1 and B2 at FLASH_SHAPE in bf16 and fp32: gated against the plain
+    versions (the backward from the plain forward's o and lse), timed beside
+    bound, plain and one SDPA call."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    b, s, h, kvh, d = FLASH_SHAPE
+    scale = d ** -0.5
+    records = []
+    for kind in ("bf16", "fp32"):
+        q, k, v, do = flash_inputs(kind, dev)
+        o, lse = fa.hb_flash_forward(q, k, v, True, scale)
+        wo, wlse = fa.hb_flash_forward_plain(q, k, v, True, scale)
+        dq, dk, dv = fa.hb_flash_backward(q, k, v, wo, wlse, do, True, scale)
+        want = fa.hb_flash_backward_plain(q, k, v, wo, wlse, do, True, scale)
+        _sync()
+        ferr, fabs = flash_errors(kind, {"o": o, "lse": lse},
+                                  {"o": wo, "lse": wlse})
+        berr, babs = flash_errors(kind, {"dq": dq, "dk": dk, "dv": dv},
+                                  dict(zip(("dq", "dk", "dv"), want)))
+        del o, lse, dq, dk, dv, want
+        fwd_bytes, bwd_bytes, ops = flash_work(q, k)
+        q4, k4, v4, do4 = (q.view(b, h, s, d), k.view(b, kvh, s, d),
+                           v.view(b, kvh, s, d), do.view(b, h, s, d))
+        leaves = [t.detach().requires_grad_() for t in (q4, k4, v4)]
+
+        def sdpa(*t):
+            return F.scaled_dot_product_attention(*t, is_causal=True,
+                                                  scale=scale,
+                                                  enable_gqa=True)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa(*leaves), leaves, do4)
+
+        reps, plain_reps = (20, 3) if kind == "bf16" else (5, 2)
+        shape = f"q[{b * kvh},{h // kvh},{s},{d}] kv[{b * kvh},{s},{d}]"
+        for name, kernel, plain, lib, nbytes, flops, errs, worst in (
+                ("flash_attention_fwd",
+                 lambda: fa.hb_flash_forward(q, k, v, True, scale),
+                 lambda: fa.hb_flash_forward_plain(q, k, v, True, scale),
+                 lambda: sdpa(q4, k4, v4), fwd_bytes, ops, ferr, fabs),
+                ("flash_attention_bwd",
+                 lambda: fa.hb_flash_backward(q, k, v, wo, wlse, do, True,
+                                              scale),
+                 lambda: fa.hb_flash_backward_plain(q, k, v, wo, wlse, do,
+                                                    True, scale),
+                 sdpa_fwd_bwd, bwd_bytes, 2.5 * ops, berr, babs)):
+            bms, by = bound(nbytes, flops, kind)
+            ms = time_ms(kernel, reps, flush)
+            records.append(dict(
+                name=name, case=kind, shape=shape, err=errs,
+                tol={n: FLASH_ROW_TOL[kind][n] for n in errs},
+                max_abs_err=worst, ms=ms,
+                plain_ms=time_ms(plain, plain_reps, flush),
+                bound_ms=bms, bound_by=by, tflops=flops / ms / 1e9,
+                library_ms=time_ms(lib, reps, flush),
+                library_call=("F.scaled_dot_product_attention(is_causal, "
+                              "enable_gqa)" + (" forward+backward"
+                                               if name.endswith("bwd")
+                                               else ""))))
+        del q, k, v, do, wo, wlse, q4, k4, v4, do4, leaves
+        torch.cuda.empty_cache()
+    return records
+
+
+# ----------------------------------------------------------- training phase
+
+def reference_loss(cfg, params, ids, labels, dev):
+    """Mean CE of a plain fp32 forward (``_reference_hidden``: einsum
+    attention, independent of the port's code) on the given bf16 weights,
+    each cast to fp32 at its use."""
+    import torch
+    with torch.no_grad():
+        x = _reference_hidden(cfg, params, list(ids.cpu().numpy()), dev)
+        logits = x @ params["lm_head.weight"].float()
+        nll = torch.logsumexp(logits, -1) - logits.gather(
+            -1, labels[..., None])[..., 0]
+        loss = nll.mean().item()
+    del x, logits, nll
+    torch.cuda.empty_cache()
+    return loss
+
+
+def train_phase(dev, accum=TRAIN_ACCUM):
+    """bench.py main() on the port: the TRAIN_CFG Llama with bf16 params,
+    fp32 AdamW masters from the unrounded fp32 init (master_from), the bf16
+    accumulation carry; the same batch every step (numpy seed SEED)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         build_train_step, llama_decay_mask)
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = LlamaConfig(**TRAIN_CFG)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.float32,
+                             generator=gen)
+    p32 = model.functional_state()
+    params = {k: v.to(torch.bfloat16) for k, v in p32.items()}
+    opt = AdamW(learning_rate=TRAIN_LR, multi_precision=True)
+    state = opt.init_flat_state(params, decay_mask=llama_decay_mask(model),
+                                master_from=p32)
+    del p32
+    n_params = sum(v.numel() for v in params.values())
+    rng = np.random.default_rng(SEED)
+    shape = (accum, TRAIN_BATCH, TRAIN_SEQ)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, shape)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab_size, shape)).to(dev)
+
+    # step-0 check at accum 1 on micro-batch 0: bf16 kernel path vs fp32
+    step1 = build_train_step(model, opt, compute_dtype=torch.bfloat16)
+    kernel_loss = step1.accumulate(params, ids[0], labels[0])[0].item()
+    ref_loss = reference_loss(cfg, params, ids[0], labels[0], dev)
+    rel = abs(kernel_loss - ref_loss) / abs(ref_loss)
+    if not rel <= TRAIN_LOSS_TOL:
+        raise AssertionError(f"train: bf16 kernel loss {kernel_loss} vs fp32 "
+                             f"plain {ref_loss}: {rel} > {TRAIN_LOSS_TOL}")
+    torch.cuda.empty_cache()
+
+    step = build_train_step(model, opt, compute_dtype=torch.bfloat16,
+                            accum_steps=accum)
+    plain_calls = {"fwd": 0, "bwd": 0}
+    plain_fwd, plain_bwd = fa.hb_flash_forward_plain, fa.hb_flash_backward_plain
+
+    def counted(fn, key):
+        def call(*a, **kw):
+            plain_calls[key] += 1
+            return fn(*a, **kw)
+        return call
+
+    fa.hb_flash_forward_plain = counted(plain_fwd, "fwd")
+    fa.hb_flash_backward_plain = counted(plain_bwd, "bwd")
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    fa.reset_launches()
+    try:
+        for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+            t0 = time.perf_counter()
+            loss, params, state = step(params, state, i, TRAIN_LR, ids,
+                                       labels)
+            _sync()
+            walls.append(time.perf_counter() - t0)
+            losses.append(loss.item())
+    finally:
+        fa.hb_flash_forward_plain, fa.hb_flash_backward_plain = \
+            plain_fwd, plain_bwd
+    counts = dict(fa.LAUNCHES)
+    steps = TRAIN_WARMUP + TRAIN_STEPS
+    want = cfg.num_hidden_layers * accum * steps
+    if counts != {"flash_attention_fwd": want, "flash_attention_bwd": want} \
+            or any(plain_calls.values()):
+        raise AssertionError(f"train: launches {counts} (expected {want} "
+                             f"each), plain calls {plain_calls}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train: losses {losses} not finite and falling")
+    window = sum(walls[TRAIN_WARMUP:])
+    tokens_per_s = accum * TRAIN_BATCH * TRAIN_SEQ * TRAIN_STEPS / window
+    result = dict(
+        config=TRAIN_CFG, batch=TRAIN_BATCH, seq=TRAIN_SEQ, accum=accum,
+        n_params=n_params, losses=losses, step_s=walls,
+        ms_per_step=window / TRAIN_STEPS * 1e3, tokens_per_s=tokens_per_s,
+        mfu=6 * n_params * tokens_per_s / H100_BF16_PEAK,
+        launches=counts, plain_calls=plain_calls,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        step0_check=dict(kernel_bf16=kernel_loss, plain_fp32=ref_loss,
+                         rel=rel, tol=TRAIN_LOSS_TOL))
+    result["profile"] = profile_train(step1, params, ids[0], labels[0])
+    del model, params, state, step, step1
+    torch.cuda.empty_cache()
+    return result
+
+
+def profile_train(step1, params, ids, labels, micro_steps=2):
+    """``torch.profiler`` over ``micro_steps`` fwd+bwd micro-steps (accum 1,
+    no update): wall and device ms per micro-step, the device's idle share
+    and the kernels that take most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step1.accumulate(params, ids, labels)
+    _sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(micro_steps):
+            step1.accumulate(params, ids, labels)
+        _sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in events)
+    if device_us <= 0:
+        raise AssertionError("train profile: the profiler saw no device time")
+    top = sorted(events, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:10]
+
+    def share(match):
+        return sum(e.self_device_time_total for e in events
+                   if match(e.key)) / 1e3 / micro_steps
+
+    flash = share(lambda k: "hb_" in k and "_kernel" in k)
+    gemm = share(lambda k: any(t in k.lower() for t in
+                               ("nvjet", "gemm", "cutlass", "sm90_xmma")))
+    return {"micro_steps": micro_steps,
+            "device_ms_by_class": {
+                "flash_kernels": flash, "gemms": gemm,
+                "other": device_us / 1e3 / micro_steps - flash - gemm},
+            "wall_ms_per_micro_step": wall_ms / micro_steps,
+            "device_ms_per_micro_step": device_us / 1e3 / micro_steps,
+            "device_idle_share": 1.0 - device_us / 1e3 / wall_ms,
+            "top_kernels": [{"name": e.key[:80],
+                             "ms_per_micro_step":
+                                 e.self_device_time_total / 1e3 / micro_steps,
+                             "calls_per_micro_step": e.count / micro_steps}
+                            for e in top]}
+
+
 def main() -> int:
     import torch
 
@@ -562,7 +885,7 @@ def main() -> int:
 
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=dev)
     record["kernels"] = kernel_cases(dev, flush)
-    print(f"kernel phase: {len(record['kernels'])} launcher/dtype cases "
+    print(f"kernel phase: {len(record['kernels'])} decode launcher/dtype cases "
           f"agree with their plain versions", flush=True)
     del flush
     torch.cuda.empty_cache()
@@ -604,6 +927,26 @@ def main() -> int:
     record["serving"] = serving
     record["profile"] = profile_decode(cfg, params, dev, PROFILE_CHUNKS)
     print("profile: " + json.dumps(record["profile"]), flush=True)
+    del model, params
+    torch.cuda.empty_cache()
+
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=dev)
+    record["flash_kernels"] = flash_cases(dev, flush)
+    del flush
+    torch.cuda.empty_cache()
+    for r in record["flash_kernels"]:
+        print(f"kernel {r['name']}[{r['case']}] {r['shape']}: "
+              f"err={json.dumps(r['err'])} (tol {json.dumps(r['tol'])}) "
+              f"max_abs_err={r['max_abs_err']:.3g} kernel_ms={r['ms']:.4f} "
+              f"({r['tflops']:.1f} TFLOP/s) plain_ms={r['plain_ms']:.4f} "
+              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+              f"library_ms={r['library_ms']:.4f} [{r['library_call']}]",
+              flush=True)
+    record["train"] = train_phase(dev)
+    print("train: " + json.dumps({k: v for k, v in record["train"].items()
+                                  if k != "profile"}), flush=True)
+    print("train profile: " + json.dumps(record["train"]["profile"]),
+          flush=True)
     record["wall_s"] = time.perf_counter() - t0
 
     source = "paddle_tpu_torch/csrc/decode_attention.cu"
@@ -635,6 +978,24 @@ def main() -> int:
             "checked_by": f"kernel phase (bf16, int8, fp32 at the 8B "
                           f"shapes) and the {path} serving path",
             "row_errors": {r["case"]: r["err"] for r in record["kernels"]
+                           if r["name"] == name}})
+    flash_source = "paddle_tpu_torch/csrc/flash_attention.cu"
+    flash_tpu = "paddle_tpu/ops/pallas/flash_attention.py"
+    for name, replaces in (("flash_attention_fwd", f"{flash_tpu}:471"),
+                           ("flash_attention_bwd", f"{flash_tpu}:592")):
+        bf16 = next(r for r in record["flash_kernels"]
+                    if r["name"] == name and r["case"] == "bf16")
+        kernels.append({
+            "name": name, "route": "cuda", "source": flash_source,
+            "replaces": replaces,
+            "launches": record["train"]["launches"][name],
+            "max_abs_err": bf16["max_abs_err"], "ms": bf16["ms"],
+            "plain_ms": bf16["plain_ms"], "bound_ms": bf16["bound_ms"],
+            "bound_by": bf16["bound_by"], "library_ms": bf16["library_ms"],
+            "checked_by": "kernel phase (bf16, fp32 at the bench.py "
+                          "attention shape) and the training path",
+            "row_errors": {r["case"]: r["err"]
+                           for r in record["flash_kernels"]
                            if r["name"] == name}})
     out_dir = HERE / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -1,0 +1,615 @@
+// Head-batched flash attention for Hopper (sm_90a): the training forward and
+// backward of GQA self-attention, with a plain C interface loaded through
+// ctypes (paddle_tpu_torch/ops/_build.py builds this file with nvcc).
+//
+// Replaces the two Pallas TPU kernel bodies of the head-batched path of
+// paddle_tpu/ops/pallas/flash_attention.py:
+//   - _hb_flash_kernel (launcher _hb_flash_forward, B1) -> pt_hb_flash_forward
+//       one kernel, hb_fwd_kernel;
+//   - _hb_bwd_kernel (launcher _hb_flash_backward, B2)  -> pt_hb_flash_backward
+//       two kernels, hb_dkv_kernel then hb_dq_kernel.
+//
+// Layouts (as the TPU launchers'): q, o, do, dq [groups, rep, sq, d]; k, v, dk,
+// dv [groups, sk, d]; lse, delta [groups, rep, sq] fp32 (the TPU's 8-row lse
+// broadcast is sublane padding and is dropped).  A group is one (batch, kv
+// head); its rep q heads share the group's K/V.
+//
+// What bounds it on the H100: operations.  At the training shape (b 6, s 1024,
+// 16 q heads over 4 kv heads, d 128, causal) the forward does 4*b*h*s^2*d/2 =
+// 25.8 GFLOP on 63 MB of q, k, v and o: 0.026 ms at 989 TFLOP/s against
+// 0.019 ms of bytes at 3.35 TB/s; the backward 2.5x the operations.  So the
+// products have to run on the tensor cores and K/V should cross device memory
+// as few times as possible.  The design:
+//   - one CTA covers rep * block_q query rows: all rep heads of a group at the
+//     same positions.  Each K/V tile is staged in shared memory once and used
+//     by every head of the group, which is B1's point (rep x fewer K/V reads
+//     than a per-head kernel); the same holds for the backward's Q/dO tiles;
+//   - the k loop runs inside the CTA (the TPU walks k tiles over its
+//     sequential grid axis) with the fp32 online-softmax state and the fp32
+//     output accumulator in shared memory, and stops at the causal limit, so
+//     fully masked tiles cost nothing (the TPU's pl.when skip);
+//   - bf16 products run on the tensor cores (nvcuda::wmma, 16x16x16, fp32
+//     accumulation); fp32 inputs take a CUDA-core path with the same data
+//     flow (the CPU-comparable case);
+//   - the backward splits B2's fused pass in two: hb_dkv_kernel runs one CTA
+//     per (group, k tile), loops over q tiles and keeps dK/dV of the whole
+//     group in shared memory, so the sum over the rep heads needs no atomics;
+//     hb_dq_kernel runs one CTA per (group, q tile) and loops over k tiles.
+//     Both recompute p from (q, k, lse); delta = rowsum(do * o) comes from
+//     the caller, as the TPU launcher computes it outside its kernel.
+// Simple design, left for later work: wmma from shared memory instead of
+// wgmma, synchronous loads instead of TMA or cp.async pipelines, the output
+// accumulator rescaled in shared memory, s and dp recomputed by both backward
+// kernels (7 products per tile pair instead of 5).
+//
+// Semantics kept from the TPU kernels (tests/test_torch_flash_attention.py):
+//   - masking with NEG_INF = -1e30, never -inf; causal keeps k_pos <= q_pos;
+//     key positions past sk are masked and their V rows read as 0;
+//   - fp32 scores and softmax state; scale multiplies the fp32 dot;
+//   - forward: p rounded to v's dtype before the PV product; l sums the
+//     unrounded p; lse = m + log l, or +1e30 and o = 0 for a row that sees
+//     no key;
+//   - backward: p = exp(s - lse); ds = p * (dp - delta) * scale; ds rounded to
+//     k's dtype for dq, p to do's dtype for dv, ds to q's dtype for dk; query
+//     rows past sq contribute nothing.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <mma.h>
+#include <stdint.h>
+
+namespace {
+
+using namespace nvcuda;
+
+constexpr float kNegInf = -1e30f;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kPad = 8;  // elements added to every shared-memory row (bank spread)
+constexpr size_t kSmemLimit = 232448;  // 227 KB a block may opt into
+
+enum DTypeCode { kF32 = 0, kBF16 = 1 };
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+// Products between shared-memory tiles, every warp of the CTA taking part.
+// A, B hold T; C is fp32.  Row-major with leading dimensions lda/ldb/ldc.
+//   abt:     C  = A[M,K] * B[N,K]^T
+//   ab_acc:  C += A[M,K] * B[K,N]
+//   atb_acc: C += A[K,M]^T * B[K,N]
+// The generic version is the fp32 CUDA-core path: one thread per element of C.
+template <typename T>
+struct Mma {
+  __device__ static void abt(float* C, int ldc, const T* A, int lda, const T* B, int ldb,
+                             int M, int N, int K) {
+    for (int idx = threadIdx.x; idx < M * N; idx += kThreads) {
+      const int m = idx / N, n = idx % N;
+      const T* a = A + m * lda;
+      const T* b = B + n * ldb;
+      float acc = 0.f;
+      for (int k = 0; k < K; ++k) acc += to_f(a[k]) * to_f(b[k]);
+      C[m * ldc + n] = acc;
+    }
+  }
+  __device__ static void ab_acc(float* C, int ldc, const T* A, int lda, const T* B, int ldb,
+                                int M, int N, int K) {
+    for (int idx = threadIdx.x; idx < M * N; idx += kThreads) {
+      const int m = idx / N, n = idx % N;
+      float acc = 0.f;
+      for (int k = 0; k < K; ++k) acc += to_f(A[m * lda + k]) * to_f(B[k * ldb + n]);
+      C[m * ldc + n] += acc;
+    }
+  }
+  __device__ static void atb_acc(float* C, int ldc, const T* A, int lda, const T* B, int ldb,
+                                 int M, int N, int K) {
+    for (int idx = threadIdx.x; idx < M * N; idx += kThreads) {
+      const int m = idx / N, n = idx % N;
+      float acc = 0.f;
+      for (int k = 0; k < K; ++k) acc += to_f(A[k * lda + m]) * to_f(B[k * ldb + n]);
+      C[m * ldc + n] += acc;
+    }
+  }
+};
+
+// bf16: tensor cores, one 16x16 output tile per warp at a time, fp32
+// accumulation.  M, N and K are multiples of 16 (the host picks the tiles).
+template <>
+struct Mma<__nv_bfloat16> {
+  using T = __nv_bfloat16;
+  using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+
+  __device__ static void abt(float* C, int ldc, const T* A, int lda, const T* B, int ldb,
+                             int M, int N, int K) {
+    const int warp = threadIdx.x >> 5;
+    const int tn = N / 16;
+    for (int t = warp; t < (M / 16) * tn; t += kWarps) {
+      const int i = t / tn, j = t % tn;
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> b;
+      Acc c;
+      wmma::fill_fragment(c, 0.f);
+      for (int k = 0; k < K; k += 16) {
+        wmma::load_matrix_sync(a, A + i * 16 * lda + k, lda);
+        wmma::load_matrix_sync(b, B + j * 16 * ldb + k, ldb);
+        wmma::mma_sync(c, a, b, c);
+      }
+      wmma::store_matrix_sync(C + i * 16 * ldc + j * 16, c, ldc, wmma::mem_row_major);
+    }
+  }
+  __device__ static void ab_acc(float* C, int ldc, const T* A, int lda, const T* B, int ldb,
+                                int M, int N, int K) {
+    const int warp = threadIdx.x >> 5;
+    const int tn = N / 16;
+    for (int t = warp; t < (M / 16) * tn; t += kWarps) {
+      const int i = t / tn, j = t % tn;
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> b;
+      Acc c;
+      float* cp = C + i * 16 * ldc + j * 16;
+      wmma::load_matrix_sync(c, cp, ldc, wmma::mem_row_major);
+      for (int k = 0; k < K; k += 16) {
+        wmma::load_matrix_sync(a, A + i * 16 * lda + k, lda);
+        wmma::load_matrix_sync(b, B + k * ldb + j * 16, ldb);
+        wmma::mma_sync(c, a, b, c);
+      }
+      wmma::store_matrix_sync(cp, c, ldc, wmma::mem_row_major);
+    }
+  }
+  __device__ static void atb_acc(float* C, int ldc, const T* A, int lda, const T* B, int ldb,
+                                 int M, int N, int K) {
+    const int warp = threadIdx.x >> 5;
+    const int tn = N / 16;
+    for (int t = warp; t < (M / 16) * tn; t += kWarps) {
+      const int i = t / tn, j = t % tn;
+      // A^T read column-major straight from A's row-major storage
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::col_major> a;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> b;
+      Acc c;
+      float* cp = C + i * 16 * ldc + j * 16;
+      wmma::load_matrix_sync(c, cp, ldc, wmma::mem_row_major);
+      for (int k = 0; k < K; k += 16) {
+        wmma::load_matrix_sync(a, A + k * lda + i * 16, lda);
+        wmma::load_matrix_sync(b, B + k * ldb + j * 16, ldb);
+        wmma::mma_sync(c, a, b, c);
+      }
+      wmma::store_matrix_sync(cp, c, ldc, wmma::mem_row_major);
+    }
+  }
+};
+
+struct Args {
+  const void* q;      // [groups, rep, sq, d]
+  const void* k;      // [groups, sk, d]
+  const void* v;
+  const void* dout;   // backward: do, q-shaped
+  const float* lse;   // backward input / forward output, [groups, rep, sq]
+  const float* delta; // backward: rowsum(do * o), [groups, rep, sq]
+  void* o;            // forward output, q-shaped
+  float* lse_out;
+  void* dq;
+  void* dk;
+  void* dv;
+  int rep, sq, sk;
+  int bq, bk;         // query positions and keys per tile; a CTA covers rep * bq rows
+  int causal;
+  float scale;
+};
+
+// Rows [0, rep*bq) of a q-shaped tile: row m is head m / bq at position
+// q0 + m % bq of the group at `base`; rows past sq are zero.  16-byte copies.
+template <typename T, int D>
+__device__ void load_q_rows(T* dst, const T* base, const Args& a, int q0) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int C = D / V;
+  const int M = a.rep * a.bq;
+  for (int idx = threadIdx.x; idx < M * C; idx += kThreads) {
+    const int m = idx / C, c = idx % C;
+    const int pos = q0 + m % a.bq;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (pos < a.sq)
+      val = *reinterpret_cast<const uint4*>(
+          base + (static_cast<size_t>(m / a.bq) * a.sq + pos) * D + c * V);
+    *reinterpret_cast<uint4*>(dst + m * (D + kPad) + c * V) = val;
+  }
+}
+
+// Rows [0, bk) of a k-shaped tile starting at key k0; rows past sk are zero.
+template <typename T, int D>
+__device__ void load_k_rows(T* dst, const T* base, const Args& a, int k0) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int C = D / V;
+  for (int idx = threadIdx.x; idx < a.bk * C; idx += kThreads) {
+    const int j = idx / C, c = idx % C;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (k0 + j < a.sk)
+      val = *reinterpret_cast<const uint4*>(base + static_cast<size_t>(k0 + j) * D + c * V);
+    *reinterpret_cast<uint4*>(dst + j * (D + kPad) + c * V) = val;
+  }
+}
+
+// The causal mask of one score, and the padding-key mask.
+__device__ __forceinline__ bool keep(const Args& a, int q_pos, int k_pos) {
+  return k_pos < a.sk && (!a.causal || q_pos >= k_pos);
+}
+
+// Number of k tiles a q tile at q0 visits: all of them, or up to the causal
+// limit (the TPU kernel's pl.when((qi + 1) * block_q - 1 >= ki * block_k)).
+__device__ __forceinline__ int k_tiles(const Args& a, int q0) {
+  int nk = (a.sk + a.bk - 1) / a.bk;
+  if (a.causal) {
+    const int last = min(q0 + a.bq, a.sq) - 1;  // last real query position
+    nk = min(nk, last / a.bk + 1);
+  }
+  return nk;
+}
+
+// ---------------------------------------------------------------- B1 forward
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads) hb_fwd_kernel(Args a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int M = a.rep * a.bq;
+  const int ldd = D + kPad, ldk = a.bk + kPad;
+  T* q_s = reinterpret_cast<T*>(smem);   // [M][ldd]
+  T* k_s = q_s + M * ldd;                // [bk][ldd]
+  T* v_s = k_s + a.bk * ldd;             // [bk][ldd]
+  float* s_s = reinterpret_cast<float*>(v_s + a.bk * ldd);  // [M][ldk] fp32 scores
+  T* p_s = reinterpret_cast<T*>(s_s + M * ldk);             // [M][ldk] p in v's dtype
+  float* o_s = reinterpret_cast<float*>(p_s + M * ldk);     // [M][ldd] fp32 accumulator
+  float* m_s = o_s + M * ldd;            // [M] running max
+  float* l_s = m_s + M;                  // [M] running sum
+  float* alpha_s = l_s + M;              // [M] rescale of this tile
+
+  const int g = blockIdx.y;
+  const int q0 = blockIdx.x * a.bq;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const T* qg = static_cast<const T*>(a.q) + static_cast<size_t>(g) * a.rep * a.sq * D;
+  const T* kg = static_cast<const T*>(a.k) + static_cast<size_t>(g) * a.sk * D;
+  const T* vg = static_cast<const T*>(a.v) + static_cast<size_t>(g) * a.sk * D;
+
+  load_q_rows<T, D>(q_s, qg, a, q0);
+  for (int i = tid; i < M * ldd; i += kThreads) o_s[i] = 0.f;
+  for (int m = tid; m < M; m += kThreads) {
+    m_s[m] = kNegInf;
+    l_s[m] = 0.f;
+  }
+
+  const int nk = k_tiles(a, q0);
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * a.bk;
+    __syncthreads();  // the previous tile's readers of k_s, v_s, p_s are done
+    load_k_rows<T, D>(k_s, kg, a, k0);
+    load_k_rows<T, D>(v_s, vg, a, k0);
+    __syncthreads();
+    Mma<T>::abt(s_s, ldk, q_s, ldd, k_s, ldd, M, a.bk, D);
+    __syncthreads();
+
+    // online softmax: one warp per row, lanes over the tile's keys
+    for (int m = warp; m < M; m += kWarps) {
+      const int q_pos = q0 + m % a.bq;
+      float* srow = s_s + m * ldk;
+      float mx = kNegInf;
+      for (int j = lane; j < a.bk; j += 32) {
+        const float s = keep(a, q_pos, k0 + j) ? srow[j] * a.scale : kNegInf;
+        srow[j] = s;
+        mx = fmaxf(mx, s);
+      }
+      mx = warp_max(mx);
+      const float m_prev = m_s[m];
+      const float m_new = fmaxf(m_prev, mx);
+      float sum = 0.f;
+      for (int j = lane; j < a.bk; j += 32) {
+        const float p = expf(srow[j] - m_new);
+        sum += p;
+        p_s[m * ldk + j] = from_f<T>(p);
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) {
+        const float alpha = expf(m_prev - m_new);
+        alpha_s[m] = alpha;
+        l_s[m] = l_s[m] * alpha + sum;
+        m_s[m] = m_new;
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < M * D; i += kThreads) o_s[(i / D) * ldd + i % D] *= alpha_s[i / D];
+    __syncthreads();
+    Mma<T>::ab_acc(o_s, ldd, p_s, ldk, v_s, ldd, M, D, a.bk);
+  }
+  __syncthreads();
+
+  T* og = static_cast<T*>(a.o) + static_cast<size_t>(g) * a.rep * a.sq * D;
+  for (int i = tid; i < M * D; i += kThreads) {
+    const int m = i / D, c = i % D;
+    const int pos = q0 + m % a.bq;
+    if (pos >= a.sq) continue;
+    float l = l_s[m];
+    if (l == 0.f) l = 1.f;
+    const bool valid = m_s[m] > kNegInf * 0.5f;
+    og[(static_cast<size_t>(m / a.bq) * a.sq + pos) * D + c] =
+        from_f<T>(valid ? o_s[m * ldd + c] / l : 0.f);
+  }
+  for (int m = tid; m < M; m += kThreads) {
+    const int pos = q0 + m % a.bq;
+    if (pos >= a.sq) continue;
+    float l = l_s[m];
+    if (l == 0.f) l = 1.f;
+    const bool valid = m_s[m] > kNegInf * 0.5f;
+    a.lse_out[(static_cast<size_t>(g) * a.rep + m / a.bq) * a.sq + pos] =
+        valid ? m_s[m] + logf(l) : -kNegInf;
+  }
+}
+
+// lse and delta of rows [0, rep*bq) of a q tile; rows past sq read 0.
+__device__ void load_row_stats(float* lse_s, float* delta_s, const Args& a, int g, int q0) {
+  const int M = a.rep * a.bq;
+  for (int m = threadIdx.x; m < M; m += kThreads) {
+    const int pos = q0 + m % a.bq;
+    const size_t at = (static_cast<size_t>(g) * a.rep + m / a.bq) * a.sq + pos;
+    lse_s[m] = pos < a.sq ? a.lse[at] : 0.f;
+    delta_s[m] = pos < a.sq ? a.delta[at] : 0.f;
+  }
+}
+
+// p and ds of one score tile (s_s holds q.k, dp_s holds do.v): p = exp(s - lse)
+// masked, ds = p * (dp - delta) * scale, both zero on rows past sq and on keys
+// past sk.  Writes p (if p_s is given) and ds, each rounded to T.
+template <typename T>
+__device__ void p_and_ds(const float* s_s, float* dp_s, T* p_s, T* ds_s, const float* lse_s,
+                         const float* delta_s, const Args& a, int q0, int k0) {
+  const int M = a.rep * a.bq;
+  const int ldk = a.bk + kPad;
+  for (int i = threadIdx.x; i < M * a.bk; i += kThreads) {
+    const int m = i / a.bk, j = i % a.bk;
+    const int q_pos = q0 + m % a.bq, k_pos = k0 + j;
+    const float s = keep(a, q_pos, k_pos) ? s_s[m * ldk + j] * a.scale : kNegInf;
+    float p = expf(s - lse_s[m]);
+    float ds = p * (dp_s[m * ldk + j] - delta_s[m]) * a.scale;
+    if (q_pos >= a.sq) p = ds = 0.f;
+    if (k_pos >= a.sk) ds = 0.f;
+    if (p_s != nullptr) p_s[m * ldk + j] = from_f<T>(p);
+    ds_s[m * ldk + j] = from_f<T>(ds);
+  }
+}
+
+// --------------------------------------------- B2 backward, dk/dv per k tile
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads) hb_dkv_kernel(Args a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int M = a.rep * a.bq;
+  const int ldd = D + kPad, ldk = a.bk + kPad;
+  T* q_s = reinterpret_cast<T*>(smem);   // [M][ldd]
+  T* do_s = q_s + M * ldd;               // [M][ldd]
+  T* k_s = do_s + M * ldd;               // [bk][ldd]
+  T* v_s = k_s + a.bk * ldd;             // [bk][ldd]
+  float* s_s = reinterpret_cast<float*>(v_s + a.bk * ldd);  // [M][ldk]
+  float* dp_s = s_s + M * ldk;                              // [M][ldk]
+  T* p_s = reinterpret_cast<T*>(dp_s + M * ldk);            // [M][ldk] p in do's dtype
+  T* ds_s = p_s + M * ldk;                                  // [M][ldk] ds in q's dtype
+  float* dk_s = reinterpret_cast<float*>(ds_s + M * ldk);   // [bk][ldd]
+  float* dv_s = dk_s + a.bk * ldd;                          // [bk][ldd]
+  float* lse_s = dv_s + a.bk * ldd;                         // [M]
+  float* delta_s = lse_s + M;                               // [M]
+
+  const int g = blockIdx.y;
+  const int k0 = blockIdx.x * a.bk;
+  const int tid = threadIdx.x;
+  const size_t qoff = static_cast<size_t>(g) * a.rep * a.sq * D;
+  const size_t koff = static_cast<size_t>(g) * a.sk * D;
+  const T* qg = static_cast<const T*>(a.q) + qoff;
+  const T* dog = static_cast<const T*>(a.dout) + qoff;
+
+  load_k_rows<T, D>(k_s, static_cast<const T*>(a.k) + koff, a, k0);
+  load_k_rows<T, D>(v_s, static_cast<const T*>(a.v) + koff, a, k0);
+  for (int i = tid; i < 2 * a.bk * ldd; i += kThreads) dk_s[i] = 0.f;  // dk_s and dv_s
+
+  const int nq = (a.sq + a.bq - 1) / a.bq;
+  // causal: q tiles whose last position precedes k0 see none of these keys
+  for (int qt = a.causal ? k0 / a.bq : 0; qt < nq; ++qt) {
+    const int q0 = qt * a.bq;
+    __syncthreads();  // the previous tile's readers of q_s, do_s, p_s, ds_s are done
+    load_q_rows<T, D>(q_s, qg, a, q0);
+    load_q_rows<T, D>(do_s, dog, a, q0);
+    load_row_stats(lse_s, delta_s, a, g, q0);
+    __syncthreads();
+    Mma<T>::abt(s_s, ldk, q_s, ldd, k_s, ldd, M, a.bk, D);
+    Mma<T>::abt(dp_s, ldk, do_s, ldd, v_s, ldd, M, a.bk, D);
+    __syncthreads();
+    p_and_ds<T>(s_s, dp_s, p_s, ds_s, lse_s, delta_s, a, q0, k0);
+    __syncthreads();
+    // the contraction runs over all M rows: the sum over the group's rep heads
+    Mma<T>::atb_acc(dv_s, ldd, p_s, ldk, do_s, ldd, a.bk, D, M);
+    Mma<T>::atb_acc(dk_s, ldd, ds_s, ldk, q_s, ldd, a.bk, D, M);
+  }
+  __syncthreads();
+
+  T* dkg = static_cast<T*>(a.dk) + koff;
+  T* dvg = static_cast<T*>(a.dv) + koff;
+  for (int i = tid; i < a.bk * D; i += kThreads) {
+    const int j = i / D, c = i % D;
+    if (k0 + j >= a.sk) continue;
+    dkg[static_cast<size_t>(k0 + j) * D + c] = from_f<T>(dk_s[j * ldd + c]);
+    dvg[static_cast<size_t>(k0 + j) * D + c] = from_f<T>(dv_s[j * ldd + c]);
+  }
+}
+
+// ------------------------------------------------ B2 backward, dq per q tile
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads) hb_dq_kernel(Args a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int M = a.rep * a.bq;
+  const int ldd = D + kPad, ldk = a.bk + kPad;
+  T* q_s = reinterpret_cast<T*>(smem);   // [M][ldd]
+  T* do_s = q_s + M * ldd;               // [M][ldd]
+  T* k_s = do_s + M * ldd;               // [bk][ldd]
+  T* v_s = k_s + a.bk * ldd;             // [bk][ldd]
+  float* s_s = reinterpret_cast<float*>(v_s + a.bk * ldd);  // [M][ldk]
+  float* dp_s = s_s + M * ldk;                              // [M][ldk]
+  T* ds_s = reinterpret_cast<T*>(dp_s + M * ldk);           // [M][ldk] ds in k's dtype
+  float* dq_s = reinterpret_cast<float*>(ds_s + M * ldk);   // [M][ldd]
+  float* lse_s = dq_s + M * ldd;                            // [M]
+  float* delta_s = lse_s + M;                               // [M]
+
+  const int g = blockIdx.y;
+  const int q0 = blockIdx.x * a.bq;
+  const int tid = threadIdx.x;
+  const size_t qoff = static_cast<size_t>(g) * a.rep * a.sq * D;
+  const size_t koff = static_cast<size_t>(g) * a.sk * D;
+  const T* kg = static_cast<const T*>(a.k) + koff;
+  const T* vg = static_cast<const T*>(a.v) + koff;
+
+  load_q_rows<T, D>(q_s, static_cast<const T*>(a.q) + qoff, a, q0);
+  load_q_rows<T, D>(do_s, static_cast<const T*>(a.dout) + qoff, a, q0);
+  load_row_stats(lse_s, delta_s, a, g, q0);
+  for (int i = tid; i < M * ldd; i += kThreads) dq_s[i] = 0.f;
+
+  const int nk = k_tiles(a, q0);
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * a.bk;
+    __syncthreads();  // the previous tile's readers of k_s, v_s, ds_s are done
+    load_k_rows<T, D>(k_s, kg, a, k0);
+    load_k_rows<T, D>(v_s, vg, a, k0);
+    __syncthreads();
+    Mma<T>::abt(s_s, ldk, q_s, ldd, k_s, ldd, M, a.bk, D);
+    Mma<T>::abt(dp_s, ldk, do_s, ldd, v_s, ldd, M, a.bk, D);
+    __syncthreads();
+    p_and_ds<T>(s_s, dp_s, static_cast<T*>(nullptr), ds_s, lse_s, delta_s, a, q0, k0);
+    __syncthreads();
+    Mma<T>::ab_acc(dq_s, ldd, ds_s, ldk, k_s, ldd, M, D, a.bk);
+  }
+  __syncthreads();
+
+  T* dqg = static_cast<T*>(a.dq) + qoff;
+  for (int i = tid; i < M * D; i += kThreads) {
+    const int m = i / D, c = i % D;
+    const int pos = q0 + m % a.bq;
+    if (pos >= a.sq) continue;
+    dqg[(static_cast<size_t>(m / a.bq) * a.sq + pos) * D + c] = from_f<T>(dq_s[m * ldd + c]);
+  }
+}
+
+// Dynamic shared memory of each kernel: the layouts above, in bytes
+// (ops/flash_attention.py smem_bytes mirrors this to pick the tiles).
+enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
+
+size_t smem_bytes(Kind kind, const Args& a, int d, size_t t) {
+  const size_t m = static_cast<size_t>(a.rep) * a.bq, bk = a.bk;
+  const size_t ldd = d + kPad, ldk = bk + kPad;
+  switch (kind) {
+    case kFwd: return t * (m + 2 * bk) * ldd + 4 * m * ldk + t * m * ldk + 4 * m * ldd + 12 * m;
+    case kDq: return t * (2 * m + 2 * bk) * ldd + 8 * m * ldk + t * m * ldk + 4 * m * ldd + 8 * m;
+    default: return t * (2 * m + 2 * bk) * ldd + 8 * m * ldk + 2 * t * m * ldk + 8 * bk * ldd + 8 * m;
+  }
+}
+
+template <typename T, int D>
+cudaError_t launch(Kind kind, const Args& a, int groups, cudaStream_t stream) {
+  const size_t smem = smem_bytes(kind, a, D, sizeof(T));
+  const int m = a.rep * a.bq;
+  if (smem > kSmemLimit || a.bq <= 0 || a.bk <= 0) return cudaErrorInvalidValue;
+  // tensor-core tiles: 16-row multiples for every product's operands
+  if (sizeof(T) == 2 && (m % 16 != 0 || a.bk % 16 != 0)) return cudaErrorInvalidValue;
+  void (*kernel)(Args) = kind == kFwd ? hb_fwd_kernel<T, D>
+                         : kind == kDq ? hb_dq_kernel<T, D> : hb_dkv_kernel<T, D>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  const int tiles = kind == kDkv ? (a.sk + a.bk - 1) / a.bk : (a.sq + a.bq - 1) / a.bq;
+  kernel<<<dim3(tiles, groups), kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_d(Kind kind, const Args& a, int groups, int d, cudaStream_t s) {
+  switch (d) {
+    case 16: return launch<T, 16>(kind, a, groups, s);
+    case 32: return launch<T, 32>(kind, a, groups, s);
+    case 64: return launch<T, 64>(kind, a, groups, s);
+    case 128: return launch<T, 128>(kind, a, groups, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t dispatch(Kind kind, const Args& a, int groups, int d, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kF32) return dispatch_d<float>(kind, a, groups, d, s);
+  if (dtype == kBF16) return dispatch_d<__nv_bfloat16>(kind, a, groups, d, s);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+extern "C" {
+
+// _hb_flash_forward: q [groups, rep, sq, d]; k/v [groups, sk, d] -> o (q's
+// shape and dtype), lse [groups, rep, sq] fp32.
+int pt_hb_flash_forward(const void* q, const void* k, const void* v, void* o, void* lse,
+                        int groups, int rep, int sq, int sk, int d, int bq, int bk, int causal,
+                        float scale, int dtype, void* stream) {
+  Args a{};
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.o = o;
+  a.lse_out = static_cast<float*>(lse);
+  a.rep = rep;
+  a.sq = sq;
+  a.sk = sk;
+  a.bq = bq;
+  a.bk = bk;
+  a.causal = causal;
+  a.scale = scale;
+  return dispatch(kFwd, a, groups, d, dtype, stream);
+}
+
+// _hb_flash_backward: (q, k, v, do, lse, delta) -> dq (q's shape), dk, dv
+// (k's shape, summed over each group's rep heads).  Two launches on the
+// stream: dk/dv with tiles (bq_kv, bk_kv), then dq with (bq_q, bk_q).
+int pt_hb_flash_backward(const void* q, const void* k, const void* v, const void* dout,
+                         const void* lse, const void* delta, void* dq, void* dk, void* dv,
+                         int groups, int rep, int sq, int sk, int d, int bq_kv, int bk_kv,
+                         int bq_q, int bk_q, int causal, float scale, int dtype,
+                         void* stream) {
+  Args a{};
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.dout = dout;
+  a.lse = static_cast<const float*>(lse);
+  a.delta = static_cast<const float*>(delta);
+  a.dq = dq;
+  a.dk = dk;
+  a.dv = dv;
+  a.rep = rep;
+  a.sq = sq;
+  a.sk = sk;
+  a.causal = causal;
+  a.scale = scale;
+  a.bq = bq_kv;
+  a.bk = bk_kv;
+  cudaError_t e = dispatch(kDkv, a, groups, d, dtype, stream);
+  if (e != cudaSuccess) return e;
+  a.bq = bq_q;
+  a.bk = bk_q;
+  return dispatch(kDq, a, groups, d, dtype, stream);
+}
+
+}  // extern "C"

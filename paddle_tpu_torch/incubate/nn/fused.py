@@ -1,0 +1,91 @@
+"""Fused LLM ops of the training slice: RMSNorm, rotary embedding, SwiGLU.
+
+Port of ``paddle_tpu/incubate/nn/fused.py``.  The JAX package left these to
+XLA's fusion, so here they are plain PyTorch; only the weighted RMSNorm
+keeps a hand-written backward (``_RmsNormWeighted``), as the JAX one keeps
+its custom vjp (``paddle_tpu/ops/nn_ops.py :: _rms_norm_weighted``).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+class _RmsNormWeighted(torch.autograd.Function):
+    """Mirror of ``paddle_tpu/ops/nn_ops.py :: _rms_norm_weighted`` and its
+    fwd/bwd: the output is ``x * rrms * w`` in fp32, cast to x's dtype at the
+    end (the training order; the serving ``_rms_norm`` casts before the gain
+    multiply).  The backward saves rrms and computes, with xhat = x * rrms,
+    ``dw = sum_t dy * xhat`` and ``dx = rrms * (w*dy - xhat * mean(w*dy*xhat))``."""
+
+    @staticmethod
+    def forward(ctx, x, weight, epsilon):
+        xf = x.float()
+        var = xf.square().mean(dim=-1, keepdim=True)
+        rrms = torch.rsqrt(var + epsilon)
+        ctx.save_for_backward(x, weight, rrms)
+        return (xf * rrms * weight.float()).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, rrms = ctx.saved_tensors
+        xhat = x.float() * rrms
+        dyf = dy.float()
+        dxhat = dyf * weight.float()
+        dw = (dyf * xhat).reshape(-1, x.shape[-1]).sum(dim=0)
+        proj = (dxhat * xhat).mean(dim=-1, keepdim=True)
+        dx = rrms * (dxhat - xhat * proj)
+        return dx.to(x.dtype), dw.to(weight.dtype), None
+
+
+def fused_rms_norm(x, weight=None, epsilon: float = 1e-6):
+    """RMSNorm over the last axis (mirror of ``fused_rms_norm``): fp32
+    statistics; with ``weight`` the custom-backward path above."""
+    if weight is not None:
+        return _RmsNormWeighted.apply(x, weight, float(epsilon))
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + epsilon)).to(x.dtype)
+
+
+def swiglu(x, y=None):
+    """``silu(x) * y``; with one argument its halves along the last axis
+    (mirror of ``swiglu``)."""
+    if y is None:
+        x, y = x.chunk(2, dim=-1)
+    return F.silu(x) * y
+
+
+def _rotate_half(x):
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([-x2, x1], dim=-1)
+
+
+def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
+                                    position_ids=None,
+                                    use_neox_rotary_style: bool = True):
+    """Rotary embedding in the (batch, seq, heads, head_dim) layout (mirror
+    of ``fused_rotary_position_embedding``); returns a tuple of the rotated
+    q, k, v that were given.  sin/cos (broadcastable to q) are cast to q's
+    dtype first, as the JAX op does, so bf16 q/k stay bf16.  Neox style
+    rotates halves; the interleaved (GPT-J) style rotates even/odd pairs
+    with the even entries of sin/cos."""
+    if position_ids is not None:
+        raise NotImplementedError(
+            "fused_rotary_position_embedding: position_ids are gathered into "
+            "sin/cos by the caller (models/llama.py)")
+    sin = sin.to(q.dtype)
+    cos = cos.to(q.dtype)
+
+    def apply(x):
+        if x is None:
+            return None
+        if use_neox_rotary_style:
+            return x * cos + _rotate_half(x) * sin
+        x1, x2 = x[..., ::2], x[..., 1::2]
+        c, s = cos[..., ::2], sin[..., ::2]
+        return torch.stack([x1 * c - x2 * s, x2 * c + x1 * s],
+                           dim=-1).reshape(x.shape)
+
+    return tuple(r for r in (apply(q), apply(k), apply(v)) if r is not None)

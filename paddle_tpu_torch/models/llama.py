@@ -1,7 +1,12 @@
-"""Llama causal LM: configuration, rope tables and parameter container.
+"""Llama causal LM: configuration, parameters, forward, loss, train step.
 
-Port of ``paddle_tpu/models/llama.py`` (``LlamaConfig``, ``_rope_tables``,
-``LlamaForCausalLM``) for the serving slice.  ``LlamaForCausalLM`` holds
+Port of ``paddle_tpu/models/llama.py``: ``LlamaConfig``, ``_rope_tables``,
+``LlamaForCausalLM`` (parameter container and forward), the functional
+core ``llama_forward`` (``LlamaRMSNorm``, ``LlamaAttention``, ``LlamaMLP``,
+``LlamaDecoderLayer``, ``LlamaModel.forward`` and the head in one
+function over the functional-state names), the loss (``_gold_logit``,
+``_ce_loss``), ``llama_decay_mask``, ``_accum_fold`` and the single-device
+subset of ``build_train_step``.  ``LlamaForCausalLM`` holds
 its parameters under exactly the names of the JAX model's
 ``functional_state()`` (``model.layers.0.self_attn.q_proj.weight``,
 ``lm_head.weight``, ...), with Paddle's ``[in, out]`` Linear layout, so a
@@ -13,13 +18,17 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..device import DeviceLike, resolve_device
+from ..incubate.nn.attention import flash_attention
+from ..incubate.nn.fused import (fused_rms_norm,
+                                 fused_rotary_position_embedding, swiglu)
 
 
 @dataclasses.dataclass
@@ -114,8 +123,9 @@ class LlamaForCausalLM(nn.Module):
     explicit ``torch.Generator`` on ``device``; seed 0 when omitted) as
     the JAX model initialises them (``paddle_tpu/nn/common.py``):
     Xavier-uniform Linear weights, Normal(0, 1) embedding, RMSNorm gains
-    of one.  They carry no gradient: the training slice (flash kernels
-    B1/B2, ``forward``) is not ported yet."""
+    of one.  They are stored with ``requires_grad=False``: the train step
+    (``build_train_step``) is functional and takes its gradients with
+    ``torch.autograd.grad`` over leaf copies of a parameter dict."""
 
     def __init__(self, cfg: LlamaConfig, device: DeviceLike = None,
                  dtype: torch.dtype = torch.float32,
@@ -131,6 +141,10 @@ class LlamaForCausalLM(nn.Module):
             norm=_Weight((h,), self.device, dtype))
         if not cfg.tie_word_embeddings:
             self.lm_head = _Weight((h, cfg.vocab_size), self.device, dtype)
+        cos, sin = _rope_tables(cfg.head_dim, cfg.max_position_embeddings,
+                                cfg.rope_theta)
+        self.register_buffer("rope_cos", cos.to(self.device), persistent=False)
+        self.register_buffer("rope_sin", sin.to(self.device), persistent=False)
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         self.reset_parameters(generator)
@@ -167,11 +181,28 @@ class LlamaForCausalLM(nn.Module):
             params[k].copy_(t)
         return self
 
-    def forward(self, *args, **kwargs):
-        raise NotImplementedError(
-            "LlamaForCausalLM.forward is the training slice (flash "
-            "attention kernels B1/B2), not ported yet; serve with "
-            "generate() or inference.serving.ContinuousBatchingEngine")
+    def forward(self, input_ids, position_ids=None, attention_mask=None,
+                startend_row_indices=None):
+        """Logits [b, s, vocab] (mirror of ``LlamaForCausalLM.forward``),
+        computed by ``llama_forward`` with this model's own parameters, in
+        their dtype.  Masked attention (``attention_mask`` segment ids,
+        ``startend_row_indices`` FlashMask bands) takes kernel B5, a later
+        slice, and raises."""
+        if attention_mask is not None or startend_row_indices is not None:
+            raise NotImplementedError(
+                "LlamaForCausalLM.forward: attention_mask / "
+                "startend_row_indices take the masked flash kernels (B5 "
+                "_flash_kernel, B6), a later slice of the port")
+        ids = torch.as_tensor(input_ids, device=self.device)
+        return llama_forward(self.cfg, dict(self.named_parameters()), ids,
+                             position_ids, self.rope)
+
+    @property
+    def rope(self):
+        """The fp32 rope tables (cos, sin) [max_pos, head_dim] on the
+        model's device (``LlamaModel``'s ``rope_cos``/``rope_sin``
+        buffers)."""
+        return self.rope_cos, self.rope_sin
 
     def generate(self, input_ids, **kwargs):
         """KV-cached greedy decoding (models/generation.py)."""
@@ -199,3 +230,238 @@ def params_from_jax(state: Dict[str, np.ndarray], device: DeviceLike,
         t = _to_torch(a)
         out[k] = t.to(device=dev, dtype=dtype or t.dtype)
     return out
+
+
+def opt_state_from_jax(state, device: DeviceLike):
+    """A JAX optimizer state (the flat ``{"__flat__": {group: {moment1,
+    moment2[, master]}}}`` of ``init_flat_state``, or a per-param one) as
+    torch tensors on ``device``, with the same group names and keys, so
+    both packages can start from one state."""
+    dev = resolve_device(device)
+    if isinstance(state, dict):
+        return {k: opt_state_from_jax(v, dev) for k, v in state.items()}
+    return _to_torch(state).to(dev)
+
+
+# ------------------------------------------------------------------- forward
+
+def llama_forward(cfg: LlamaConfig, params: Dict[str, torch.Tensor],
+                  input_ids: torch.Tensor,
+                  position_ids: Optional[torch.Tensor] = None,
+                  rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                  ) -> torch.Tensor:
+    """Logits [b, s, vocab] of the Llama causal LM from a functional-state
+    dict, computed in the parameters' dtype.  One function mirroring
+    ``LlamaRMSNorm`` (``fused_rms_norm``), ``LlamaAttention`` (the [b, s, h,
+    d] layout, neox rope with tables cast to the compute dtype, GQA passed
+    unexpanded to ``flash_attention``, causal), ``LlamaMLP`` (SwiGLU),
+    ``LlamaDecoderLayer`` (pre-norm residual blocks), ``LlamaModel.forward``
+    (rope sliced to ``[:s]`` or gathered by ``position_ids``) and
+    ``LlamaForCausalLM.forward`` (``lm_head``, or the tied embedding).
+    The JAX model's remat tags (``decoder_attn_out``/``decoder_mlp_out``)
+    belong to the memory engine (ROADMAP A4) and are left out.
+    ``rope``: the (cos, sin) tables on the ids' device
+    (``LlamaForCausalLM.rope``); made here when not given."""
+    b, s = input_ids.shape
+    H, KV, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    eps = cfg.rms_norm_eps
+    if rope is None:
+        rope = tuple(t.to(input_ids.device) for t in _rope_tables(
+            d, cfg.max_position_embeddings, cfg.rope_theta))
+    cos_t, sin_t = rope
+    if position_ids is None:
+        cos, sin = cos_t[:s][None, :, None], sin_t[:s][None, :, None]
+    else:
+        pid = torch.as_tensor(position_ids, device=input_ids.device).long()
+        cos, sin = cos_t[pid][:, :, None], sin_t[pid][:, :, None]
+    embed = params["model.embed_tokens.weight"]
+    x = F.embedding(input_ids.long(), embed)
+    for i in range(cfg.num_hidden_layers):
+        def w(name, i=i):
+            return params[f"model.layers.{i}.{name}.weight"]
+
+        h = fused_rms_norm(x, w("input_layernorm"), eps)
+        q = (h @ w("self_attn.q_proj")).reshape(b, s, H, d)
+        k = (h @ w("self_attn.k_proj")).reshape(b, s, KV, d)
+        v = (h @ w("self_attn.v_proj")).reshape(b, s, KV, d)
+        q, k = fused_rotary_position_embedding(q, k, sin=sin, cos=cos)
+        attn = flash_attention(q, k, v, causal=True)
+        x = x + attn.reshape(b, s, H * d) @ w("self_attn.o_proj")
+        h = fused_rms_norm(x, w("post_attention_layernorm"), eps)
+        x = x + swiglu(h @ w("mlp.gate_proj"),
+                       h @ w("mlp.up_proj")) @ w("mlp.down_proj")
+    h = fused_rms_norm(x, params["model.norm.weight"], eps)
+    if cfg.tie_word_embeddings:
+        return h @ embed.t()
+    return h @ params["lm_head.weight"]
+
+
+# ---------------------------------------------------------------------- loss
+
+def _gold_logit(lv: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The label column of the logits, read in fp32 (mirror of
+    ``_gold_logit``: the JAX iota-compare reduction picks the same one
+    value per row)."""
+    return lv.gather(-1, labels.long()[..., None])[..., 0].float()
+
+
+def _ce_loss(lv: torch.Tensor, labels: torch.Tensor,
+             attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Streaming cross entropy (mirror of ``_ce_loss``): logsumexp in fp32
+    over compute-dtype logits minus the gold logit; a plain mean, or with
+    ``attn_mask`` a token-weighted mean guarded by ``max(w.sum(), 1)``."""
+    lse = torch.logsumexp(lv.float(), dim=-1)
+    nll = lse - _gold_logit(lv, labels)
+    if attn_mask is None:
+        return nll.mean()
+    wt = (attn_mask > 0).float()
+    return (nll * wt).sum() / torch.clamp(wt.sum(), min=1.0)
+
+
+def llama_decay_mask(model: nn.Module) -> Dict[str, bool]:
+    """Per-parameter AdamW decay mask (mirror of ``llama_decay_mask``):
+    norm weights and biases are exempt."""
+    return {n: not ("layernorm" in n or n.endswith("norm.weight")
+                    or n.endswith(".bias"))
+            for n, _ in model.named_parameters()}
+
+
+def _accum_fold(accum_steps: int, cap: int = 8) -> int:
+    """Largest divisor of ``accum_steps`` not above ``cap``: the bf16
+    micro-grad adds between two fp32 folds (mirror of ``_accum_fold``)."""
+    for f in range(min(cap, accum_steps), 0, -1):
+        if accum_steps % f == 0:
+            return f
+    return 1
+
+
+# ---------------------------------------------------------------- train step
+
+# options of the JAX build_train_step that belong to later work
+_UNPORTED_STEP_OPTIONS = {
+    "mesh": "multi-GPU training (ROADMAP A5)",
+    "overlap": "the communication-overlap engine (ROADMAP A5)",
+    "memory": "the memory engine (ROADMAP A4)",
+    "health": "the fused health probe (ROADMAP A6)",
+    "schedule": "the partitioning schedule (ROADMAP A5)",
+    "remat": "activation remat, the memory engine (ROADMAP A4)",
+    "remat_policy": "activation remat, the memory engine (ROADMAP A4)",
+}
+
+
+def build_train_step(model: LlamaForCausalLM, optimizer,
+                     compute_dtype: torch.dtype = torch.bfloat16,
+                     accum_steps: int = 1,
+                     accum_dtype: Optional[torch.dtype] = None,
+                     **later) -> Callable:
+    """The single-device subset of ``build_train_step``:
+
+        step(params, opt_state, step_no, lr, input_ids, labels)
+            -> (loss, new_params, new_opt_state)
+
+    - ``loss_fn`` casts the float params to ``compute_dtype`` and runs
+      ``llama_forward`` and ``_ce_loss``; the gradients are taken with
+      ``torch.autograd.grad`` over leaf copies of the params, so they come
+      back in the at-rest dtype (bf16 for bf16 params);
+    - ``accum_steps > 1``: ids/labels carry a leading [accum_steps] axis;
+      the micro-grads sum into a ``accum_dtype`` carry (None: bf16 under
+      bf16 compute, else fp32) folded into an fp32 accumulator every
+      ``_accum_fold(accum_steps)`` micro-steps, or straight into the fp32
+      accumulator when the carry is fp32 or the fold is 1; the update runs
+      once on the mean;
+    - the update is ``optimizer.apply_flat`` for a flat state
+      (``init_flat_state``) and ``optimizer.apply`` otherwise, at Adam step
+      ``step_no + 1``, with ``llama_decay_mask``.
+
+    PyTorch runs eagerly: no jit and no donation; the step keeps nothing
+    from one call to the next, and the loss stays on the device (no host
+    sync).  ``step.accumulate(params, ids, labels) -> (loss, grads)`` is the
+    gradient half alone.  ``attention_mask`` (token-weighted accumulation
+    over the masked kernel B5) and the options in
+    ``_UNPORTED_STEP_OPTIONS`` raise ``NotImplementedError``."""
+    for name, value in later.items():
+        if name not in _UNPORTED_STEP_OPTIONS:
+            raise TypeError(f"build_train_step: unknown option {name!r}")
+        if value not in (None, False):
+            raise NotImplementedError(
+                f"build_train_step: {name}= is "
+                f"{_UNPORTED_STEP_OPTIONS[name]}, not ported yet")
+    cfg, dev, rope = model.cfg, model.device, model.rope
+    decay_mask = llama_decay_mask(model)
+    if accum_dtype is None:
+        accum_dtype = (torch.bfloat16 if compute_dtype == torch.bfloat16
+                       else torch.float32)
+    fold = _accum_fold(accum_steps)
+    bf16_carry = accum_steps > 1 and accum_dtype != torch.float32 \
+        and fold > 1
+
+    def grad_fn(params, ids, labels):
+        leaves = {k: v.detach().requires_grad_()
+                  for k, v in params.items() if v.is_floating_point()}
+        cast = {k: leaves[k].to(compute_dtype) if k in leaves else v
+                for k, v in params.items()}
+        with torch.enable_grad():
+            loss = _ce_loss(llama_forward(cfg, cast, ids, rope=rope),
+                            labels)
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+        return loss.detach(), dict(zip(leaves, grads))
+
+    def accumulate(params, ids, labels):
+        if accum_steps <= 1:
+            return grad_fn(params, ids, labels)
+
+        def zeros(dtype):
+            return {k: torch.zeros_like(v, dtype=dtype)
+                    for k, v in params.items() if v.is_floating_point()}
+
+        acc, losses = zeros(torch.float32), []
+        if bf16_carry:
+            for c in range(accum_steps // fold):
+                acc_lo = zeros(accum_dtype)
+                for i in range(c * fold, (c + 1) * fold):
+                    loss, g = grad_fn(params, ids[i], labels[i])
+                    for k, a in acc_lo.items():
+                        a += g[k].to(accum_dtype)
+                    losses.append(loss)
+                for k, a in acc.items():
+                    a += acc_lo[k].float()
+        else:
+            for i in range(accum_steps):
+                loss, g = grad_fn(params, ids[i], labels[i])
+                for k, a in acc.items():
+                    a += g[k].float()
+                losses.append(loss)
+        return (torch.stack(losses).mean(),
+                {k: a / accum_steps for k, a in acc.items()})
+
+    def apply_update(params, grads, opt_state, lr, step_no):
+        if optimizer.state_is_flat(opt_state):
+            return optimizer.apply_flat(params, grads, opt_state, lr,
+                                        step_no + 1, decay_mask=decay_mask)
+        return optimizer.apply(params, grads, opt_state, lr, step_no + 1,
+                               decay_mask=decay_mask)
+
+    def as_ids(x):
+        return torch.as_tensor(x, device=dev).long()
+
+    def step(params, opt_state, step_no, lr, input_ids, labels,
+             attention_mask=None):
+        if attention_mask is not None:
+            raise NotImplementedError(
+                "build_train_step: attention_mask (token-weighted "
+                "accumulation) takes the masked flash kernel B5, a later "
+                "slice of the port")
+        ids, lab = as_ids(input_ids), as_ids(labels)
+        want = 3 if accum_steps > 1 else 2
+        if ids.dim() != want or lab.shape != ids.shape \
+                or (accum_steps > 1 and ids.shape[0] != accum_steps):
+            raise ValueError(f"input_ids {tuple(ids.shape)} / labels "
+                             f"{tuple(lab.shape)}: expected "
+                             f"{'[accum_steps, b, s]' if want == 3 else '[b, s]'}")
+        loss, grads = accumulate(params, ids, lab)
+        new_params, new_state = apply_update(params, grads, opt_state,
+                                             float(lr), int(step_no))
+        return loss, new_params, new_state
+
+    step.accumulate = accumulate
+    return step

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-``csrc/decode_attention.cu`` is compiled by ``nvcc`` into a shared library
-with a plain C interface (no PyTorch headers, so a build takes seconds)
-and loaded with ``ctypes``.  The library goes into
+Every ``csrc/*.cu`` source (``decode_attention.cu``,
+``flash_attention.cu``) is compiled by one ``nvcc`` call into one shared
+library with a plain C interface (no PyTorch headers, so a build takes
+seconds) and loaded with ``ctypes``.  The library goes into
 ``paddle_tpu_torch/_build/`` (listed in ``.gitignore``), named by a hash
-of the source and the flags, so an edited source rebuilds and an
-unchanged one is reused.  Nothing is built at import time: the first
+over all sources and the flags, so an edited source rebuilds and an
+unchanged tree is reused.  Nothing is built at import time: the first
 CUDA call of a kernel wrapper builds.
 """
 
@@ -21,7 +22,8 @@ from pathlib import Path
 from typing import Optional
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "decode_attention.cu"
+SOURCES = (_PKG / "csrc" / "decode_attention.cu",
+           _PKG / "csrc" / "flash_attention.cu")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -37,6 +39,10 @@ SIGNATURES = {
                         _F, _I, _I, _P],
     "pt_ragged_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _I, _I, _I, _F, _I, _I, _P],
+    "pt_hb_flash_forward": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                            _I, _F, _I, _P],
+    "pt_hb_flash_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                             _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -55,9 +61,10 @@ def nvcc_path() -> str:
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{SOURCE.stem}-{digest}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"kernels-{h.hexdigest()[:16]}.so"
 
 
 def build() -> float:
@@ -71,11 +78,12 @@ def build() -> float:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
     proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(SOURCE)], stdout=subprocess.PIPE,
+                           *map(str, SOURCES)], stdout=subprocess.PIPE,
                           stderr=subprocess.STDOUT)
     out.with_suffix(".log").write_bytes(proc.stdout)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {SOURCE.name}:\n"
+        raise RuntimeError("nvcc failed for "
+                           + ", ".join(s.name for s in SOURCES) + ":\n"
                            + proc.stdout.decode(errors="replace"))
     os.replace(tmp, out)
     return time.perf_counter() - t0

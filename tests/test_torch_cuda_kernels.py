@@ -8,11 +8,14 @@ is skipped:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 
 The error gate is chip_smoke.py's: per output row, the largest
-|kernel - plain| over the row's largest |plain|, at most ``ROW_TOL`` (fp32
-1e-4; bf16, and bf16 q with int8 K/V, two bf16 ulps).
-``test_error_gate_catches_planted_faults`` builds copies of the kernel
-source with a fault planted and shows that the gate rejects them at the
-serving shapes; run it with ``-s`` to see the readings.
+|kernel - plain| over the row's largest |plain|, at most ``ROW_TOL`` for the
+decode kernels (fp32 1e-4; bf16, and bf16 q with int8 K/V, two bf16 ulps)
+and ``FLASH_ROW_TOL`` for the flash kernels B1/B2 (o and dq per q row of a
+head, dk and dv per kv row).  ``test_error_gate_catches_planted_faults`` and
+``test_flash_gate_catches_planted_faults`` build copies of the kernel
+library with a fault planted in one source and show that the gate rejects
+them at the serving and training shapes; run them with ``-s`` to see the
+readings.
 """
 
 import ctypes
@@ -23,9 +26,12 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import ROW_TOL, launcher_inputs, row_error
+from chip_smoke import (FLASH_ROW_TOL, FLASH_SHAPE, GRAD_ROW_FLOOR, ROW_TOL,
+                        flash_errors, flash_inputs, launcher_inputs,
+                        row_error)
 from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import decode_attention as da
+from paddle_tpu_torch.ops import flash_attention as fa
 
 pytestmark = pytest.mark.cuda
 
@@ -166,20 +172,34 @@ def _readings(dev, case):
     return out
 
 
-def test_error_gate_catches_planted_faults(dev, tmp_path, monkeypatch):
-    source = _build.SOURCE.read_text()
+def _build_planted(tmp_path, source_name, planted):
+    """Build, in parallel, one kernel library per planted fault: every
+    source of the library, with ``source_name``'s text edited.  Returns
+    {fault: library path}."""
+    target = next(p for p in _build.SOURCES if p.name == source_name)
+    source = target.read_text()
     jobs = {}
-    for fault, (text, planted) in PLANTED.items():
+    for fault, (text, replacement) in planted.items():
         assert source.count(text) == 1, fault
-        src = tmp_path / f"{fault}.cu"
-        src.write_text(source.replace(text, planted))
-        jobs[fault] = subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
-             str(tmp_path / f"{fault}.so"), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-    for fault, proc in jobs.items():
+        src = tmp_path / fault / source_name
+        src.parent.mkdir()
+        src.write_text(source.replace(text, replacement))
+        out = tmp_path / f"{fault}.so"
+        sources = [src if p == target else p for p in _build.SOURCES]
+        jobs[fault] = (out, subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(out),
+             *map(str, sources)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    libs = {}
+    for fault, (out, proc) in jobs.items():
         log, _ = proc.communicate()
         assert proc.returncode == 0, log.decode(errors="replace")
+        libs[fault] = out
+    return libs
+
+
+def test_error_gate_catches_planted_faults(dev, tmp_path, monkeypatch):
+    libs = _build_planted(tmp_path, "decode_attention.cu", PLANTED)
     tol = ROW_TOL["bf16"]
     for case in ("bf16", "int8"):
         sound = _readings(dev, case)
@@ -187,10 +207,133 @@ def test_error_gate_catches_planted_faults(dev, tmp_path, monkeypatch):
                           "row_error": sound}))
         assert max(sound.values()) <= tol, sound
         for fault in PLANTED:
-            lib = _build.bind(ctypes.CDLL(str(tmp_path / f"{fault}.so")))
+            lib = _build.bind(ctypes.CDLL(str(libs[fault])))
             monkeypatch.setattr(_build, "_lib", lib)
             bad = _readings(dev, case)
             monkeypatch.undo()
             print(json.dumps({"kernel": fault, "case": case, "tol": tol,
                               "row_error": bad}))
             assert min(bad.values()) > tol, (fault, case, bad)
+
+
+# ---------------------------------------------------------------- B1 / B2
+
+@pytest.mark.parametrize("s,d", [(200, 64), (640, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("kind", ["fp32", "bf16"])
+def test_hb_flash_kernels_match_plain(dev, kind, rep, causal, s, d):
+    """B1 and B2 against their plain versions with the per-row gate; s 200
+    and 640 end in partial q and k tiles.  The backward takes the plain
+    forward's o and lse, so it is gated on its own."""
+    q, k, v, do = flash_inputs(kind, dev, (2, s, 2 * rep, 2, d))
+    scale = d ** -0.5
+    before = dict(fa.LAUNCHES)
+    o, lse = fa.hb_flash_forward(q, k, v, causal, scale)
+    wo, wlse = fa.hb_flash_forward_plain(q, k, v, causal, scale)
+    grads = fa.hb_flash_backward(q, k, v, wo, wlse, do, causal, scale)
+    want = fa.hb_flash_backward_plain(q, k, v, wo, wlse, do, causal, scale)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention_fwd"] == \
+        before["flash_attention_fwd"] + 1
+    assert fa.LAUNCHES["flash_attention_bwd"] == \
+        before["flash_attention_bwd"] + 1
+    assert o.dtype == q.dtype and lse.dtype == torch.float32
+    ferr, _ = flash_errors(kind, {"o": o, "lse": lse},
+                           {"o": wo, "lse": wlse})
+    berr, _ = flash_errors(kind, dict(zip(("dq", "dk", "dv"), grads)),
+                           dict(zip(("dq", "dk", "dv"), want)))
+    print(json.dumps({"case": [kind, rep, causal, s, d], **ferr, **berr}))
+
+
+def test_flash_autograd_and_train_step_on_cuda_match_cpu(dev):
+    """The port's fp32 train step on the card (kernels, CUDA-core path) vs
+    the same step on the CPU (plain versions): every attention call of the
+    step is a launch; loss and params after one AdamW step agree to 1e-4
+    of each tensor's largest magnitude (fp32 sums in other orders; Adam's
+    first step can turn a near-zero gradient's sign, moving that weight
+    2 lr, so params get 2 lr of absolute slack)."""
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         build_train_step, llama_decay_mask)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = LlamaConfig.debug(vocab=128, hidden=128, layers=2, heads=4,
+                            kv_heads=2, inter=256, max_pos=256)
+    cpu = LlamaForCausalLM(cfg, device="cpu",
+                           generator=torch.Generator().manual_seed(3))
+    gpu = LlamaForCausalLM(cfg, device=dev)
+    gpu.load_functional_state(cpu.functional_state())
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, 128, (2, 2, 96))
+    lab = rng.integers(0, 128, (2, 2, 96))
+    out = {}
+    for name, model in (("cpu", cpu), ("gpu", gpu)):
+        opt = AdamW(1e-3)
+        step = build_train_step(model, opt, compute_dtype=torch.float32,
+                                accum_steps=2)
+        params = model.functional_state()
+        state = opt.init_flat_state(params, llama_decay_mask(model))
+        fa.reset_launches()
+        loss, params, _ = step(params, state, 0, 1e-3, ids, lab)
+        out[name] = (loss.item(), {k: v.cpu() for k, v in params.items()},
+                     dict(fa.LAUNCHES))
+    assert out["cpu"][2] == {"flash_attention_fwd": 0,
+                             "flash_attention_bwd": 0}
+    assert out["gpu"][2] == {"flash_attention_fwd": 4,
+                             "flash_attention_bwd": 4}
+    assert abs(out["gpu"][0] - out["cpu"][0]) <= 1e-4 * abs(out["cpu"][0])
+    for k, want in out["cpu"][1].items():
+        got = out["gpu"][1][k]
+        assert (got - want).abs().max().item() <= \
+            1e-4 * want.abs().max().item() + 2e-3, k
+
+
+# faults planted into copies of csrc/flash_attention.cu: (text, replacement)
+PLANTED_FLASH = {
+    # the forward skips its second k tile
+    "skipped_k_tile": (
+        "__syncthreads();  // the previous tile's readers of k_s, v_s, p_s "
+        "are done",
+        "if (kt == 1) continue;\n    __syncthreads();"),
+    # the forward's output accumulator is not rescaled by alpha
+    "no_alpha_rescale": (
+        "for (int i = tid; i < M * D; i += kThreads) o_s[(i / D) * ldd + "
+        "i % D] *= alpha_s[i / D];", ""),
+    # dk loses the contribution of the group's second head
+    "dk_drops_head_1": (
+        "ds_s[m * ldk + j] = from_f<T>(ds);",
+        "ds_s[m * ldk + j] = from_f<T>(p_s != nullptr && m / a.bq == 1 "
+        "? 0.f : ds);"),
+}
+
+
+def _flash_readings(dev, kind):
+    """Gate errors of B1 (o) and B2 (dq, dk, dv) at the training shape,
+    without the limits."""
+    q, k, v, do = flash_inputs(kind, dev)
+    scale = FLASH_SHAPE[-1] ** -0.5
+    o, _ = fa.hb_flash_forward(q, k, v, True, scale)
+    wo, wlse = fa.hb_flash_forward_plain(q, k, v, True, scale)
+    got = fa.hb_flash_backward(q, k, v, wo, wlse, do, True, scale)
+    want = fa.hb_flash_backward_plain(q, k, v, wo, wlse, do, True, scale)
+    out = {"o": row_error(o, wo)[0]}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        out[name] = row_error(g, w, GRAD_ROW_FLOOR)[0]
+    return out
+
+
+def test_flash_gate_catches_planted_faults(dev, tmp_path, monkeypatch):
+    libs = _build_planted(tmp_path, "flash_attention.cu", PLANTED_FLASH)
+    faulty = {"skipped_k_tile": "o", "no_alpha_rescale": "o",
+              "dk_drops_head_1": "dk"}
+    tol = FLASH_ROW_TOL["bf16"]
+    sound = _flash_readings(dev, "bf16")
+    print(json.dumps({"kernel": "sound", "tol": tol, "row_error": sound}))
+    assert all(sound[n] <= tol[n] for n in sound), sound
+    for fault, out in faulty.items():
+        lib = _build.bind(ctypes.CDLL(str(libs[fault])))
+        monkeypatch.setattr(_build, "_lib", lib)
+        bad = _flash_readings(dev, "bf16")
+        monkeypatch.undo()
+        print(json.dumps({"kernel": fault, "tol": tol, "row_error": bad}))
+        assert bad[out] > tol[out], (fault, bad)

@@ -101,9 +101,15 @@ def test_params_from_jax_bf16_bit_exact(pair):
 
 
 def test_forward_is_the_training_slice(pair):
-    *_, model, _ = pair
-    with pytest.raises(NotImplementedError, match="training slice"):
-        model(torch.zeros(1, 4, dtype=torch.int32))
+    """forward is the training slice's (tests/test_torch_training.py): its
+    fp32 logits equal the JAX model's, and the masked routes raise."""
+    jm, _, cfg, model, _ = pair
+    ids = np.stack(_prompts(cfg, 22, (9, 9)))
+    want = np.asarray(jm(paddle.to_tensor(ids))._value)
+    got = model(torch.from_numpy(ids)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    with pytest.raises(NotImplementedError, match="B5"):
+        model(torch.from_numpy(ids), attention_mask=torch.ones(2, 9))
 
 
 def test_prefill_logits_match_jax(pair):
@@ -449,8 +455,8 @@ def test_import_leaves_jax_and_paddle_tpu_out():
 def test_port_sources_import_no_jax_or_paddle_tpu():
     offenders = []
     pkg = REPO / "paddle_tpu_torch"
-    for path in sorted(pkg.rglob("*.py")):
-        if "_build" in path.relative_to(pkg).parts:   # build output, not source
+    for path in sorted(pkg.rglob("*.py")) + [REPO / "chip_smoke.py"]:
+        if "_build" in path.relative_to(REPO).parts:  # build output, not source
             continue
         tree = ast.parse(path.read_text())
         for node in ast.walk(tree):
