@@ -39,7 +39,26 @@ Phases, each of which raises (and so exits non-zero) on failure:
    path's loss on micro-batch 0 within 2e-2 of a plain fp32 forward on the
    same weights.  Prints ms per step, tokens/s and MFU (6 N per token over
    989 TFLOP/s), and profiles one micro-step;
-7. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
+7. the masked flash kernels (B5 forward; B6 fused, dq and dk/dv backward)
+   on MASKED_CASES: packed documents at the train shape, a causal
+   document mask as FlashMask bands at 8K, every other mask class, the
+   varlen padded layout, an unaligned length, rep 16 and sk != sq, in
+   bf16 and fp32, each held against its plain version (per-row gate; rows
+   that see no key exact) and timed beside its bound over the visible
+   pairs, its plain version and ``scaled_dot_product_attention`` with the
+   dense bool mask (a yardstick the port never calls);
+8. packed-document training at the ``bench.py`` width and depth
+   (MASKED_ACCUM micro-batches of 6 rows of 1024 tokens, documents of
+   median DOC_MEDIAN with a padding tail, ``attention_mask`` segment ids):
+   every attention call a B5 + fused B6 launch, losses finite and
+   falling, the step-0 bf16 loss within 2e-2 of a plain fp32 masked
+   forward; step time, valid and all tokens/s, MFU, a micro-step profile;
+9. the long-context recipe (s 8192, b 1, accum 2, documents of median
+   1024 truncated at the row end): B5 + B6 dq + dk/dv launches only, and
+   the causal document mask as FlashMask bands gives the segment-id
+   logits within the bf16 gate;
+10. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
+    last.
 
 Exits non-zero, printing no result, when CUDA is not available or the
 package is not beside the script.  Writes the full record to
@@ -48,6 +67,7 @@ chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -113,6 +133,31 @@ TRAIN_WARMUP, TRAIN_STEPS, TRAIN_LR = 1, 3, 1e-4
 # step-0 loss of the bf16 kernel path against a plain fp32 forward
 TRAIN_LOSS_TOL = 2e-2
 H100_BF16_PEAK = 989e12       # dense bf16 tensor-core rate, the MFU yardstick
+# B5/B6 cases: name -> (b, sq, sk, q heads, kv heads, head dim, causal,
+# mask).  packed_docs is the masked train phase's attention call,
+# doc_bands_8k the long-context phase's (as bands; the step itself passes
+# segment ids); the others cover each mask class, the varlen qkv-packed
+# padded layout (negative ids), an unaligned length, rep 16 and sk != sq.
+MASKED_CASES = {
+    "packed_docs": (6, 1024, 1024, 16, 4, 128, True, "segments"),
+    "doc_bands_8k": (1, 8192, 8192, 16, 4, 128, True, "doc_bands"),
+    "share_question": (2, 1024, 1024, 16, 4, 128, True, "share_question"),
+    "sliding_causal": (2, 1024, 1024, 16, 4, 128, True, "sliding"),
+    "sliding_bidirectional": (2, 1024, 1024, 16, 4, 128, False, "sliding"),
+    "global_sliding": (2, 1024, 1024, 16, 4, 128, False, "global_sliding"),
+    "per_head_bands": (2, 1024, 1024, 16, 4, 128, True, "per_head_bands"),
+    "varlen_padded": (1, 1024, 1024, 16, 4, 128, True, "varlen_padded"),
+    "unaligned": (2, 1000, 1000, 16, 4, 128, True, "segments"),
+    "rep16": (2, 1024, 1024, 32, 2, 128, True, "segments"),
+    "cross": (2, 512, 1536, 16, 4, 128, False, None),
+    "unmasked_8k": (1, 8192, 8192, 16, 4, 128, True, None),
+}
+# packed documents: lognormal lengths of this median (and sigma), clipped to
+# [DOC_MIN, row length]; the masked train phase pads the row's tail (id 0),
+# the long-context phase truncates its last document at the row end
+DOC_MEDIAN, DOC_SIGMA, DOC_MIN = 256, 0.75, 16
+MASKED_ACCUM, MASKED_WARMUP, MASKED_STEPS = 16, 1, 2
+LONG_SEQ, LONG_ACCUM, LONG_DOC_MEDIAN = 8192, 2, 1024
 
 
 def _sync():
@@ -308,11 +353,12 @@ def kernel_cases(dev, flush):
 
 # ------------------------------------------------------------ serving phase
 
-def _reference_hidden(cfg, params, seqs, dev):
+def _reference_hidden(cfg, params, seqs, dev, seg=None):
     """Plain fp32 full-sequence forward (independent of the port's code):
     each bf16 weight is cast to fp32 at its use, so the fp32 copies of the
     model never coexist.  Sequences are right-padded; causal attention
-    keeps the padding out of every real position."""
+    keeps the padding out of every real position.  ``seg`` ([n, S] segment
+    ids) also keeps each position's attention within its segment."""
     import numpy as np
     import torch
 
@@ -335,7 +381,9 @@ def _reference_hidden(cfg, params, seqs, dev):
         a, b = x.chunk(2, -1)
         return x * cos + torch.cat([-b, a], -1) * sin
 
-    causal = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
+    causal = torch.ones(S, S, dtype=torch.bool, device=dev).tril()[None]
+    if seg is not None:
+        causal = causal & (seg[:, :, None] == seg[:, None, :])
     x = params["model.embed_tokens.weight"][ids].float()
     for i in range(cfg.num_hidden_layers):
         def W(name):
@@ -347,7 +395,7 @@ def _reference_hidden(cfg, params, seqs, dev):
         k = k.repeat_interleave(H // KV, dim=2)
         v = v.repeat_interleave(H // KV, dim=2)
         att = torch.einsum("bshd,bthd->bhst", q, k) * d ** -0.5
-        att = att.masked_fill(~causal, float("-inf")).softmax(-1)
+        att = att.masked_fill(~causal[:, None], float("-inf")).softmax(-1)
         o = torch.einsum("bhst,bthd->bshd", att, v).reshape(n, S, H * d)
         x = x + o @ W("self_attn.o_proj.weight")
         hx = rms(x, W("post_attention_layernorm.weight"))
@@ -704,36 +752,345 @@ def flash_cases(dev, flush):
     return records
 
 
+# ----------------------------------------------------- masked kernel phase
+
+def packed_documents(rng, rows, seq, median, pad):
+    """[rows, seq] int32 segment ids of whole documents (1-based per row)
+    and each row's document lengths, drawn lognormal (median ``median``,
+    sigma DOC_SIGMA) and clipped to [DOC_MIN, seq].  ``pad``: a document
+    that does not fit ends the row and the tail is padding (id 0); else the
+    last document is truncated at the row end."""
+    import numpy as np
+    ids = np.zeros((rows, seq), np.int32)
+    lens = []
+    for r in range(rows):
+        pos, row = 0, []
+        while pos < seq:
+            n = int(np.clip(rng.lognormal(np.log(median), DOC_SIGMA),
+                            DOC_MIN, seq))
+            if pos + n > seq:
+                if pad:
+                    break
+                n = seq - pos
+            row.append(n)
+            ids[r, pos:pos + n] = len(row)
+            pos += n
+        lens.append(row)
+    return ids, lens
+
+
+@contextlib.contextmanager
+def forced_route(route):
+    """Make ``flash_backward`` take the fused (``"fused"``) or the dq + dkv
+    (``"split"``) kernels whatever the shape, through the budget its
+    routing rule reads."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    saved = fa._FUSED_BWD_VMEM_BUDGET
+    fa._FUSED_BWD_VMEM_BUDGET = 1 << 62 if route == "fused" else 0
+    try:
+        yield
+    finally:
+        fa._FUSED_BWD_VMEM_BUDGET = saved
+
+
+def masked_inputs(name, kind, dev):
+    """Inputs of the masked launchers for MASKED_CASES[name], from SEED:
+    q, do [b*h, sq, d]; k, v [b*kvh, sk, d] (N(0, 1) in bf16 or fp32); the
+    mask keywords of ``flash_forward``; the dense keep mask [b, mh, sq, sk]
+    built from its definition (causal, equal segment ids, outside the
+    bands); the visible (q head, key) pairs."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.ops import flashmask as fm
+
+    b, sq, sk, h, kvh, d, causal, mask = MASKED_CASES[name]
+    dtype = torch.bfloat16 if kind == "bf16" else torch.float32
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    rng = np.random.default_rng(SEED)
+
+    def r(*sh):
+        return torch.randn(sh, generator=g, device=dev).to(dtype)
+
+    def i32(x):
+        return torch.as_tensor(np.ascontiguousarray(x, np.int32), device=dev)
+
+    q, k, v, do = r(b * h, sq, d), r(b * kvh, sk, d), r(b * kvh, sk, d), \
+        r(b * h, sq, d)
+    kw, sri = {}, None
+    # every mask scales with sq; at sq 1024 the documents have median
+    # DOC_MEDIAN (the masked train phase's), at 8192 LONG_DOC_MEDIAN
+    if mask == "segments":
+        ids, _ = packed_documents(rng, b, sq, sq // 4, pad=True)
+        kw = dict(q_seg=i32(ids), k_seg=i32(ids))
+    elif mask == "varlen_padded":
+        # flash_attn_varlen_qkvpacked's padded layout: 4 sequences in rows
+        # of sq / 4; padding gets unique negative ids, q and k sides disjoint
+        smax = sq // 4
+        lens = np.array([256, 100, 200, 37]) * smax // 256
+        pos = np.arange(sq)
+        seq_i, off = pos // smax, pos % smax
+        real = off < lens[seq_i]
+        kw = dict(q_seg=i32(np.where(real, seq_i + 1, -(2 * pos + 2))[None]),
+                  k_seg=i32(np.where(real, seq_i + 1, -(2 * pos + 3))[None]))
+    elif mask == "doc_bands":
+        _, lens = packed_documents(rng, 1, sq, sq // 8, pad=False)
+        sri = fm.causal_document_row_indices(lens[0])
+    elif mask == "share_question":
+        sri = fm.share_question_row_indices(sq // 4, (sq // 2, 3 * sq // 4),
+                                            sq)
+    elif mask == "sliding":
+        sri = fm.sliding_window_row_indices(
+            sq, sq // 8 if causal else (sq // 8, sq // 16), causal)
+    elif mask == "global_sliding":
+        sri = fm.global_sliding_row_indices(sq, sq // 8, n_global=sq // 32)
+    elif mask == "per_head_bands":
+        # the reference's random causal 2-bound mask, one per kv head
+        lo = np.maximum(np.arange(sq)[None, None] + 1,
+                        rng.integers(0, sq, (b, kvh, sq)))
+        hi = np.maximum(lo, rng.integers(0, sq, (b, kvh, sq)))
+        sri = np.stack([lo, hi], -1).astype(np.int32)
+    if sri is not None:
+        sri = torch.as_tensor(sri).expand((b,) + tuple(sri.shape[1:]))
+        bands = tuple(x.to(dev).contiguous() for x in
+                      fm.normalize_startend_row_indices(sri, causal, sq))
+        kw = dict(bands=bands, mask_h=bands[0].shape[1])
+    keep = torch.ones(b, 1, sq, sk, dtype=torch.bool, device=dev)
+    rows = torch.arange(sq, device=dev)[:, None]
+    if causal:
+        keep &= rows >= torch.arange(sk, device=dev)[None, :]
+    if "q_seg" in kw:
+        keep &= kw["q_seg"][:, None, :, None] == kw["k_seg"][:, None, None, :]
+    if "bands" in kw:
+        lts, lte, uts, ute = (x[:, :, None, :] for x in kw["bands"])
+        keep = keep & ~(((rows >= lts) & (rows < lte))
+                        | ((rows >= uts) & (rows < ute)))
+    pairs = int(keep.sum().item()) * (h // keep.shape[1])
+    return dict(q=q, k=k, v=v, do=do, kw=kw, keep=keep, pairs=pairs,
+                b=b, h=h, kvh=kvh, causal=causal, scale=d ** -0.5,
+                shape=f"q[{b * h},{sq},{d}] kv[{b * kvh},{sk},{d}] "
+                      f"h{h}/kvh{kvh} {'causal' if causal else 'full'} "
+                      f"{mask or 'unmasked'}")
+
+
+def masked_errors(kind, got, want, dead):
+    """flash_errors for the masked kernels, with the rows that see no key
+    (``dead``, [b*h, sq]: the plain lse is +1e30) held exact: o and dq 0,
+    lse +1e30, on both sides; lse is gated on the other rows."""
+    import torch
+    if "lse" in got:
+        if not torch.equal(got["lse"] >= 1e30, dead) or \
+                not torch.all(got["lse"][dead] == 1e30) or \
+                not torch.all(got["o"][dead] == 0):
+            raise AssertionError("masked forward: rows without a key are "
+                                 "not o = 0, lse = +1e30")
+        got = dict(got, lse=got["lse"][~dead])
+        want = dict(want, lse=want["lse"][~dead])
+    elif not torch.all(got["dq"][dead] == 0):
+        raise AssertionError("masked backward: dq of rows without a key "
+                             "is not 0")
+    return flash_errors(kind, got, want)
+
+
+def masked_work(inp, kernel):
+    """(bytes, flops) of one masked launcher's function on ``inp``: each
+    input read once and each output written once (masks included); 2 d
+    flops per visible (q head, key) pair and product: 2 products forward,
+    5 fused backward, 3 for dq, 4 for dk/dv."""
+    q, k = inp["q"], inp["k"]
+    item = q.element_size()
+    rows = 4 * q.shape[0] * q.shape[1]              # one fp32 per q row
+    masks = sum(t.numel() * 4 for t in inp["kw"].get("bands", ()))
+    masks += sum(inp["kw"][n].numel() * 4 for n in ("q_seg", "k_seg")
+                 if n in inp["kw"])
+    qn, kn = q.numel(), k.numel()
+    nbytes = {"fwd": item * (2 * qn + 2 * kn) + rows,
+              "fused": item * (4 * qn + 4 * kn) + rows,
+              "dq": item * (3 * qn + 2 * kn) + 2 * rows,
+              "dkv": item * (2 * qn + 4 * kn) + 2 * rows}[kernel] + masks
+    products = {"fwd": 2, "fused": 5, "dq": 3, "dkv": 4}[kernel]
+    return nbytes, 2 * q.shape[-1] * products * inp["pairs"]
+
+
+def _device_ms(fn, calls, names):
+    """Device milliseconds per call of each kernel whose name contains one
+    of ``names``, by ``torch.profiler`` over ``calls`` calls of ``fn``; the
+    first name must have run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    _sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        _sync()
+    out = dict.fromkeys(names, 0.0)
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            for n in names:
+                if n in e.key:
+                    out[n] += e.self_device_time_total / 1e3 / calls
+    if not out[names[0]]:
+        raise AssertionError(f"profile: no device time for {out}")
+    return out
+
+
+def masked_case(name, kind, dev, flush):
+    """B5 and the three B6 kernels on MASKED_CASES[name] in bf16 or fp32:
+    each gated against its plain version (the backward from the plain
+    forward's o and lse, once through each route), then timed beside its
+    bound, the plain version and ``scaled_dot_product_attention`` with the
+    dense bool mask (forward; forward+backward for B6), a yardstick the
+    port never calls."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    inp = masked_inputs(name, kind, dev)
+    q, k, v, do, kw = inp["q"], inp["k"], inp["v"], inp["do"], inp["kw"]
+    args = (inp["causal"], inp["scale"], inp["h"], inp["kvh"])
+    o, lse = fa.flash_forward(q, k, v, *args, **kw)
+    wo, wlse = fa.flash_forward_plain(q, k, v, *args, **kw)
+    _sync()
+    dead = wlse >= 1e30
+    errs, worst = {}, {}
+    errs["fwd"], worst["fwd"] = masked_errors(
+        kind, {"o": o, "lse": lse}, {"o": wo, "lse": wlse}, dead)
+    del o, lse
+    want = dict(zip(("dq", "dk", "dv"),
+                    fa.flash_backward_plain(q, k, v, wo, wlse, do, *args,
+                                            **kw)))
+    for route in ("fused", "split"):
+        with forced_route(route):
+            got = fa.flash_backward(q, k, v, wo, wlse, do, *args, **kw)
+        _sync()
+        errs[route], worst[route] = masked_errors(
+            kind, dict(zip(("dq", "dk", "dv"), got)), want, dead)
+        del got
+    del want
+    torch.cuda.empty_cache()
+
+    # timing
+    b, h, kvh = inp["b"], inp["h"], inp["kvh"]
+    q4 = q.view(b, h, q.shape[1], q.shape[2])
+    k4, v4 = (t.view(b, kvh, k.shape[1], k.shape[2]) for t in (k, v))
+    do4 = do.view_as(q4)
+    mask = inp["keep"]
+    if mask.shape[1] > 1:
+        mask = mask.repeat_interleave(h // kvh, dim=1)
+    leaves = [t.detach().requires_grad_() for t in (q4, k4, v4)]
+
+    def sdpa(*t):
+        return F.scaled_dot_product_attention(*t, attn_mask=mask,
+                                              scale=inp["scale"],
+                                              enable_gqa=True)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa(*leaves), leaves, do4)
+
+    long = q.shape[1] > 4096
+    reps = (5 if kind == "bf16" else 3) if not long else 2
+    plain_reps = 1
+
+    def bwd(route):
+        def run():
+            with forced_route(route):
+                fa.flash_backward(q, k, v, wo, wlse, do, *args, **kw)
+        return run
+
+    def library(fn):
+        try:
+            return time_ms(fn, 2, flush)
+        except RuntimeError as e:          # the yardstick only
+            return f"failed: {str(e)[:120]}"
+
+    # each kernel's own device time (the profiler), beside the wrapper's
+    # (CUDA events: the live tables, delta and output buffers included)
+    fwd = _device_ms(lambda: fa.flash_forward(q, k, v, *args, **kw), 2,
+                     ("masked_fwd_kernel",))
+    fused = _device_ms(bwd("fused"), 2, ("masked_dkv_kernel", "cast_kernel"))
+    split = _device_ms(bwd("split"), 2,
+                       ("masked_dq_kernel", "masked_dkv_kernel"))
+    times = {
+        "fwd": fwd["masked_fwd_kernel"], "fused": sum(fused.values()),
+        "dq": split["masked_dq_kernel"], "dkv": split["masked_dkv_kernel"],
+        "wrapper_fwd": time_ms(lambda: fa.flash_forward(q, k, v, *args,
+                                                        **kw), reps, flush),
+        "wrapper_fused": time_ms(bwd("fused"), reps, flush),
+        "wrapper_split": time_ms(bwd("split"), reps, flush),
+        "plain_fwd": time_ms(lambda: fa.flash_forward_plain(q, k, v, *args,
+                                                            **kw),
+                             plain_reps, flush),
+        "plain_bwd": time_ms(lambda: fa.flash_backward_plain(
+            q, k, v, wo, wlse, do, *args, **kw), plain_reps, flush),
+        "library_fwd": library(lambda: sdpa(q4, k4, v4)),
+        "library_fwd_bwd": library(sdpa_fwd_bwd)}
+    bounds = {}
+    for kernel in ("fwd", "fused", "dq", "dkv"):
+        nbytes, flops = masked_work(inp, kernel)
+        bounds[kernel] = bound(nbytes, flops, kind)
+    record = dict(case=name, kind=kind, shape=inp["shape"],
+                  visible_pairs=inp["pairs"], dead_rows=int(dead.sum()),
+                  route_here=fa.flash_bwd_route(q.shape[1], k.shape[1],
+                                                q.shape[2]),
+                  err=errs, max_abs_err=worst,
+                  tol=FLASH_ROW_TOL[kind], times_ms=times,
+                  bound_ms={n: t for n, (t, _) in bounds.items()},
+                  bound_by={n: by for n, (_, by) in bounds.items()})
+    del q, k, v, do, wo, wlse, inp, leaves, q4, k4, v4, do4, mask
+    torch.cuda.empty_cache()
+    return record
+
+
+def masked_cases(dev, flush):
+    """masked_case for every case and dtype.  A case that fails its gate is
+    recorded as failed and the phase goes on, so that one run reads every
+    case; main() fails the run for it after the training phases."""
+    import torch
+    records = []
+    for name in MASKED_CASES:
+        for kind in ("bf16", "fp32"):
+            try:
+                records.append(masked_case(name, kind, dev, flush))
+            except AssertionError as e:
+                records.append(dict(case=name, kind=kind, failed=str(e)))
+                torch.cuda.empty_cache()
+    return records
+
+
 # ----------------------------------------------------------- training phase
 
-def reference_loss(cfg, params, ids, labels, dev):
-    """Mean CE of a plain fp32 forward (``_reference_hidden``: einsum
-    attention, independent of the port's code) on the given bf16 weights,
-    each cast to fp32 at its use."""
+def reference_loss(cfg, params, ids, labels, dev, seg=None):
+    """CE of a plain fp32 forward (``_reference_hidden``: einsum attention,
+    independent of the port's code) on the given bf16 weights, each cast to
+    fp32 at its use: the mean over tokens, or with segment ids ``seg`` the
+    mean over the tokens of id > 0, attention kept within a segment."""
     import torch
     with torch.no_grad():
-        x = _reference_hidden(cfg, params, list(ids.cpu().numpy()), dev)
+        x = _reference_hidden(cfg, params, list(ids.cpu().numpy()), dev, seg)
         logits = x @ params["lm_head.weight"].float()
         nll = torch.logsumexp(logits, -1) - logits.gather(
             -1, labels[..., None])[..., 0]
-        loss = nll.mean().item()
+        if seg is None:
+            loss = nll.mean().item()
+        else:
+            w = (seg > 0).float()
+            loss = ((nll * w).sum() / w.sum()).item()
     del x, logits, nll
     torch.cuda.empty_cache()
     return loss
 
 
-def train_phase(dev, accum=TRAIN_ACCUM):
-    """bench.py main() on the port: the TRAIN_CFG Llama with bf16 params,
-    fp32 AdamW masters from the unrounded fp32 init (master_from), the bf16
-    accumulation carry; the same batch every step (numpy seed SEED)."""
-    import numpy as np
+def train_setup(dev, **overrides):
+    """The TRAIN_CFG Llama (with ``overrides``) from SEED with bf16 params
+    and fp32 AdamW masters from the unrounded fp32 init (master_from):
+    (cfg, model, params, optimizer, flat state, parameter count)."""
     import torch
     from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
-                                         build_train_step, llama_decay_mask)
-    from paddle_tpu_torch.ops import flash_attention as fa
+                                         llama_decay_mask)
     from paddle_tpu_torch.optimizer import AdamW
 
-    cfg = LlamaConfig(**TRAIN_CFG)
+    cfg = LlamaConfig(**dict(TRAIN_CFG, **overrides))
     gen = torch.Generator(device=dev).manual_seed(SEED)
     model = LlamaForCausalLM(cfg, device=dev, dtype=torch.float32,
                              generator=gen)
@@ -743,7 +1100,76 @@ def train_phase(dev, accum=TRAIN_ACCUM):
     state = opt.init_flat_state(params, decay_mask=llama_decay_mask(model),
                                 master_from=p32)
     del p32
-    n_params = sum(v.numel() for v in params.values())
+    return cfg, model, params, opt, state, sum(v.numel()
+                                               for v in params.values())
+
+
+@contextlib.contextmanager
+def plain_call_counter():
+    """Count the calls of the flash kernels' plain versions while the block
+    runs; a training path on the card must make none."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    names = ("hb_flash_forward_plain", "hb_flash_backward_plain",
+             "flash_forward_plain", "flash_backward_plain")
+    calls = dict.fromkeys(names, 0)
+    saved = {n: getattr(fa, n) for n in names}
+
+    def counted(n):
+        def call(*a, **kw):
+            calls[n] += 1
+            return saved[n](*a, **kw)
+        return call
+
+    for n in names:
+        setattr(fa, n, counted(n))
+    try:
+        yield calls
+    finally:
+        for n in names:
+            setattr(fa, n, saved[n])
+
+
+def check_launches(what, counts, plain, **want):
+    """The flash LAUNCHES read after a path: exactly ``want`` (every kernel
+    not named: 0), and no plain-version call."""
+    full = {n: want.get(n, 0) for n in counts}
+    if counts != full or any(plain.values()):
+        raise AssertionError(f"{what}: launches {counts} (expected {full}), "
+                             f"plain calls {plain}")
+
+
+def train_steps(step, carry, n, *batch, **kw):
+    """``n`` steps of ``step`` on one batch, synchronised after each, from
+    ``carry`` = [params, state], which it empties so that the caller holds
+    no second copy of the model and its optimizer state: (losses, wall
+    seconds per step, params, state, the LAUNCHES and the plain calls of
+    the steps)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    params, state = carry
+    carry.clear()
+    losses, walls = [], []
+    with plain_call_counter() as plain:
+        fa.reset_launches()
+        for i in range(n):
+            t0 = time.perf_counter()
+            loss, params, state = step(params, state, i, TRAIN_LR, *batch,
+                                       **kw)
+            _sync()
+            walls.append(time.perf_counter() - t0)
+            losses.append(loss.item())
+        counts = dict(fa.LAUNCHES)
+    return losses, walls, params, state, counts, dict(plain)
+
+
+def train_phase(dev, accum=TRAIN_ACCUM):
+    """bench.py main() on the port: the TRAIN_CFG Llama with bf16 params,
+    fp32 AdamW masters from the unrounded fp32 init (master_from), the bf16
+    accumulation carry; the same batch every step (numpy seed SEED)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import build_train_step
+
+    cfg, model, params, opt, state, n_params = train_setup(dev)
     rng = np.random.default_rng(SEED)
     shape = (accum, TRAIN_BATCH, TRAIN_SEQ)
     ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, shape)).to(dev)
@@ -761,38 +1187,15 @@ def train_phase(dev, accum=TRAIN_ACCUM):
 
     step = build_train_step(model, opt, compute_dtype=torch.bfloat16,
                             accum_steps=accum)
-    plain_calls = {"fwd": 0, "bwd": 0}
-    plain_fwd, plain_bwd = fa.hb_flash_forward_plain, fa.hb_flash_backward_plain
-
-    def counted(fn, key):
-        def call(*a, **kw):
-            plain_calls[key] += 1
-            return fn(*a, **kw)
-        return call
-
-    fa.hb_flash_forward_plain = counted(plain_fwd, "fwd")
-    fa.hb_flash_backward_plain = counted(plain_bwd, "bwd")
     torch.cuda.reset_peak_memory_stats()
-    losses, walls = [], []
-    fa.reset_launches()
-    try:
-        for i in range(TRAIN_WARMUP + TRAIN_STEPS):
-            t0 = time.perf_counter()
-            loss, params, state = step(params, state, i, TRAIN_LR, ids,
-                                       labels)
-            _sync()
-            walls.append(time.perf_counter() - t0)
-            losses.append(loss.item())
-    finally:
-        fa.hb_flash_forward_plain, fa.hb_flash_backward_plain = \
-            plain_fwd, plain_bwd
-    counts = dict(fa.LAUNCHES)
     steps = TRAIN_WARMUP + TRAIN_STEPS
+    carry = [params, state]
+    del params, state
+    losses, walls, params, state, counts, plain_calls = train_steps(
+        step, carry, steps, ids, labels)
     want = cfg.num_hidden_layers * accum * steps
-    if counts != {"flash_attention_fwd": want, "flash_attention_bwd": want} \
-            or any(plain_calls.values()):
-        raise AssertionError(f"train: launches {counts} (expected {want} "
-                             f"each), plain calls {plain_calls}")
+    check_launches("train", counts, plain_calls, flash_attention_fwd=want,
+                   flash_attention_bwd=want)
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"train: losses {losses} not finite and falling")
     window = sum(walls[TRAIN_WARMUP:])
@@ -812,7 +1215,150 @@ def train_phase(dev, accum=TRAIN_ACCUM):
     return result
 
 
-def profile_train(step1, params, ids, labels, micro_steps=2):
+def masked_train_phase(dev):
+    """Packed-document training, the Llama 3 pre-training recipe at the
+    bench.py width and depth: each row of [MASKED_ACCUM, 6, 1024] packs
+    whole documents (packed_documents, median DOC_MEDIAN) with a padding
+    tail; ``build_train_step(..., accum_steps=MASKED_ACCUM)`` with
+    ``attention_mask=segment_ids`` runs the masked kernels (B5 forward, B6
+    fused backward) and the token-weighted fp32 accumulation.  One warm-up
+    and MASKED_STEPS timed steps on one batch."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import build_train_step
+
+    cfg, model, params, opt, state, n_params = train_setup(dev)
+    rng = np.random.default_rng(SEED + 1)
+    shape = (MASKED_ACCUM, TRAIN_BATCH, TRAIN_SEQ)
+    seg, _ = packed_documents(rng, MASKED_ACCUM * TRAIN_BATCH, TRAIN_SEQ,
+                              DOC_MEDIAN, pad=True)
+    seg = torch.from_numpy(seg.reshape(shape)).to(dev)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, shape)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab_size, shape)).to(dev)
+
+    step1 = build_train_step(model, opt, compute_dtype=torch.bfloat16)
+    kernel_loss = step1.accumulate(params, ids[0], labels[0],
+                                   attention_mask=seg[0])[0].item()
+    ref_loss = reference_loss(cfg, params, ids[0], labels[0], dev, seg[0])
+    rel = abs(kernel_loss - ref_loss) / abs(ref_loss)
+    if not rel <= TRAIN_LOSS_TOL:
+        raise AssertionError(f"masked train: bf16 kernel loss {kernel_loss} "
+                             f"vs fp32 plain {ref_loss}: {rel} > "
+                             f"{TRAIN_LOSS_TOL}")
+    torch.cuda.empty_cache()
+
+    step = build_train_step(model, opt, compute_dtype=torch.bfloat16,
+                            accum_steps=MASKED_ACCUM)
+    torch.cuda.reset_peak_memory_stats()
+    steps = MASKED_WARMUP + MASKED_STEPS
+    carry = [params, state]
+    del params, state
+    losses, walls, params, state, counts, plain_calls = train_steps(
+        step, carry, steps, ids, labels, attention_mask=seg)
+    want = cfg.num_hidden_layers * MASKED_ACCUM * steps
+    check_launches("masked train", counts, plain_calls,
+                   flash_masked_fwd=want, flash_masked_bwd_fused=want)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"masked train: losses {losses} not finite and "
+                             f"falling")
+    window = sum(walls[MASKED_WARMUP:])
+    tokens = MASKED_ACCUM * TRAIN_BATCH * TRAIN_SEQ
+    valid = int((seg > 0).sum().item())
+    result = dict(
+        config=TRAIN_CFG, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        accum=MASKED_ACCUM, n_params=n_params, doc_median=DOC_MEDIAN,
+        documents=int(seg.amax(-1).sum().item()), valid_tokens=valid,
+        tokens=tokens, losses=losses, step_s=walls,
+        ms_per_step=window / MASKED_STEPS * 1e3,
+        tokens_per_s=tokens * MASKED_STEPS / window,
+        valid_tokens_per_s=valid * MASKED_STEPS / window,
+        mfu=6 * n_params * tokens * MASKED_STEPS / window / H100_BF16_PEAK,
+        launches=counts, plain_calls=plain_calls,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        step0_check=dict(kernel_bf16=kernel_loss, plain_fp32=ref_loss,
+                         rel=rel, tol=TRAIN_LOSS_TOL))
+    result["profile"] = profile_train(step1, params, ids[0], labels[0],
+                                      attention_mask=seg[0])
+    del model, params, state, step, step1
+    torch.cuda.empty_cache()
+    return result
+
+
+def long_context_phase(dev):
+    """The Llama 3 8K recipe on the bench.py model: b 1, s LONG_SEQ, accum
+    LONG_ACCUM, documents of median LONG_DOC_MEDIAN packed and truncated at
+    the row end, segment ids through ``build_train_step``: the masked
+    forward and the dq + dkv backward (the fused kernel's scratch rule says
+    no at 8K).  One warm-up and one timed step.  Then the causal document
+    mask as FlashMask bands (``startend_row_indices``) must give the
+    segment-id logits of ``LlamaForCausalLM.forward``, within the bf16
+    gate.  The rope tables reach 8192 positions (bench.py's config stops
+    at 2048); nothing else of the model changes."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import LlamaForCausalLM, build_train_step
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops.flashmask import causal_document_row_indices
+
+    cfg, model, params, opt, state, n_params = train_setup(
+        dev, max_position_embeddings=LONG_SEQ)
+    rng = np.random.default_rng(SEED + 2)
+    shape = (LONG_ACCUM, 1, LONG_SEQ)
+    seg, lens = packed_documents(rng, LONG_ACCUM, LONG_SEQ, LONG_DOC_MEDIAN,
+                                 pad=False)
+    seg = torch.from_numpy(seg.reshape(shape)).to(dev)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, shape)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab_size, shape)).to(dev)
+    step = build_train_step(model, opt, compute_dtype=torch.bfloat16,
+                            accum_steps=LONG_ACCUM)
+    torch.cuda.reset_peak_memory_stats()
+    carry = [params, state]
+    del params, state
+    losses, walls, params, state, counts, plain_calls = train_steps(
+        step, carry, 2, ids, labels, attention_mask=seg)
+    want = cfg.num_hidden_layers * LONG_ACCUM * 2
+    check_launches("long context", counts, plain_calls,
+                   flash_masked_fwd=want, flash_masked_bwd_dq=want,
+                   flash_masked_bwd_dkv=want)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"long context: losses {losses} not finite")
+    tokens = LONG_ACCUM * LONG_SEQ
+    result = dict(seq=LONG_SEQ, batch=1, accum=LONG_ACCUM,
+                  doc_median=LONG_DOC_MEDIAN, documents=[len(r) for r in lens],
+                  losses=losses, step_s=walls, ms_per_step=walls[-1] * 1e3,
+                  tokens_per_s=tokens / walls[-1],
+                  mfu=6 * n_params * tokens / walls[-1] / H100_BF16_PEAK,
+                  launches=counts, plain_calls=plain_calls,
+                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del step, state
+    torch.cuda.empty_cache()
+
+    bf16 = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
+                            generator=torch.Generator(device=dev).manual_seed(
+                                SEED)).load_functional_state(params)
+    del model, params
+    fa.reset_launches()
+    with torch.no_grad():
+        by_ids = bf16(ids[0], attention_mask=seg[0])
+        by_doc = bf16(ids[0], startend_row_indices=causal_document_row_indices(
+            lens[0]))
+    _sync()
+    err, abs_err = row_error(by_doc, by_ids)
+    finite = bool(torch.isfinite(by_ids.float()).all())
+    result["doc_mask_logits"] = dict(
+        row_error=err, max_abs_err=abs_err, tol=FLASH_ROW_TOL["bf16"]["o"],
+        launches=dict(fa.LAUNCHES), shape=list(by_ids.shape))
+    if not finite or not err <= FLASH_ROW_TOL["bf16"]["o"] or \
+            fa.LAUNCHES["flash_masked_fwd"] != 2 * cfg.num_hidden_layers:
+        raise AssertionError(f"long context: document-mask logits "
+                             f"{result['doc_mask_logits']}")
+    del bf16, by_ids, by_doc
+    torch.cuda.empty_cache()
+    return result
+
+
+def profile_train(step1, params, ids, labels, micro_steps=2,
+                  attention_mask=None):
     """``torch.profiler`` over ``micro_steps`` fwd+bwd micro-steps (accum 1,
     no update): wall and device ms per micro-step, the device's idle share
     and the kernels that take most device time."""
@@ -820,13 +1366,13 @@ def profile_train(step1, params, ids, labels, micro_steps=2):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    step1.accumulate(params, ids, labels)
+    step1.accumulate(params, ids, labels, attention_mask)
     _sync()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(micro_steps):
-            step1.accumulate(params, ids, labels)
+            step1.accumulate(params, ids, labels, attention_mask)
         _sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.key_averages()
@@ -841,7 +1387,7 @@ def profile_train(step1, params, ids, labels, micro_steps=2):
         return sum(e.self_device_time_total for e in events
                    if match(e.key)) / 1e3 / micro_steps
 
-    flash = share(lambda k: "hb_" in k and "_kernel" in k)
+    flash = share(lambda k: ("hb_" in k or "masked_" in k) and "_kernel" in k)
     gemm = share(lambda k: any(t in k.lower() for t in
                                ("nvjet", "gemm", "cutlass", "sm90_xmma")))
     return {"micro_steps": micro_steps,
@@ -947,7 +1493,36 @@ def main() -> int:
                                   if k != "profile"}), flush=True)
     print("train profile: " + json.dumps(record["train"]["profile"]),
           flush=True)
+
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=dev)
+    record["masked_kernels"] = masked_cases(dev, flush)
+    del flush
+    torch.cuda.empty_cache()
+    for r in record["masked_kernels"]:
+        if "failed" in r:
+            print(f"masked {r['case']}[{r['kind']}] FAILED: {r['failed']}",
+                  flush=True)
+            continue
+        print(f"masked {r['case']}[{r['kind']}] {r['shape']}: pairs="
+              f"{r['visible_pairs']} dead_rows={r['dead_rows']} err="
+              f"{json.dumps(r['err'])} ms={json.dumps(r['times_ms'])} "
+              f"bound_ms={json.dumps(r['bound_ms'])}", flush=True)
+    record["masked_train"] = masked_train_phase(dev)
+    print("masked train: " + json.dumps(
+        {k: v for k, v in record["masked_train"].items() if k != "profile"}),
+        flush=True)
+    print("masked train profile: "
+          + json.dumps(record["masked_train"]["profile"]), flush=True)
+    record["long_context"] = long_context_phase(dev)
+    print("long context: " + json.dumps(record["long_context"]), flush=True)
     record["wall_s"] = time.perf_counter() - t0
+    out_dir = HERE / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
+    failed = [f"{r['case']}[{r['kind']}]" for r in record["masked_kernels"]
+              if "failed" in r]
+    if failed:
+        raise AssertionError(f"masked kernel phase: {failed} failed")
 
     source = "paddle_tpu_torch/csrc/decode_attention.cu"
     tpu = "paddle_tpu/ops/pallas/decode_attention.py"
@@ -997,9 +1572,38 @@ def main() -> int:
             "row_errors": {r["case"]: r["err"]
                            for r in record["flash_kernels"]
                            if r["name"] == name}})
-    out_dir = HERE / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
-    (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
+    masked_source = "paddle_tpu_torch/csrc/masked_flash_attention.cu"
+    for name, kernel, case, path, line in (
+            ("flash_masked_fwd", "fwd", "packed_docs", "masked_train", 209),
+            ("flash_masked_bwd_fused", "fused", "packed_docs", "masked_train",
+             857),
+            ("flash_masked_bwd_dq", "dq", "doc_bands_8k", "long_context",
+             939),
+            ("flash_masked_bwd_dkv", "dkv", "doc_bands_8k", "long_context",
+             988)):
+        route = {"dq": "split", "dkv": "split"}.get(kernel, kernel)
+        rows = record["masked_kernels"]
+        bf16 = next(r for r in rows if r["case"] == case
+                    and r["kind"] == "bf16")
+        lib = bf16["times_ms"]["library_fwd" if kernel == "fwd"
+                               else "library_fwd_bwd"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": masked_source,
+            "replaces": f"{flash_tpu}:{line}",
+            "launches": record[path]["launches"][name],
+            "max_abs_err": bf16["max_abs_err"][route],
+            "ms": bf16["times_ms"][kernel],
+            "plain_ms": bf16["times_ms"]["plain_fwd" if kernel == "fwd"
+                                         else "plain_bwd"],
+            "bound_ms": bf16["bound_ms"][kernel],
+            "bound_by": bf16["bound_by"][kernel],
+            "library_ms": lib if isinstance(lib, float) else None,
+            "checked_by": f"masked kernel phase ({len(MASKED_CASES)} cases, "
+                          f"bf16 and fp32; timed at {case}) and the {path} "
+                          f"path",
+            "row_errors": {kind: max(max(r["err"][route].values())
+                                     for r in rows if r["kind"] == kind)
+                           for kind in ("bf16", "fp32")}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

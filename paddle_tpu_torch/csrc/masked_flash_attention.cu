@@ -1,0 +1,584 @@
+// Masked flash attention for Hopper (sm_90a): the per-head training forward
+// and backward over compressed live-tile lists, with causal, segment-id and
+// FlashMask band masks.  Plain C interface loaded through ctypes
+// (paddle_tpu_torch/ops/_build.py builds this file with nvcc).
+//
+// Replaces the Pallas TPU kernel bodies of the per-head path of
+// paddle_tpu/ops/pallas/flash_attention.py:
+//   - _flash_kernel (launcher _flash_forward, B5)        -> masked_fwd_kernel
+//   - _flash_bwd_fused_kernel (_flash_backward, B6)      -> masked_dkv_kernel<fused>
+//   - _flash_bwd_dq_kernel (_flash_backward, B6)         -> masked_dq_kernel
+//   - _flash_bwd_dkv_kernel (_flash_backward, B6)        -> masked_dkv_kernel<split>
+//
+// Layouts (as the TPU launchers'): q, o, do, dq [b*h, sq, d] with the heads
+// of a GQA group adjacent (group-major), read here as [groups, rep, sq, d];
+// k, v, dk, dv [groups, sk, d]; lse, delta [groups, rep, sq] fp32 (the TPU's
+// 8-row broadcast is sublane padding and is dropped).  Masks: q_seg [b, sq]
+// and k_seg [b, sk] int32 segment ids (a query sees a key iff the ids are
+// equal); band [4, b * mask_h, sk] int32, the FlashMask row bands (lts, lte,
+// uts, ute): key j hides rows [lts, lte) and [uts, ute); mask_h divides kvh.
+//
+// The live lists are the TPU's scalar-prefetch tables (_live_tables,
+// _compress_live, computed by the wrapper at this kernel's tiles): for each
+// gate row (batch entry x mask head) and outer tile, count = the number of
+// inner tiles that can hold an unmasked pair, idx = their indices ascending.
+// A CTA reads its count and list from global memory and loops over j < count
+// only, so a dead tile costs neither a load nor a product.  The forward and
+// the dq kernel walk k tiles per q tile; the dk/dv kernels walk the
+// transposed list, q tiles per k tile.
+//
+// What bounds it on the H100: the VISIBLE (q, k) pairs only, 4 d flops per
+// pair forward and 10 d backward, against reading q, k, v (and o, do) once.
+// At the train shape (b 6, s 1024, 16 q heads over 4 kv heads, d 128,
+// packed documents of median 256 tokens) a third of the causal triangle is
+// visible and the bytes bound it; at 8K with documents of median 1024 the
+// operations do.  The design:
+//   - a CTA covers hpc heads of one GQA group (hpc divides rep, at most 4)
+//     at bq query positions: the live list depends only on (batch, mask
+//     head, q tile), and a mask head spans whole groups, so every head of
+//     the CTA shares it, and each K/V tile is staged once for hpc heads;
+//   - the inner loop runs inside the CTA with the fp32 softmax state and
+//     output tile in shared memory, as in csrc/flash_attention.cu;
+//   - bf16 products on the tensor cores (wmma 16x16x16, fp32 accumulation),
+//     fp32 on CUDA cores (flash_common.cuh);
+//   - backward, fused route (the TPU's one pass): one CTA per (group, k
+//     tile) walks the group's heads x live q tiles with 5 products per tile
+//     pair, dk/dv summed over the group in shared memory, and dq summed
+//     across CTAs with fp32 atomicAdd into a zeroed buffer, cast to q's
+//     dtype by a second kernel (the TPU holds a full-sequence dk/dv scratch
+//     instead, which shared memory cannot).  Atomics add in run order, so
+//     two runs can differ at fp32 rounding in dq;
+//   - backward, split route (where the TPU's scratch would not fit): a dq
+//     kernel per (head chunk, q tile) over live k tiles, and a dk/dv kernel
+//     per (group, k tile) over the group's heads x live q tiles, with the
+//     group sum in shared memory: deterministic;
+//   - delta = rowsum(do * o) comes from the caller, as the TPU launcher
+//     computes it outside its kernels.
+// Simple design, left for later work: wmma from shared memory instead of
+// wgmma, synchronous loads instead of TMA or cp.async, the accumulator
+// rescaled in shared memory.
+//
+// Semantics kept from the TPU kernels (tests/test_torch_masked_flash.py):
+//   - masking with NEG_INF = -1e30, never -inf: a row whose keys are all
+//     masked keeps m = NEG_INF and ends with o = 0 and lse = +1e30, so the
+//     backward's p = exp(s - lse) is 0 there; keys past sk read as 0;
+//   - fp32 scores and softmax state; p rounded to v's dtype before PV; l sums
+//     the unrounded p; ds rounded to k's dtype for dq, p to do's dtype for
+//     dv, ds to q's dtype for dk; query rows past sq contribute nothing.
+
+#include "flash_common.cuh"  // Mma, dtype helpers, warp reductions, kThreads
+
+namespace {
+
+struct MArgs {
+  const void* q;       // [groups, rep, sq, d]
+  const void* k;       // [groups, sk, d]
+  const void* v;
+  const void* dout;    // backward: do, q-shaped
+  const float* lse;    // backward input, [groups, rep, sq]
+  const float* delta;  // backward: rowsum(do * o), [groups, rep, sq]
+  void* o;             // forward output, q-shaped
+  float* lse_out;      // forward output, [groups, rep, sq]
+  void* dq;
+  float* dq_acc;       // fused route: fp32 dq sums, q-shaped, zeroed by the caller
+  void* dk;
+  void* dv;
+  const int* q_seg;    // [batch, sq] or null
+  const int* k_seg;    // [batch, sk] or null
+  const int* band;     // [4, batch * mask_h, sk] or null
+  const int* count;    // live list: [gates, n_outer]
+  const int* idx;      // [gates, n_outer, n_inner]
+  int batch, kvh, rep, hpc;  // hpc: q heads per CTA, divides rep
+  int sq, sk, bq, bk;        // bq query positions and bk keys per tile
+  int mask_h, gate_h;        // band rows / live-list rows per batch entry
+  int n_outer, n_inner;
+  int causal;
+  float scale;
+};
+
+// Gate row of the live list and band row of group g (batch g / kvh, kv head
+// g % kvh): mask head = kv head / (kvh / rows per batch entry).
+__device__ __forceinline__ int gate_row(const MArgs& a, int g) {
+  return (g / a.kvh) * a.gate_h + (g % a.kvh) / (a.kvh / a.gate_h);
+}
+__device__ __forceinline__ int band_row(const MArgs& a, int g) {
+  return (g / a.kvh) * a.mask_h + (g % a.kvh) / (a.kvh / a.mask_h);
+}
+
+// rows x D elements into shared memory (leading dimension D + kPad): row r
+// is head r / per_head at position pos0 + r % per_head of `base` (head
+// stride limit * D); positions at or past `limit` are zero.  16-byte copies.
+template <typename T, int D>
+__device__ void load_rows(T* dst, const T* base, int rows, int per_head, int pos0, int limit) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int C = D / V;
+  for (int idx = threadIdx.x; idx < rows * C; idx += kThreads) {
+    const int r = idx / C, c = idx % C;
+    const int pos = pos0 + r % per_head;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (pos < limit)
+      val = *reinterpret_cast<const uint4*>(
+          base + (static_cast<size_t>(r / per_head) * limit + pos) * D + c * V);
+    *reinterpret_cast<uint4*>(dst + r * (D + kPad) + c * V) = val;
+  }
+}
+
+// The mask data of bq query positions from q0 (segment ids) and of bk keys
+// from k0 (segment ids, the four band bounds); past the sequence: 0.
+__device__ void load_mask(int* qseg_s, int* kseg_s, int* band_s, const MArgs& a, int g,
+                          int q0, int k0, bool queries, bool keys) {
+  const int b = g / a.kvh;
+  if (queries && a.q_seg != nullptr)
+    for (int r = threadIdx.x; r < a.bq; r += kThreads)
+      qseg_s[r] = q0 + r < a.sq ? a.q_seg[static_cast<size_t>(b) * a.sq + q0 + r] : 0;
+  if (!keys) return;
+  if (a.k_seg != nullptr)
+    for (int j = threadIdx.x; j < a.bk; j += kThreads)
+      kseg_s[j] = k0 + j < a.sk ? a.k_seg[static_cast<size_t>(b) * a.sk + k0 + j] : 0;
+  if (a.band != nullptr) {
+    const size_t stride = static_cast<size_t>(a.batch) * a.mask_h * a.sk;
+    const size_t row = static_cast<size_t>(band_row(a, g)) * a.sk;
+    for (int i = threadIdx.x; i < 4 * a.bk; i += kThreads) {
+      const int c = i / a.bk, j = i % a.bk;
+      band_s[i] = k0 + j < a.sk ? a.band[c * stride + row + k0 + j] : 0;
+    }
+  }
+}
+
+// Whether query position q_pos (index r in its tile) sees key k_pos (index j
+// in its tile): in range, causal, same segment, outside both bands.
+__device__ __forceinline__ bool keep(const MArgs& a, const int* qseg_s, const int* kseg_s,
+                                     const int* band_s, int r, int q_pos, int j, int k_pos) {
+  if (k_pos >= a.sk || (a.causal && q_pos < k_pos)) return false;
+  if (a.q_seg != nullptr && qseg_s[r] != kseg_s[j]) return false;
+  if (a.band != nullptr &&
+      ((q_pos >= band_s[j] && q_pos < band_s[a.bk + j]) ||
+       (q_pos >= band_s[2 * a.bk + j] && q_pos < band_s[3 * a.bk + j])))
+    return false;
+  return true;
+}
+
+// ---------------------------------------------------------------- B5 forward
+// CTA (q tile, group x head chunk): M = hpc * bq rows, row m = head m / bq of
+// the chunk at position q0 + m % bq; loops over the q tile's live k tiles.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads) masked_fwd_kernel(MArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int M = a.hpc * a.bq;
+  const int ldd = D + kPad, ldk = a.bk + kPad;
+  T* q_s = reinterpret_cast<T*>(smem);   // [M][ldd]
+  T* k_s = q_s + M * ldd;                // [bk][ldd]
+  T* v_s = k_s + a.bk * ldd;             // [bk][ldd]
+  float* s_s = reinterpret_cast<float*>(v_s + a.bk * ldd);  // [M][ldk] fp32 scores
+  T* p_s = reinterpret_cast<T*>(s_s + M * ldk);             // [M][ldk] p in v's dtype
+  float* o_s = reinterpret_cast<float*>(p_s + M * ldk);     // [M][ldd] fp32 accumulator
+  float* m_s = o_s + M * ldd;            // [M] running max
+  float* l_s = m_s + M;                  // [M] running sum
+  float* alpha_s = l_s + M;              // [M] rescale of this tile
+  int* qseg_s = reinterpret_cast<int*>(alpha_s + M);  // [bq]
+  int* kseg_s = qseg_s + a.bq;                        // [bk]
+  int* band_s = kseg_s + a.bk;                        // [4][bk]
+
+  const int chunks = a.rep / a.hpc;
+  const int g = blockIdx.y / chunks, head0 = (blockIdx.y % chunks) * a.hpc;
+  const int qi = blockIdx.x, q0 = qi * a.bq;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t qoff = (static_cast<size_t>(g) * a.rep + head0) * a.sq * D;
+  const T* kg = static_cast<const T*>(a.k) + static_cast<size_t>(g) * a.sk * D;
+  const T* vg = static_cast<const T*>(a.v) + static_cast<size_t>(g) * a.sk * D;
+
+  load_rows<T, D>(q_s, static_cast<const T*>(a.q) + qoff, M, a.bq, q0, a.sq);
+  for (int i = tid; i < M * ldd; i += kThreads) o_s[i] = 0.f;
+  for (int m = tid; m < M; m += kThreads) {
+    m_s[m] = kNegInf;
+    l_s[m] = 0.f;
+  }
+  load_mask(qseg_s, kseg_s, band_s, a, g, q0, 0, true, false);
+
+  const size_t at = static_cast<size_t>(gate_row(a, g)) * a.n_outer + qi;
+  const int cnt = a.count[at];
+  const int* live = a.idx + at * a.n_inner;
+  for (int jt = 0; jt < cnt; ++jt) {
+    const int k0 = live[jt] * a.bk;
+    __syncthreads();  // the previous tile's readers of k_s, v_s, p_s and the mask are done
+    load_rows<T, D>(k_s, kg, a.bk, a.bk, k0, a.sk);
+    load_rows<T, D>(v_s, vg, a.bk, a.bk, k0, a.sk);
+    load_mask(qseg_s, kseg_s, band_s, a, g, q0, k0, false, true);
+    __syncthreads();
+    Mma<T>::abt(s_s, ldk, q_s, ldd, k_s, ldd, M, a.bk, D);
+    __syncthreads();
+
+    // online softmax: one warp per row, lanes over the tile's keys
+    for (int m = warp; m < M; m += kWarps) {
+      const int r = m % a.bq, q_pos = q0 + r;
+      float* srow = s_s + m * ldk;
+      float mx = kNegInf;
+      for (int j = lane; j < a.bk; j += 32) {
+        const float s = keep(a, qseg_s, kseg_s, band_s, r, q_pos, j, k0 + j)
+                            ? srow[j] * a.scale : kNegInf;
+        srow[j] = s;
+        mx = fmaxf(mx, s);
+      }
+      mx = warp_max(mx);
+      const float m_prev = m_s[m];
+      const float m_new = fmaxf(m_prev, mx);
+      float sum = 0.f;
+      for (int j = lane; j < a.bk; j += 32) {
+        const float p = expf(srow[j] - m_new);
+        sum += p;
+        p_s[m * ldk + j] = from_f<T>(p);
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) {
+        const float alpha = expf(m_prev - m_new);
+        alpha_s[m] = alpha;
+        l_s[m] = l_s[m] * alpha + sum;
+        m_s[m] = m_new;
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < M * D; i += kThreads) o_s[(i / D) * ldd + i % D] *= alpha_s[i / D];
+    __syncthreads();
+    Mma<T>::ab_acc(o_s, ldd, p_s, ldk, v_s, ldd, M, D, a.bk);
+  }
+  __syncthreads();
+
+  T* og = static_cast<T*>(a.o) + qoff;
+  for (int i = tid; i < M * D; i += kThreads) {
+    const int m = i / D, c = i % D;
+    const int pos = q0 + m % a.bq;
+    if (pos >= a.sq) continue;
+    float l = l_s[m];
+    if (l == 0.f) l = 1.f;
+    const bool valid = m_s[m] > kNegInf * 0.5f;
+    og[(static_cast<size_t>(m / a.bq) * a.sq + pos) * D + c] =
+        from_f<T>(valid ? o_s[m * ldd + c] / l : 0.f);
+  }
+  for (int m = tid; m < M; m += kThreads) {
+    const int pos = q0 + m % a.bq;
+    if (pos >= a.sq) continue;
+    float l = l_s[m];
+    if (l == 0.f) l = 1.f;
+    const bool valid = m_s[m] > kNegInf * 0.5f;
+    a.lse_out[(static_cast<size_t>(g) * a.rep + head0 + m / a.bq) * a.sq + pos] =
+        valid ? m_s[m] + logf(l) : -kNegInf;
+  }
+}
+
+// lse and delta of the M rows of a q tile (heads head0.. of group g); rows
+// past sq read 0.
+__device__ void load_row_stats(float* lse_s, float* delta_s, const MArgs& a, int g, int head0,
+                               int q0) {
+  const int M = a.hpc * a.bq;
+  for (int m = threadIdx.x; m < M; m += kThreads) {
+    const int pos = q0 + m % a.bq;
+    const size_t at = (static_cast<size_t>(g) * a.rep + head0 + m / a.bq) * a.sq + pos;
+    lse_s[m] = pos < a.sq ? a.lse[at] : 0.f;
+    delta_s[m] = pos < a.sq ? a.delta[at] : 0.f;
+  }
+}
+
+// p and ds of one score tile (s_s holds q.k, dp_s holds do.v): p = exp(s -
+// lse) masked, ds = p * (dp - delta) * scale, both zero on rows past sq and
+// ds zero on keys past sk.  Writes p (if p_s is given) and ds, rounded to T.
+template <typename T>
+__device__ void p_and_ds(const float* s_s, const float* dp_s, T* p_s, T* ds_s,
+                         const float* lse_s, const float* delta_s, const int* qseg_s,
+                         const int* kseg_s, const int* band_s, const MArgs& a, int q0, int k0) {
+  const int M = a.hpc * a.bq;
+  const int ldk = a.bk + kPad;
+  for (int i = threadIdx.x; i < M * a.bk; i += kThreads) {
+    const int m = i / a.bk, j = i % a.bk;
+    const int r = m % a.bq, q_pos = q0 + r, k_pos = k0 + j;
+    const float s = keep(a, qseg_s, kseg_s, band_s, r, q_pos, j, k_pos)
+                        ? s_s[m * ldk + j] * a.scale : kNegInf;
+    float p = expf(s - lse_s[m]);
+    float ds = p * (dp_s[m * ldk + j] - delta_s[m]) * a.scale;
+    if (q_pos >= a.sq) p = ds = 0.f;
+    if (k_pos >= a.sk) ds = 0.f;
+    if (p_s != nullptr) p_s[m * ldk + j] = from_f<T>(p);
+    ds_s[m * ldk + j] = from_f<T>(ds);
+  }
+}
+
+// --------------------------------------------- B6 dq (split route), per q tile
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads) masked_dq_kernel(MArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int M = a.hpc * a.bq;
+  const int ldd = D + kPad, ldk = a.bk + kPad;
+  T* q_s = reinterpret_cast<T*>(smem);   // [M][ldd]
+  T* do_s = q_s + M * ldd;               // [M][ldd]
+  T* k_s = do_s + M * ldd;               // [bk][ldd]
+  T* v_s = k_s + a.bk * ldd;             // [bk][ldd]
+  float* s_s = reinterpret_cast<float*>(v_s + a.bk * ldd);  // [M][ldk]
+  float* dp_s = s_s + M * ldk;                              // [M][ldk]
+  T* ds_s = reinterpret_cast<T*>(dp_s + M * ldk);           // [M][ldk] ds in k's dtype
+  float* dq_s = reinterpret_cast<float*>(ds_s + M * ldk);   // [M][ldd]
+  float* lse_s = dq_s + M * ldd;                            // [M]
+  float* delta_s = lse_s + M;                               // [M]
+  int* qseg_s = reinterpret_cast<int*>(delta_s + M);        // [bq]
+  int* kseg_s = qseg_s + a.bq;                              // [bk]
+  int* band_s = kseg_s + a.bk;                              // [4][bk]
+
+  const int chunks = a.rep / a.hpc;
+  const int g = blockIdx.y / chunks, head0 = (blockIdx.y % chunks) * a.hpc;
+  const int qi = blockIdx.x, q0 = qi * a.bq;
+  const int tid = threadIdx.x;
+  const size_t qoff = (static_cast<size_t>(g) * a.rep + head0) * a.sq * D;
+  const size_t koff = static_cast<size_t>(g) * a.sk * D;
+  const T* kg = static_cast<const T*>(a.k) + koff;
+  const T* vg = static_cast<const T*>(a.v) + koff;
+
+  load_rows<T, D>(q_s, static_cast<const T*>(a.q) + qoff, M, a.bq, q0, a.sq);
+  load_rows<T, D>(do_s, static_cast<const T*>(a.dout) + qoff, M, a.bq, q0, a.sq);
+  load_row_stats(lse_s, delta_s, a, g, head0, q0);
+  load_mask(qseg_s, kseg_s, band_s, a, g, q0, 0, true, false);
+  for (int i = tid; i < M * ldd; i += kThreads) dq_s[i] = 0.f;
+
+  const size_t at = static_cast<size_t>(gate_row(a, g)) * a.n_outer + qi;
+  const int cnt = a.count[at];
+  const int* live = a.idx + at * a.n_inner;
+  for (int jt = 0; jt < cnt; ++jt) {
+    const int k0 = live[jt] * a.bk;
+    __syncthreads();  // the previous tile's readers of k_s, v_s, ds_s and the mask are done
+    load_rows<T, D>(k_s, kg, a.bk, a.bk, k0, a.sk);
+    load_rows<T, D>(v_s, vg, a.bk, a.bk, k0, a.sk);
+    load_mask(qseg_s, kseg_s, band_s, a, g, q0, k0, false, true);
+    __syncthreads();
+    Mma<T>::abt(s_s, ldk, q_s, ldd, k_s, ldd, M, a.bk, D);
+    Mma<T>::abt(dp_s, ldk, do_s, ldd, v_s, ldd, M, a.bk, D);
+    __syncthreads();
+    p_and_ds<T>(s_s, dp_s, static_cast<T*>(nullptr), ds_s, lse_s, delta_s, qseg_s, kseg_s,
+                band_s, a, q0, k0);
+    __syncthreads();
+    Mma<T>::ab_acc(dq_s, ldd, ds_s, ldk, k_s, ldd, M, D, a.bk);
+  }
+  __syncthreads();
+
+  T* dqg = static_cast<T*>(a.dq) + qoff;
+  for (int i = tid; i < M * D; i += kThreads) {
+    const int m = i / D, c = i % D;
+    const int pos = q0 + m % a.bq;
+    if (pos >= a.sq) continue;
+    dqg[(static_cast<size_t>(m / a.bq) * a.sq + pos) * D + c] = from_f<T>(dq_s[m * ldd + c]);
+  }
+}
+
+// ------------------------------ B6 dk/dv per k tile (split) and fused pass
+// CTA (k tile, group): walks the transposed live list (the k tile's live q
+// tiles), and for each every head chunk of the group; dk/dv of the whole
+// group stay in shared memory.  kWithDq (the fused pass) adds dq = ds k per tile pair, summed
+// across CTAs by atomicAdd into a.dq_acc.
+template <typename T, int D, bool kWithDq>
+__global__ void __launch_bounds__(kThreads) masked_dkv_kernel(MArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int M = a.hpc * a.bq;
+  const int ldd = D + kPad, ldk = a.bk + kPad;
+  // the fp32 dq tile of the fused pass reuses the score region once p and
+  // ds are made: max(2 * M * ldk, M * ldd) floats
+  const int score_floats = kWithDq ? max(2 * M * ldk, M * ldd) : 2 * M * ldk;
+  T* q_s = reinterpret_cast<T*>(smem);   // [M][ldd]
+  T* do_s = q_s + M * ldd;               // [M][ldd]
+  T* k_s = do_s + M * ldd;               // [bk][ldd]
+  T* v_s = k_s + a.bk * ldd;             // [bk][ldd]
+  float* s_s = reinterpret_cast<float*>(v_s + a.bk * ldd);  // [M][ldk]
+  float* dp_s = s_s + M * ldk;                              // [M][ldk]
+  float* dq_s = s_s;                                        // fused: [M][ldd]
+  T* p_s = reinterpret_cast<T*>(s_s + score_floats);        // [M][ldk] p in do's dtype
+  T* ds_s = p_s + M * ldk;                                  // [M][ldk] ds in q's/k's dtype
+  float* dk_s = reinterpret_cast<float*>(ds_s + M * ldk);   // [bk][ldd]
+  float* dv_s = dk_s + a.bk * ldd;                          // [bk][ldd]
+  float* lse_s = dv_s + a.bk * ldd;                         // [M]
+  float* delta_s = lse_s + M;                               // [M]
+  int* qseg_s = reinterpret_cast<int*>(delta_s + M);        // [bq]
+  int* kseg_s = qseg_s + a.bq;                              // [bk]
+  int* band_s = kseg_s + a.bk;                              // [4][bk]
+
+  const int g = blockIdx.y;
+  const int ki = blockIdx.x, k0 = ki * a.bk;
+  const int tid = threadIdx.x;
+  const size_t koff = static_cast<size_t>(g) * a.sk * D;
+
+  load_rows<T, D>(k_s, static_cast<const T*>(a.k) + koff, a.bk, a.bk, k0, a.sk);
+  load_rows<T, D>(v_s, static_cast<const T*>(a.v) + koff, a.bk, a.bk, k0, a.sk);
+  load_mask(qseg_s, kseg_s, band_s, a, g, 0, k0, false, true);
+  for (int i = tid; i < 2 * a.bk * ldd; i += kThreads) dk_s[i] = 0.f;  // dk_s and dv_s
+
+  const size_t at = static_cast<size_t>(gate_row(a, g)) * a.n_outer + ki;
+  const int cnt = a.count[at];
+  const int* live = a.idx + at * a.n_inner;
+  for (int jt = 0; jt < cnt; ++jt) {
+    const int q0 = live[jt] * a.bq;
+    for (int head0 = 0; head0 < a.rep; head0 += a.hpc) {
+      const size_t qoff = (static_cast<size_t>(g) * a.rep + head0) * a.sq * D;
+      __syncthreads();  // the previous tile's readers of q_s, do_s, p_s, ds_s, dq_s are done
+      load_rows<T, D>(q_s, static_cast<const T*>(a.q) + qoff, M, a.bq, q0, a.sq);
+      load_rows<T, D>(do_s, static_cast<const T*>(a.dout) + qoff, M, a.bq, q0, a.sq);
+      load_row_stats(lse_s, delta_s, a, g, head0, q0);
+      load_mask(qseg_s, kseg_s, band_s, a, g, q0, k0, true, false);
+      __syncthreads();
+      Mma<T>::abt(s_s, ldk, q_s, ldd, k_s, ldd, M, a.bk, D);
+      Mma<T>::abt(dp_s, ldk, do_s, ldd, v_s, ldd, M, a.bk, D);
+      __syncthreads();
+      p_and_ds<T>(s_s, dp_s, p_s, ds_s, lse_s, delta_s, qseg_s, kseg_s, band_s, a, q0, k0);
+      __syncthreads();
+      if (kWithDq)
+        for (int i = tid; i < M * ldd; i += kThreads) dq_s[i] = 0.f;
+      // the contraction runs over all M rows: the sum over the chunk's heads
+      Mma<T>::atb_acc(dv_s, ldd, p_s, ldk, do_s, ldd, a.bk, D, M);
+      Mma<T>::atb_acc(dk_s, ldd, ds_s, ldk, q_s, ldd, a.bk, D, M);
+      if (kWithDq) {
+        __syncthreads();
+        Mma<T>::ab_acc(dq_s, ldd, ds_s, ldk, k_s, ldd, M, D, a.bk);
+        __syncthreads();
+        for (int i = tid; i < M * D; i += kThreads) {
+          const int m = i / D, c = i % D;
+          const int pos = q0 + m % a.bq;
+          if (pos < a.sq)
+            atomicAdd(a.dq_acc + qoff + (static_cast<size_t>(m / a.bq) * a.sq + pos) * D + c,
+                      dq_s[m * ldd + c]);
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  T* dkg = static_cast<T*>(a.dk) + koff;
+  T* dvg = static_cast<T*>(a.dv) + koff;
+  for (int i = tid; i < a.bk * D; i += kThreads) {
+    const int j = i / D, c = i % D;
+    if (k0 + j >= a.sk) continue;
+    dkg[static_cast<size_t>(k0 + j) * D + c] = from_f<T>(dk_s[j * ldd + c]);
+    dvg[static_cast<size_t>(k0 + j) * D + c] = from_f<T>(dv_s[j * ldd + c]);
+  }
+}
+
+// fp32 dq sums -> q's dtype (the fused route's last step)
+template <typename T>
+__global__ void cast_kernel(const float* src, T* dst, size_t n) {
+  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < n;
+       i += static_cast<size_t>(gridDim.x) * blockDim.x)
+    dst[i] = from_f<T>(src[i]);
+}
+
+// Kernel kinds of the C entry (ops/flash_attention.py MASKED_KINDS).
+enum Kind { kFwd = 0, kDq = 1, kDkv = 2, kFused = 3 };
+
+// Dynamic shared memory of each kernel: the layouts above, in bytes
+// (ops/flash_attention.py masked_smem_bytes mirrors this to pick the tiles).
+size_t smem_bytes(Kind kind, const MArgs& a, int d, size_t t) {
+  const size_t m = static_cast<size_t>(a.hpc) * a.bq, bk = a.bk;
+  const size_t ldd = d + kPad, ldk = bk + kPad;
+  const size_t masks = 4 * (a.bq + 5 * bk);
+  switch (kind) {
+    case kFwd:
+      return t * (m + 2 * bk) * ldd + 4 * m * ldk + t * m * ldk + 4 * m * ldd + 12 * m + masks;
+    case kDq:
+      return t * (2 * m + 2 * bk) * ldd + 8 * m * ldk + t * m * ldk + 4 * m * ldd + 8 * m + masks;
+    default: {
+      const size_t scores = kind == kFused ? (2 * m * ldk > m * ldd ? 2 * m * ldk : m * ldd)
+                                           : 2 * m * ldk;
+      return t * (2 * m + 2 * bk) * ldd + 4 * scores + 2 * t * m * ldk + 8 * bk * ldd + 8 * m +
+             masks;
+    }
+  }
+}
+
+template <typename T, int D>
+cudaError_t launch(Kind kind, const MArgs& a, int groups, cudaStream_t stream) {
+  const size_t smem = smem_bytes(kind, a, D, sizeof(T));
+  const int m = a.hpc * a.bq;
+  if (smem > kSmemLimit || a.bq <= 0 || a.bk <= 0 || a.hpc <= 0 || a.rep % a.hpc != 0 ||
+      a.mask_h <= 0 || a.kvh % a.mask_h != 0 || a.gate_h <= 0 || a.kvh % a.gate_h != 0)
+    return cudaErrorInvalidValue;
+  // tensor-core tiles: 16-row multiples for every product's operands
+  if (sizeof(T) == 2 && (m % 16 != 0 || a.bk % 16 != 0)) return cudaErrorInvalidValue;
+  void (*kernel)(MArgs) = kind == kFwd ? masked_fwd_kernel<T, D>
+                          : kind == kDq ? masked_dq_kernel<T, D>
+                          : kind == kDkv ? masked_dkv_kernel<T, D, false>
+                                         : masked_dkv_kernel<T, D, true>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  const bool per_k = kind == kDkv || kind == kFused;
+  const dim3 grid(per_k ? (a.sk + a.bk - 1) / a.bk : (a.sq + a.bq - 1) / a.bq,
+                  per_k ? groups : groups * (a.rep / a.hpc));
+  kernel<<<grid, kThreads, smem, stream>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || kind != kFused || sizeof(T) == 4) return e;
+  // bf16: the fp32 dq sums to q's dtype
+  const size_t n = static_cast<size_t>(groups) * a.rep * a.sq * D;
+  const int blocks = static_cast<int>(n / kThreads / 8 + 1 < 4096 ? n / kThreads / 8 + 1 : 4096);
+  cast_kernel<T><<<blocks, kThreads, 0, stream>>>(a.dq_acc, static_cast<T*>(a.dq), n);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_d(Kind kind, const MArgs& a, int groups, int d, cudaStream_t s) {
+  switch (d) {
+    case 16: return launch<T, 16>(kind, a, groups, s);
+    case 32: return launch<T, 32>(kind, a, groups, s);
+    case 64: return launch<T, 64>(kind, a, groups, s);
+    case 128: return launch<T, 128>(kind, a, groups, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// One entry for the four kernels: kind (Kind), 17 pointers and 14 ints in
+// the order of ops/flash_attention.py _masked_launch:
+//   ptrs: q, k, v, do, lse, delta, o, lse_out, dq, dq_acc, dk, dv, q_seg,
+//         k_seg, band, count, idx (null where a kind does not use one)
+//   ints: batch, kvh, rep, hpc, sq, sk, d, bq, bk, mask_h, gate_h, n_outer,
+//         n_inner, causal
+// The fused kind runs its pass, then (bf16) the cast of dq_acc into dq; for
+// fp32, dq_acc is dq itself.
+int pt_masked_flash(int kind, void* const* p, const int* n, float scale, int dtype,
+                    void* stream) {
+  if (kind < kFwd || kind > kFused) return cudaErrorInvalidValue;
+  MArgs a{};
+  a.q = p[0];
+  a.k = p[1];
+  a.v = p[2];
+  a.dout = p[3];
+  a.lse = static_cast<const float*>(p[4]);
+  a.delta = static_cast<const float*>(p[5]);
+  a.o = p[6];
+  a.lse_out = static_cast<float*>(p[7]);
+  a.dq = p[8];
+  a.dq_acc = static_cast<float*>(p[9]);
+  a.dk = p[10];
+  a.dv = p[11];
+  a.q_seg = static_cast<const int*>(p[12]);
+  a.k_seg = static_cast<const int*>(p[13]);
+  a.band = static_cast<const int*>(p[14]);
+  a.count = static_cast<const int*>(p[15]);
+  a.idx = static_cast<const int*>(p[16]);
+  a.batch = n[0];
+  a.kvh = n[1];
+  a.rep = n[2];
+  a.hpc = n[3];
+  a.sq = n[4];
+  a.sk = n[5];
+  const int d = n[6];
+  a.bq = n[7];
+  a.bk = n[8];
+  a.mask_h = n[9];
+  a.gate_h = n[10];
+  a.n_outer = n[11];
+  a.n_inner = n[12];
+  a.causal = n[13];
+  a.scale = scale;
+  const int groups = a.batch * a.kvh;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Kind k = static_cast<Kind>(kind);
+  if (dtype == kF32) return dispatch_d<float>(k, a, groups, d, s);
+  if (dtype == kBF16) return dispatch_d<__nv_bfloat16>(k, a, groups, d, s);
+  return cudaErrorInvalidValue;
+}
+
+}  // extern "C"

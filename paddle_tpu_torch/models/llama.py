@@ -2,11 +2,12 @@
 
 Port of ``paddle_tpu/models/llama.py``: ``LlamaConfig``, ``_rope_tables``,
 ``LlamaForCausalLM`` (parameter container and forward), the functional
-core ``llama_forward`` (``LlamaRMSNorm``, ``LlamaAttention``, ``LlamaMLP``,
-``LlamaDecoderLayer``, ``LlamaModel.forward`` and the head in one
+core ``llama_forward`` (``LlamaRMSNorm``, ``LlamaAttention`` with its
+segment-id and FlashMask branches, ``LlamaMLP``, ``LlamaDecoderLayer``,
+``LlamaModel.forward`` with its mask normalisation, and the head in one
 function over the functional-state names), the loss (``_gold_logit``,
 ``_ce_loss``), ``llama_decay_mask``, ``_accum_fold`` and the single-device
-subset of ``build_train_step``.  ``LlamaForCausalLM`` holds
+subset of ``build_train_step`` (unmasked and token-weighted masked).  ``LlamaForCausalLM`` holds
 its parameters under exactly the names of the JAX model's
 ``functional_state()`` (``model.layers.0.self_attn.q_proj.weight``,
 ``lm_head.weight``, ...), with Paddle's ``[in, out]`` Linear layout, so a
@@ -29,6 +30,7 @@ from ..device import DeviceLike, resolve_device
 from ..incubate.nn.attention import flash_attention
 from ..incubate.nn.fused import (fused_rms_norm,
                                  fused_rotary_position_embedding, swiglu)
+from ..ops.flashmask import flashmask_attention_raw
 
 
 @dataclasses.dataclass
@@ -185,17 +187,14 @@ class LlamaForCausalLM(nn.Module):
                 startend_row_indices=None):
         """Logits [b, s, vocab] (mirror of ``LlamaForCausalLM.forward``),
         computed by ``llama_forward`` with this model's own parameters, in
-        their dtype.  Masked attention (``attention_mask`` segment ids,
-        ``startend_row_indices`` FlashMask bands) takes kernel B5, a later
-        slice, and raises."""
-        if attention_mask is not None or startend_row_indices is not None:
-            raise NotImplementedError(
-                "LlamaForCausalLM.forward: attention_mask / "
-                "startend_row_indices take the masked flash kernels (B5 "
-                "_flash_kernel, B6), a later slice of the port")
+        their dtype.  ``attention_mask``: a bool keep-mask or int segment
+        ids [b, s] (0 marks padding); ``startend_row_indices``: FlashMask
+        bands [b, mh, s, {1, 2}] (causal classes); not both."""
         ids = torch.as_tensor(input_ids, device=self.device)
         return llama_forward(self.cfg, dict(self.named_parameters()), ids,
-                             position_ids, self.rope)
+                             position_ids, self.rope,
+                             attention_mask=attention_mask,
+                             startend_row_indices=startend_row_indices)
 
     @property
     def rope(self):
@@ -245,23 +244,64 @@ def opt_state_from_jax(state, device: DeviceLike):
 
 # ------------------------------------------------------------------- forward
 
+def normalize_masks(attention_mask, startend_row_indices, device):
+    """The masks as the attention takes them (mirror of
+    ``LlamaModel.forward``'s normalisation, then ``LlamaAttention``'s
+    check): ``startend_row_indices`` as int32; ``attention_mask`` a bool
+    keep-mask or integer segment ids, as int32 segment ids (bool: kept 1,
+    padding 0).  A float mask raises ``TypeError`` (casting it would invert
+    the additive convention), and so do negative ids (one host sync: the
+    train step normalises once per step, not once per micro-step); both
+    masks given raise ``ValueError``."""
+    if startend_row_indices is not None:
+        startend_row_indices = torch.as_tensor(
+            startend_row_indices, device=device).to(torch.int32)
+    if attention_mask is not None:
+        mask = torch.as_tensor(attention_mask, device=device)
+        if mask.is_floating_point() or mask.is_complex():
+            raise TypeError(
+                "LlamaModel.attention_mask expects a bool keep-mask or int "
+                f"segment ids [b, s], got dtype {mask.dtype}; convert an "
+                "additive float mask with (mask == 0) first")
+        if mask.dtype != torch.bool and bool((mask < 0).any()):
+            raise TypeError(
+                "integer attention_mask values must be >= 0 (segment ids; 0 "
+                "marks padding) - additive masks are not accepted")
+        attention_mask = mask.to(torch.int32)
+    if attention_mask is not None and startend_row_indices is not None:
+        # composing band masks with segment ids is ambiguous: a causal
+        # document mask expresses packed segments on its own
+        raise ValueError("pass either attention_mask (segment ids) or "
+                         "startend_row_indices (FlashMask bands), not both")
+    return attention_mask, startend_row_indices
+
+
 def llama_forward(cfg: LlamaConfig, params: Dict[str, torch.Tensor],
                   input_ids: torch.Tensor,
                   position_ids: Optional[torch.Tensor] = None,
-                  rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                  rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                  attention_mask=None, startend_row_indices=None
                   ) -> torch.Tensor:
     """Logits [b, s, vocab] of the Llama causal LM from a functional-state
     dict, computed in the parameters' dtype.  One function mirroring
     ``LlamaRMSNorm`` (``fused_rms_norm``), ``LlamaAttention`` (the [b, s, h,
     d] layout, neox rope with tables cast to the compute dtype, GQA passed
-    unexpanded to ``flash_attention``, causal), ``LlamaMLP`` (SwiGLU),
-    ``LlamaDecoderLayer`` (pre-norm residual blocks), ``LlamaModel.forward``
-    (rope sliced to ``[:s]`` or gathered by ``position_ids``) and
-    ``LlamaForCausalLM.forward`` (``lm_head``, or the tied embedding).
-    The JAX model's remat tags (``decoder_attn_out``/``decoder_mlp_out``)
-    belong to the memory engine (ROADMAP A4) and are left out.
-    ``rope``: the (cos, sin) tables on the ids' device
-    (``LlamaForCausalLM.rope``); made here when not given."""
+    unexpanded; causal ``flash_attention``, with ``attention_mask`` segment
+    ids, or ``flashmask_attention_raw`` with ``startend_row_indices``),
+    ``LlamaMLP`` (SwiGLU), ``LlamaDecoderLayer`` (pre-norm residual
+    blocks), ``LlamaModel.forward`` (``normalize_masks``; rope sliced to
+    ``[:s]`` or gathered by ``position_ids``) and ``LlamaForCausalLM.forward``
+    (``lm_head``, or the tied embedding).  The JAX model's remat tags
+    (``decoder_attn_out``/``decoder_mlp_out``) belong to the memory engine
+    (ROADMAP A4) and are left out.  ``rope``: the (cos, sin) tables on the
+    ids' device (``LlamaForCausalLM.rope``); made here when not given."""
+    seg, sri = normalize_masks(attention_mask, startend_row_indices,
+                               input_ids.device)
+    return _forward(cfg, params, input_ids, position_ids, rope, seg, sri)
+
+
+def _forward(cfg, params, input_ids, position_ids, rope, seg, sri):
+    """``llama_forward`` on normalised masks (int32 segment ids or bands)."""
     b, s = input_ids.shape
     H, KV, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     eps = cfg.rms_norm_eps
@@ -285,7 +325,11 @@ def llama_forward(cfg: LlamaConfig, params: Dict[str, torch.Tensor],
         k = (h @ w("self_attn.k_proj")).reshape(b, s, KV, d)
         v = (h @ w("self_attn.v_proj")).reshape(b, s, KV, d)
         q, k = fused_rotary_position_embedding(q, k, sin=sin, cos=cos)
-        attn = flash_attention(q, k, v, causal=True)
+        if sri is not None:
+            attn = flashmask_attention_raw(q, k, v, sri, causal=True)
+        else:
+            attn = flash_attention(q, k, v, causal=True, q_segment_ids=seg,
+                                   kv_segment_ids=seg)
         x = x + attn.reshape(b, s, H * d) @ w("self_attn.o_proj")
         h = fused_rms_norm(x, w("post_attention_layernorm"), eps)
         x = x + swiglu(h @ w("mlp.gate_proj"),
@@ -369,16 +413,24 @@ def build_train_step(model: LlamaForCausalLM, optimizer,
       ``_accum_fold(accum_steps)`` micro-steps, or straight into the fp32
       accumulator when the carry is fp32 or the fold is 1; the update runs
       once on the mean;
+    - ``attention_mask`` (segment ids, ``[b, s]`` or ``[accum_steps, b,
+      s]``; 0 marks padding) runs the masked attention kernels and the
+      token-weighted loss; at accum > 1 each micro-grad is scaled by its
+      valid-token count w into an fp32 carry (no bf16 fold: the
+      normalisation is known only at the end), and the sum is divided by
+      the total count, clamped to at least 1 only in total, so an
+      all-padding micro-batch weighs 0 (mirror of ``micro_step_masked``);
     - the update is ``optimizer.apply_flat`` for a flat state
       (``init_flat_state``) and ``optimizer.apply`` otherwise, at Adam step
       ``step_no + 1``, with ``llama_decay_mask``.
 
     PyTorch runs eagerly: no jit and no donation; the step keeps nothing
-    from one call to the next, and the loss stays on the device (no host
-    sync).  ``step.accumulate(params, ids, labels) -> (loss, grads)`` is the
-    gradient half alone.  ``attention_mask`` (token-weighted accumulation
-    over the masked kernel B5) and the options in
-    ``_UNPORTED_STEP_OPTIONS`` raise ``NotImplementedError``."""
+    from one call to the next, and the loss stays on the device.  The one
+    host sync is the mask's negative-id check, once per step, outside the
+    accumulation.  ``step.accumulate(params, ids, labels,
+    attention_mask=None) -> (loss, grads)`` is the gradient half alone.
+    The options in ``_UNPORTED_STEP_OPTIONS`` raise
+    ``NotImplementedError``."""
     for name, value in later.items():
         if name not in _UNPORTED_STEP_OPTIONS:
             raise TypeError(f"build_train_step: unknown option {name!r}")
@@ -395,29 +447,52 @@ def build_train_step(model: LlamaForCausalLM, optimizer,
     bf16_carry = accum_steps > 1 and accum_dtype != torch.float32 \
         and fold > 1
 
-    def grad_fn(params, ids, labels):
+    def grad_fn(params, ids, labels, seg=None):
         leaves = {k: v.detach().requires_grad_()
                   for k, v in params.items() if v.is_floating_point()}
         cast = {k: leaves[k].to(compute_dtype) if k in leaves else v
                 for k, v in params.items()}
         with torch.enable_grad():
-            loss = _ce_loss(llama_forward(cfg, cast, ids, rope=rope),
-                            labels)
+            loss = _ce_loss(_forward(cfg, cast, ids, None, rope, seg, None),
+                            labels, seg)
             grads = torch.autograd.grad(loss, list(leaves.values()))
         return loss.detach(), dict(zip(leaves, grads))
 
-    def accumulate(params, ids, labels):
+    def zeros(params, dtype):
+        return {k: torch.zeros_like(v, dtype=dtype)
+                for k, v in params.items() if v.is_floating_point()}
+
+    def accumulate_masked(params, ids, labels, seg):
+        acc = zeros(params, torch.float32)
+        wsum = torch.zeros((), dtype=torch.float32, device=dev)
+        wloss = torch.zeros((), dtype=torch.float32, device=dev)
+        for i in range(accum_steps):
+            loss, g = grad_fn(params, ids[i], labels[i], seg[i])
+            # the true token count, no clamp: an all-padding micro-batch
+            # weighs 0 (its loss and grads are already 0)
+            w = (seg[i] > 0).sum().float()
+            for k, a in acc.items():
+                a += g[k].float() * w
+            wsum += w
+            wloss += loss * w
+        wsum = torch.clamp(wsum, min=1.0)          # guard only the total
+        return wloss / wsum, {k: a / wsum for k, a in acc.items()}
+
+    def accumulate(params, ids, labels, attention_mask=None):
+        seg = None
+        if attention_mask is not None:
+            seg, _ = normalize_masks(attention_mask, None, dev)
+            if seg.shape != ids.shape:
+                raise ValueError(f"attention_mask {tuple(seg.shape)} does not "
+                                 f"match input_ids {tuple(ids.shape)}")
         if accum_steps <= 1:
-            return grad_fn(params, ids, labels)
-
-        def zeros(dtype):
-            return {k: torch.zeros_like(v, dtype=dtype)
-                    for k, v in params.items() if v.is_floating_point()}
-
-        acc, losses = zeros(torch.float32), []
+            return grad_fn(params, ids, labels, seg)
+        if seg is not None:
+            return accumulate_masked(params, ids, labels, seg)
+        acc, losses = zeros(params, torch.float32), []
         if bf16_carry:
             for c in range(accum_steps // fold):
-                acc_lo = zeros(accum_dtype)
+                acc_lo = zeros(params, accum_dtype)
                 for i in range(c * fold, (c + 1) * fold):
                     loss, g = grad_fn(params, ids[i], labels[i])
                     for k, a in acc_lo.items():
@@ -446,11 +521,6 @@ def build_train_step(model: LlamaForCausalLM, optimizer,
 
     def step(params, opt_state, step_no, lr, input_ids, labels,
              attention_mask=None):
-        if attention_mask is not None:
-            raise NotImplementedError(
-                "build_train_step: attention_mask (token-weighted "
-                "accumulation) takes the masked flash kernel B5, a later "
-                "slice of the port")
         ids, lab = as_ids(input_ids), as_ids(labels)
         want = 3 if accum_steps > 1 else 2
         if ids.dim() != want or lab.shape != ids.shape \
@@ -458,7 +528,7 @@ def build_train_step(model: LlamaForCausalLM, optimizer,
             raise ValueError(f"input_ids {tuple(ids.shape)} / labels "
                              f"{tuple(lab.shape)}: expected "
                              f"{'[accum_steps, b, s]' if want == 3 else '[b, s]'}")
-        loss, grads = accumulate(params, ids, lab)
+        loss, grads = accumulate(params, ids, lab, attention_mask)
         new_params, new_state = apply_update(params, grads, opt_state,
                                              float(lr), int(step_no))
         return loss, new_params, new_state

@@ -1,13 +1,15 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` source (``decode_attention.cu``,
-``flash_attention.cu``) is compiled by one ``nvcc`` call into one shared
-library with a plain C interface (no PyTorch headers, so a build takes
-seconds) and loaded with ``ctypes``.  The library goes into
-``paddle_tpu_torch/_build/`` (listed in ``.gitignore``), named by a hash
-over all sources and the flags, so an edited source rebuilds and an
-unchanged tree is reused.  Nothing is built at import time: the first
-CUDA call of a kernel wrapper builds.
+Every ``csrc/*.cu`` source (``decode_attention.cu``, ``flash_attention.cu``,
+``masked_flash_attention.cu``; the last two include ``flash_common.cuh``)
+is compiled by its own ``nvcc`` process, all started together, into an
+object file; one more ``nvcc`` links them into a shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds), loaded
+with ``ctypes``.  The library goes into ``paddle_tpu_torch/_build/``
+(listed in ``.gitignore``), named by a hash over all sources, headers and
+flags, so an edited source rebuilds and an unchanged tree is reused.
+Nothing is built at import time: the first CUDA call of a kernel wrapper
+builds.
 """
 
 from __future__ import annotations
@@ -22,11 +24,15 @@ from pathlib import Path
 from typing import Optional
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "decode_attention.cu",
-           _PKG / "csrc" / "flash_attention.cu")
+CSRC = _PKG / "csrc"
+SOURCES = (CSRC / "decode_attention.cu", CSRC / "flash_attention.cu",
+           CSRC / "masked_flash_attention.cu")
+HEADERS = (CSRC / "flash_common.cuh",)
 BUILD_DIR = _PKG / "_build"
+# compile flags of each source; headers resolve through -I csrc/, also for
+# an edited copy of a source compiled from elsewhere
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v", f"-I{CSRC}")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,6 +49,8 @@ SIGNATURES = {
                             _I, _F, _I, _P],
     "pt_hb_flash_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                              _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    # kind, pointer array, int array, scale, dtype, stream
+    "pt_masked_flash": [_I, _P, _P, _F, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -62,30 +70,55 @@ def nvcc_path() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in (*SOURCES, *HEADERS):
         h.update(src.name.encode() + b"\0" + src.read_bytes())
     return BUILD_DIR / f"kernels-{h.hexdigest()[:16]}.so"
 
 
+def build_library(sources, out: Path) -> None:
+    """Compile ``sources`` with one ``nvcc`` process each, all running at
+    once, and link the objects into the shared library ``out``.  The
+    compilers' output (``-Xptxas=-v``: registers, shared memory, spills)
+    goes to ``<out>.log``; a failure raises with it."""
+    out = Path(out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [out.with_name(f"{tag}.{Path(src).stem}.o") for src in sources]
+    jobs = [subprocess.Popen([nvcc_path(), *NVCC_FLAGS, "-c", "-o", str(obj),
+                              str(src)], stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT)
+            for src, obj in zip(sources, objs)]
+    logs, failed = [], []
+    for src, job in zip(sources, jobs):
+        log, _ = job.communicate()
+        logs.append(f"== {Path(src).name}\n".encode() + log)
+        if job.returncode != 0:
+            failed.append(Path(src).name)
+    if not failed:
+        tmp = out.with_name(f"{tag}.tmp.so")
+        link = subprocess.run([nvcc_path(), "-shared", "-o", str(tmp),
+                               *map(str, objs)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT)
+        logs.append(b"== link\n" + link.stdout)
+        if link.returncode != 0:
+            failed.append("link")
+        else:
+            os.replace(tmp, out)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    out.with_suffix(".log").write_bytes(b"".join(logs))
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
+                           + b"".join(logs).decode(errors="replace"))
+
+
 def build() -> float:
-    """Compile the library unless it is already there; returns the wall
-    seconds spent.  The compiler's output (``-Xptxas=-v``: registers,
-    shared memory, spills) is kept beside the library as ``<name>.log``."""
+    """Build the library unless it is already there; returns the wall
+    seconds spent."""
     t0 = time.perf_counter()
     out = library_path()
-    if out.exists():
-        return time.perf_counter() - t0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-                           *map(str, SOURCES)], stdout=subprocess.PIPE,
-                          stderr=subprocess.STDOUT)
-    out.with_suffix(".log").write_bytes(proc.stdout)
-    if proc.returncode != 0:
-        raise RuntimeError("nvcc failed for "
-                           + ", ".join(s.name for s in SOURCES) + ":\n"
-                           + proc.stdout.decode(errors="replace"))
-    os.replace(tmp, out)
+    if not out.exists():
+        build_library(SOURCES, out)
     return time.perf_counter() - t0
 
 

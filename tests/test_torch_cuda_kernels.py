@@ -18,16 +18,18 @@ them at the serving and training shapes; run them with ``-s`` to see the
 readings.
 """
 
+import concurrent.futures
 import ctypes
 import json
-import subprocess
 
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from chip_smoke import (FLASH_ROW_TOL, FLASH_SHAPE, GRAD_ROW_FLOOR, ROW_TOL,
-                        flash_errors, flash_inputs, launcher_inputs,
+                        flash_errors, flash_inputs, forced_route,
+                        launcher_inputs, masked_errors, masked_inputs,
                         row_error)
 from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import decode_attention as da
@@ -179,23 +181,19 @@ def _build_planted(tmp_path, source_name, planted):
     target = next(p for p in _build.SOURCES if p.name == source_name)
     source = target.read_text()
     jobs = {}
-    for fault, (text, replacement) in planted.items():
-        assert source.count(text) == 1, fault
-        src = tmp_path / fault / source_name
-        src.parent.mkdir()
-        src.write_text(source.replace(text, replacement))
-        out = tmp_path / f"{fault}.so"
-        sources = [src if p == target else p for p in _build.SOURCES]
-        jobs[fault] = (out, subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(out),
-             *map(str, sources)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
-    libs = {}
-    for fault, (out, proc) in jobs.items():
-        log, _ = proc.communicate()
-        assert proc.returncode == 0, log.decode(errors="replace")
-        libs[fault] = out
-    return libs
+    with concurrent.futures.ThreadPoolExecutor(len(planted)) as pool:
+        for fault, (text, replacement) in planted.items():
+            assert source.count(text) == 1, fault
+            src = tmp_path / fault / source_name
+            src.parent.mkdir()
+            src.write_text(source.replace(text, replacement))
+            out = tmp_path / f"{fault}.so"
+            sources = [src if p == target else p for p in _build.SOURCES]
+            jobs[fault] = (out, pool.submit(_build.build_library, sources,
+                                            out))
+        for job in jobs.values():
+            job[1].result()
+    return {fault: out for fault, (out, _) in jobs.items()}
 
 
 def test_error_gate_catches_planted_faults(dev, tmp_path, monkeypatch):
@@ -277,10 +275,9 @@ def test_flash_autograd_and_train_step_on_cuda_match_cpu(dev):
         loss, params, _ = step(params, state, 0, 1e-3, ids, lab)
         out[name] = (loss.item(), {k: v.cpu() for k, v in params.items()},
                      dict(fa.LAUNCHES))
-    assert out["cpu"][2] == {"flash_attention_fwd": 0,
-                             "flash_attention_bwd": 0}
-    assert out["gpu"][2] == {"flash_attention_fwd": 4,
-                             "flash_attention_bwd": 4}
+    assert set(out["cpu"][2].values()) == {0}
+    assert out["gpu"][2] == dict(out["cpu"][2], flash_attention_fwd=4,
+                                 flash_attention_bwd=4)
     assert abs(out["gpu"][0] - out["cpu"][0]) <= 1e-4 * abs(out["cpu"][0])
     for k, want in out["cpu"][1].items():
         got = out["gpu"][1][k]
@@ -337,3 +334,181 @@ def test_flash_gate_catches_planted_faults(dev, tmp_path, monkeypatch):
         monkeypatch.undo()
         print(json.dumps({"kernel": fault, "tol": tol, "row_error": bad}))
         assert bad[out] > tol[out], (fault, bad)
+
+
+# ---------------------------------------------------------------- B5 / B6
+
+# (b, sq, sk, q heads, kv heads, head dim, causal, mask) of chip_smoke's
+# masked_inputs: every mask class, unaligned lengths, rep 1 to 16 (rep 3
+# takes a 3-head CTA), head dims 16 to 128, sk != sq
+MASKED_SWEEP = {
+    "segments_s200": (2, 200, 200, 8, 2, 64, True, "segments"),
+    "varlen_padded": (1, 256, 256, 4, 2, 128, True, "varlen_padded"),
+    "doc_bands": (1, 512, 512, 4, 4, 64, True, "doc_bands"),
+    "share_question": (2, 256, 256, 4, 2, 32, True, "share_question"),
+    "sliding_causal_s300": (1, 300, 300, 4, 1, 32, True, "sliding"),
+    "sliding_bidirectional": (1, 256, 256, 4, 2, 64, False, "sliding"),
+    "global_sliding": (1, 256, 256, 2, 2, 128, False, "global_sliding"),
+    "per_head_bands": (2, 256, 256, 8, 4, 64, True, "per_head_bands"),
+    "rep16": (1, 128, 128, 16, 1, 64, True, "segments"),
+    "rep3_d16": (1, 192, 192, 6, 2, 16, True, "segments"),
+    "rep8": (1, 160, 160, 16, 2, 128, True, "segments"),
+    "cross": (2, 100, 300, 4, 2, 64, False, None),
+    "unmasked": (1, 256, 256, 4, 2, 128, True, None),
+}
+
+
+@pytest.mark.parametrize("case", list(MASKED_SWEEP))
+@pytest.mark.parametrize("kind", ["fp32", "bf16"])
+def test_masked_flash_kernels_match_plain(dev, kind, case, monkeypatch):
+    """B5 and the three B6 kernels (the fused route, then the dq + dkv
+    route) against their plain versions with chip_smoke's per-row gate;
+    rows that see no key exact.  The backward takes the plain forward's o
+    and lse, so each kernel is gated on its own."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    monkeypatch.setattr(chip_smoke, "MASKED_CASES", MASKED_SWEEP)
+    inp = masked_inputs(case, kind, dev)
+    q, k, v, do, kw = inp["q"], inp["k"], inp["v"], inp["do"], inp["kw"]
+    args = (inp["causal"], inp["scale"], inp["h"], inp["kvh"])
+    fa.reset_launches()
+    o, lse = fa.flash_forward(q, k, v, *args, **kw)
+    wo, wlse = fa.flash_forward_plain(q, k, v, *args, **kw)
+    torch.cuda.synchronize()
+    dead = wlse >= 1e30
+    reading = {"case": [kind, case], "dead_rows": int(dead.sum())}
+    reading.update(masked_errors(kind, {"o": o, "lse": lse},
+                                 {"o": wo, "lse": wlse}, dead)[0])
+    want = dict(zip(("dq", "dk", "dv"), fa.flash_backward_plain(
+        q, k, v, wo, wlse, do, *args, **kw)))
+    # A q row that sees one key has dq = 0 in exact arithmetic (p = 1, dp =
+    # delta): both sides read the rounding noise of dp - delta, which at
+    # these small widths can exceed the fp32 gate's floor (1e-3 of the
+    # tensor max; GRAD_ROW_FLOOR).  Those rows are held to 1e-5 of the
+    # tensor's largest |dq| instead, and left out of the per-row gate.
+    counts = inp["keep"].sum(-1)                              # [b, mh, sq]
+    one_key = counts.repeat_interleave(inp["h"] // counts.shape[1],
+                                       dim=1).reshape(dead.shape) == 1
+    want["dq"] = torch.where(one_key[..., None], 0, want["dq"])
+    for route in ("fused", "split"):
+        with forced_route(route):
+            dq, dk, dv = fa.flash_backward(q, k, v, wo, wlse, do, *args,
+                                           **kw)
+        torch.cuda.synchronize()
+        noise = dq[one_key].float().abs().max().item() if one_key.any() \
+            else 0.0
+        assert noise <= 1e-5 * want["dq"].float().abs().max().item(), \
+            (route, noise)
+        dq = torch.where(one_key[..., None], 0, dq)
+        errs, _ = masked_errors(kind, {"dq": dq, "dk": dk, "dv": dv}, want,
+                                dead)
+        reading.update({f"{n}_{route}": e for n, e in errs.items()})
+    print(json.dumps(reading))
+    assert fa.LAUNCHES == dict.fromkeys(fa.LAUNCHES, 0) | {
+        "flash_masked_fwd": 1, "flash_masked_bwd_fused": 1,
+        "flash_masked_bwd_dq": 1, "flash_masked_bwd_dkv": 1}
+
+
+def test_masked_train_step_on_cuda_matches_cpu(dev):
+    """The port's fp32 masked train step (packed documents with a padding
+    tail, and one all-padding micro-batch) on the card vs the same step on
+    the CPU: every attention call is a masked launch (B5 + fused B6); loss
+    and params after one AdamW step agree as in
+    test_flash_autograd_and_train_step_on_cuda_match_cpu."""
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         build_train_step, llama_decay_mask)
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = LlamaConfig.debug(vocab=128, hidden=128, layers=2, heads=4,
+                            kv_heads=2, inter=256, max_pos=256)
+    cpu = LlamaForCausalLM(cfg, device="cpu",
+                           generator=torch.Generator().manual_seed(4))
+    gpu = LlamaForCausalLM(cfg, device=dev)
+    gpu.load_functional_state(cpu.functional_state())
+    rng = np.random.default_rng(1)
+    ids = rng.integers(0, 128, (3, 2, 96))
+    lab = rng.integers(0, 128, (3, 2, 96))
+    seg, _ = chip_smoke.packed_documents(rng, 6, 96, 24, pad=True)
+    seg = seg.reshape(3, 2, 96)
+    seg[1] = 0                                   # an all-padding micro-batch
+    out = {}
+    for name, model in (("cpu", cpu), ("gpu", gpu)):
+        opt = AdamW(1e-3)
+        step = build_train_step(model, opt, compute_dtype=torch.float32,
+                                accum_steps=3)
+        params = model.functional_state()
+        state = opt.init_flat_state(params, llama_decay_mask(model))
+        fa.reset_launches()
+        loss, params, _ = step(params, state, 0, 1e-3, ids, lab,
+                               attention_mask=seg)
+        out[name] = (loss.item(), {k: v.cpu() for k, v in params.items()},
+                     dict(fa.LAUNCHES))
+    assert set(out["cpu"][2].values()) == {0}
+    assert out["gpu"][2] == dict(out["cpu"][2], flash_masked_fwd=6,
+                                 flash_masked_bwd_fused=6)
+    assert abs(out["gpu"][0] - out["cpu"][0]) <= 1e-4 * abs(out["cpu"][0])
+    for k, want in out["cpu"][1].items():
+        got = out["gpu"][1][k]
+        assert (got - want).abs().max().item() <= \
+            1e-4 * want.abs().max().item() + 2e-3, k
+
+
+# faults planted into copies of csrc/masked_flash_attention.cu
+PLANTED_MASKED = {
+    # the forward's live k-tile list is cut one tile short
+    "list_one_short": (
+        "for (int jt = 0; jt < cnt; ++jt) {\n    const int k0 = live[jt] * "
+        "a.bk;\n    __syncthreads();  // the previous tile's readers of k_s, "
+        "v_s, p_s",
+        "for (int jt = 0; jt < cnt - 1; ++jt) {\n    const int k0 = "
+        "live[jt] * a.bk;\n    __syncthreads();  // the previous tile's "
+        "readers of k_s, v_s, p_s"),
+    # queries see keys of other segments inside live tiles
+    "segment_mask_dropped": (
+        "if (a.q_seg != nullptr && qseg_s[r] != kseg_s[j]) return false;", ""),
+    # dk/dv lose the contribution of the group's second head
+    "dkv_drops_head_1": (
+        "if (k_pos >= a.sk) ds = 0.f;",
+        "if (k_pos >= a.sk) ds = 0.f;\n    if (p_s != nullptr && m / a.bq == 1) "
+        "p = ds = 0.f;"),
+}
+
+
+def _masked_readings(dev):
+    """Gate errors of B5 (o) and the fused B6 (dq, dk, dv) on chip_smoke's
+    packed_docs case (the masked train phase's attention call, bf16),
+    without the limits."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    inp = masked_inputs("packed_docs", "bf16", dev)
+    q, k, v, do, kw = inp["q"], inp["k"], inp["v"], inp["do"], inp["kw"]
+    args = (inp["causal"], inp["scale"], inp["h"], inp["kvh"])
+    o, _ = fa.flash_forward(q, k, v, *args, **kw)
+    wo, wlse = fa.flash_forward_plain(q, k, v, *args, **kw)
+    got = fa.flash_backward(q, k, v, wo, wlse, do, *args, **kw)
+    want = fa.flash_backward_plain(q, k, v, wo, wlse, do, *args, **kw)
+    out = {"o": row_error(o, wo)[0]}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        out[name] = row_error(g, w, GRAD_ROW_FLOOR)[0]
+    return out
+
+
+def test_masked_gate_catches_planted_faults(dev, tmp_path, monkeypatch):
+    """Each planted fault reads at least 10 times over the bf16 limit of
+    the output it breaks; the sound kernels read within the limits."""
+    libs = _build_planted(tmp_path, "masked_flash_attention.cu",
+                          PLANTED_MASKED)
+    faulty = {"list_one_short": "o", "segment_mask_dropped": "o",
+              "dkv_drops_head_1": "dk"}
+    tol = FLASH_ROW_TOL["bf16"]
+    sound = _masked_readings(dev)
+    print(json.dumps({"kernel": "sound", "tol": tol, "row_error": sound}))
+    assert all(sound[n] <= tol[n] for n in sound), sound
+    for fault, out in faulty.items():
+        lib = _build.bind(ctypes.CDLL(str(libs[fault])))
+        monkeypatch.setattr(_build, "_lib", lib)
+        bad = _masked_readings(dev)
+        monkeypatch.undo()
+        print(json.dumps({"kernel": fault, "tol": tol, "row_error": bad}))
+        assert bad[out] > 10 * tol[out], (fault, bad)

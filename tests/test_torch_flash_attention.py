@@ -149,39 +149,110 @@ def test_to_hb_matches_jax_and_round_trips():
     np.testing.assert_array_equal(fa.from_hb(got[0], 2).numpy(), q)
 
 
+def _route_spy(monkeypatch):
+    """Record which autograd function ``flash_attention`` applies."""
+    seen = []
+    for cls in (fa._FlashHB, fa._Flash):
+        orig = cls.apply
+        monkeypatch.setattr(cls, "apply", (lambda orig, name: lambda *a: (
+            seen.append(name), orig(*a))[1])(orig, cls.__name__))
+    return seen
+
+
 @pytest.mark.parametrize("case", ["segments", "bands", "blocks", "rep16",
                                   "sk_ne_s", "long_seq"])
-def test_unported_routes_raise(case):
-    """Every call outside the HB route belongs to B5/B6 and raises."""
+def test_unported_routes_raise(case, monkeypatch):
+    """Every call outside the HB route takes the masked kernels B5/B6
+    (``_Flash``), as JAX's ``flash_attention_raw`` takes ``_flash``: output
+    and gradients match jax.grad of it (interpret mode), fp32 1e-5.  Causal
+    with sq != sk raises FlashUnsupportedError on both sides.  ``long_seq``
+    (s 8192, d 128, where the HB backward scratch rule says no) is checked
+    as a routing decision only, without computing."""
     b, s, h, kvh, d = 1, 64, 4, 2, 16
-    kw = {}
+    sk, causal, kw = s, True, {}
     if case == "rep16":
         h = 32
-    if case == "long_seq":
-        s, d = 8192, 128            # the HB backward scratch rule says no
-    q = torch.zeros(b, s, h, d)
-    k = torch.zeros(b, s, kvh, d)
     if case == "sk_ne_s":
-        k = torch.zeros(b, s // 2, kvh, d)
+        sk, causal = s // 2, False
+    if case == "long_seq":
+        s = sk = 8192
+        d = 128
+        assert fa.hb_bwd_blocks(h // kvh, s, s, d) is None
+        assert jfa._hb_bwd_blocks(h // kvh, s, s, d) is None
+        seen = []
+        monkeypatch.setattr(fa._FlashHB, "apply", None)
+        monkeypatch.setattr(fa._Flash, "apply",
+                            lambda q, *a: seen.append(a[4:6]) or q)
+        out = fa.flash_attention(torch.zeros(b, s, h, d),
+                                 torch.zeros(b, s, kvh, d),
+                                 torch.zeros(b, s, kvh, d))
+        assert out.shape == (b, s, h, d) and seen == [(h, kvh)]
+        return
+    rng = np.random.default_rng(40 + len(case))
+    q = rng.standard_normal((b, s, h, d)).astype(np.float32)
+    k = rng.standard_normal((b, sk, kvh, d)).astype(np.float32)
+    v = rng.standard_normal((b, sk, kvh, d)).astype(np.float32)
+    w = rng.standard_normal((b, s, h, d)).astype(np.float32)
     if case == "segments":
-        kw = dict(q_segment_ids=torch.ones(b, s, dtype=torch.int32),
-                  kv_segment_ids=torch.ones(b, s, dtype=torch.int32))
+        ids = np.repeat([[1, 2, 3]], [20, 30, 14], axis=1).astype(np.int32)
+        kw = dict(q_segment_ids=ids, kv_segment_ids=ids)
     if case == "bands":
-        kw = dict(mask_bands=(torch.zeros(b, 1, s, dtype=torch.int32),) * 4)
+        doc = np.repeat([20, 50, 64], [20, 30, 14]).astype(np.int32)
+        bands = (doc, np.full(s, s), np.zeros(s), np.zeros(s))
+        kw = dict(mask_bands=tuple(x.astype(np.int32).reshape(1, 1, s)
+                                   for x in bands))
     if case == "blocks":
         kw = dict(blocks=(128, 128))
-    with pytest.raises(NotImplementedError, match="B5"):
-        fa.flash_attention(q, k, k, **kw)
+
+    def jloss(q, k, v):
+        o = jfa.flash_attention_raw(
+            q, k, v, causal=causal, interpret=True,
+            **{n: (tuple(jnp.asarray(x) for x in a) if n == "mask_bands"
+                   else a if n == "blocks" else jnp.asarray(a))
+               for n, a in kw.items()})
+        return jnp.sum(o * w), o
+
+    (_, jo), jg = jax.value_and_grad(jloss, (0, 1, 2), has_aux=True)(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (_t(x, "float32").requires_grad_() for x in (q, k, v))
+    tkw = {n: (tuple(torch.from_numpy(x) for x in a) if n == "mask_bands"
+               else a if n == "blocks" else torch.from_numpy(a))
+           for n, a in kw.items()}
+    seen = _route_spy(monkeypatch)
+    o = fa.flash_attention(tq, tk, tv, causal=causal, **tkw)
+    (o * torch.from_numpy(w)).sum().backward()
+    assert seen == ["_Flash"]
+    assert _rel(_np(o.detach()), jo) <= TOL["float32"]
+    for got, want in zip((tq.grad, tk.grad, tv.grad), jg):
+        assert _rel(_np(got), want) <= TOL["float32"]
+    if case == "sk_ne_s":
+        with pytest.raises(fa.FlashUnsupportedError):
+            fa.flash_attention(tq, tk, tv, causal=True)
+        with pytest.raises(jfa.FlashUnsupportedError):
+            jfa.flash_attention_raw(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), causal=True,
+                                    interpret=True)
 
 
 @pytest.mark.parametrize("kw", [dict(attn_mask=torch.ones(1, 8, dtype=bool)),
                                 dict(q_segment_ids=torch.ones(1, 8),
                                      kv_segment_ids=torch.ones(1, 8)),
                                 dict(dropout=0.1)])
-def test_entry_later_slices_raise(kw):
-    q = torch.zeros(1, 8, 2, 16)
-    with pytest.raises(NotImplementedError):
-        port_attention.flash_attention(q, q, q, causal=True, **kw)
+def test_entry_later_slices_raise(kw, monkeypatch):
+    """A bool keep-mask and segment ids take the masked kernels (``_Flash``):
+    all-kept and one segment equal the unmasked causal attention (fp32
+    1e-5).  Dropout needs an in-kernel generator and still raises."""
+    rng = np.random.default_rng(9)
+    q = torch.from_numpy(rng.standard_normal((1, 8, 2, 16)).astype(np.float32))
+    if "dropout" in kw:
+        with pytest.raises(NotImplementedError, match="dropout"):
+            port_attention.flash_attention(q, q, q, causal=True, **kw)
+        return
+    want = port_attention.flash_attention(q, q, q, causal=True)
+    seen = _route_spy(monkeypatch)
+    got = port_attention.flash_attention(q, q, q, causal=True, **kw)
+    assert seen == ["_Flash"]
+    assert _rel(_np(got), _np(want)) <= TOL["float32"]
 
 
 def test_kernel_tiles_fit_every_routed_shape():

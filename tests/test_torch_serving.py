@@ -102,13 +102,17 @@ def test_params_from_jax_bf16_bit_exact(pair):
 
 def test_forward_is_the_training_slice(pair):
     """forward is the training slice's (tests/test_torch_training.py): its
-    fp32 logits equal the JAX model's, and the masked routes raise."""
+    fp32 logits equal the JAX model's; an all-kept bool mask changes
+    nothing, and a float mask raises TypeError, as in JAX."""
     jm, _, cfg, model, _ = pair
     ids = np.stack(_prompts(cfg, 22, (9, 9)))
     want = np.asarray(jm(paddle.to_tensor(ids))._value)
     got = model(torch.from_numpy(ids)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="B5"):
+    kept = model(torch.from_numpy(ids),
+                 attention_mask=torch.ones(2, 9, dtype=torch.bool)).numpy()
+    np.testing.assert_allclose(kept, want, rtol=1e-5, atol=1e-5)
+    with pytest.raises(TypeError):
         model(torch.from_numpy(ids), attention_mask=torch.ones(2, 9))
 
 
