@@ -57,7 +57,25 @@ Phases, each of which raises (and so exits non-zero) on failure:
    1024 truncated at the row end): B5 + B6 dq + dk/dv launches only, and
    the causal document mask as FlashMask bands gives the segment-id
    logits within the bf16 gate;
-10. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
+10. the grouped-matmul kernels (B7 float, int8 and on the transposed
+    bank; B8) on GMM_CASES: the Mixtral decode and prefill calls on int8
+    banks, the dropless train cell's three calls in bf16 and fp32, an
+    empty segment, one expert, unaligned lengths, repeated weight ids;
+    each held against its plain version (per-row gate) and timed beside
+    its bound, its plain version and ``torch._grouped_mm`` or a loop of
+    per-segment ``torch.matmul`` (a yardstick the port never calls);
+11. Mixtral-8x7B serving at full width and depth (MIXTRAL_CFG), int8
+    weight-only with random weights, on the serving phase's traffic: the
+    chunked and unified engines and ``_generate_greedy``; every MoE
+    projection a B7 int8 launch and every decode attention call a kernel
+    launch, the chunk launches without a host sync, the fp32
+    teacher-forced check on the same int8 weights beside the count of
+    (token, layer) pairs whose expert choice flipped; a decode profile;
+12. the dropless MoE train step (``parallel/expert.py``) at Mixtral's
+    expert shape: 2 B7 forward, 2 B7 dx and 2 B8 launches per step, no
+    plain call, losses finite and falling, dropped 0, the step-0 loss
+    within 2e-2 of a plain fp32 forward; ms per step and TFLOP/s;
+13. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
     last.
 
 Exits non-zero, printing no result, when CUDA is not available or the
@@ -353,12 +371,58 @@ def kernel_cases(dev, flush):
 
 # ------------------------------------------------------------ serving phase
 
-def _reference_hidden(cfg, params, seqs, dev, seg=None):
+def _f32(params, name):
+    """fp32 copy of a weight, dequantized when it rides with an int8
+    ``._scale`` (per output channel, the last axis)."""
+    w = params[name].float()
+    sc = params.get(name + "._scale")
+    return w if sc is None else w * sc.float()[..., None, :]
+
+
+def _moe_reference(cfg, params, i, hx, forced=None):
+    """fp32 top-k expert FFN of MoE layer ``i`` on hx [n, S, h]: softmax of
+    the fp32 router logits, top-k (or the expert ids ``forced`` [n*S, k]),
+    weights renormalised over the chosen k, each expert's SwiGLU on its
+    tokens with its dequantized slices.  Returns (y, chosen ids)."""
+    import torch
+    import torch.nn.functional as F
+    n, S, h = hx.shape
+    x2 = hx.reshape(-1, h)
+    probs = (x2 @ params[f"model.layers.{i}.mlp.router.weight"].float()
+             ).softmax(-1)
+    ids = probs.topk(cfg.moe_top_k, dim=-1).indices if forced is None \
+        else forced
+    top_p = probs.gather(1, ids)
+    top_p = top_p / top_p.sum(-1, keepdim=True)
+    y = torch.zeros_like(x2)
+    pre = f"model.layers.{i}.mlp.experts."
+
+    def slice_f32(proj, e):
+        w = params[pre + proj + ".weight"][e].float()
+        sc = params.get(pre + proj + ".weight._scale")
+        return w if sc is None else w * sc[e].float()[None, :]
+
+    for e in range(params[pre + "gate_proj.weight"].shape[0]):
+        rows, slot = (ids == e).nonzero(as_tuple=True)
+        if rows.numel() == 0:
+            continue
+        xe = x2[rows]
+        out = (F.silu(xe @ slice_f32("gate_proj", e))
+               * (xe @ slice_f32("up_proj", e))) @ slice_f32("down_proj", e)
+        y.index_add_(0, rows, out * top_p[rows, slot][:, None])
+    return y.view(n, S, h), ids
+
+
+def _reference_hidden(cfg, params, seqs, dev, seg=None, forced=None,
+                      choices=None):
     """Plain fp32 full-sequence forward (independent of the port's code):
-    each bf16 weight is cast to fp32 at its use, so the fp32 copies of the
-    model never coexist.  Sequences are right-padded; causal attention
-    keeps the padding out of every real position.  ``seg`` ([n, S] segment
-    ids) also keeps each position's attention within its segment."""
+    each weight is cast to fp32 (int8 weights dequantized) at its use, so
+    the fp32 copies of the model never coexist.  Sequences are
+    right-padded; causal attention keeps the padding out of every real
+    position.  ``seg`` ([n, S] segment ids) also keeps each position's
+    attention within its segment.  A sparse checkpoint's MoE layers take
+    ``_moe_reference`` (with ``forced[i]`` expert ids when given; each
+    layer's chosen ids are appended to ``choices``)."""
     import numpy as np
     import torch
 
@@ -385,9 +449,12 @@ def _reference_hidden(cfg, params, seqs, dev, seg=None):
     if seg is not None:
         causal = causal & (seg[:, :, None] == seg[:, None, :])
     x = params["model.embed_tokens.weight"][ids].float()
+    emb_scale = params.get("model.embed_tokens.weight._scale")
+    if emb_scale is not None:
+        x = x * emb_scale.float()[ids][..., None]
     for i in range(cfg.num_hidden_layers):
         def W(name):
-            return params[f"model.layers.{i}.{name}"].float()
+            return _f32(params, f"model.layers.{i}.{name}")
         hx = rms(x, W("input_layernorm.weight"))
         q = rope((hx @ W("self_attn.q_proj.weight")).view(n, S, H, d))
         k = rope((hx @ W("self_attn.k_proj.weight")).view(n, S, KV, d))
@@ -399,22 +466,33 @@ def _reference_hidden(cfg, params, seqs, dev, seg=None):
         o = torch.einsum("bhst,bthd->bshd", att, v).reshape(n, S, H * d)
         x = x + o @ W("self_attn.o_proj.weight")
         hx = rms(x, W("post_attention_layernorm.weight"))
+        if f"model.layers.{i}.mlp.router.weight" in params:
+            y, chosen = _moe_reference(cfg, params, i, hx, None
+                                       if forced is None else forced[i])
+            if choices is not None:
+                choices.append(chosen)
+            x = x + y
+            continue
         x = x + (torch.nn.functional.silu(hx @ W("mlp.gate_proj.weight"))
                  * (hx @ W("mlp.up_proj.weight"))) @ W("mlp.down_proj.weight")
     return rms(x, params["model.norm.weight"])
 
 
-def teacher_forced(cfg, params, prompts, outputs, dev):
+def teacher_forced(cfg, params, prompts, outputs, dev, forced=None,
+                   choices=None):
     """For every emitted token, its fp32 reference logit (teacher-forced on
     prompt + emitted tokens) must be within EPS_STD reference standard
-    deviations of the reference row's max.  Returns the statistics."""
+    deviations of the reference row's max.  Returns the statistics.
+    ``forced``/``choices``: the MoE layers' expert ids (``_reference_hidden``).
+    """
     import numpy as np
     import torch
 
     seqs = [np.concatenate([p, o[:-1]]) for p, o in zip(prompts, outputs)]
     with torch.no_grad():
-        x = _reference_hidden(cfg, params, seqs, dev)
-        head = params["lm_head.weight"].float()
+        x = _reference_hidden(cfg, params, seqs, dev, forced=forced,
+                              choices=choices)
+        head = _f32(params, "lm_head.weight")
         worst, exact, total = 0.0, 0, 0
         for i, (p, o) in enumerate(zip(prompts, outputs)):
             rows = x[i, len(p) - 1:len(p) - 1 + len(o)] @ head   # [n, V]
@@ -552,13 +630,16 @@ def serve_unified(cfg, params, prompts, dev):
         prefix_cache=stats["prefix_cache"], warm_request=hit)
 
 
-def serve_generate(cfg, model, prompt, dev):
+def serve_generate(cfg, model, prompt, dev, generate=None):
+    """``model.generate`` on one prompt, or ``generate(ids [1, S])`` (the
+    full [1, S + 32] sequence) when given."""
     import torch
     from paddle_tpu_torch.ops import decode_attention as da
 
     da.reset_launches()
     t0 = time.perf_counter()
-    out = model.generate(prompt[None], max_new_tokens=32)
+    out = (model.generate(prompt[None], max_new_tokens=32) if generate is None
+           else generate(prompt[None]))
     _sync()
     wall = time.perf_counter() - t0
     counts = dict(da.LAUNCHES)
@@ -574,13 +655,15 @@ def serve_generate(cfg, model, prompt, dev):
                       launches=counts)
 
 
-def profile_decode(cfg, params, dev, chunks):
+def profile_decode(cfg, params, dev, chunks, classes=None):
     """Where a steady decode step of the chunked engine spends its time:
     8 requests of 300 prompt tokens decode together while
     ``torch.profiler`` records ``chunks`` decode chunks (CPU and CUDA
     activities).  Returns wall and device milliseconds per decode step,
     the device's idle share, the host's time to enqueue a chunk without the
-    profiler and the device kernels that take most time."""
+    profiler and the device kernels that take most time; with ``classes``
+    ({class: [name substrings]}) also device ms per step of each class
+    ("other": the rest)."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -621,8 +704,16 @@ def profile_decode(cfg, params, dev, chunks):
         raise AssertionError("profile: the profiler saw no device time")
     top = sorted(events, key=lambda e: e.self_device_time_total,
                  reverse=True)[:8]
+    by_class = None
+    if classes:
+        by_class = dict.fromkeys(list(classes) + ["other"], 0.0)
+        for e in events:
+            name = next((c for c, subs in classes.items()
+                         if any(t in e.key for t in subs)), "other")
+            by_class[name] += e.self_device_time_total / 1e3 / steps
     return {
         "slots": 8, "prompt_tokens": 300, "profiled_steps": steps,
+        **({"device_ms_per_step_by_class": by_class} if by_class else {}),
         "wall_ms_per_step": wall_ms / steps,
         "device_ms_per_step": device_us / 1e3 / steps,
         "device_idle_share": 1.0 - device_us / 1e3 / wall_ms,
@@ -1404,6 +1495,582 @@ def profile_train(step1, params, ids, labels, micro_steps=2,
                             for e in top]}
 
 
+# ------------------------------------------------ grouped-matmul kernel phase
+
+def _decode_lens(slots, top_k, experts, seed):
+    """Per-expert copy counts of ``slots`` tokens routed top-k to distinct
+    experts, drawn from ``seed``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    ids = [rng.choice(experts, top_k, replace=False) for _ in range(slots)]
+    return np.bincount(np.concatenate(ids), minlength=experts).tolist()
+
+
+def _multinomial_lens(total, experts, seed):
+    """Per-expert copy counts of ``total`` copies under a seeded Dirichlet
+    routing mix (uneven, as a learned router's is)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return rng.multinomial(total, rng.dirichlet(np.full(experts, 4.0))
+                           ).tolist()
+
+
+# B7/B8 cases: name -> (op, kinds, per-segment lengths, K, N, wids or None,
+# block_rows).  op "fwd": y [R, N] = x [R, K] @ w[wid] [K, N]; "t": the same
+# product with the bank stored [E, N, K] (the backward's dx on w^T);
+# "outer": out [S, K, N] = x[win]^T @ dy[win] (B8).  The Mixtral decode call
+# (8 slots x top-2 = 16 rows over 8 experts, block_rows 8) and a 6 x 300-
+# token prefill call on the int8 bank; the dropless train cell's three
+# calls (16384 copies over 8 experts, K/N 4096/14336); then an empty
+# segment, all rows on one expert, unaligned lengths at block_rows 128 and
+# repeated weight ids (the adapter shape).
+GMM_CASES = {
+    "mixtral_decode_up": ("fwd", ("int8",), _decode_lens(8, 2, 8, SEED),
+                          4096, 14336, None, 8),
+    "mixtral_decode_down": ("fwd", ("int8",), _decode_lens(8, 2, 8, SEED),
+                            14336, 4096, None, 8),
+    "mixtral_prefill_up": ("fwd", ("int8",),
+                           _multinomial_lens(6 * 300 * 2, 8, SEED), 4096,
+                           14336, None, 8),
+    "train_fwd": ("fwd", ("bf16", "fp32"), _multinomial_lens(16384, 8, SEED),
+                  4096, 14336, None, 8),
+    "train_dx": ("t", ("bf16", "fp32"), _multinomial_lens(16384, 8, SEED),
+                 14336, 4096, None, 8),
+    "train_dw": ("outer", ("bf16", "fp32"), _multinomial_lens(16384, 8, SEED),
+                 4096, 14336, None, 8),
+    "empty_segments": ("fwd", ("bf16", "fp32", "int8"),
+                       [37, 0, 100, 0, 5, 64, 0, 1], 1024, 512, None, 8),
+    "one_expert": ("fwd", ("bf16", "fp32", "int8"),
+                   [0, 0, 0, 2048, 0, 0, 0, 0], 1024, 1024, None, 8),
+    "unaligned_br128": ("fwd", ("bf16", "fp32", "int8"),
+                        [13, 77, 3, 200, 1, 65, 31, 9], 512, 768, None, 128),
+    "repeated_wids": ("fwd", ("bf16", "fp32"),
+                      [9, 30, 2, 17, 0, 40, 5, 11, 23, 1, 8, 14, 3, 60, 7,
+                       19], 512, 512, [i % 4 for i in range(16)], 8),
+    "outer_empty_unaligned": ("outer", ("bf16", "fp32"),
+                              [13, 0, 77, 3, 0, 200, 1, 65], 512, 768, None,
+                              8),
+}
+
+
+def gmm_inputs(name, kind, dev):
+    """Inputs of GMM_CASES[name] in ``kind`` (bf16, fp32, or int8: a bf16
+    x over an int8 bank with fp32 scales) from SEED, laid out as the MoE
+    callers lay them out: block-aligned dense segment starts, zero
+    alignment slack, rows = align(copies) + E * block_rows.  ``nbytes``
+    counts each input read once (the covered rows of x and dy, the weight
+    slices of non-empty segments, their scales) and the output written
+    once; ``ops`` 2 K N per real row."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.ops import grouped_matmul as gm
+
+    op, _, lens, K, N, wids, bm = GMM_CASES[name]
+    S = len(lens)
+    wids = list(range(S)) if wids is None else wids
+    E = max(wids) + 1
+    dtype = torch.float32 if kind == "fp32" else torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    starts = gm.segment_starts(lens_t, bm)
+    used = sum(int(gm.align_rows(n, bm)) for n in lens)
+    R = int(gm.align_rows(sum(lens), bm) + E * bm)
+    valid = np.zeros(R, bool)
+    for st, n in zip(starts.tolist(), lens):
+        valid[st:st + n] = True
+    valid = torch.from_numpy(valid).to(dev)[:, None]
+
+    def rows(width):
+        x = torch.randn(R, width, generator=g, device=dev).to(dtype)
+        return torch.where(valid, x, torch.zeros((), dtype=dtype,
+                                                 device=dev))
+
+    out = dict(op=op, lens=lens_t, starts=starts,
+               wids=torch.tensor(wids, dtype=torch.int32, device=dev),
+               bm=bm, scale=None, dy=None)
+    item = torch.empty((), dtype=dtype).element_size()
+    live = sum(1 for n in lens if n > 0)
+    if op == "outer":
+        out["x"], out["dy"] = rows(K), rows(N)
+        nbytes = used * (K + N) * item + S * K * N * 4
+    else:
+        out["x"] = rows(K)
+        wshape = (E, N, K) if op == "t" else (E, K, N)
+        if kind == "int8":
+            out["w"] = torch.randint(-127, 128, wshape, generator=g,
+                                     device=dev, dtype=torch.int8)
+            out["scale"] = (torch.rand(E, N, generator=g, device=dev) + 0.5
+                            ) / (73.0 * K ** 0.5)
+            witem = 1
+        else:
+            out["w"] = (torch.randn(wshape, generator=g, device=dev)
+                        / K ** 0.5).to(dtype)
+            witem = item
+        wread = len({w for w, n in zip(wids, lens) if n > 0})
+        nbytes = (used * (K + N) * item + wread * K * N * witem
+                  + (wread * N * 4 if kind == "int8" else 0))
+    out["nbytes"] = nbytes + 12 * S
+    out["ops"] = 2 * sum(lens) * K * N
+    out["shape"] = (f"{op} rows {R} ({sum(lens)} real, {live}/{S} segments "
+                    f"live) K {K} N {N} block_rows {bm}")
+    return out
+
+
+def _gmm_call(inp, plain=False):
+    from paddle_tpu_torch.ops import grouped_matmul as gm
+    if inp["op"] == "outer":
+        fn = gm.grouped_outer_plain if plain else gm.grouped_outer_raw
+        return fn(inp["x"], inp["dy"], inp["starts"], inp["lens"],
+                  inp["bm"])
+    fn = gm.grouped_matmul_plain if plain else gm.grouped_matmul_raw
+    return fn(inp["x"], inp["w"], inp["starts"], inp["lens"], inp["wids"],
+              inp["bm"], w_scale=inp["scale"], transpose_w=inp["op"] == "t")
+
+
+def _gmm_library(inp):
+    """A PyTorch call computing the case's function, never called by the
+    port: ``torch._grouped_mm`` over the aligned segment ends (bf16, one
+    weight slice per segment), else a loop of per-segment
+    ``torch.matmul``; None for an int8 bank.  Returns (fn, name)."""
+    import torch
+    if inp["scale"] is not None:
+        return None, "none: no PyTorch call takes an int8 bank"
+    ends = torch.cumsum(((inp["lens"] + inp["bm"] - 1) // inp["bm"])
+                        * inp["bm"], 0, dtype=torch.int32)
+    x, op, end = inp["x"], inp["op"], int(ends[-1])
+    identity = inp["wids"].tolist() == list(range(len(inp["wids"])))
+    if x.dtype == torch.bfloat16 and identity and hasattr(torch,
+                                                          "_grouped_mm"):
+        if op == "outer":
+            a, b = x[:end].t(), inp["dy"][:end]
+        else:
+            a = x[:end]
+            b = inp["w"].transpose(1, 2) if op == "t" else inp["w"]
+
+        def grouped():
+            return torch._grouped_mm(a, b, offs=ends)
+        try:
+            grouped()
+            _sync()
+            return grouped, "torch._grouped_mm(offs=aligned segment ends)"
+        except (RuntimeError, TypeError):
+            pass
+    lo = (ends - (((inp["lens"] + inp["bm"] - 1) // inp["bm"])
+                  * inp["bm"])).tolist()
+    segs = list(zip(lo, ends.tolist(), inp["wids"].tolist()))
+
+    def loop():
+        for a0, a1, wid in segs:
+            if a1 <= a0:
+                continue
+            if op == "outer":
+                torch.matmul(x[a0:a1].t(), inp["dy"][a0:a1])
+            else:
+                wb = inp["w"][wid]
+                torch.matmul(x[a0:a1], wb.t() if op == "t" else wb)
+    return loop, "loop of per-segment torch.matmul"
+
+
+def gmm_cases(dev, flush):
+    """B7 (float, int8, transposed) and B8 on GMM_CASES, each gated against
+    its plain version (per-row gate; rows no segment covers exact 0) and
+    timed beside its bound, the plain version and a library yardstick."""
+    import torch
+
+    records = []
+    for name, (op, kinds, lens, K, N, _, bm) in GMM_CASES.items():
+        for kind in kinds:
+            inp = gmm_inputs(name, kind, dev)
+            got, want = _gmm_call(inp), _gmm_call(inp, plain=True)
+            _sync()
+            tol = ROW_TOL["fp32" if kind == "fp32" else "bf16"]
+            err, abs_err = row_error(got, want)
+            del got, want
+            if not err <= tol:
+                raise AssertionError(f"grouped {name}[{kind}]: per-row "
+                                     f"error {err} > {tol}")
+            big = inp["ops"] > 1e11
+            reps = (2 if kind == "fp32" else 3) if big else 20
+            lib, call = _gmm_library(inp)
+            bms, by = bound(inp["nbytes"], inp["ops"],
+                            "fp32" if kind == "fp32" else "bf16")
+            ms = time_ms(lambda: _gmm_call(inp), reps, flush)
+            records.append(dict(
+                name=name, kind=kind, op=op, shape=inp["shape"],
+                lens=inp["lens"].tolist(), err=err, tol=tol,
+                max_abs_err=abs_err, ms=ms,
+                plain_ms=time_ms(lambda: _gmm_call(inp, plain=True),
+                                 1 if big else 3, flush),
+                bound_ms=bms, bound_by=by,
+                tflops=inp["ops"] / ms / 1e9,
+                gbytes_per_s=inp["nbytes"] / ms / 1e6,
+                library_ms=None if lib is None else time_ms(lib, reps, flush),
+                library_call=call))
+            del inp, lib
+            torch.cuda.empty_cache()
+    return records
+
+
+# ---------------------------------------------------- Mixtral serving phase
+
+# Mixtral-8x7B (mistralai/Mixtral-8x7B-v0.1 config.json) at full width and
+# depth; cut: max_position_embeddings 2048 (32768), as the 8B cell
+MIXTRAL_CFG = dict(vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+                   num_hidden_layers=32, num_attention_heads=32,
+                   num_key_value_heads=8, max_position_embeddings=2048,
+                   rope_theta=1e6, rms_norm_eps=1e-5, num_experts=8,
+                   moe_top_k=2)
+MOE_PROFILE_CHUNKS = 1
+
+
+def mixtral_params(cfg, dev):
+    """Seeded random Mixtral weights, int8 weight-only: each tensor is
+    drawn in bf16 on the card (Xavier-uniform [in, out] slices, a Normal
+    embedding, unit norm gains, as LlamaForCausalLM initialises), quantized
+    at once by the port's ``quantize_params_int8`` (norms and routers stay
+    bf16) and its bf16 copy dropped, so the bf16 model never exists."""
+    import math
+    import torch
+    from paddle_tpu_torch.models.generation import quantize_params_int8
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    h, it, E = cfg.hidden_size, cfg.intermediate_size, cfg.num_experts
+    qd, kvd = h, cfg.num_key_value_heads * cfg.head_dim
+    params = {}
+
+    def xavier(*shape):
+        w = torch.rand(shape, generator=g, device=dev)
+        w.mul_(2.0).sub_(1.0).mul_(math.sqrt(6.0 / (shape[-2] + shape[-1])))
+        return w.to(torch.bfloat16)
+
+    def add(name, w):
+        params.update(quantize_params_int8({name: w}))
+
+    add("model.embed_tokens.weight", torch.randn(
+        cfg.vocab_size, h, generator=g, device=dev).to(torch.bfloat16))
+    ones = torch.ones(h, dtype=torch.bfloat16, device=dev)
+    for i in range(cfg.num_hidden_layers):
+        pre = f"model.layers.{i}."
+        add(pre + "input_layernorm.weight", ones.clone())
+        for proj, shape in (("q_proj", (h, qd)), ("k_proj", (h, kvd)),
+                            ("v_proj", (h, kvd)), ("o_proj", (qd, h))):
+            add(pre + f"self_attn.{proj}.weight", xavier(*shape))
+        add(pre + "post_attention_layernorm.weight", ones.clone())
+        add(pre + "mlp.router.weight", xavier(h, E))
+        for proj, shape in (("gate_proj", (E, h, it)), ("up_proj", (E, h, it)),
+                            ("down_proj", (E, it, h))):
+            add(pre + f"mlp.experts.{proj}.weight", xavier(*shape))
+        torch.cuda.empty_cache()
+    add("model.norm.weight", ones)
+    add("lm_head.weight", xavier(h, cfg.vocab_size))
+    return params
+
+
+@contextlib.contextmanager
+def moe_counter():
+    """Zero the grouped-matmul LAUNCHES and count, while the block runs,
+    the ``_moe_ffn`` calls and the plain-version calls of B7/B8."""
+    from paddle_tpu_torch.models import generation as gen
+    from paddle_tpu_torch.ops import grouped_matmul as gm
+    names = ("grouped_matmul_plain", "grouped_outer_plain")
+    calls = dict.fromkeys(("moe_ffn",) + names, 0)
+    saved = {n: getattr(gm, n) for n in names}
+    saved_ffn = gen._moe_ffn
+
+    def counted(n, fn):
+        def call(*a, **kw):
+            calls[n] += 1
+            return fn(*a, **kw)
+        return call
+
+    gm.reset_launches()
+    for n in names:
+        setattr(gm, n, counted(n, saved[n]))
+    gen._moe_ffn = counted("moe_ffn", saved_ffn)
+    try:
+        yield calls
+    finally:
+        for n in names:
+            setattr(gm, n, saved[n])
+        gen._moe_ffn = saved_ffn
+
+
+def check_moe_launches(what, calls):
+    """Every _moe_ffn projection of a serving path a B7 int8 launch, no
+    other grouped launch and no plain call."""
+    from paddle_tpu_torch.ops import grouped_matmul as gm
+    want = dict.fromkeys(gm.LAUNCHES, 0)
+    want["grouped_matmul_int8"] = 3 * calls["moe_ffn"]
+    if calls["moe_ffn"] == 0 or dict(gm.LAUNCHES) != want or \
+            calls["grouped_matmul_plain"] or calls["grouped_outer_plain"]:
+        raise AssertionError(f"{what}: grouped launches {gm.LAUNCHES} "
+                             f"(expected {want}), calls {calls}")
+    return dict(gm.LAUNCHES, moe_ffn_calls=calls["moe_ffn"])
+
+
+def served_choices(cfg, params, seqs, dev):
+    """The served model's expert choices on ``seqs``: per sequence, per
+    MoE layer, the [len, k] expert ids that the port's bf16 prefill (the
+    same ``_ffn``, B7 launches included) picks, teacher-forced."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import generation as gen
+
+    w = gen._Weights(cfg, params)
+    cos, sin = gen.rope_tables_on(cfg, dev)
+    out, saved = [], gen._top_k
+
+    def record(probs, k):
+        vals, ids = saved(probs, k)
+        layers.append(ids)
+        return vals, ids
+
+    gen._top_k = record
+    try:
+        with torch.no_grad():
+            for s in seqs:
+                layers = []
+                ids = torch.from_numpy(np.asarray(s, np.int32)).to(dev)
+                gen._prefill(w, ids[None], cos, sin)
+                out.append(layers)
+    finally:
+        gen._top_k = saved
+    return out
+
+
+def moe_teacher_forced(cfg, params, prompts, outputs, dev):
+    """``teacher_forced`` on the sparse model, beside the count of (token,
+    layer) pairs whose top-k expert set differs between the served path
+    (``served_choices``) and the fp32 reference.  Routing is
+    discontinuous: a near-tie of the k-th and (k+1)-th expert may flip
+    between the bf16 served path and fp32.  If the check fails with its own
+    choices and some flipped, it is repeated with the reference taking the
+    served choices, and that decides; both readings are recorded."""
+    import numpy as np
+    seqs = [np.concatenate([p, o[:-1]]) for p, o in zip(prompts, outputs)]
+    served = served_choices(cfg, params, seqs, dev)
+    own = []
+    try:
+        stats, failed = teacher_forced(cfg, params, prompts, outputs, dev,
+                                       choices=own), None
+    except AssertionError as e:
+        stats, failed = None, str(e)
+    S = max(len(s) for s in seqs)
+    flips = pairs = 0
+    forced = [c.clone() for c in own]
+    for j, s in enumerate(seqs):
+        for i, layer in enumerate(served[j]):
+            mine = own[i][j * S:j * S + len(s)]
+            flips += int((layer.sort(-1).values != mine.sort(-1).values
+                          ).any(-1).sum())
+            pairs += len(s)
+            forced[i][j * S:j * S + len(s)] = layer
+    if stats is None:
+        if flips == 0:
+            raise AssertionError(failed)
+        stats = teacher_forced(cfg, params, prompts, outputs, dev,
+                               forced=forced)
+        stats["with_own_choices"] = failed
+        stats["reference_choices"] = "served"
+    else:
+        stats["reference_choices"] = "own"
+    stats.update(top_k_sets_differing=flips, token_layer_pairs=pairs)
+    return stats
+
+
+def moe_serving_phase(dev):
+    """Mixtral-8x7B at full width and depth, int8 weight-only, random
+    weights: the chunked engine, the unified engine with the prefix cache
+    and ``_generate_greedy`` on the params dict, with the 8B cell's
+    traffic; every MoE projection a B7 int8 launch, every decode attention
+    call a B3/B3'/B4 launch, the chunk launches under the sync check, the
+    fp32 teacher-forced check on the same int8 weights; then a short
+    decode profile."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import LlamaConfig
+    from paddle_tpu_torch.models.generation import _generate_greedy
+
+    cfg = LlamaConfig(**MIXTRAL_CFG)
+    t0 = time.perf_counter()
+    params = mixtral_params(cfg, dev)
+    _sync()
+    build_s = time.perf_counter() - t0
+    total = sum(v.numel() * v.element_size() for v in params.values())
+    emb = params["model.embed_tokens.weight"]
+    # a decode step reads every weight but the embedding, of which it
+    # gathers one row per slot
+    step_bytes = total - emb.numel() * emb.element_size() + 8 * emb.shape[1]
+    rng = np.random.default_rng(SEED + 3)
+    prompts = [rng.integers(1, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in (32, 75, 128, 190, 257, 300)]
+    system = rng.integers(1, cfg.vocab_size, (64,)).astype(np.int32)
+    shared = [prompts[0], prompts[2], prompts[3], prompts[5],
+              np.concatenate([system, prompts[1][:40]]),
+              np.concatenate([system, prompts[4][:120]])]
+    rec = {"config": MIXTRAL_CFG, "weight_gb": total / 1e9,
+           "weights_build_s": build_s,
+           "decode_step_weight_gb": step_bytes / 1e9,
+           "weight_stream_floor_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
+           "peak_mem_gb_weights": torch.cuda.max_memory_allocated() / 1e9}
+
+    with moe_counter() as calls:
+        done, rec["chunked"] = serve_chunked(cfg, params, prompts, dev)
+    rec["chunked"]["grouped_launches"] = check_moe_launches("mixtral chunked",
+                                                            calls)
+    rec["chunked"]["teacher_forced"] = moe_teacher_forced(
+        cfg, params, prompts, [f.tokens for f in done], dev)
+    print("mixtral chunked: " + json.dumps(rec["chunked"]), flush=True)
+
+    with moe_counter() as calls:
+        done, rec["unified"] = serve_unified(cfg, params, shared, dev)
+    rec["unified"]["grouped_launches"] = check_moe_launches("mixtral unified",
+                                                            calls)
+    by_rid = {f.rid: f.tokens for f in done}
+    rec["unified"]["teacher_forced"] = moe_teacher_forced(
+        cfg, params, shared, [by_rid[r] for r in sorted(by_rid)], dev)
+    print("mixtral unified+prefix-cache: " + json.dumps(rec["unified"]),
+          flush=True)
+
+    def greedy(ids):
+        ids = torch.from_numpy(np.ascontiguousarray(ids)).to(dev)
+        return torch.cat([ids, _generate_greedy(cfg, params, ids, 32, -1)],
+                         dim=1)
+
+    with moe_counter() as calls:
+        toks, rec["generate"] = serve_generate(cfg, None, prompts[3], dev,
+                                               generate=greedy)
+    rec["generate"]["grouped_launches"] = check_moe_launches(
+        "mixtral generate", calls)
+    rec["generate"]["teacher_forced"] = moe_teacher_forced(
+        cfg, params, [prompts[3]], [toks], dev)
+    print("mixtral generate: " + json.dumps(rec["generate"]), flush=True)
+    rec["profile"] = profile_decode(
+        cfg, params, dev, MOE_PROFILE_CHUNKS,
+        classes={"grouped_matmul": ["gmm_kernel"],
+                 "decode_attention": ["decode_attention_kernel"],
+                 "dense_gemm": ["nvjet", "gemm", "cutlass", "sm90_xmma"]})
+    print("mixtral profile: " + json.dumps(rec["profile"]), flush=True)
+    rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print("mixtral: " + json.dumps({k: v for k, v in rec.items() if k not in
+                                    ("chunked", "unified", "generate",
+                                     "profile")}), flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return rec
+
+
+# ------------------------------------------------ dropless MoE train phase
+
+# parallel/expert.py's dropless block at Mixtral-8x7B's expert shape (its
+# own default activation, gelu); x2d bf16 [8192, 4096], fp32 params and
+# target, block_rows 8.  Plain SGD on this objective (squared error summed
+# over the 4096 features) has a curvature that grows with the width: at
+# lr 1e-2, the JAX step's default, the losses grow from the first step
+# (14157 -> 15920 -> 22281 -> 33895 on an H100), so the cell takes 3e-3
+MOE_TRAIN_CFG = dict(d_model=4096, d_hidden=14336, num_expert=8, top_k=2)
+MOE_TRAIN_TOKENS, MOE_TRAIN_WARMUP, MOE_TRAIN_STEPS = 8192, 1, 3
+MOE_TRAIN_LR = 3e-3
+
+
+def moe_reference_loss(cfg, params, x2d, tgt):
+    """The dropless step's loss by a plain fp32 forward, independent of the
+    port's code: top-k of the fp32 router softmax (raw weights), each
+    expert's gelu FFN with biases on its tokens, the summed squared error
+    over the tokens plus the weighted load-balance aux."""
+    import torch
+    import torch.nn.functional as F
+    with torch.no_grad():
+        x = x2d.float()
+        probs = (x @ params["gate_w"]).softmax(-1)
+        top_p, ids = probs.topk(cfg.top_k, dim=-1)
+        y = torch.zeros_like(x)
+        for e in range(cfg.num_expert):
+            rows, slot = (ids == e).nonzero(as_tuple=True)
+            if rows.numel():
+                hid = F.gelu(x[rows] @ params["w_up"][e] + params["b_up"][e],
+                             approximate="tanh")
+                out = hid @ params["w_down"][e] + params["b_down"][e]
+                y.index_add_(0, rows, out * top_p[rows, slot][:, None])
+        load = F.one_hot(probs.argmax(-1), cfg.num_expert).float().mean(0)
+        aux = cfg.num_expert * (load * probs.mean(0)).sum()
+        loss = ((x + y - tgt).square().sum() / x.shape[0]
+                + cfg.aux_weight * aux)
+    return loss.item()
+
+
+def moe_train_phase(dev):
+    """``build_moe_ep_dropless_train_step`` on one GPU at MOE_TRAIN_CFG:
+    one warm-up and MOE_TRAIN_STEPS timed steps on one batch; per step
+    exactly 2 B7 forward, 2 B7 dx and 2 B8 launches and no plain call;
+    losses finite and falling, dropped 0, the step-0 loss within
+    TRAIN_LOSS_TOL of a plain fp32 forward on the same weights."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.ops import grouped_matmul as gm
+    from paddle_tpu_torch.parallel.expert import (
+        MoEEPConfig, build_moe_ep_dropless_train_step)
+
+    cfg = MoEEPConfig(**MOE_TRAIN_CFG)
+    m, h, e = cfg.d_model, cfg.d_hidden, cfg.num_expert
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    # init_moe_ep_params's distributions, drawn on the card
+    params = {
+        "gate_w": torch.randn(m, e, generator=g, device=dev),
+        "w_up": torch.randn(e, m, h, generator=g, device=dev) / m ** 0.5,
+        "b_up": torch.zeros(e, h, device=dev),
+        "w_down": torch.randn(e, h, m, generator=g, device=dev) / m ** 0.5,
+        "b_down": torch.zeros(e, m, device=dev)}
+    x2d = torch.randn(MOE_TRAIN_TOKENS, m, generator=g, device=dev).to(
+        torch.bfloat16)
+    tgt = torch.randn(MOE_TRAIN_TOKENS, m, generator=g, device=dev)
+    ref_loss = moe_reference_loss(cfg, params, x2d, tgt)
+    torch.cuda.empty_cache()
+    step = build_moe_ep_dropless_train_step(cfg, lr=MOE_TRAIN_LR,
+                                            block_rows=8)
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls, dropped, launches = [], [], [], []
+    want = dict(grouped_matmul=2, grouped_matmul_int8=0, grouped_matmul_t=2,
+                grouped_outer=2)
+    for _ in range(MOE_TRAIN_WARMUP + MOE_TRAIN_STEPS):
+        with moe_counter() as calls:
+            t0 = time.perf_counter()
+            loss, aux, drop, load, params = step(params, x2d, tgt)
+            _sync()
+            walls.append(time.perf_counter() - t0)
+        launches.append(dict(gm.LAUNCHES))
+        if dict(gm.LAUNCHES) != want or calls["grouped_matmul_plain"] or \
+                calls["grouped_outer_plain"]:
+            raise AssertionError(f"moe train: launches {gm.LAUNCHES} "
+                                 f"(expected {want}), calls {calls}")
+        losses.append(loss.item())
+        dropped.append(float(drop))
+    rel = abs(losses[0] - ref_loss) / abs(ref_loss)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0] or \
+            any(dropped) or not rel <= TRAIN_LOSS_TOL:
+        raise AssertionError(f"moe train: losses {losses}, dropped "
+                             f"{dropped}, step-0 {losses[0]} vs fp32 "
+                             f"{ref_loss} ({rel})")
+    window = sum(walls[MOE_TRAIN_WARMUP:])
+    flops = 6 * 2 * MOE_TRAIN_TOKENS * cfg.top_k * m * h
+    rec = dict(config=MOE_TRAIN_CFG, activation=cfg.activation,
+               tokens=MOE_TRAIN_TOKENS, block_rows=8, lr=MOE_TRAIN_LR,
+               losses=losses, step_s=walls, dropped=dropped,
+               ms_per_step=window / MOE_TRAIN_STEPS * 1e3,
+               gemm_flop_per_step=flops,
+               tflops=flops * MOE_TRAIN_STEPS / window / 1e12,
+               launches_per_step=launches[-1],
+               launches_total={k: sum(d[k] for d in launches)
+                               for k in launches[0]},
+               load=load.tolist(), aux=aux.item(),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               step0_check=dict(kernel_bf16=losses[0], plain_fp32=ref_loss,
+                                rel=rel, tol=TRAIN_LOSS_TOL))
+    del params, x2d, tgt, step
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -1515,6 +2182,23 @@ def main() -> int:
           + json.dumps(record["masked_train"]["profile"]), flush=True)
     record["long_context"] = long_context_phase(dev)
     print("long context: " + json.dumps(record["long_context"]), flush=True)
+
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=dev)
+    record["grouped_kernels"] = gmm_cases(dev, flush)
+    del flush
+    torch.cuda.empty_cache()
+    for r in record["grouped_kernels"]:
+        lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        print(f"grouped {r['name']}[{r['kind']}] {r['shape']}: err="
+              f"{r['err']:.3g} (tol {r['tol']}) max_abs_err="
+              f"{r['max_abs_err']:.3g} kernel_ms={r['ms']:.4f} "
+              f"({r['tflops']:.1f} TFLOP/s, {r['gbytes_per_s']:.0f} GB/s) "
+              f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+              f"({r['bound_by']}) library_ms={lib} [{r['library_call']}]",
+              flush=True)
+    record["mixtral"] = moe_serving_phase(dev)
+    record["moe_train"] = moe_train_phase(dev)
+    print("moe train: " + json.dumps(record["moe_train"]), flush=True)
     record["wall_s"] = time.perf_counter() - t0
     out_dir = HERE / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -1604,6 +2288,31 @@ def main() -> int:
             "row_errors": {kind: max(max(r["err"][route].values())
                                      for r in rows if r["kind"] == kind)
                            for kind in ("bf16", "fp32")}})
+    gmm_source = "paddle_tpu_torch/csrc/grouped_matmul.cu"
+    gmm_tpu = "paddle_tpu/ops/pallas/grouped_matmul.py"
+    rows = record["grouped_kernels"]
+    mixtral = record["mixtral"]
+    for name, line, case, kind, launches, ops in (
+            ("grouped_matmul", 82, "mixtral_decode_up", "int8",
+             sum(mixtral[p]["grouped_launches"]["grouped_matmul_int8"]
+                 for p in ("chunked", "unified", "generate")),
+             ("fwd", "t")),
+            ("grouped_outer", 180, "train_dw", "bf16",
+             record["moe_train"]["launches_total"]["grouped_outer"],
+             ("outer",))):
+        r = next(x for x in rows if x["name"] == case and x["kind"] == kind)
+        kernels.append({
+            "name": name, "route": "cuda", "source": gmm_source,
+            "replaces": f"{gmm_tpu}:{line}", "launches": launches,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "checked_by": f"grouped-matmul kernel phase ({case}[{kind}] "
+                          f"timed) and the "
+                          + ("Mixtral serving paths" if name ==
+                             "grouped_matmul" else "dropless train step"),
+            "row_errors": {f"{x['name']}[{x['kind']}]": x["err"]
+                           for x in rows if x["op"] in ops}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,7 @@ Hopper (H100, ``sm_90a``).
 
 The JAX package ``paddle_tpu`` stays the reference.  This package mirrors
 its layout (``models/``, ``ops/``, ``inference/``, ``incubate/``,
-``optimizer/``, ``csrc/``) so each port
+``optimizer/``, ``parallel/``, ``csrc/``) so each port
 module sits where its counterpart sits, and it imports neither ``jax`` nor
 anything of ``paddle_tpu``.
 

@@ -330,6 +330,8 @@ int dispatch(const Args& a, int rows, int d, int q_dtype, int kv_dtype, void* st
   if (q_dtype == kF32 && kv_dtype == kF32) return dispatch_d<float, float, PAGED>(a, rows, d, s);
   if (q_dtype == kBF16 && kv_dtype == kBF16) return dispatch_d<__nv_bfloat16, __nv_bfloat16, PAGED>(a, rows, d, s);
   if (q_dtype == kF32 && kv_dtype == kI8) return dispatch_d<float, int8_t, PAGED>(a, rows, d, s);
+  // an fp32 model over a bf16 cache (an int8-weight dict serves on bf16 pools)
+  if (q_dtype == kF32 && kv_dtype == kBF16) return dispatch_d<float, __nv_bfloat16, PAGED>(a, rows, d, s);
   if (q_dtype == kBF16 && kv_dtype == kI8) return dispatch_d<__nv_bfloat16, int8_t, PAGED>(a, rows, d, s);
   return cudaErrorInvalidValue;
 }

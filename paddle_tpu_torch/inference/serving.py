@@ -23,6 +23,11 @@ model eagerly, with every attention call on a hand-written paged kernel
   prefix cache, so a shared system prompt maps its full pages
   copy-on-write and prefills only the private suffix.
 
+Both paths take weight-only int8 dicts (``quantize_params_int8``; the
+cache is then bf16, as in the JAX engine) and sparse (MoE) checkpoints,
+whose expert FFNs run on the grouped-matmul kernel through
+``models/generation.py::_ffn``.
+
 Unlike the JAX engine, the page pools are updated IN PLACE (indexed
 assignment) instead of being donated through a compiled program.
 
@@ -398,8 +403,14 @@ class ContinuousBatchingEngine:
 
         L = cfg.num_hidden_layers
         kvh, d = cfg.num_key_value_heads, cfg.head_dim
-        dt = cache_dtype if cache_dtype is not None else next(
-            iter(self.params.values())).dtype
+        # the cache takes the first non-scale param's dtype, bf16 when that
+        # is not floating (int8-weight dicts)
+        dt = next(v for k, v in self.params.items()
+                  if not k.endswith("._scale")).dtype
+        if not dt.is_floating_point:
+            dt = torch.bfloat16
+        if cache_dtype is not None:
+            dt = cache_dtype
         self.cache_dtype = dt
         if pages_per_step == "auto":
             pages_per_step = default_pages_per_step(

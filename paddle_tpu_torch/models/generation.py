@@ -9,8 +9,11 @@ traffic is bounded by the current position.  PyTorch runs eagerly, so the
 JAX ``lax.scan`` becomes a Python loop and the cache is updated in place.
 
 Norms, rope, SwiGLU and the head are plain PyTorch, as the JAX package
-left them to XLA.  Sampling, beam search, weight-only int8 and MoE layers
-belong to later slices of the port and raise.
+left them to XLA.  Weight-only int8 dicts (``quantize_params_int8``, the
+``._scale`` views of ``_Weights``) and sparse checkpoints (``_moe_ffn``,
+expert GEMMs on the grouped-matmul kernel B7, ``ops/grouped_matmul.py``)
+serve through every path.  Sampling and beam search belong to later
+slices of the port and raise.
 """
 
 from __future__ import annotations
@@ -22,9 +25,10 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.decode_attention import flash_decode
+from ..ops.grouped_matmul import grouped_matmul_raw, sorted_segments
 from .llama import _rope_tables
 
-__all__ = ["generate"]
+__all__ = ["generate", "quantize_params_int8"]
 
 
 def _rms_norm(x, w, eps):
@@ -49,41 +53,189 @@ def _apply_rope(q, k, cos, sin):
 
 class _Weights:
     """Name-indexed view over a functional-state dict (Linear weights are
-    [in, out]: y = x @ W).  Mirror of the dense part of
-    ``paddle_tpu.models.generation._Weights``."""
+    [in, out]: y = x @ W).  Mirror of ``paddle_tpu.models.generation.
+    _Weights``, weight-only int8 included: a weight ``N`` may ride with a
+    sibling ``N._scale`` (``quantize_params_int8``), and the accessors
+    dequantize ``int8 -> compute dtype`` at the consumer, casting weight
+    and scale to the compute dtype before the multiply (the JAX order).
+    The compute dtype ``_dt`` is the first floating, non-``._scale``
+    parameter's dtype, else bf16.  Embedding lookups gather int8 rows first
+    and dequantize the gathered rows only."""
 
     def __init__(self, cfg, params: Dict[str, torch.Tensor]):
-        if any(k.endswith("._scale") for k in params):
-            raise NotImplementedError(
-                "weight-only int8 params (._scale views) belong to a later "
-                "slice of the port")
         self.cfg = cfg
         self.p = params
+        self._dt = next((v.dtype for k, v in params.items()
+                         if not k.endswith("._scale")
+                         and v.is_floating_point()), torch.bfloat16)
+
+    def _deq(self, name):
+        w = self.p[name]
+        sc = self.p.get(name + "._scale")
+        if sc is None:
+            return w
+        # per-out-channel (last axis) scales
+        return w.to(self._dt) * sc.to(self._dt)[None, :]
 
     def layer(self, i, name):
-        return self.p[f"model.layers.{i}.{name}"]
+        return self._deq(f"model.layers.{i}.{name}")
 
     def is_moe_layer(self, i) -> bool:
+        """A layer is MoE iff the checkpoint carries its stacked expert
+        weights (sparse checkpoints may mix dense and MoE layers)."""
         return f"model.layers.{i}.mlp.experts.gate_proj.weight" in self.p
 
+    def expert(self, i, proj, idx):
+        """Gather-then-dequant expert slices of the stacked ``[E, in,
+        out]`` bank: the int8 slices of ``idx`` first, then their
+        per-(expert, out-channel) scales."""
+        name = f"model.layers.{i}.mlp.experts.{proj}.weight"
+        idx = idx.long()
+        rows = self.p[name][idx]                       # [T, in, out]
+        sc = self.p.get(name + "._scale")
+        if sc is None:
+            return rows
+        return rows.to(self._dt) * sc.to(self._dt)[idx][:, None, :]
+
     def embed(self, ids):
-        return self.p["model.embed_tokens.weight"][ids.long()]
+        """Gather rows, then dequantize the gathered rows only (per-row
+        scales of the [vocab, hidden] matrix)."""
+        ids = ids.long()
+        rows = self.p["model.embed_tokens.weight"][ids]
+        sc = self.p.get("model.embed_tokens.weight._scale")
+        if sc is None:
+            return rows
+        return rows.to(self._dt) * sc.to(self._dt)[ids][..., None]
 
     def head(self, x):
         if "lm_head.weight" in self.p:
-            return x @ self.p["lm_head.weight"]
-        return x @ self.p["model.embed_tokens.weight"].T
+            w = self.p["lm_head.weight"]
+            sc = self.p.get("lm_head.weight._scale")
+        else:
+            # tied embeddings: the per-row embed scales become
+            # per-out-channel head scales
+            w = self.p["model.embed_tokens.weight"].T
+            sc = self.p.get("model.embed_tokens.weight._scale")
+        if sc is None:
+            return x @ w
+        return (x @ w.to(self._dt)) * sc.to(self._dt)[None, :]
 
     def __getitem__(self, k):
-        return self.p[k]
+        return self._deq(k)
+
+
+def quantize_params_int8(params: Dict[str, torch.Tensor],
+                         keep=("norm", "layernorm", "router")
+                         ) -> Dict[str, torch.Tensor]:
+    """Weight-only int8 quantization of a functional-state dict (mirror of
+    ``quantize_params_int8``, equal to it bit for bit): 2D floating weights
+    become int8 with a per-output-channel symmetric-absmax fp32
+    ``<name>._scale``; 1D weights and names matching ``keep`` (norms, the
+    MoE router) stay as they are.  The embedding quantizes per row, stacked
+    ``[E, in, out]`` expert banks per (expert, out-channel)."""
+    out = {}
+    for name, w in params.items():
+        is_embed = name.endswith("embed_tokens.weight")
+        is_expert = ".mlp.experts." in name and w.dim() == 3
+        if ((w.dim() != 2 and not is_expert) or not w.is_floating_point()
+                or any(s in name for s in keep)):
+            out[name] = w
+            continue
+        wf = w.float()
+        if is_expert:
+            scale = wf.abs().amax(dim=1).clamp_min(1e-8) / 127.0  # [E, out]
+            den = scale[:, None, :]
+        else:
+            axis = 1 if is_embed else 0         # reduce over the in-dim
+            scale = wf.abs().amax(dim=axis).clamp_min(1e-8) / 127.0
+            den = scale[:, None] if is_embed else scale[None, :]
+        out[name] = torch.round(wf / den).clamp(-127, 127).to(torch.int8)
+        out[name + "._scale"] = scale
+        del wf
+    return out
+
+
+#: row-block quantum of the serving grouped-matmul launches (segment
+#: alignment; serving batches are small, so a fine block keeps the padding
+#: slack low)
+_MOE_FFN_BLOCK_ROWS = 8
+
+
+def _top_k(probs, k):
+    """``lax.top_k`` over the last axis: the k largest, ties to the lower
+    index (a stable descending sort)."""
+    vals, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], ids[..., :k]
+
+
+def _moe_ffn(w: _Weights, i, xm):
+    """Top-k expert routing of one MoE layer (mirror of ``_moe_ffn``): fp32
+    router logits -> softmax -> top-k, renormalised over the chosen k ->
+    token copies sorted by expert (stable) into ``_MOE_FFN_BLOCK_ROWS``-
+    aligned segments -> ONE ``grouped_matmul_raw`` launch (B7) per
+    projection, SwiGLU, then a weighted scatter-add back to token order.
+    An int8 bank goes into the kernel as it is, with its fp32 ``._scale``
+    (widened and scaled in-kernel).  ``xm`` is any [..., hidden] batch;
+    routing is per token row.  Nothing here waits for the device
+    (``sorted_segments``), so a decode chunk enqueues without a host
+    sync."""
+    cfg = w.cfg
+    shape = xm.shape
+    x2 = xm.reshape(-1, shape[-1])
+    router = w.layer(i, "mlp.router.weight")            # [h, E], fp
+    e = int(router.shape[-1])
+    bank_e = int(
+        w.p[f"model.layers.{i}.mlp.experts.gate_proj.weight"].shape[0])
+    if bank_e != e:
+        raise ValueError(
+            f"layer {i}: router routes {e} experts but the stacked bank "
+            f"holds {bank_e}")
+    k = int(cfg.moe_top_k)
+    if not 1 <= k <= e:
+        raise ValueError(
+            f"layer {i}: moe_top_k={k} outside [1, {e}] — set "
+            f"LlamaConfig.moe_top_k for this sparse checkpoint")
+    probs = torch.softmax(x2.float() @ router.float(), dim=-1)
+    top_p, top_ids = _top_k(probs, k)                   # [T, k]
+    top_p = top_p / top_p.sum(dim=-1, keepdim=True)
+
+    # sorted ragged dispatch
+    bm = _MOE_FFN_BLOCK_ROWS
+    order, _, counts, seg_st, dest, rpad = sorted_segments(top_ids, e, bm)
+    token_of = order // k
+    wsorted = top_p.reshape(-1)[order]
+    xr = torch.zeros((rpad, x2.shape[1]), dtype=x2.dtype, device=x2.device)
+    xr.index_copy_(0, dest, x2[token_of])
+    wids = torch.arange(e, dtype=torch.int32, device=x2.device)
+
+    def gmm(xin, proj):
+        name = f"model.layers.{i}.mlp.experts.{proj}.weight"
+        wq = w.p[name]
+        sc = w.p.get(name + "._scale")
+        if sc is None:
+            wq = wq.to(x2.dtype)
+        else:
+            sc = sc.float()
+        return grouped_matmul_raw(xin, wq, seg_st, counts, wids,
+                                  block_rows=bm, w_scale=sc)
+
+    gate = gmm(xr, "gate_proj")
+    up = gmm(xr, "up_proj")
+    eo = gmm(F.silu(gate) * up, "down_proj")            # [rpad, h]
+
+    # combine: each copy's expert output, weighted, added into token order
+    ys = eo[dest] * wsorted.to(x2.dtype)[:, None]
+    y = torch.zeros_like(x2).index_add_(0, token_of, ys)
+    return y.reshape(shape)
 
 
 def _ffn(w: _Weights, i, xm):
-    """Layer ``i``'s dense SwiGLU FFN (mirror of ``_ffn``)."""
+    """Layer ``i``'s FFN (mirror of ``_ffn``): dense SwiGLU, or top-k
+    expert routing (``_moe_ffn``) when the checkpoint carries the layer's
+    stacked expert banks.  The one FFN of prefill, ``generate``'s decode,
+    the chunked engine and the unified step."""
     if w.is_moe_layer(i):
-        raise NotImplementedError(
-            f"layer {i} is a mixture-of-experts FFN: MoE serving (grouped "
-            f"matmul kernel B7) belongs to a later slice of the port")
+        return _moe_ffn(w, i, xm)
     gate = xm @ w.layer(i, "mlp.gate_proj.weight")
     up = xm @ w.layer(i, "mlp.up_proj.weight")
     return (F.silu(gate) * up) @ w.layer(i, "mlp.down_proj.weight")

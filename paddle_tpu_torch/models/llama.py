@@ -47,6 +47,11 @@ class LlamaConfig:
     rope_theta: float = 500000.0
     rms_norm_eps: float = 1e-5
     tie_word_embeddings: bool = False
+    # sparse checkpoints: a layer is mixture-of-experts iff the checkpoint
+    # carries its stacked ``mlp.experts.*`` banks and ``mlp.router.weight``
+    # (generation._moe_ffn); these fields size the routing
+    num_experts: int = 0
+    moe_top_k: int = 2
 
     @property
     def head_dim(self) -> int:
@@ -221,13 +226,17 @@ def params_from_jax(state: Dict[str, np.ndarray], device: DeviceLike,
                     dtype: Optional[torch.dtype] = None
                     ) -> Dict[str, torch.Tensor]:
     """A JAX ``functional_state()`` dict (numpy or JAX arrays) as torch
-    tensors on ``device``, same names, same layouts, optionally cast to
-    ``dtype``.  bf16 arrays cross bit-exactly through an int16 view."""
+    tensors on ``device``, same names, same layouts.  ``dtype`` casts the
+    floating weights only: int8 weights and their fp32 ``._scale``
+    siblings (``quantize_params_int8``) cross unchanged.  bf16 arrays cross
+    bit-exactly through an int16 view."""
     dev = resolve_device(device)
     out = {}
     for k, a in state.items():
         t = _to_torch(a)
-        out[k] = t.to(device=dev, dtype=dtype or t.dtype)
+        cast = (dtype is not None and t.is_floating_point()
+                and not k.endswith("._scale"))
+        out[k] = t.to(device=dev, dtype=dtype if cast else t.dtype)
     return out
 
 

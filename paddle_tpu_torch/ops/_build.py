@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 Every ``csrc/*.cu`` source (``decode_attention.cu``, ``flash_attention.cu``,
-``masked_flash_attention.cu``; the last two include ``flash_common.cuh``)
+``masked_flash_attention.cu``, ``grouped_matmul.cu``; the last three include
+``flash_common.cuh``)
 is compiled by its own ``nvcc`` process, all started together, into an
 object file; one more ``nvcc`` links them into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds), loaded
@@ -26,7 +27,7 @@ from typing import Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = (CSRC / "decode_attention.cu", CSRC / "flash_attention.cu",
-           CSRC / "masked_flash_attention.cu")
+           CSRC / "masked_flash_attention.cu", CSRC / "grouped_matmul.cu")
 HEADERS = (CSRC / "flash_common.cuh",)
 BUILD_DIR = _PKG / "_build"
 # compile flags of each source; headers resolve through -I csrc/, also for
@@ -51,6 +52,9 @@ SIGNATURES = {
                              _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     # kind, pointer array, int array, scale, dtype, stream
     "pt_masked_flash": [_I, _P, _P, _F, _I, _P],
+    "pt_grouped_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                          _I, _I, _I, _P],
+    "pt_grouped_outer": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -77,7 +77,7 @@ def _attend_plain(q, k, v, lens, scale):
     """Shared math of the plain versions.  q [R, h, d]; k/v [R, kvh, S, d]
     already gathered per row; lens [R] visible positions.  Same semantics
     as the kernels: NEG_INF mask, fp32 scores and softmax, p rounded to
-    v's dtype (int8 widened to q's) before an fp32 PV sum, V past the
+    v's dtype (q's for int8 V) before an fp32 PV sum, V past the
     length zeroed, rows that see no key output 0."""
     R, h, d = q.shape
     kvh, S = k.shape[1], k.shape[2]
@@ -86,6 +86,7 @@ def _attend_plain(q, k, v, lens, scale):
         return torch.zeros_like(q)
     kw = k.to(q.dtype)
     vw = v.to(q.dtype)
+    pdt = q.dtype if v.dtype == torch.int8 else v.dtype
     qg = q.reshape(R, kvh, rep, d).float()
     s = torch.einsum("rgqd,rgsd->rgqs", qg, kw.float()) * scale
     vis = (torch.arange(S, device=q.device)[None, :]
@@ -95,7 +96,7 @@ def _attend_plain(q, k, v, lens, scale):
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     vz = torch.where(vis[:, None, :, None], vw, torch.zeros_like(vw))
-    acc = torch.einsum("rgqs,rgsd->rgqd", p.to(vw.dtype).float(), vz.float())
+    acc = torch.einsum("rgqs,rgsd->rgqd", p.to(pdt).float(), vz.float())
     l = torch.where(l == 0.0, torch.ones_like(l), l)
     valid = m > NEG_INF * 0.5
     out = torch.where(valid, acc / l, torch.zeros_like(acc))
@@ -183,9 +184,11 @@ def _check_inputs(q, k, v, name):
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name}: q dtype {q.dtype} not supported "
                         f"(float32 or bfloat16)")
-    if k.dtype != v.dtype or k.dtype not in (q.dtype, torch.int8):
+    if k.dtype != v.dtype or k.dtype not in (q.dtype, torch.int8,
+                                             torch.bfloat16):
         raise TypeError(f"{name}: K/V dtypes {k.dtype}/{v.dtype} not "
-                        f"supported with q {q.dtype} (q's dtype or int8)")
+                        f"supported with q {q.dtype} (q's dtype, int8 or "
+                        f"bf16)")
     if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"{name}: bad ranks/shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")

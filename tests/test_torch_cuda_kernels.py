@@ -512,3 +512,251 @@ def test_masked_gate_catches_planted_faults(dev, tmp_path, monkeypatch):
         monkeypatch.undo()
         print(json.dumps({"kernel": fault, "tol": tol, "row_error": bad}))
         assert bad[out] > 10 * tol[out], (fault, bad)
+
+
+def test_decode_kernels_fp32_q_over_bf16_cache(dev):
+    """An fp32 model serving an int8-weight dict runs on bf16 pools: the
+    decode kernels take fp32 q over bf16 K/V (p rounded to bf16, as v)."""
+    b, h, kvh, d, page, mp = 3, 8, 2, 64, 16, 6
+    n_pages = b * mp + 1
+    q, k, v = _inputs(dev, b, h, kvh, d, (n_pages, kvh, page, d),
+                      torch.bfloat16, False, 9)
+    q = q.float()
+    tables = torch.arange(b * mp, dtype=torch.int32).reshape(b, mp).to(dev)
+    lens = torch.tensor([1, 40, 96], dtype=torch.int32, device=dev)
+    got = da.paged_decode(q, k, v, lens, tables)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    _err(got, da.paged_decode_plain(q, k, v, lens, tables), torch.float32)
+
+
+# ---------------------------------------------------------------- B7 / B8
+
+# (K, N, per-segment lengths, block_rows): K/N from 64 to 4096, including
+# widths off the kernels' 64-wide tiles; empty segments, one expert with
+# every row, unaligned lengths at block_rows 128, segments past one 64-row
+# tile
+GMM_SWEEP = {
+    "k64_n64_mixed": (64, 64, [5, 0, 17, 64, 1, 0, 3, 200], 8),
+    "k128_n4096_br128": (128, 4096, [13, 77, 0, 130, 1], 128),
+    "k4096_n256": (4096, 256, [2, 3, 1, 2, 2, 2, 3, 1], 8),
+    "k1024_one_expert": (1024, 1024, [0, 0, 300, 0], 8),
+    "k264_n200_edges": (264, 200, [70, 0, 9, 129, 33], 8),
+}
+
+
+def _gmm_case(dev, K, N, lens, bm, kind, op, seed=0, wids=None):
+    """Inputs of one B7/B8 call in the MoE callers' layout (dense aligned
+    starts, zero slack, E * block_rows spare rows); op fwd, t (bank stored
+    [E, N, K]) or outer."""
+    from paddle_tpu_torch.ops import grouped_matmul as gm
+    g = torch.Generator(device=dev).manual_seed(seed)
+    S = len(lens)
+    wids = list(range(S)) if wids is None else wids
+    E = max(wids) + 1
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    starts = gm.segment_starts(lens_t, bm)
+    R = int(gm.align_rows(sum(lens), bm) + E * bm)
+    keep = torch.zeros(R, 1, dtype=torch.bool, device=dev)
+    for st, n in zip(starts.tolist(), lens):
+        keep[st:st + n] = True
+    dtype = torch.float32 if kind == "fp32" else torch.bfloat16
+
+    def rows(width):
+        x = torch.randn(R, width, generator=g, device=dev).to(dtype)
+        return torch.where(keep, x, torch.zeros((), dtype=dtype, device=dev))
+
+    inp = dict(op=op, starts=starts, lens=lens_t, bm=bm, scale=None,
+               wids=torch.tensor(wids, dtype=torch.int32, device=dev),
+               x=rows(K), dy=rows(N) if op == "outer" else None)
+    if op != "outer":
+        shape = (E, N, K) if op == "t" else (E, K, N)
+        if kind == "int8":
+            inp["w"] = torch.randint(-127, 128, shape, generator=g,
+                                     device=dev, dtype=torch.int8)
+            inp["scale"] = torch.rand(E, N, generator=g, device=dev) / (
+                73.0 * K ** 0.5)
+        else:
+            inp["w"] = (torch.randn(shape, generator=g, device=dev)
+                        / K ** 0.5).to(dtype)
+    return inp
+
+
+@pytest.mark.parametrize("case", list(GMM_SWEEP))
+@pytest.mark.parametrize("kind,op", [("bf16", "fwd"), ("fp32", "fwd"),
+                                     ("int8", "fwd"), ("bf16", "t"),
+                                     ("fp32", "t"), ("bf16", "outer"),
+                                     ("fp32", "outer")])
+def test_grouped_kernels_match_plain(dev, case, kind, op):
+    from paddle_tpu_torch.ops import grouped_matmul as gm
+    K, N, lens, bm = GMM_SWEEP[case]
+    inp = _gmm_case(dev, K, N, lens, bm, kind, op)
+    gm.reset_launches()
+    got = chip_smoke._gmm_call(inp)
+    torch.cuda.synchronize()
+    want = chip_smoke._gmm_call(inp, plain=True)
+    key = {"t": "grouped_matmul_t", "outer": "grouped_outer"}.get(
+        op, "grouped_matmul_int8" if kind == "int8" else "grouped_matmul")
+    assert gm.LAUNCHES[key] == 1 and sum(gm.LAUNCHES.values()) == 1
+    err, _ = row_error(got, want)
+    assert err <= ROW_TOL["fp32" if kind == "fp32" else "bf16"], err
+
+
+@pytest.mark.parametrize("kind", ["bf16", "fp32", "int8"])
+def test_grouped_matmul_repeated_wids_matches_plain(dev, kind):
+    """The adapter shape: 12 segments over 3 weight slices."""
+    lens = [9, 30, 2, 17, 0, 40, 5, 11, 23, 1, 8, 14]
+    inp = _gmm_case(dev, 256, 192, lens, 8, kind, "fwd",
+                    wids=[i % 3 for i in range(12)])
+    got = chip_smoke._gmm_call(inp)
+    torch.cuda.synchronize()
+    err, _ = row_error(got, chip_smoke._gmm_call(inp, plain=True))
+    assert err <= ROW_TOL["fp32" if kind == "fp32" else "bf16"], err
+
+
+def test_grouped_wrappers_refuse_on_the_card(dev):
+    from paddle_tpu_torch.ops import grouped_matmul as gm
+    seg = (torch.zeros(1, dtype=torch.int32, device=dev),) * 3
+    x = torch.zeros(8, 12, device=dev)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        gm.grouped_matmul_raw(x, torch.zeros(1, 12, 8, device=dev), *seg,
+                              block_rows=8)
+    with pytest.raises(ValueError, match="contiguous"):
+        gm.grouped_matmul_raw(torch.zeros(8, 16, device=dev),
+                              torch.zeros(1, 8, 16, device=dev
+                                          ).transpose(1, 2), *seg,
+                              block_rows=8)
+    with pytest.raises(ValueError, match="tensors on"):
+        gm.grouped_matmul_raw(torch.zeros(8, 8),
+                              torch.zeros(1, 8, 8, device=dev),
+                              *(t.cpu() for t in seg), block_rows=8)
+
+
+def test_dropless_train_step_on_cuda_matches_cpu(dev):
+    """The dropless step on the card (B7 forward and dx, B8 dW) against
+    the same step on the CPU (plain versions), fp32: 3 steps, loss and
+    params within 1e-4 of each tensor's largest magnitude (fp32 sums in
+    other orders); 2 + 2 + 2 launches per step."""
+    from paddle_tpu_torch.ops import grouped_matmul as gm
+    from paddle_tpu_torch.parallel.expert import (
+        MoEEPConfig, build_moe_ep_dropless_train_step, init_moe_ep_params)
+
+    cfg = MoEEPConfig(d_model=64, d_hidden=128, num_expert=4, top_k=2)
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((40, 64)).astype(np.float32))
+    t = torch.from_numpy(rng.standard_normal((40, 64)).astype(np.float32))
+    out = {}
+    for name, device in (("cpu", "cpu"), ("gpu", dev)):
+        params = init_moe_ep_params(cfg, seed=2, device=device)
+        step = build_moe_ep_dropless_train_step(cfg, block_rows=8)
+        losses = []
+        for _ in range(3):
+            gm.reset_launches()
+            loss, _, dropped, _, params = step(params, x.to(device),
+                                               t.to(device))
+            losses.append(loss.item())
+            assert float(dropped) == 0.0
+        out[name] = (losses, {k: v.cpu() for k, v in params.items()},
+                     dict(gm.LAUNCHES))
+    assert set(out["cpu"][2].values()) == {0}
+    assert out["gpu"][2] == dict(grouped_matmul=2, grouped_matmul_int8=0,
+                                 grouped_matmul_t=2, grouped_outer=2)
+    np.testing.assert_allclose(out["gpu"][0], out["cpu"][0], rtol=1e-4)
+    for k, want in out["cpu"][1].items():
+        got = out["gpu"][1][k]
+        assert (got - want).abs().max().item() <= \
+            1e-4 * want.abs().max().item(), k
+
+
+def test_sparse_generate_on_cuda_matches_cpu(dev):
+    """A toy sparse Llama, fp32 and int8 weight-only, on the card (B7
+    float and int8 launches in every layer) emits the CPU's greedy
+    tokens."""
+    import dataclasses
+    from paddle_tpu_torch.models import LlamaConfig
+    from paddle_tpu_torch.models import generation as gen
+    from paddle_tpu_torch.ops import grouped_matmul as gm
+
+    cfg = dataclasses.replace(LlamaConfig.debug(vocab=128, hidden=64,
+                                                layers=2, inter=128),
+                              num_experts=4, moe_top_k=2)
+    int8 = {k: v.float() if v.is_floating_point() else v for k, v in
+            chip_smoke.mixtral_params(cfg, torch.device("cpu")).items()}
+    # its dequantized fp32 twin: per out channel; the embedding per row
+    emb = "model.embed_tokens.weight"
+    dense = {k: v.float() * int8[k + "._scale"][..., None, :]
+             if k + "._scale" in int8 and k != emb else v
+             for k, v in int8.items() if not k.endswith("._scale")}
+    dense[emb] = int8[emb].float() * int8[emb + "._scale"][:, None]
+    ids = torch.from_numpy(np.random.default_rng(3).integers(
+        1, 128, (1, 9)).astype(np.int32))
+    for key, params in (("grouped_matmul", dense),
+                        ("grouped_matmul_int8", int8)):
+        want = gen._generate_greedy(cfg, params, ids, 8, -1)
+        gm.reset_launches()
+        got = gen._generate_greedy(
+            cfg, {k: v.to(dev) for k, v in params.items()}, ids.to(dev), 8,
+            -1)
+        assert gm.LAUNCHES[key] == 3 * 2 * 8           # layers x 8 passes
+        assert torch.equal(got.cpu(), want), key
+
+
+# faults planted into copies of csrc/grouped_matmul.cu: (text, replacement)
+PLANTED_GMM = {
+    # B7 skips the last row tile of a segment longer than one tile
+    "skips_last_row_tile": (
+        "  if (wid < 0 || wid >= a.E) return;",
+        "  if (wid < 0 || wid >= a.E) return;\n  if (row0 + kBM >= row_end "
+        "&& (a.lens[seg] + a.br - 1) / a.br * a.br > kBM) return;"),
+    # B7 drops the int8 bank's dequant scale
+    "int8_scale_dropped": (
+        "if (a.scale != nullptr) v *= a.scale[static_cast<size_t>(wid) * "
+        "a.N + n + i];", ""),
+    # B8 leaves an empty segment's tile unwritten
+    "outer_empty_unwritten": (
+        "  const int row_end = min(base + alen, a.R);",
+        "  const int row_end = min(base + alen, a.R);\n"
+        "  if (row_end <= base) return;"),
+}
+
+
+def _gmm_readings(dev):
+    """Gate errors of B7 (bf16, int8) and B8 (bf16) on segments longer
+    than one row tile, with an empty segment, without the limits.  B8's
+    output block is recycled from a NaN-filled one first, so a tile left
+    unwritten cannot read as zeros by chance."""
+    out = {}
+    for kind, op in (("bf16", "fwd"), ("int8", "fwd"), ("bf16", "outer")):
+        inp = _gmm_case(dev, 256, 256, [100, 0, 3, 200, 65], 8, kind, op)
+        want = chip_smoke._gmm_call(inp, plain=True)
+        if op == "outer":
+            del want
+            torch.full((5, 256, 256), float("nan"), device=dev)
+            torch.cuda.synchronize()
+            got = chip_smoke._gmm_call(inp)
+            want = chip_smoke._gmm_call(inp, plain=True)
+        else:
+            got = chip_smoke._gmm_call(inp)
+        torch.cuda.synchronize()
+        out[f"{op}[{kind}]"] = row_error(got, want)[0]
+    return out
+
+
+def test_grouped_gate_catches_planted_faults(dev, tmp_path, monkeypatch):
+    """Each planted fault reads at least 10 times over the bf16 limit of
+    the output it breaks; the sound kernels read within it."""
+    libs = _build_planted(tmp_path, "grouped_matmul.cu", PLANTED_GMM)
+    faulty = {"skips_last_row_tile": "fwd[bf16]",
+              "int8_scale_dropped": "fwd[int8]",
+              "outer_empty_unwritten": "outer[bf16]"}
+    tol = ROW_TOL["bf16"]
+    sound = _gmm_readings(dev)
+    print(json.dumps({"kernel": "sound", "tol": tol, "row_error": sound}))
+    assert max(sound.values()) <= tol, sound
+    for fault, out in faulty.items():
+        lib = _build.bind(ctypes.CDLL(str(libs[fault])))
+        monkeypatch.setattr(_build, "_lib", lib)
+        bad = _gmm_readings(dev)
+        monkeypatch.undo()
+        print(json.dumps({"kernel": fault, "tol": tol, "row_error": bad}))
+        assert bad[out] > 10 * tol, (fault, bad)

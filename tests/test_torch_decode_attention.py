@@ -313,9 +313,9 @@ def test_wrapper_guards_raise(case):
         args, exc = (q, kc3, kc3), ValueError
     elif case == "dtype":
         args, exc = (q.double(), kc.double(), kc.double()), TypeError
-    elif case == "mixed":
-        args, exc = (q, kc.to(torch.bfloat16), kc.to(torch.bfloat16)), \
-            TypeError
+    elif case == "mixed":          # bf16 q over fp32 K/V (fp32 q over bf16
+        # K/V is served: an fp32 model on the bf16 pool of an int8 dict)
+        args, exc = (q.to(torch.bfloat16), kc, kc), TypeError
     elif case == "contig":
         args, exc = (q, kc.transpose(2, 3).contiguous().transpose(2, 3),
                      kc), ValueError
