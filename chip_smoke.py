@@ -5,7 +5,10 @@
 
 Phases, each of which raises (and so exits non-zero) on failure:
 
-1. the card's name and power limit; the kernels' build from csrc/;
+1. the card's name and power limit; the kernels' build from csrc/, with
+   each kernel's registers, spill bytes and static shared memory
+   (``ptxas -v``) and whether its SASS holds HGMMA; the bf16 B1 and B8
+   kernels must;
 2. every kernel launcher (flash_decode B4, paged_decode B3,
    ragged_paged_decode B3') at the Llama-3-8B attention shapes (32 q heads,
    8 kv heads, head dim 128) in bf16, int8 K/V and fp32, held against its
@@ -74,7 +77,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
 12. the dropless MoE train step (``parallel/expert.py``) at Mixtral's
     expert shape: 2 B7 forward, 2 B7 dx and 2 B8 launches per step, no
     plain call, losses finite and falling, dropped 0, the step-0 loss
-    within 2e-2 of a plain fp32 forward; ms per step and TFLOP/s;
+    within 2e-2 of a plain fp32 forward; ms per step and TFLOP/s, and a
+    profile of one more step;
 13. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
     last.
 
@@ -181,6 +185,26 @@ LONG_SEQ, LONG_ACCUM, LONG_DOC_MEDIAN = 8192, 2, 1024
 def _sync():
     import torch
     torch.cuda.synchronize()
+
+
+def build_report():
+    """Each kernel of the built library: registers, stack, spill bytes and
+    static shared memory (ptxas -v), and whether its SASS holds HGMMA
+    (cuobjdump).  Raises if a bf16 kernel that must issue wgmma (B1, B8)
+    does not."""
+    from paddle_tpu_torch.ops import _build
+    report = _build.kernel_report()
+    for name, r in sorted(report.items()):
+        print(f"ptxas {name}: {r.get('registers')} registers, stack "
+              f"{r.get('stack')} B, spill stores/loads "
+              f"{r.get('spill_stores')}/{r.get('spill_loads')} B, static "
+              f"smem {r.get('smem')} B, HGMMA {'yes' if r['hgmma'] else 'no'}",
+              flush=True)
+    for kernel in _build.WGMMA_KERNELS:
+        found = [n for n in report if kernel in n]
+        if not found or not all(report[n]["hgmma"] for n in found):
+            raise AssertionError(f"{kernel}: no HGMMA in its SASS ({found})")
+    return report
 
 
 def time_ms(fn, reps, flush):
@@ -1002,28 +1026,33 @@ def masked_work(inp, kernel):
     return nbytes, 2 * q.shape[-1] * products * inp["pairs"]
 
 
-def _device_ms(fn, calls, names):
+def _device_ms(fn, calls, names, attempts=3):
     """Device milliseconds per call of each kernel whose name contains one
     of ``names``, by ``torch.profiler`` over ``calls`` calls of ``fn``; the
-    first name must have run."""
+    first name must have run.  The profiler's device records of a window
+    can be missing altogether (one window of one H100 run had none for
+    kernels that ran and passed their gate), so a window without them is
+    profiled again, up to ``attempts`` windows in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     _sync()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        _sync()
-    out = dict.fromkeys(names, 0.0)
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            for n in names:
-                if n in e.key:
-                    out[n] += e.self_device_time_total / 1e3 / calls
-    if not out[names[0]]:
-        raise AssertionError(f"profile: no device time for {out}")
-    return out
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            _sync()
+        out = dict.fromkeys(names, 0.0)
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                for n in names:
+                    if n in e.key:
+                        out[n] += e.self_device_time_total / 1e3 / calls
+        if out[names[0]]:
+            return out
+    raise AssertionError(f"profile: no device time for {out} in "
+                         f"{attempts} windows")
 
 
 def masked_case(name, kind, dev, flush):
@@ -1999,6 +2028,44 @@ def moe_reference_loss(cfg, params, x2d, tgt):
     return loss.item()
 
 
+def profile_moe_step(step, params, x2d, tgt):
+    """``torch.profiler`` over one more dropless step: wall and device ms,
+    the device's idle share, device ms by kernel class (B7 ``gmm_kernel``,
+    B8 ``outer_wgmma_kernel``, cuBLAS GEMMs, the rest) and the top kernels.
+    Returns (profile, the step's updated params)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params = step(params, x2d, tgt)[-1]
+        _sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    if device_ms <= 0:
+        raise AssertionError("moe train profile: no device time")
+    classes = {"B7 gmm_kernel": lambda k: "gmm_kernel" in k,
+               "B8 outer_wgmma_kernel": lambda k: "outer_wgmma_kernel" in k,
+               "cuBLAS GEMMs": lambda k: any(t in k.lower() for t in (
+                   "nvjet", "gemm", "cutlass", "sm90_xmma"))}
+    by_class = {c: sum(e.self_device_time_total for e in events
+                       if match(e.key)) / 1e3
+                for c, match in classes.items()}
+    by_class["other"] = device_ms - sum(by_class.values())
+    top = sorted(events, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:8]
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "device_idle_share": 1.0 - device_ms / wall_ms,
+            "device_ms_by_class": by_class,
+            "top_kernels": [{"name": e.key[:80], "calls": e.count,
+                             "ms": e.self_device_time_total / 1e3}
+                            for e in top]}, params
+
+
 def moe_train_phase(dev):
     """``build_moe_ep_dropless_train_step`` on one GPU at MOE_TRAIN_CFG:
     one warm-up and MOE_TRAIN_STEPS timed steps on one batch; per step
@@ -2052,6 +2119,7 @@ def moe_train_phase(dev):
                              f"{dropped}, step-0 {losses[0]} vs fp32 "
                              f"{ref_loss} ({rel})")
     window = sum(walls[MOE_TRAIN_WARMUP:])
+    profile, params = profile_moe_step(step, params, x2d, tgt)
     flops = 6 * 2 * MOE_TRAIN_TOKENS * cfg.top_k * m * h
     rec = dict(config=MOE_TRAIN_CFG, activation=cfg.activation,
                tokens=MOE_TRAIN_TOKENS, block_rows=8, lr=MOE_TRAIN_LR,
@@ -2065,7 +2133,8 @@ def moe_train_phase(dev):
                load=load.tolist(), aux=aux.item(),
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                step0_check=dict(kernel_bf16=losses[0], plain_fp32=ref_loss,
-                                rel=rel, tol=TRAIN_LOSS_TOL))
+                                rel=rel, tol=TRAIN_LOSS_TOL),
+               profile=profile)
     del params, x2d, tgt, step
     torch.cuda.empty_cache()
     return rec
@@ -2095,6 +2164,7 @@ def main() -> int:
     t0 = time.perf_counter()
     record["build_s"] = _build.build()
     print(f"build: {record['build_s']:.1f} s (nvcc, sm_90a)", flush=True)
+    record["build_report"] = build_report()
 
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=dev)
     record["kernels"] = kernel_cases(dev, flush)

@@ -5,7 +5,8 @@
 // Replaces the two Pallas TPU kernel bodies of the head-batched path of
 // paddle_tpu/ops/pallas/flash_attention.py:
 //   - _hb_flash_kernel (launcher _hb_flash_forward, B1) -> pt_hb_flash_forward
-//       one kernel, hb_fwd_kernel;
+//       hb_fwd_wgmma_kernel for bf16 at head dim 64 and 128, hb_fwd_kernel
+//       for bf16 at 16 and 32 and for fp32 (the wrapper's fwd_route);
 //   - _hb_bwd_kernel (launcher _hb_flash_backward, B2)  -> pt_hb_flash_backward
 //       two kernels, hb_dkv_kernel then hb_dq_kernel.
 //
@@ -28,19 +29,30 @@
 //     sequential grid axis) with the fp32 online-softmax state and the fp32
 //     output accumulator in shared memory, and stops at the causal limit, so
 //     fully masked tiles cost nothing (the TPU's pl.when skip);
-//   - bf16 products run on the tensor cores (nvcuda::wmma, 16x16x16, fp32
-//     accumulation); fp32 inputs take a CUDA-core path with the same data
-//     flow (the CPU-comparable case);
+//   - B1 bf16 at d 64/128 (hb_fwd_wgmma_kernel, on the Hopper blocks of
+//     hopper.cuh) keeps the scores, the softmax state and the output
+//     accumulator out of shared memory and its loads off the threads: one
+//     producer warp keeps K/V tiles (64 keys) in flight by TMA in a
+//     3-stage mbarrier ring; two consumer warpgroups own 64 of the CTA's
+//     128 rows each, run S = Q K^T on wgmma (K-major operands from shared
+//     memory), keep S, m, l and O in registers, and feed p as bf16
+//     registers to O += P V (V an MN-major operand, not transposed in
+//     memory).  Only tiles that cross the diagonal or sk are masked; q
+//     tiles run longest first;
+//   - other bf16 products run on the tensor cores (nvcuda::wmma, 16x16x16,
+//     fp32 accumulation); fp32 inputs take a CUDA-core path with the same
+//     data flow (the CPU-comparable case);
 //   - the backward splits B2's fused pass in two: hb_dkv_kernel runs one CTA
 //     per (group, k tile), loops over q tiles and keeps dK/dV of the whole
 //     group in shared memory, so the sum over the rep heads needs no atomics;
 //     hb_dq_kernel runs one CTA per (group, q tile) and loops over k tiles.
 //     Both recompute p from (q, k, lse); delta = rowsum(do * o) comes from
 //     the caller, as the TPU launcher computes it outside its kernel.
-// Simple design, left for later work: wmma from shared memory instead of
-// wgmma, synchronous loads instead of TMA or cp.async pipelines, the output
-// accumulator rescaled in shared memory, s and dp recomputed by both backward
-// kernels (7 products per tile pair instead of 5).
+// Left for later work: the forward's softmax does not yet overlap its
+// warpgroup's products (two warpgroups in ping-pong, or two k tiles in
+// flight); B2 keeps the simple design (wmma from shared memory, synchronous
+// loads, s and dp recomputed by both backward kernels: 7 products per tile
+// pair instead of 5).
 //
 // Semantics kept from the TPU kernels (tests/test_torch_flash_attention.py):
 //   - masking with NEG_INF = -1e30, never -inf; causal keeps k_pos <= q_pos;
@@ -54,6 +66,7 @@
 //     rows past sq contribute nothing.
 
 #include "flash_common.cuh"  // Mma, dtype helpers, warp reductions, kThreads
+#include "hopper.cuh"        // TMA, mbarriers, wgmma
 
 namespace {
 
@@ -217,6 +230,216 @@ __global__ void __launch_bounds__(kThreads) hb_fwd_kernel(Args a) {
     a.lse_out[(static_cast<size_t>(g) * a.rep + m / a.bq) * a.sq + pos] =
         valid ? m_s[m] + logf(l) : -kNegInf;
   }
+}
+
+// ------------------------------------------------- B1 forward, bf16 on wgmma
+constexpr int kFwdRows = 128;    // rows of a CTA: two consumer warpgroups of 64
+constexpr int kFwdBK = 64;       // keys per k tile
+constexpr int kFwdStages = 3;    // K/V ring depth
+constexpr int kFwdThreads = 288; // two consumer warpgroups, then one producer warp
+constexpr int kPanel = 128;      // bytes of one row of a 64-column panel
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// Shared memory of hb_fwd_wgmma_kernel: q [D/64 panels][128 rows][64], then
+// per stage k and v [D/64 panels][kFwdBK rows][64]; 1024 bytes of slack
+// align the tiles to the swizzle atom.
+template <int D>
+struct FwdWgmmaSmem {
+  static constexpr int kPanels = D / 64;
+  static constexpr int kQPanel = kFwdRows * kPanel;
+  static constexpr int kKVPanel = kFwdBK * kPanel;
+  static constexpr int kTile = kPanels * kKVPanel;  // one k or v tile
+  static constexpr int kBytes = kPanels * kQPanel + 2 * kFwdStages * kTile + 1024;
+};
+
+// One CTA per (group, q tile of bq positions x rep heads = at most 128
+// rows), q tiles longest first.  Warp 8 is the producer: one TMA load of
+// the q tile (a 4-D box (64, bq, rep, 1) per panel, zero past sq), then
+// the k tiles' K and V through a kFwdStages ring of mbarriers.  Warpgroups
+// 0 and 1 each own 64 rows: S = Q K^T (wgmma, both operands K-major from
+// shared memory, S in registers), the online softmax in registers (a row's
+// 16 values per thread, reduced over the 4 threads that share the row), p
+// rounded to bf16 in registers as the A operand of O += P V (V MN-major
+// from shared memory, not transposed in memory), O rescaled in registers.
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    hb_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv, Args a, int groups) {
+  using L = FwdWgmmaSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 2 * kFwdStages];
+  unsigned char* q_s = smem_raw + (1024 - smem_u32(smem_raw) % 1024) % 1024;
+  unsigned char* kv_s = q_s + L::kPanels * L::kQPanel;  // stage s: k, then v
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + kFwdStages;
+
+  const int nq = (a.sq + a.bq - 1) / a.bq;
+  const int g = blockIdx.x % groups;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x) / groups) * a.bq;
+  const int nk = k_tiles(a, q0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kFwdStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * 128);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 8) {
+    // ------------------------------------------------------------ producer
+    if (lane == 0) {
+      mbar_arrive_expect_tx(q_full, L::kPanels * kPanel * a.bq * a.rep);
+      for (int p = 0; p < L::kPanels; ++p)
+        tma_load_4d(q_s + p * L::kQPanel, &tq, q_full, p * 64, q0, 0, g);
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % kFwdStages;
+        mbar_wait(&empty[s], ((kt / kFwdStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], 2 * L::kTile);
+        unsigned char* k_dst = kv_s + s * 2 * L::kTile;
+        for (int p = 0; p < L::kPanels; ++p) {
+          tma_load_3d(k_dst + p * L::kKVPanel, &tk, &full[s], p * 64, kt * kFwdBK, g);
+          tma_load_3d(k_dst + L::kTile + p * L::kKVPanel, &tv, &full[s], p * 64, kt * kFwdBK, g);
+        }
+      }
+    }
+    return;
+  }
+
+  // -------------------------------------------------------------- consumers
+  const int wg = threadIdx.x / 128, wq = (threadIdx.x % 128) / 32;
+  // this thread's two rows of the accumulator layout (j = 0, 1: +8 rows)
+  int head[2], pos[2];
+  bool row_ok[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int m = wg * 64 + wq * 16 + lane / 4 + 8 * j;
+    head[j] = m / a.bq;
+    pos[j] = q0 + m % a.bq;
+    row_ok[j] = m < a.rep * a.bq && pos[j] < a.sq;  // rows past rep * bq are never loaded
+  }
+  float o[L::kPanels][32];
+#pragma unroll
+  for (int p = 0; p < L::kPanels; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[p][i] = 0.f;
+  float sc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+  // running max in log2 units (scores times scale * log2 e) and this
+  // thread's share of the running sum (the 4 threads of a row add up at the end)
+  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+  const float sl2 = a.scale * kLog2e;
+
+  mbar_wait(q_full, 0);
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % kFwdStages;
+    const int k0 = kt * kFwdBK;
+    const unsigned char* k_s = kv_s + s * 2 * L::kTile;
+    const unsigned char* v_s = k_s + L::kTile;
+    mbar_wait(&full[s], (kt / kFwdStages) & 1);
+
+    // S = Q K^T over D in k steps of 16: panel ks / 4, 32 bytes per step
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      const int p = ks / 4, j = ks % 4;
+      const uint64_t da = smem_desc(q_s + p * L::kQPanel + wg * 64 * kPanel + j * 32, 16, 1024);
+      const uint64_t db = smem_desc(k_s + p * L::kKVPanel + j * 32, 16, 1024);
+      wgmma_ss_n64<0, 0>(sc, da, db, ks > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+
+    // masking: only tiles past the first row's position or past sk
+    const bool edge = (a.causal && k0 + kFwdBK - 1 > q0) || k0 + kFwdBK > a.sk;
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int j = (i / 2) % 2;
+      float v = sc[i] * sl2;
+      if (edge) {
+        const int kp = k0 + (i / 4) * 8 + (lane % 4) * 2 + i % 2;
+        if (kp >= a.sk || (a.causal && kp > pos[j])) v = kNegInf;
+      }
+      sc[i] = v;
+      mx[j] = fmaxf(mx[j], v);
+    }
+    float alpha[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 1));
+      mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 2));
+      const float m_new = fmaxf(m_run[j], mx[j]);
+      alpha[j] = exp2f(m_run[j] - m_new);
+      m_run[j] = m_new;
+      l_run[j] *= alpha[j];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int j = (i / 2) % 2;
+      const float p = exp2f(sc[i] - m_run[j]);
+      l_run[j] += p;  // l sums the unrounded p
+      sc[i] = p;
+    }
+#pragma unroll
+    for (int p = 0; p < L::kPanels; ++p)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[p][i] *= alpha[(i / 2) % 2];
+
+    // O += P V: p rounded to bf16 as the register A operand, V MN-major
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kFwdBK / 16; ++ks) {
+      const uint32_t af[4] = {pack_bf16(sc[8 * ks + 0], sc[8 * ks + 1]),
+                              pack_bf16(sc[8 * ks + 2], sc[8 * ks + 3]),
+                              pack_bf16(sc[8 * ks + 4], sc[8 * ks + 5]),
+                              pack_bf16(sc[8 * ks + 6], sc[8 * ks + 7])};
+#pragma unroll
+      for (int p = 0; p < L::kPanels; ++p) {
+        const uint64_t db = smem_desc(v_s + p * L::kKVPanel + ks * 16 * kPanel, L::kKVPanel, 1024);
+        wgmma_rs_n64<1>(o[p], af, db, 1);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int p = 0; p < L::kPanels; ++p) fence_regs(o[p]);
+    mbar_arrive(&empty[s]);
+  }
+
+  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(a.o) + static_cast<size_t>(g) * a.rep * a.sq * D;
+  float inv[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    float l = l_run[j];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    if (l == 0.f) l = 1.f;
+    const bool valid = m_run[j] > kNegInf * 0.5f;
+    inv[j] = valid ? 1.f / l : 0.f;
+    if (row_ok[j] && lane % 4 == 0)
+      a.lse_out[(static_cast<size_t>(g) * a.rep + head[j]) * a.sq + pos[j]] =
+          valid ? (m_run[j] + log2f(l)) * kLn2 : -kNegInf;
+  }
+#pragma unroll
+  for (int p = 0; p < L::kPanels; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int j = (i / 2) % 2;
+      if (!row_ok[j]) continue;
+      const int c = p * 64 + (i / 4) * 8 + (lane % 4) * 2;
+      *reinterpret_cast<__nv_bfloat162*>(
+          og + (static_cast<size_t>(head[j]) * a.sq + pos[j]) * D + c) =
+          __floats2bfloat162_rn(o[p][i] * inv[j], o[p][i + 1] * inv[j]);
+    }
 }
 
 // lse and delta of rows [0, rep*bq) of a q tile; rows past sq read 0.
@@ -388,8 +611,12 @@ cudaError_t launch(Kind kind, const Args& a, int groups, cudaStream_t stream) {
   if (smem > kSmemLimit || a.bq <= 0 || a.bk <= 0) return cudaErrorInvalidValue;
   // tensor-core tiles: 16-row multiples for every product's operands
   if (sizeof(T) == 2 && (m % 16 != 0 || a.bk % 16 != 0)) return cudaErrorInvalidValue;
-  void (*kernel)(Args) = kind == kFwd ? hb_fwd_kernel<T, D>
-                         : kind == kDq ? hb_dq_kernel<T, D> : hb_dkv_kernel<T, D>;
+  void (*kernel)(Args) = kind == kDq ? hb_dq_kernel<T, D> : hb_dkv_kernel<T, D>;
+  if (kind == kFwd) {
+    // bf16 at d 64 and 128 runs hb_fwd_wgmma_kernel (launch_fwd_wgmma)
+    if constexpr (sizeof(T) == 2 && D >= 64) return cudaErrorInvalidValue;
+    else kernel = hb_fwd_kernel<T, D>;
+  }
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return e;
@@ -409,6 +636,34 @@ cudaError_t dispatch_d(Kind kind, const Args& a, int groups, int d, cudaStream_t
   }
 }
 
+// B1 on wgmma: bf16, d 64 or 128, a.bk == kFwdBK, rep * bq <= 128.  The
+// tensor maps: q as (d, sq, rep, groups), k and v as (d, sk, groups).
+template <int D>
+cudaError_t launch_fwd_wgmma(const Args& a, int groups, cudaStream_t stream) {
+  using L = FwdWgmmaSmem<D>;
+  if (a.bk != kFwdBK || a.bq <= 0 || a.rep * a.bq > kFwdRows) return cudaErrorInvalidValue;
+  const uint64_t row = D * 2;
+  const uint64_t sk = a.sk > 0 ? a.sk : 1;  // no k tile is loaded when sk is 0
+  const uint64_t qd[4] = {D, static_cast<uint64_t>(a.sq), static_cast<uint64_t>(a.rep),
+                          static_cast<uint64_t>(groups)};
+  const uint64_t qs[3] = {row, row * a.sq, row * a.sq * a.rep};
+  const uint32_t qb[4] = {64, static_cast<uint32_t>(a.bq), static_cast<uint32_t>(a.rep), 1};
+  const uint64_t kd[3] = {D, sk, static_cast<uint64_t>(groups)};
+  const uint64_t ks[2] = {row, row * sk};
+  const uint32_t kb[3] = {64, kFwdBK, 1};
+  CUtensorMap tq, tk, tv;
+  cudaError_t e = encode_bf16_map(&tq, a.q, 4, qd, qs, qb);
+  if (e == cudaSuccess) e = encode_bf16_map(&tk, a.k, 3, kd, ks, kb);
+  if (e == cudaSuccess) e = encode_bf16_map(&tv, a.v, 3, kd, ks, kb);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(hb_fwd_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           L::kBytes);
+  if (e != cudaSuccess) return e;
+  const int nq = (a.sq + a.bq - 1) / a.bq;
+  hb_fwd_wgmma_kernel<D><<<nq * groups, kFwdThreads, L::kBytes, stream>>>(tq, tk, tv, a, groups);
+  return cudaGetLastError();
+}
+
 cudaError_t dispatch(Kind kind, const Args& a, int groups, int d, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32) return dispatch_d<float>(kind, a, groups, d, s);
@@ -422,9 +677,11 @@ extern "C" {
 
 // _hb_flash_forward: q [groups, rep, sq, d]; k/v [groups, sk, d] -> o (q's
 // shape and dtype), lse [groups, rep, sq] fp32.
+// wgmma: 1 takes hb_fwd_wgmma_kernel (bf16, d 64 or 128; the wrapper's
+// rule), 0 the wmma / CUDA-core hb_fwd_kernel.
 int pt_hb_flash_forward(const void* q, const void* k, const void* v, void* o, void* lse,
                         int groups, int rep, int sq, int sk, int d, int bq, int bk, int causal,
-                        float scale, int dtype, void* stream) {
+                        float scale, int dtype, int wgmma, void* stream) {
   Args a{};
   a.q = q;
   a.k = k;
@@ -438,6 +695,13 @@ int pt_hb_flash_forward(const void* q, const void* k, const void* v, void* o, vo
   a.bk = bk;
   a.causal = causal;
   a.scale = scale;
+  if (wgmma) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (dtype != kBF16) return cudaErrorInvalidValue;
+    if (d == 64) return launch_fwd_wgmma<64>(a, groups, st);
+    if (d == 128) return launch_fwd_wgmma<128>(a, groups, st);
+    return cudaErrorInvalidValue;
+  }
   return dispatch(kFwd, a, groups, d, dtype, stream);
 }
 

@@ -8,8 +8,9 @@
 //       kernel gmm_kernel: y[win_s] = x[win_s] @ w[wid_s] per segment s, with
 //       a float bank, an int8 bank and its per-(slice, out-channel) fp32
 //       scales, or w[wid_s]^T (the backward's dx, read in place);
-//   - _outer_kernel (launcher grouped_outer_raw, B8)  -> pt_grouped_outer,
-//       kernel outer_kernel: out[s] = x[win_s]^T @ dy[win_s], fp32 [S, K, N].
+//   - _outer_kernel (launcher grouped_outer_raw, B8)  -> pt_grouped_outer:
+//       out[s] = x[win_s]^T @ dy[win_s], fp32 [S, K, N]; kernel
+//       outer_wgmma_kernel for bf16, outer_kernel (CUDA cores) for fp32.
 //
 // A segment's window is the TPU's: whole block_rows blocks from its start's
 // block, align(len, block_rows) rows, cut at R.  Rows no segment covers are
@@ -27,8 +28,8 @@
 //     segment and tile (no host sync sizes anything) and exits past the
 //     last tile.  A segment of at most 64 rows (every decode segment) is one
 //     row tile, so its expert's weight tile is read once per N tile;
-//   - the CTA loops over K in steps of 64, staging the x rows and the weight
-//     tile in shared memory; the next step's tiles are loaded into registers
+//   - B7: the CTA loops over K in steps of 64, staging the x rows and the
+//     weight tile in shared memory; the next step's tiles are loaded into registers
 //     while the tensor cores (bf16: nvcuda::wmma 16x16x16, fp32 accumulators
 //     in registers) or the CUDA cores (fp32: a 4x4 micro-tile per thread)
 //     multiply the current ones;
@@ -40,16 +41,31 @@
 //     col_major wmma operand: no transposed copy of the bank;
 //   - rows at or past start + align(len), and past R, are masked: they
 //     belong to the next segment;
-//   - B8: one CTA per (segment, K tile of 64, N tile of 64); it loops over
-//     the segment's window in chunks of 32 rows with its accumulators in
-//     registers and always stores its tile, so an empty segment writes
-//     exact zeros.  No atomics: deterministic.
-// Left for later work: wgmma and TMA pipelines, larger tiles for the
-// training shapes, split-K for the decode weight stream.
+//   - B8 bf16 (outer_wgmma_kernel, on the shared Hopper blocks of
+//     hopper.cuh).  At the train cell's dW (16384 rows over 8 experts, K/N
+//     4096/14336) it does 1.92 TFLOP on 0.6 GB of distinct input and 1.9 GB
+//     of fp32 output: 1.95 ms of operations against 0.75 ms of bytes, so
+//     operations bound it, and every byte staged in shared memory has to
+//     feed many products: one CTA per 128 x 256 output tile of one
+//     segment (85 flop per staged byte), its tiles walked in groups of 8 N
+//     tiles with the K tiles inside so the CTAs in flight share slabs in
+//     L2; a producer warp keeps 4 stages of 64 window rows in flight by
+//     TMA; two consumer warpgroups run m64n256k16 wgmma on them, x^T and
+//     dy both read as MN-major operands of the row-major tiles (no
+//     transposed copy), with 128 fp32 accumulators a thread in registers.  The window's last step
+//     zeroes the rows that belong to the next segment in shared memory, then
+//     fences them to the async proxy, before the products read them.  Every
+//     tile is stored, an empty segment's as exact zeros.  No atomics:
+//     deterministic.  fp32 keeps the CUDA-core outer_kernel (one CTA per
+//     64 x 64 tile, chunks of 32 rows).
+// Left for later work: B7 on wgmma (it can share B8's ring and header), a
+// persistent grid with the epilogue overlapping the next tile's loads,
+// split-K for the decode weight stream.
 
 #include <type_traits>
 
 #include "flash_common.cuh"  // kThreads, kPad, dtype helpers, wmma
+#include "hopper.cuh"        // TMA, mbarriers, wgmma (B8 bf16)
 
 namespace {
 
@@ -269,10 +285,11 @@ struct OuterArgs {
   int R, K, N, S, br;
 };
 
-template <typename T>
+// B8 for fp32 on the CUDA cores: one CTA per (segment, K tile of 64, N
+// tile of 64), a 4x4 micro-tile per thread, the window in chunks of 32 rows
 __global__ void __launch_bounds__(kThreads) outer_kernel(OuterArgs a) {
   constexpr int kLd = kBK + kPad;  // xs, ds [kBR][kLd] (kBK == kBN)
-  constexpr int kTiles = 2 * kBR * kLd * int(sizeof(T));
+  constexpr int kTiles = 2 * kBR * kLd * 4;
   constexpr int kOut = kBK * kLdo * 4;
   __shared__ __align__(128) unsigned char smem[kTiles > kOut ? kTiles : kOut];
   const int s = blockIdx.z, k0 = blockIdx.y * kBK, n0 = blockIdx.x * kBN;
@@ -280,15 +297,15 @@ __global__ void __launch_bounds__(kThreads) outer_kernel(OuterArgs a) {
   const int alen = (len + a.br - 1) / a.br * a.br;
   const int base = a.starts[s] / a.br * a.br;
   const int row_end = min(base + alen, a.R);
-  const T* x = static_cast<const T*>(a.x);
-  const T* dy = static_cast<const T*>(a.dy);
-  T* xs = reinterpret_cast<T*>(smem);
-  T* ds = xs + kBR * kLd;
+  const float* x = static_cast<const float*>(a.x);
+  const float* dy = static_cast<const float*>(a.dy);
+  float* xs = reinterpret_cast<float*>(smem);
+  float* ds = xs + kBR * kLd;
   float* os = reinterpret_cast<float*>(smem);
 
   // one chunk of each tile per thread (32 x 64 / 8 = 256)
   const int r = threadIdx.x >> 3, col = (threadIdx.x & 7) * 8;
-  Chunk<T> xr, dr;
+  Chunk<float> xr, dr;
   auto load = [&](int r0) {
     const int row = r0 + r;
     const bool ok = row < row_end;
@@ -296,17 +313,8 @@ __global__ void __launch_bounds__(kThreads) outer_kernel(OuterArgs a) {
     load_chunk(dr, dy + static_cast<size_t>(row) * a.N + n0 + col, ok && n0 + col < a.N);
   };
 
-  constexpr bool kTensor = std::is_same<T, __nv_bfloat16>::value;
-  const int warp = threadIdx.x >> 5;
-  const int ti = warp >> 1, tj0 = (warp & 1) * 2;
   const int tr = threadIdx.x >> 4, tc = threadIdx.x & 15;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c0, c1;
   float acc[4][4] = {};
-  if constexpr (kTensor) {
-    wmma::fill_fragment(c0, 0.f);
-    wmma::fill_fragment(c1, 0.f);
-  }
-
   if (base < row_end) load(base);
   for (int r0 = base; r0 < row_end; r0 += kBR) {
     __syncthreads();
@@ -314,46 +322,26 @@ __global__ void __launch_bounds__(kThreads) outer_kernel(OuterArgs a) {
     store_chunk(ds + r * kLd + col, dr);
     __syncthreads();
     if (r0 + kBR < row_end) load(r0 + kBR);
-    if constexpr (kTensor) {
-#pragma unroll
-      for (int kk = 0; kk < kBR; kk += 16) {
-        // x^T read column-major straight from the row-major x rows
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::col_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> fb0, fb1;
-        wmma::load_matrix_sync(fa, xs + kk * kLd + ti * 16, kLd);
-        wmma::load_matrix_sync(fb0, ds + kk * kLd + tj0 * 16, kLd);
-        wmma::load_matrix_sync(fb1, ds + kk * kLd + (tj0 + 1) * 16, kLd);
-        wmma::mma_sync(c0, fa, fb0, c0);
-        wmma::mma_sync(c1, fa, fb1, c1);
-      }
-    } else {
 #pragma unroll 4
-      for (int rr = 0; rr < kBR; ++rr) {
-        float av[4], bv[4];
+    for (int rr = 0; rr < kBR; ++rr) {
+      float av[4], bv[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          av[i] = to_f(xs[rr * kLd + tr * 4 + i]);
-          bv[i] = to_f(ds[rr * kLd + tc * 4 + i]);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * bv[j];
+      for (int i = 0; i < 4; ++i) {
+        av[i] = xs[rr * kLd + tr * 4 + i];
+        bv[i] = ds[rr * kLd + tc * 4 + i];
       }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * bv[j];
     }
   }
 
   __syncthreads();
-  if constexpr (kTensor) {
-    wmma::store_matrix_sync(os + ti * 16 * kLdo + tj0 * 16, c0, kLdo, wmma::mem_row_major);
-    wmma::store_matrix_sync(os + ti * 16 * kLdo + (tj0 + 1) * 16, c1, kLdo,
-                            wmma::mem_row_major);
-  } else {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) os[(tr * 4 + i) * kLdo + tc * 4 + j] = acc[i][j];
-  }
+    for (int j = 0; j < 4; ++j) os[(tr * 4 + i) * kLdo + tc * 4 + j] = acc[i][j];
   __syncthreads();
   // every tile is stored, an empty segment's as zeros
   float* out = a.out + static_cast<size_t>(s) * a.K * a.N;
@@ -366,6 +354,142 @@ __global__ void __launch_bounds__(kThreads) outer_kernel(OuterArgs a) {
     dst[0] = make_float4(src[0], src[1], src[2], src[3]);
     dst[1] = make_float4(src[4], src[5], src[6], src[7]);
   }
+}
+
+// ------------------------------------------------------ B8, bf16 on wgmma
+constexpr int kOutBM = 128;      // K rows of an output tile: two consumer warpgroups
+constexpr int kOutBN = 256;      // N columns of an output tile
+constexpr int kOutBR = 64;       // window rows per pipeline step
+constexpr int kOutStages = 4;
+constexpr int kOutThreads = 288; // two consumer warpgroups, then one producer warp
+constexpr int kOutGroup = 8;     // N tiles walked together, K tiles inside (L2 reuse)
+constexpr int kOutPanel = kOutBR * 128;                          // [64 rows][64] bf16
+constexpr int kOutStage = (kOutBM / 64 + kOutBN / 64) * kOutPanel;  // x panels, then dy
+constexpr int kOutSmem = kOutStages * kOutStage + 1024;
+
+// One CTA per output tile (segment s, 128 K rows, 256 N columns); tiles of
+// one segment in groups of kOutGroup N tiles with the K tiles inside, so
+// the CTAs in flight share x and dy slabs in L2.  Warp 8 is the producer:
+// per step, TMA loads of the window's next 64 rows of x (two 64-column
+// panels) and dy (four), zero past R and past K or N, through a
+// kOutStages ring.  Warpgroup w multiplies x panel w (A = x^T, MN-major:
+// the transpose bit reads the row-major rows as columns) by the dy tile (B,
+// MN-major, 256 wide over four panels) into 128 fp32 registers a thread,
+// one wgmma group left in flight.  The window's last step zeroes its rows
+// past the window's end (the next segment's) in shared memory before the
+// products read them.  Every element is stored: an empty segment's as 0.
+__global__ void __launch_bounds__(kOutThreads, 1)
+    outer_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                       const __grid_constant__ CUtensorMap tdy, OuterArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 * kOutStages];
+  unsigned char* ring = smem_raw + (1024 - smem_u32(smem_raw) % 1024) % 1024;
+  uint64_t* full = bars;
+  uint64_t* empty = bars + kOutStages;
+
+  const int nkt = (a.K + kOutBM - 1) / kOutBM, nnt = (a.N + kOutBN - 1) / kOutBN;
+  const int s = blockIdx.x / (nkt * nnt);
+  const int t = blockIdx.x % (nkt * nnt);
+  const int grp = t / (kOutGroup * nkt);
+  const int gw = min(kOutGroup, nnt - grp * kOutGroup);
+  const int in_grp = t - grp * kOutGroup * nkt;
+  const int k0 = in_grp / gw * kOutBM, n0 = (grp * kOutGroup + in_grp % gw) * kOutBN;
+  const int len = max(a.lens[s], 0);
+  const int base = a.starts[s] / a.br * a.br;
+  const int row_end = min(base + (len + a.br - 1) / a.br * a.br, a.R);
+  const int steps = row_end > base ? (row_end - base + kOutBR - 1) / kOutBR : 0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kOutStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 2 * 128);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 8) {
+    // ------------------------------------------------------------ producer
+    if (lane == 0) {
+      for (int c = 0; c < steps; ++c) {
+        const int st = c % kOutStages, r0 = base + c * kOutBR;
+        mbar_wait(&empty[st], ((c / kOutStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[st], kOutStage);
+        unsigned char* dst = ring + st * kOutStage;
+        for (int p = 0; p < kOutBM / 64; ++p)
+          tma_load_2d(dst + p * kOutPanel, &tx, &full[st], k0 + 64 * p, r0);
+        for (int p = 0; p < kOutBN / 64; ++p)
+          tma_load_2d(dst + (kOutBM / 64 + p) * kOutPanel, &tdy, &full[st], n0 + 64 * p, r0);
+      }
+    }
+    return;
+  }
+
+  // -------------------------------------------------------------- consumers
+  const int wg = threadIdx.x / 128, wq = (threadIdx.x % 128) / 32;
+  float acc[kOutBN / 2];
+#pragma unroll
+  for (int i = 0; i < kOutBN / 2; ++i) acc[i] = 0.f;
+  for (int c = 0; c < steps; ++c) {
+    const int st = c % kOutStages;
+    unsigned char* tile = ring + st * kOutStage;
+    mbar_wait(&full[st], (c / kOutStages) & 1);
+    const int valid = row_end - (base + c * kOutBR);
+    if (valid < kOutBR) {
+      // rows [valid, 64) of every panel belong to the next segment
+      constexpr int kPanels = kOutStage / kOutPanel;
+      const int chunks = (kOutBR - valid) * 8;  // 16-byte chunks of one panel
+      for (int i = threadIdx.x; i < kPanels * chunks; i += 256)
+        *reinterpret_cast<uint4*>(tile + (i / chunks) * kOutPanel + valid * 128 +
+                                  (i % chunks) * 16) = make_uint4(0, 0, 0, 0);
+      fence_proxy_async();
+      named_barrier(1, 256);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kOutBR / 16; ++ks) {
+      const uint64_t da = smem_desc(tile + wg * kOutPanel + ks * 16 * 128, kOutPanel, 1024);
+      const uint64_t db =
+          smem_desc(tile + (kOutBM / 64) * kOutPanel + ks * 16 * 128, kOutPanel, 1024);
+      wgmma_ss_n256<1, 1>(acc, da, db, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous step's products are done with their stage
+    if (c > 0) mbar_arrive(&empty[(c - 1) % kOutStages]);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  float* out = a.out + static_cast<size_t>(s) * a.K * a.N;
+#pragma unroll
+  for (int i = 0; i < kOutBN / 2; i += 2) {
+    const int k = k0 + wg * 64 + wq * 16 + lane / 4 + 8 * ((i / 2) % 2);
+    const int n = n0 + (i / 4) * 8 + (lane % 4) * 2;
+    if (k < a.K && n < a.N)
+      *reinterpret_cast<float2*>(out + static_cast<size_t>(k) * a.N + n) =
+          make_float2(acc[i], acc[i + 1]);
+  }
+}
+
+cudaError_t launch_outer_wgmma(const OuterArgs& a, cudaStream_t stream) {
+  // x as (K, R), dy as (N, R); R is at least 1 for the map (no window has rows when it is 0)
+  const uint64_t R = a.R > 0 ? a.R : 1;
+  const uint64_t xd[2] = {static_cast<uint64_t>(a.K), R}, xs[1] = {2ull * a.K};
+  const uint64_t dd[2] = {static_cast<uint64_t>(a.N), R}, ds[1] = {2ull * a.N};
+  const uint32_t box[2] = {64, kOutBR};
+  CUtensorMap tx, tdy;
+  cudaError_t e = encode_bf16_map(&tx, a.x, 2, xd, xs, box);
+  if (e == cudaSuccess) e = encode_bf16_map(&tdy, a.dy, 2, dd, ds, box);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(outer_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kOutSmem);
+  if (e != cudaSuccess) return e;
+  const long long tiles = static_cast<long long>((a.K + kOutBM - 1) / kOutBM) *
+                          ((a.N + kOutBN - 1) / kOutBN) * a.S;
+  if (tiles <= 0 || tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  outer_wgmma_kernel<<<static_cast<unsigned>(tiles), kOutThreads, kOutSmem, stream>>>(tx, tdy, a);
+  return cudaGetLastError();
 }
 
 template <typename T, typename TW, bool TRANS>
@@ -381,10 +505,9 @@ cudaError_t dispatch_gmm(const GmmArgs& a, int w_int8, int trans, cudaStream_t s
   return trans ? launch_gmm<T, T, true>(a, stream) : launch_gmm<T, T, false>(a, stream);
 }
 
-template <typename T>
 cudaError_t launch_outer(const OuterArgs& a, cudaStream_t stream) {
   const dim3 grid((a.N + kBN - 1) / kBN, (a.K + kBK - 1) / kBK, a.S);
-  outer_kernel<T><<<grid, kThreads, 0, stream>>>(a);
+  outer_kernel<<<grid, kThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -416,8 +539,8 @@ int pt_grouped_outer(const void* x, const void* dy, void* out, const void* start
   const OuterArgs a{x, dy, static_cast<float*>(out), static_cast<const int*>(starts),
                     static_cast<const int*>(lens), R, K, N, S, block_rows};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kBF16) return launch_outer<__nv_bfloat16>(a, st);
-  if (dtype == kF32) return launch_outer<float>(a, st);
+  if (dtype == kBF16) return launch_outer_wgmma(a, st);
+  if (dtype == kF32) return launch_outer(a, st);
   return cudaErrorInvalidValue;
 }
 

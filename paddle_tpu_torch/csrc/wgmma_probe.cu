@@ -1,0 +1,134 @@
+// One-tile probe of the shared-memory layouts in hopper.cuh: a single
+// warpgroup loads its operands with TMA (128-byte swizzle, 64-column panels)
+// and runs the wgmma forms the kernels use, so a wrong descriptor shows as
+// a wrong product at one tile, against torch.matmul
+// (tests/test_torch_cuda_kernels.py::test_wgmma_probe_matches_matmul).
+//
+// Modes, a and b bf16 row-major, c fp32 row-major:
+//   0  c[64, 64]  = a[64, 64] @ b[64, 64]^T    A, B K-major from shared memory
+//                                              (B1's S = Q K^T)
+//   1  c[64, 128] = a[64, 64] @ b[64, 128]     A from registers, B MN-major,
+//                                              one n64 product per panel (B1's O += P V)
+//   2  c[64, 256] = a[64, 64]^T @ b[64, 256]   A and B MN-major, B 256 wide
+//                                              over four panels (B8's x^T dy)
+
+#include "hopper.cuh"
+
+namespace {
+
+constexpr int kPanelBytes = 64 * 128;  // [64 rows][64] bf16
+
+__device__ __forceinline__ void store_acc(float* c, int ldc, int col0, const float* acc, int n) {
+  const int t = threadIdx.x, lane = t % 32;
+  for (int i = 0; i < n; i += 2) {
+    const int row = (t / 32) * 16 + lane / 4 + 8 * ((i / 2) % 2);
+    const int col = col0 + (i / 4) * 8 + (lane % 4) * 2;
+    c[row * ldc + col] = acc[i];
+    c[row * ldc + col + 1] = acc[i + 1];
+  }
+}
+
+__global__ void __launch_bounds__(128) wgmma_probe_kernel(const __grid_constant__ CUtensorMap ta,
+                                                          const __grid_constant__ CUtensorMap tb,
+                                                          const __nv_bfloat16* a, float* c,
+                                                          int mode) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bar;
+  unsigned char* a_s = smem_raw + (1024 - smem_u32(smem_raw) % 1024) % 1024;
+  unsigned char* b_s = a_s + kPanelBytes;
+  const int b_panels = mode == 0 ? 1 : mode == 1 ? 2 : 4;
+  if (threadIdx.x == 0) {
+    mbar_init(&bar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_arrive_expect_tx(&bar, (1 + b_panels) * kPanelBytes);
+    tma_load_2d(a_s, &ta, &bar, 0, 0);
+    for (int p = 0; p < b_panels; ++p) tma_load_2d(b_s + p * kPanelBytes, &tb, &bar, 64 * p, 0);
+  }
+  mbar_wait(&bar, 0);
+
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  if (mode == 0) {
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_ss_n64<0, 0>(acc, smem_desc(a_s + ks * 32, 16, 1024),
+                         smem_desc(b_s + ks * 32, 16, 1024), ks > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    store_acc(c, 64, 0, acc, 32);
+  } else if (mode == 1) {
+    float acc[2][32];
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[p][i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      // the register fragment of rows w*16 + lane/4 (+8), k columns ks*16 + ...
+      const int r = w * 16 + lane / 4, k = ks * 16 + (lane % 4) * 2;
+      auto pair = [&](int row, int col) {
+        return pack_bf16(__bfloat162float(a[row * 64 + col]),
+                         __bfloat162float(a[row * 64 + col + 1]));
+      };
+      const uint32_t af[4] = {pair(r, k), pair(r + 8, k), pair(r, k + 8), pair(r + 8, k + 8)};
+#pragma unroll
+      for (int p = 0; p < 2; ++p)
+        wgmma_rs_n64<1>(acc[p], af, smem_desc(b_s + p * kPanelBytes + ks * 16 * 128,
+                                              kPanelBytes, 1024), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      fence_regs(acc[p]);
+      store_acc(c, 128, 64 * p, acc[p], 32);
+    }
+  } else {
+    float acc[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_ss_n256<1, 1>(acc, smem_desc(a_s + ks * 16 * 128, kPanelBytes, 1024),
+                          smem_desc(b_s + ks * 16 * 128, kPanelBytes, 1024), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    store_acc(c, 256, 0, acc, 128);
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// a [64, 64] bf16; b [64, 64] (mode 0), [64, 128] (1), [64, 256] (2) bf16;
+// c fp32 as the mode says.
+int pt_wgmma_probe(int mode, const void* a, const void* b, void* c, void* stream) {
+  if (mode < 0 || mode > 2) return cudaErrorInvalidValue;
+  const uint64_t bw = mode == 0 ? 64 : mode == 1 ? 128 : 256;
+  const uint64_t ad[2] = {64, 64}, as[1] = {128};
+  const uint64_t bd[2] = {bw, 64}, bs[1] = {2 * bw};
+  const uint32_t box[2] = {64, 64};
+  CUtensorMap ta, tb;
+  cudaError_t e = encode_bf16_map(&ta, a, 2, ad, as, box);
+  if (e == cudaSuccess) e = encode_bf16_map(&tb, b, 2, bd, bs, box);
+  if (e != cudaSuccess) return e;
+  const int smem = 5 * kPanelBytes + 1024;
+  e = cudaFuncSetAttribute(wgmma_probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  wgmma_probe_kernel<<<1, 128, smem, static_cast<cudaStream_t>(stream)>>>(
+      ta, tb, static_cast<const __nv_bfloat16*>(a), static_cast<float*>(c), mode);
+  return cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,14 +1,16 @@
 """Build and load the port's CUDA kernels.
 
 Every ``csrc/*.cu`` source (``decode_attention.cu``, ``flash_attention.cu``,
-``masked_flash_attention.cu``, ``grouped_matmul.cu``; the last three include
-``flash_common.cuh``)
-is compiled by its own ``nvcc`` process, all started together, into an
-object file; one more ``nvcc`` links them into a shared library with a
-plain C interface (no PyTorch headers, so a build takes seconds), loaded
-with ``ctypes``.  The library goes into ``paddle_tpu_torch/_build/``
-(listed in ``.gitignore``), named by a hash over all sources, headers and
-flags, so an edited source rebuilds and an unchanged tree is reused.
+``masked_flash_attention.cu``, ``grouped_matmul.cu``, ``wgmma_probe.cu``; the
+middle three include ``flash_common.cuh``, and ``flash_attention.cu``,
+``grouped_matmul.cu`` and ``wgmma_probe.cu`` include ``hopper.cuh``, the
+TMA / mbarrier / wgmma building blocks) is compiled by its own ``nvcc``
+process, all started together, into an object file; one more ``nvcc``
+links them into a shared library with a plain C interface (no PyTorch
+headers, so a build takes seconds), loaded with ``ctypes``.  The library
+goes into ``paddle_tpu_torch/_build/`` (listed in ``.gitignore``), named by
+a hash over all sources, headers and flags, so an edited source rebuilds
+and an unchanged tree is reused.
 Nothing is built at import time: the first CUDA call of a kernel wrapper
 builds.
 """
@@ -18,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -27,8 +30,9 @@ from typing import Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = (CSRC / "decode_attention.cu", CSRC / "flash_attention.cu",
-           CSRC / "masked_flash_attention.cu", CSRC / "grouped_matmul.cu")
-HEADERS = (CSRC / "flash_common.cuh",)
+           CSRC / "masked_flash_attention.cu", CSRC / "grouped_matmul.cu",
+           CSRC / "wgmma_probe.cu")
+HEADERS = (CSRC / "flash_common.cuh", CSRC / "hopper.cuh")
 BUILD_DIR = _PKG / "_build"
 # compile flags of each source; headers resolve through -I csrc/, also for
 # an edited copy of a source compiled from elsewhere
@@ -47,7 +51,7 @@ SIGNATURES = {
     "pt_ragged_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _I, _I, _I, _F, _I, _I, _P],
     "pt_hb_flash_forward": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                            _I, _F, _I, _P],
+                            _I, _F, _I, _I, _P],
     "pt_hb_flash_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                              _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     # kind, pointer array, int array, scale, dtype, stream
@@ -55,7 +59,11 @@ SIGNATURES = {
     "pt_grouped_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _I, _I, _I, _P],
     "pt_grouped_outer": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # mode, a, b, c, stream
+    "pt_wgmma_probe": [_I, _P, _P, _P, _P],
 }
+# the bf16 kernels that must issue wgmma (HGMMA in their SASS): B1, B8
+WGMMA_KERNELS = ("hb_fwd_wgmma_kernel", "outer_wgmma_kernel")
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -151,3 +159,111 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         msg = lib.pt_error_string(code).decode(errors="replace")
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def cuda_tool(name: str) -> str:
+    """A binary of the CUDA toolkit that holds nvcc (cuobjdump, cu++filt)."""
+    return str(Path(nvcc_path()).with_name(name))
+
+
+_PTXAS_ENTRY = re.compile(r"(?:Compiling entry function|Function properties "
+                          r"for) '?([\w$]+)")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads")
+_PTXAS_USED = re.compile(r"Used (\d+) registers")
+_PTXAS_SMEM = re.compile(r"(\d+) bytes smem")
+
+
+def ptxas_report(log: str) -> dict:
+    """Per kernel (mangled name) of an ``-Xptxas=-v`` build log: registers,
+    stack frame, spill stores and loads, static shared memory in bytes
+    (dynamic shared memory is set at launch and not in the log)."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            cur = out.setdefault(m.group(1), {"registers": 0, "stack": 0,
+                                              "spill_stores": 0,
+                                              "spill_loads": 0, "smem": 0})
+            continue
+        if cur is None:
+            continue
+        m = _PTXAS_SPILL.search(line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = _PTXAS_USED.search(line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = _PTXAS_SMEM.search(line)
+            cur["smem"] = int(sm.group(1)) if sm else 0
+    return out
+
+
+def demangle(names) -> dict:
+    """{mangled: readable} through cu++filt, without the return type, the
+    anonymous namespace and the argument list."""
+    names = list(names)
+    res = subprocess.run([cuda_tool("cu++filt")], input="\n".join(names),
+                         capture_output=True, text=True, check=True)
+    out = {}
+    for n, d in zip(names, res.stdout.splitlines()):
+        d = re.sub(r"^void |<unnamed>::|\(anonymous namespace\)::", "", d)
+        depth = 0
+        for i, ch in enumerate(d):      # cut at the argument list's "("
+            depth += {"<": 1, ">": -1}.get(ch, 0)
+            if ch == "(" and depth == 0:
+                d = d[:i]
+                break
+        out[n] = d
+    return out
+
+
+def sass_functions(path: Path) -> dict:
+    """{mangled kernel name: its SASS text} of a built library
+    (``cuobjdump --dump-sass``)."""
+    res = subprocess.run([cuda_tool("cuobjdump"), "--dump-sass", str(path)],
+                         capture_output=True, text=True, check=True)
+    out, name = {}, None
+    for line in res.stdout.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = []
+        elif name is not None:
+            out[name].append(line)
+    return {n: "\n".join(lines) for n, lines in out.items()}
+
+
+def kernel_report(path: Optional[Path] = None) -> dict:
+    """{readable kernel name: registers, stack, spills, static smem, hgmma}
+    of the built library: ptxas's counts from its build log beside whether
+    the kernel's SASS issues HGMMA (wgmma)."""
+    path = library_path() if path is None else Path(path)
+    counts = ptxas_report(path.with_suffix(".log").read_text(
+        errors="replace"))
+    sass = sass_functions(path)
+    names = demangle(sorted(set(counts) | set(sass)))
+    return {names[n]: dict(counts.get(n, {}),
+                           hgmma="HGMMA" in sass.get(n, ""))
+            for n in names}
+
+
+def wgmma_probe(mode: int, a, b):
+    """The one-tile layout probe of csrc/wgmma_probe.cu on CUDA bf16
+    tensors (a [64, 64], b [64, 64 / 128 / 256] by mode): c fp32 =
+    a @ b^T (mode 0), a @ b (1), a^T @ b (2)."""
+    import torch
+    width = (64, 128, 256)[mode]
+    if a.shape != (64, 64) or b.shape != (64, width):
+        raise ValueError(f"wgmma_probe mode {mode}: a [64, 64], b [64, "
+                         f"{width}]")
+    a, b = a.contiguous(), b.contiguous()
+    c = torch.empty((64, 64 if mode == 0 else width), dtype=torch.float32,
+                    device=a.device)
+    lib = library()
+    check(lib, lib.pt_wgmma_probe(mode, a.data_ptr(), b.data_ptr(),
+                                  c.data_ptr(),
+                                  torch.cuda.current_stream().cuda_stream),
+          "wgmma_probe")
+    return c

@@ -59,6 +59,10 @@ _FUSED_BWD_VMEM_BUDGET = 6 * 2 ** 20
 MAX_REP = 8
 
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
+# the bf16 forward on wgmma (csrc/flash_attention.cu hb_fwd_wgmma_kernel):
+# its head dims, rows per CTA and keys per k tile
+WGMMA_FWD_HEAD_DIMS = (64, 128)
+WGMMA_FWD_ROWS, WGMMA_FWD_BK = 128, 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # shared memory a block may use on the H100 (dynamic, after opt-in)
 _SMEM_LIMIT = 227 * 1024
@@ -283,12 +287,34 @@ def smem_bytes(kind: str, m: int, bk: int, d: int, dtype: torch.dtype) -> int:
     raise ValueError(kind)
 
 
+def fwd_route(d: int, dtype: torch.dtype) -> str:
+    """Which CUDA kernel runs the forward, by an explicit rule on the head
+    dim and dtype: ``"wgmma"`` (``hb_fwd_wgmma_kernel``: TMA ring, wgmma,
+    register accumulators) for bf16 at d 64 and 128, every Llama shape of
+    the repo; ``"smem"`` (``hb_fwd_kernel``: shared-memory accumulators,
+    wmma for bf16, CUDA cores for fp32) for bf16 at d 16 and 32 and for
+    fp32."""
+    if dtype == torch.bfloat16 and d in WGMMA_FWD_HEAD_DIMS:
+        return "wgmma"
+    return "smem"
+
+
+def wgmma_fwd_tiles(rep: int) -> Tuple[int, int]:
+    """(block_q, block_k) of the wgmma forward: the CTA's 128 rows (two
+    warpgroups of 64) hold rep heads at block_q = 128 // rep positions
+    (rows past rep * block_q stay idle when rep does not divide 128),
+    against k tiles of 64 keys."""
+    return WGMMA_FWD_ROWS // rep, WGMMA_FWD_BK
+
+
 def hb_flash_forward(q, k, v, causal: bool = True,
                      scale: Optional[float] = None):
     """Head-batched flash attention forward (mirrors ``_hb_flash_forward``).
     q [b*kvh, rep, sq, d]; k/v [b*kvh, sk, d], one dtype (float32 or
     bfloat16).  Returns (o [b*kvh, rep, sq, d] in q's dtype, lse
-    [b*kvh, rep, sq] fp32)."""
+    [b*kvh, rep, sq] fp32).  On the card, ``fwd_route`` picks the kernel
+    before the launch; the wgmma kernel also needs 16-byte aligned q, k, v
+    (TMA) and raises otherwise."""
     dev = _check("hb_flash_forward", q, k, v)
     bkv, rep, sq, d = q.shape
     sk = k.shape[1]
@@ -300,12 +326,16 @@ def hb_flash_forward(q, k, v, causal: bool = True,
     lse = torch.empty((bkv, rep, sq), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         return o, lse
-    bq, bk = kernel_tiles("fwd", rep, d, q.dtype)
+    if sk == 0:                 # no key: every row is o = 0, lse = +1e30
+        return o.zero_(), lse.fill_(-NEG_INF)
+    wgmma = fwd_route(d, q.dtype) == "wgmma"
+    bq, bk = (wgmma_fwd_tiles(rep) if wgmma
+              else kernel_tiles("fwd", rep, d, q.dtype))
     lib = _build.library()
     rc = lib.pt_hb_flash_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), bkv, rep, sq, sk, d, bq, bk, int(causal),
-        scale, _DTYPE_CODES[q.dtype], _stream())
+        scale, _DTYPE_CODES[q.dtype], int(wgmma), _stream())
     _build.check(lib, rc, "hb_flash_forward")
     LAUNCHES["flash_attention_fwd"] += 1
     return o, lse

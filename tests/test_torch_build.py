@@ -1,0 +1,53 @@
+"""The port's kernel build helpers and launch rules that run without a card:
+the ``ptxas -v`` log reader behind chip_smoke.py's per-kernel register,
+spill and shared-memory lines, and the explicit rule that picks the bf16
+flash forward's wgmma kernel."""
+
+import pytest
+import torch
+
+from paddle_tpu_torch.ops import _build
+from paddle_tpu_torch.ops import flash_attention as fa
+
+LOG = """== flash_attention.cu
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119hb_fwd_wgmma_kernelILi128EEEv14CUtensorMap_stS1_S1_NS_4ArgsEi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_119hb_fwd_wgmma_kernelILi128EEEv14CUtensorMap_stS1_S1_NS_4ArgsEi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 167 registers, used 1 barriers, 128 bytes smem, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_113hb_dkv_kernelIfLi128EEEvNS_4ArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_113hb_dkv_kernelIfLi128EEEvNS_4ArgsE
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 64 registers, 400 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_reads_each_kernel():
+    rep = _build.ptxas_report(LOG)
+    fwd = rep["_ZN12_GLOBAL__N_119hb_fwd_wgmma_kernelILi128EEEv14CUtensorMap"
+              "_stS1_S1_NS_4ArgsEi"]
+    assert fwd == {"registers": 167, "stack": 0, "spill_stores": 0,
+                   "spill_loads": 0, "smem": 128}
+    dkv = rep["_ZN12_GLOBAL__N_113hb_dkv_kernelIfLi128EEEvNS_4ArgsE"]
+    assert dkv == {"registers": 64, "stack": 8, "spill_stores": 4,
+                   "spill_loads": 4, "smem": 0}
+    assert len(rep) == 2
+
+
+@pytest.mark.parametrize("d", fa.SUPPORTED_HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fwd_route_is_a_rule_on_head_dim_and_dtype(d, dtype):
+    want = "wgmma" if dtype == torch.bfloat16 and d in (64, 128) else "smem"
+    assert fa.fwd_route(d, dtype) == want
+
+
+@pytest.mark.parametrize("rep", range(1, fa.MAX_REP + 1))
+def test_wgmma_fwd_tiles_fill_at_most_128_rows(rep):
+    bq, bk = fa.wgmma_fwd_tiles(rep)
+    assert bk == 64 and rep * bq <= 128 and rep * (bq + 1) > 128
+
+
+def test_wgmma_kernels_named_in_the_sources():
+    text = "".join(p.read_text() for p in _build.SOURCES)
+    for name in _build.WGMMA_KERNELS:
+        assert f" {name}(" in text, name
+    assert _build.CSRC / "hopper.cuh" in _build.HEADERS

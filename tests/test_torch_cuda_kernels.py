@@ -216,13 +216,17 @@ def test_error_gate_catches_planted_faults(dev, tmp_path, monkeypatch):
 
 # ---------------------------------------------------------------- B1 / B2
 
-@pytest.mark.parametrize("s,d", [(200, 64), (640, 128)])
+@pytest.mark.parametrize("s,d", [(200, 64), (640, 128), (1000, 128),
+                                 (72, 64)])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("rep", [1, 2, 3, 4, 8])
 @pytest.mark.parametrize("kind", ["fp32", "bf16"])
 def test_hb_flash_kernels_match_plain(dev, kind, rep, causal, s, d):
-    """B1 and B2 against their plain versions with the per-row gate; s 200
-    and 640 end in partial q and k tiles.  The backward takes the plain
+    """B1 and B2 against their plain versions with the per-row gate; s 200,
+    1000 and 72 end inside the wgmma forward's 64-key tiles and its
+    128 // rep-position q tiles (rep 8: 16 positions, rep 1: 128; rep 3:
+    42, two of the CTA's 128 rows idle), and 200
+    and 640 inside the backward's tiles.  The backward takes the plain
     forward's o and lse, so it is gated on its own."""
     q, k, v, do = flash_inputs(kind, dev, (2, s, 2 * rep, 2, d))
     scale = d ** -0.5
@@ -242,6 +246,18 @@ def test_hb_flash_kernels_match_plain(dev, kind, rep, causal, s, d):
     berr, _ = flash_errors(kind, dict(zip(("dq", "dk", "dv"), grads)),
                            dict(zip(("dq", "dk", "dv"), want)))
     print(json.dumps({"case": [kind, rep, causal, s, d], **ferr, **berr}))
+
+
+def test_hb_flash_forward_without_keys(dev):
+    """sk 0: every row sees no key, o = 0 and lse = +1e30 as the plain
+    version, with no launch (there is no work and no K/V to map)."""
+    q = torch.randn(2, 4, 40, 128, device=dev).to(torch.bfloat16)
+    k = torch.zeros(2, 0, 128, device=dev, dtype=torch.bfloat16)
+    before = dict(fa.LAUNCHES)
+    o, lse = fa.hb_flash_forward(q, k, k, False)
+    wo, wlse = fa.hb_flash_forward_plain(q, k, k, False, 128 ** -0.5)
+    assert fa.LAUNCHES == before
+    assert torch.equal(o, wo) and torch.equal(lse, wlse)
 
 
 def test_flash_autograd_and_train_step_on_cuda_match_cpu(dev):
@@ -287,15 +303,16 @@ def test_flash_autograd_and_train_step_on_cuda_match_cpu(dev):
 
 # faults planted into copies of csrc/flash_attention.cu: (text, replacement)
 PLANTED_FLASH = {
-    # the forward skips its second k tile
+    # the wgmma forward skips its second k tile (it still frees the stage,
+    # so the producer is not left waiting)
     "skipped_k_tile": (
-        "__syncthreads();  // the previous tile's readers of k_s, v_s, p_s "
-        "are done",
-        "if (kt == 1) continue;\n    __syncthreads();"),
-    # the forward's output accumulator is not rescaled by alpha
-    "no_alpha_rescale": (
-        "for (int i = tid; i < M * D; i += kThreads) o_s[(i / D) * ldd + "
-        "i % D] *= alpha_s[i / D];", ""),
+        "mbar_wait(&full[s], (kt / kFwdStages) & 1);",
+        "mbar_wait(&full[s], (kt / kFwdStages) & 1);\n"
+        "    if (kt == 1) {\n      mbar_arrive(&empty[s]);\n      continue;\n"
+        "    }"),
+    # the wgmma forward's output accumulator is not rescaled by alpha
+    "no_alpha_rescale": ("o[p][i] *= alpha[(i / 2) % 2];",
+                         "o[p][i] *= 1.f;"),
     # dk loses the contribution of the group's second head
     "dk_drops_head_1": (
         "ds_s[m * ldk + j] = from_f<T>(ds);",
@@ -542,6 +559,9 @@ GMM_SWEEP = {
     "k4096_n256": (4096, 256, [2, 3, 1, 2, 2, 2, 3, 1], 8),
     "k1024_one_expert": (1024, 1024, [0, 0, 300, 0], 8),
     "k264_n200_edges": (264, 200, [70, 0, 9, 129, 33], 8),
+    # windows starting on multiples of 8 off the 64-row steps (16, 96, 232,
+    # 280, 344), lengths off 64: B8's last step zeroes the next segment's rows
+    "k384_n768_starts_off_64": (384, 768, [13, 77, 0, 130, 45, 64, 300], 8),
 }
 
 
@@ -712,11 +732,12 @@ PLANTED_GMM = {
     "int8_scale_dropped": (
         "if (a.scale != nullptr) v *= a.scale[static_cast<size_t>(wid) * "
         "a.N + n + i];", ""),
-    # B8 leaves an empty segment's tile unwritten
+    # B8 (bf16, wgmma) leaves an empty segment's tile unwritten
     "outer_empty_unwritten": (
-        "  const int row_end = min(base + alen, a.R);",
-        "  const int row_end = min(base + alen, a.R);\n"
-        "  if (row_end <= base) return;"),
+        "  const int steps = row_end > base ? (row_end - base + kOutBR - 1) "
+        "/ kOutBR : 0;",
+        "  const int steps = row_end > base ? (row_end - base + kOutBR - 1) "
+        "/ kOutBR : 0;\n  if (steps == 0) return;"),
 }
 
 
@@ -760,3 +781,39 @@ def test_grouped_gate_catches_planted_faults(dev, tmp_path, monkeypatch):
         monkeypatch.undo()
         print(json.dumps({"kernel": fault, "tol": tol, "row_error": bad}))
         assert bad[out] > 10 * tol, (fault, bad)
+
+
+# ------------------------------------------------ Hopper layouts and wgmma
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_wgmma_probe_matches_matmul(dev, mode):
+    """The one-tile layout probe (csrc/wgmma_probe.cu) against torch.matmul
+    of the same bf16 tiles in fp32: mode 0 both operands K-major (B1's
+    Q K^T), 1 A in registers and B MN-major (B1's P V), 2 both MN-major
+    with B over four panels (B8's x^T dy).  Exact products, fp32 sums of
+    64 terms in another order: 1e-5 of the largest |c|."""
+    g = torch.Generator(device=dev).manual_seed(mode)
+    width = (64, 128, 256)[mode]
+    a = torch.randn(64, 64, generator=g, device=dev).to(torch.bfloat16)
+    b = torch.randn(64, width, generator=g, device=dev).to(torch.bfloat16)
+    got = _build.wgmma_probe(mode, a, b)
+    torch.cuda.synchronize()
+    af, bf = a.float(), b.float()
+    want = af @ bf.T if mode == 0 else (af.T if mode == 2 else af) @ bf
+    err = (got - want).abs().max().item()
+    print(json.dumps({"mode": mode, "max_abs_err": err}))
+    assert err <= 1e-5 * want.abs().max().item(), err
+
+
+def test_wgmma_kernels_issue_hgmma(dev):
+    """The bf16 B1 and B8 kernels issue wgmma (HGMMA in their SASS) and
+    spill nothing (ptxas -v)."""
+    _build.library()
+    report = _build.kernel_report()
+    for name in _build.WGMMA_KERNELS:
+        found = {n: r for n, r in report.items() if name in n}
+        print(json.dumps(found))
+        assert found, name
+        for n, r in found.items():
+            assert r["hgmma"], n
+            assert r["spill_stores"] == 0 and r["spill_loads"] == 0, (n, r)

@@ -268,8 +268,12 @@ def test_kernel_tiles_fit_every_routed_shape():
                         <= fa._SMEM_LIMIT
                     if dt == torch.bfloat16:
                         assert (rep * bq) % 16 == 0 and bk % 16 == 0
-    # the bench.py attention shape: rep 4, d 128, bf16
-    assert fa.kernel_tiles("fwd", 4, 128, torch.bfloat16) == (16, 64)
+    # the bench.py attention shape (rep 4, d 128, bf16): the forward takes
+    # the wgmma kernel's 32 positions x 4 heads against 64 keys; the
+    # backward the tiles above
+    assert fa.fwd_route(128, torch.bfloat16) == "wgmma"
+    assert fa.wgmma_fwd_tiles(4) == (32, 64)
+    assert fa.kernel_tiles("dq", 4, 128, torch.bfloat16)[0] == 16
 
 
 def test_wrappers_take_plain_on_cpu_and_guard_inputs():
