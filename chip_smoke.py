@@ -7,8 +7,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
 
 1. the card's name and power limit; the kernels' build from csrc/, with
    each kernel's registers, spill bytes and static shared memory
-   (``ptxas -v``) and whether its SASS holds HGMMA; the bf16 B1 and B8
-   kernels must;
+   (``ptxas -v``) and whether its SASS holds HGMMA; the bf16 B1, B2, B7
+   and B8 kernels (``_build.WGMMA_KERNELS``) must;
 2. every kernel launcher (flash_decode B4, paged_decode B3,
    ragged_paged_decode B3') at the Llama-3-8B attention shapes (32 q heads,
    8 kv heads, head dim 128) in bf16, int8 K/V and fp32, held against its
@@ -32,8 +32,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    the ``bench.py`` attention shape (b 6, s 1024, 16 q heads over 4 kv
    heads, head dim 128, causal) in bf16 and fp32, held against their plain
    versions (per-row error gate) and timed beside their bounds, their plain
-   versions and one ``scaled_dot_product_attention`` call (forward, and
-   forward+backward for B2; a yardstick the port never calls);
+   versions and one ``scaled_dot_product_attention`` call (forward; for B2
+   its backward alone, the forward run outside the timed window, with the
+   forward+backward reading beside it; a yardstick the port never calls);
 6. training at the full width and depth of the ``bench.py`` configuration
    (``TRAIN_CFG``): bf16 params, fp32 AdamW masters from the unrounded init,
    accum 64 with the bf16 carry, one warm-up and three timed steps on one
@@ -41,7 +42,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
    plain-version call), the losses finite and falling, and the bf16 kernel
    path's loss on micro-batch 0 within 2e-2 of a plain fp32 forward on the
    same weights.  Prints ms per step, tokens/s and MFU (6 N per token over
-   989 TFLOP/s), and profiles one micro-step;
+   989 TFLOP/s), and profiles two micro-steps, in which every B2 call must
+   run the wgmma pair;
 7. the masked flash kernels (B5 forward; B6 fused, dq and dk/dv backward)
    on MASKED_CASES: packed documents at the train shape, a causal
    document mask as FlashMask bands at 8K, every other mask class, the
@@ -75,15 +77,18 @@ Phases, each of which raises (and so exits non-zero) on failure:
     teacher-forced check on the same int8 weights beside the count of
     (token, layer) pairs whose expert choice flipped; a decode profile;
 12. the dropless MoE train step (``parallel/expert.py``) at Mixtral's
-    expert shape: 2 B7 forward, 2 B7 dx and 2 B8 launches per step, no
-    plain call, losses finite and falling, dropped 0, the step-0 loss
-    within 2e-2 of a plain fp32 forward; ms per step and TFLOP/s, and a
-    profile of one more step;
+    expert shape: 2 B7 forward, 1 B7 dx (the first GEMM's input needs no
+    gradient) and 2 B8 launches per step, no plain call, losses finite and
+    falling, dropped 0, the step-0 loss within 2e-2 of a plain fp32
+    forward; ms per step and TFLOP/s over the five grouped GEMMs it runs,
+    and a profile of one more step;
 13. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
     last.
 
-Exits non-zero, printing no result, when CUDA is not available or the
-package is not beside the script.  Writes the full record to
+Kernel times are the median of their reps (CUDA events, L2 flushed before
+each rep), with the min and max beside them in the record.  Exits
+non-zero, printing no result, when CUDA is not available or the package is
+not beside the script.  Writes the full record to
 chiprun_out/chip_smoke.json.
 """
 
@@ -190,8 +195,8 @@ def _sync():
 def build_report():
     """Each kernel of the built library: registers, stack, spill bytes and
     static shared memory (ptxas -v), and whether its SASS holds HGMMA
-    (cuobjdump).  Raises if a bf16 kernel that must issue wgmma (B1, B8)
-    does not."""
+    (cuobjdump).  Raises if a bf16 kernel that must issue wgmma (B1, B2,
+    B7, B8) does not."""
     from paddle_tpu_torch.ops import _build
     report = _build.kernel_report()
     for name, r in sorted(report.items()):
@@ -207,14 +212,14 @@ def build_report():
     return report
 
 
-def time_ms(fn, reps, flush):
-    """Mean device milliseconds of ``fn`` over ``reps`` launches, each
-    after overwriting ``flush`` (larger than the 50 MB L2): a serving step
-    finds each layer's K/V cold."""
+def timing(fn, reps, flush):
+    """(median, min, max) device milliseconds of ``fn`` over ``reps``
+    launches, each after overwriting ``flush`` (larger than the 50 MB L2):
+    a serving step finds each layer's K/V cold."""
     import torch
     fn()
     _sync()
-    total = 0.0
+    times = []
     for _ in range(reps):
         flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
@@ -223,8 +228,13 @@ def time_ms(fn, reps, flush):
         fn()
         end.record()
         end.synchronize()
-        total += start.elapsed_time(end)
-    return total / reps
+        times.append(start.elapsed_time(end))
+    return statistics.median(times), min(times), max(times)
+
+
+def time_ms(fn, reps, flush):
+    """Median device milliseconds of ``fn`` (``timing``)."""
+    return timing(fn, reps, flush)[0]
 
 
 def bound(nbytes, ops, kind):
@@ -380,10 +390,10 @@ def kernel_cases(dev, flush):
                     call = ("F.scaled_dot_product_attention(enable_gqa, "
                             "length mask)")
             bms, by = bound(inp["nbytes"], inp["ops"], kind)
+            ms, lo, hi = timing(lambda: kernel(*args), 50, flush)
             records.append(dict(
                 name=name, case=case, shape=inp["shape"], err=err, tol=tol,
-                max_abs_err=abs_err,
-                ms=time_ms(lambda: kernel(*args), 50, flush),
+                max_abs_err=abs_err, ms=ms, ms_min=lo, ms_max=hi,
                 plain_ms=time_ms(lambda: plain(*args), plain_reps[name],
                                  flush),
                 bound_ms=bms, bound_by=by, library_ms=library,
@@ -803,7 +813,12 @@ def flash_errors(kind, got, want):
 def flash_cases(dev, flush):
     """B1 and B2 at FLASH_SHAPE in bf16 and fp32: gated against the plain
     versions (the backward from the plain forward's o and lse), timed beside
-    bound, plain and one SDPA call."""
+    bound, plain and one SDPA call: the forward for B1; for B2 SDPA's
+    backward alone (``torch.autograd.grad`` on a forward graph built
+    outside the timed window and kept), with its forward+backward reading
+    as a second field.  ``split_ms``: the profiler's device ms of each of
+    the wrapper's kernels (B2: dk/dv, then dq; the rest of the wrapper is
+    the PyTorch delta = rowsum(do * o) before them and its host time)."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import flash_attention as fa
@@ -836,6 +851,11 @@ def flash_cases(dev, flush):
         def sdpa_fwd_bwd():
             torch.autograd.grad(sdpa(*leaves), leaves, do4)
 
+        out = sdpa(*leaves)
+
+        def sdpa_bwd():
+            torch.autograd.grad(out, leaves, do4, retain_graph=True)
+
         reps, plain_reps = (20, 3) if kind == "bf16" else (5, 2)
         shape = f"q[{b * kvh},{h // kvh},{s},{d}] kv[{b * kvh},{s},{d}]"
         for name, kernel, plain, lib, nbytes, flops, errs, worst in (
@@ -848,21 +868,26 @@ def flash_cases(dev, flush):
                                               scale),
                  lambda: fa.hb_flash_backward_plain(q, k, v, wo, wlse, do,
                                                     True, scale),
-                 sdpa_fwd_bwd, bwd_bytes, 2.5 * ops, berr, babs)):
+                 sdpa_bwd, bwd_bytes, 2.5 * ops, berr, babs)):
             bms, by = bound(nbytes, flops, kind)
-            ms = time_ms(kernel, reps, flush)
+            ms, lo, hi = timing(kernel, reps, flush)
+            bwd = name.endswith("bwd")
+            split = _device_ms(kernel, 3, ("hb_dkv", "hb_dq") if bwd
+                               else ("hb_fwd",))
             records.append(dict(
                 name=name, case=kind, shape=shape, err=errs,
                 tol={n: FLASH_ROW_TOL[kind][n] for n in errs},
-                max_abs_err=worst, ms=ms,
+                max_abs_err=worst, ms=ms, ms_min=lo, ms_max=hi,
                 plain_ms=time_ms(plain, plain_reps, flush),
                 bound_ms=bms, bound_by=by, tflops=flops / ms / 1e9,
                 library_ms=time_ms(lib, reps, flush),
                 library_call=("F.scaled_dot_product_attention(is_causal, "
-                              "enable_gqa)" + (" forward+backward"
-                                               if name.endswith("bwd")
-                                               else ""))))
-        del q, k, v, do, wo, wlse, q4, k4, v4, do4, leaves
+                              "enable_gqa)" + (" backward alone" if bwd
+                                               else "")),
+                library_fwd_bwd_ms=(time_ms(sdpa_fwd_bwd, reps, flush)
+                                    if bwd else None),
+                split_ms=split))
+        del q, k, v, do, wo, wlse, q4, k4, v4, do4, leaves, out
         torch.cuda.empty_cache()
     return records
 
@@ -1027,12 +1052,14 @@ def masked_work(inp, kernel):
 
 
 def _device_ms(fn, calls, names, attempts=3):
-    """Device milliseconds per call of each kernel whose name contains one
-    of ``names``, by ``torch.profiler`` over ``calls`` calls of ``fn``; the
-    first name must have run.  The profiler's device records of a window
-    can be missing altogether (one window of one H100 run had none for
-    kernels that ran and passed their gate), so a window without them is
-    profiled again, up to ``attempts`` windows in all."""
+    """Device milliseconds per launch of each kernel whose name contains
+    one of ``names`` (each launches once per call of ``fn``), by
+    ``torch.profiler`` over ``calls`` calls: the average over the launches
+    the profiler recorded.  It can drop device records, some (one H100 run
+    read B1 over 3 calls at a third of its per-launch time in the train
+    profile) or all of a window's (one run had none for kernels that ran
+    and passed their gate), so the first name must have a record, and a
+    window without one is profiled again, up to ``attempts`` windows."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1043,12 +1070,14 @@ def _device_ms(fn, calls, names, attempts=3):
             for _ in range(calls):
                 fn()
             _sync()
-        out = dict.fromkeys(names, 0.0)
+        total, count = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0)
         for e in prof.key_averages():
             if e.device_type == DeviceType.CUDA:
                 for n in names:
                     if n in e.key:
-                        out[n] += e.self_device_time_total / 1e3 / calls
+                        total[n] += e.self_device_time_total / 1e3
+                        count[n] += e.count
+        out = {n: total[n] / count[n] if count[n] else 0.0 for n in names}
         if out[names[0]]:
             return out
     raise AssertionError(f"profile: no device time for {out} in "
@@ -1330,6 +1359,16 @@ def train_phase(dev, accum=TRAIN_ACCUM):
         step0_check=dict(kernel_bf16=kernel_loss, plain_fp32=ref_loss,
                          rel=rel, tol=TRAIN_LOSS_TOL))
     result["profile"] = profile_train(step1, params, ids[0], labels[0])
+    # every B2 call of the profiled micro-steps ran the wgmma pair
+    from paddle_tpu_torch.ops import flash_attention as fa
+    calls = result["profile"]["flash_kernel_calls"]
+    want_calls = cfg.num_hidden_layers * result["profile"]["micro_steps"]
+    b2 = {n: c for n, c in calls.items() if "hb_dkv" in n or "hb_dq" in n}
+    if fa.bwd_route(cfg.head_dim, torch.bfloat16) != "wgmma" or \
+            sorted(b2.values()) != [want_calls] * 2 or \
+            not all("wgmma" in n for n in b2):
+        raise AssertionError(f"train: B2 kernels {b2}, expected the wgmma "
+                             f"pair {want_calls} times each")
     del model, params, state, step, step1
     torch.cuda.empty_cache()
     return result
@@ -1511,6 +1550,9 @@ def profile_train(step1, params, ids, labels, micro_steps=2,
     gemm = share(lambda k: any(t in k.lower() for t in
                                ("nvjet", "gemm", "cutlass", "sm90_xmma")))
     return {"micro_steps": micro_steps,
+            "flash_kernel_calls": {e.key[:80]: e.count for e in events
+                                   if ("hb_" in e.key or "masked_" in e.key)
+                                   and "_kernel" in e.key},
             "device_ms_by_class": {
                 "flash_kernels": flash, "gemms": gemm,
                 "other": device_us / 1e3 / micro_steps - flash - gemm},
@@ -1723,11 +1765,11 @@ def gmm_cases(dev, flush):
             lib, call = _gmm_library(inp)
             bms, by = bound(inp["nbytes"], inp["ops"],
                             "fp32" if kind == "fp32" else "bf16")
-            ms = time_ms(lambda: _gmm_call(inp), reps, flush)
+            ms, lo, hi = timing(lambda: _gmm_call(inp), reps, flush)
             records.append(dict(
                 name=name, kind=kind, op=op, shape=inp["shape"],
                 lens=inp["lens"].tolist(), err=err, tol=tol,
-                max_abs_err=abs_err, ms=ms,
+                max_abs_err=abs_err, ms=ms, ms_min=lo, ms_max=hi,
                 plain_ms=time_ms(lambda: _gmm_call(inp, plain=True),
                                  1 if big else 3, flush),
                 bound_ms=bms, bound_by=by,
@@ -2030,9 +2072,10 @@ def moe_reference_loss(cfg, params, x2d, tgt):
 
 def profile_moe_step(step, params, x2d, tgt):
     """``torch.profiler`` over one more dropless step: wall and device ms,
-    the device's idle share, device ms by kernel class (B7 ``gmm_kernel``,
-    B8 ``outer_wgmma_kernel``, cuBLAS GEMMs, the rest) and the top kernels.
-    Returns (profile, the step's updated params)."""
+    the device's idle share, device ms by kernel class (B7
+    ``gmm_wgmma_kernel``, B8 ``outer_wgmma_kernel``, cuBLAS GEMMs, the
+    rest) and the top kernels.  Returns (profile, the step's updated
+    params)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2048,7 +2091,7 @@ def profile_moe_step(step, params, x2d, tgt):
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
     if device_ms <= 0:
         raise AssertionError("moe train profile: no device time")
-    classes = {"B7 gmm_kernel": lambda k: "gmm_kernel" in k,
+    classes = {"B7 gmm_wgmma_kernel": lambda k: "gmm_wgmma_kernel" in k,
                "B8 outer_wgmma_kernel": lambda k: "outer_wgmma_kernel" in k,
                "cuBLAS GEMMs": lambda k: any(t in k.lower() for t in (
                    "nvjet", "gemm", "cutlass", "sm90_xmma"))}
@@ -2069,7 +2112,8 @@ def profile_moe_step(step, params, x2d, tgt):
 def moe_train_phase(dev):
     """``build_moe_ep_dropless_train_step`` on one GPU at MOE_TRAIN_CFG:
     one warm-up and MOE_TRAIN_STEPS timed steps on one batch; per step
-    exactly 2 B7 forward, 2 B7 dx and 2 B8 launches and no plain call;
+    exactly 2 B7 forward, 1 B7 dx (the first GEMM's input, the dispatched
+    tokens, needs no gradient) and 2 B8 launches and no plain call;
     losses finite and falling, dropped 0, the step-0 loss within
     TRAIN_LOSS_TOL of a plain fp32 forward on the same weights."""
     import numpy as np
@@ -2097,7 +2141,7 @@ def moe_train_phase(dev):
                                             block_rows=8)
     torch.cuda.reset_peak_memory_stats()
     losses, walls, dropped, launches = [], [], [], []
-    want = dict(grouped_matmul=2, grouped_matmul_int8=0, grouped_matmul_t=2,
+    want = dict(grouped_matmul=2, grouped_matmul_int8=0, grouped_matmul_t=1,
                 grouped_outer=2)
     for _ in range(MOE_TRAIN_WARMUP + MOE_TRAIN_STEPS):
         with moe_counter() as calls:
@@ -2120,7 +2164,8 @@ def moe_train_phase(dev):
                              f"{ref_loss} ({rel})")
     window = sum(walls[MOE_TRAIN_WARMUP:])
     profile, params = profile_moe_step(step, params, x2d, tgt)
-    flops = 6 * 2 * MOE_TRAIN_TOKENS * cfg.top_k * m * h
+    # the grouped GEMMs the step runs: 2 forward, 1 dx, 2 dW
+    flops = 5 * 2 * MOE_TRAIN_TOKENS * cfg.top_k * m * h
     rec = dict(config=MOE_TRAIN_CFG, activation=cfg.activation,
                tokens=MOE_TRAIN_TOKENS, block_rows=8, lr=MOE_TRAIN_LR,
                losses=losses, step_s=walls, dropped=dropped,
@@ -2221,10 +2266,13 @@ def main() -> int:
         print(f"kernel {r['name']}[{r['case']}] {r['shape']}: "
               f"err={json.dumps(r['err'])} (tol {json.dumps(r['tol'])}) "
               f"max_abs_err={r['max_abs_err']:.3g} kernel_ms={r['ms']:.4f} "
+              f"[{r['ms_min']:.4f}, {r['ms_max']:.4f}] "
               f"({r['tflops']:.1f} TFLOP/s) plain_ms={r['plain_ms']:.4f} "
               f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
-              f"library_ms={r['library_ms']:.4f} [{r['library_call']}]",
-              flush=True)
+              f"library_ms={r['library_ms']:.4f} [{r['library_call']}]"
+              + (f" library_fwd_bwd_ms={r['library_fwd_bwd_ms']:.4f}"
+                 if r["library_fwd_bwd_ms"] is not None else "")
+              + f" split_ms={json.dumps(r['split_ms'])}", flush=True)
     record["train"] = train_phase(dev)
     print("train: " + json.dumps({k: v for k, v in record["train"].items()
                                   if k != "profile"}), flush=True)
@@ -2262,6 +2310,7 @@ def main() -> int:
         print(f"grouped {r['name']}[{r['kind']}] {r['shape']}: err="
               f"{r['err']:.3g} (tol {r['tol']}) max_abs_err="
               f"{r['max_abs_err']:.3g} kernel_ms={r['ms']:.4f} "
+              f"[{r['ms_min']:.4f}, {r['ms_max']:.4f}] "
               f"({r['tflops']:.1f} TFLOP/s, {r['gbytes_per_s']:.0f} GB/s) "
               f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
               f"({r['bound_by']}) library_ms={lib} [{r['library_call']}]",
@@ -2302,6 +2351,7 @@ def main() -> int:
             "replaces": replaces,
             "launches": serving[path]["launches"][name],
             "max_abs_err": bf16["max_abs_err"], "ms": bf16["ms"],
+            "ms_min": bf16["ms_min"], "ms_max": bf16["ms_max"],
             "plain_ms": bf16["plain_ms"], "bound_ms": bf16["bound_ms"],
             "bound_by": bf16["bound_by"], "library_ms": bf16["library_ms"],
             "checked_by": f"kernel phase (bf16, int8, fp32 at the 8B "
@@ -2319,6 +2369,7 @@ def main() -> int:
             "replaces": replaces,
             "launches": record["train"]["launches"][name],
             "max_abs_err": bf16["max_abs_err"], "ms": bf16["ms"],
+            "ms_min": bf16["ms_min"], "ms_max": bf16["ms_max"],
             "plain_ms": bf16["plain_ms"], "bound_ms": bf16["bound_ms"],
             "bound_by": bf16["bound_by"], "library_ms": bf16["library_ms"],
             "checked_by": "kernel phase (bf16, fp32 at the bench.py "
@@ -2362,27 +2413,32 @@ def main() -> int:
     gmm_tpu = "paddle_tpu/ops/pallas/grouped_matmul.py"
     rows = record["grouped_kernels"]
     mixtral = record["mixtral"]
+    moe_launches = record["moe_train"]["launches_total"]
     for name, line, case, kind, launches, ops in (
-            ("grouped_matmul", 82, "mixtral_decode_up", "int8",
+            ("grouped_matmul_int8", 82, "mixtral_decode_up", "int8",
              sum(mixtral[p]["grouped_launches"]["grouped_matmul_int8"]
                  for p in ("chunked", "unified", "generate")),
+             ("fwd",)),
+            ("grouped_matmul_float", 82, "train_fwd", "bf16",
+             moe_launches["grouped_matmul"] + moe_launches["grouped_matmul_t"],
              ("fwd", "t")),
             ("grouped_outer", 180, "train_dw", "bf16",
-             record["moe_train"]["launches_total"]["grouped_outer"],
-             ("outer",))):
+             moe_launches["grouped_outer"], ("outer",))):
         r = next(x for x in rows if x["name"] == case and x["kind"] == kind)
         kernels.append({
             "name": name, "route": "cuda", "source": gmm_source,
             "replaces": f"{gmm_tpu}:{line}", "launches": launches,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "ms_min": r["ms_min"], "ms_max": r["ms_max"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "checked_by": f"grouped-matmul kernel phase ({case}[{kind}] "
                           f"timed) and the "
-                          + ("Mixtral serving paths" if name ==
-                             "grouped_matmul" else "dropless train step"),
+                          + ("Mixtral serving paths" if kind == "int8"
+                             else "dropless train step"),
             "row_errors": {f"{x['name']}[{x['kind']}]": x["err"]
-                           for x in rows if x["op"] in ops}})
+                           for x in rows if x["op"] in ops
+                           and (x["kind"] == "int8") == (kind == "int8")}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,9 @@
 //       hb_fwd_wgmma_kernel for bf16 at head dim 64 and 128, hb_fwd_kernel
 //       for bf16 at 16 and 32 and for fp32 (the wrapper's fwd_route);
 //   - _hb_bwd_kernel (launcher _hb_flash_backward, B2)  -> pt_hb_flash_backward
-//       two kernels, hb_dkv_kernel then hb_dq_kernel.
+//       two kernels, dk/dv then dq: hb_dkv_wgmma_kernel and
+//       hb_dq_wgmma_kernel for bf16 at head dim 64 and 128, hb_dkv_kernel
+//       and hb_dq_kernel for bf16 at 16 and 32 and for fp32 (bwd_route).
 //
 // Layouts (as the TPU launchers'): q, o, do, dq [groups, rep, sq, d]; k, v, dk,
 // dv [groups, sk, d]; lse, delta [groups, rep, sq] fp32 (the TPU's 8-row lse
@@ -39,20 +41,31 @@
 //     registers to O += P V (V an MN-major operand, not transposed in
 //     memory).  Only tiles that cross the diagonal or sk are masked; q
 //     tiles run longest first;
-//   - other bf16 products run on the tensor cores (nvcuda::wmma, 16x16x16,
-//     fp32 accumulation); fp32 inputs take a CUDA-core path with the same
-//     data flow (the CPU-comparable case);
-//   - the backward splits B2's fused pass in two: hb_dkv_kernel runs one CTA
-//     per (group, k tile), loops over q tiles and keeps dK/dV of the whole
-//     group in shared memory, so the sum over the rep heads needs no atomics;
-//     hb_dq_kernel runs one CTA per (group, q tile) and loops over k tiles.
-//     Both recompute p from (q, k, lse); delta = rowsum(do * o) comes from
-//     the caller, as the TPU launcher computes it outside its kernel.
-// Left for later work: the forward's softmax does not yet overlap its
-// warpgroup's products (two warpgroups in ping-pong, or two k tiles in
-// flight); B2 keeps the simple design (wmma from shared memory, synchronous
-// loads, s and dp recomputed by both backward kernels: 7 products per tile
-// pair instead of 5).
+//   - the backward splits B2's fused pass in two, both deterministic (no
+//     atomics): dk/dv runs one CTA per (group, k tile), loops over q tiles
+//     and keeps dK/dV of the whole group, so the sum over the rep heads is
+//     the contraction over a q tile's rows; dq runs one CTA per (group, q
+//     tile) and loops over k tiles.  The TPU's one sequential grid carries
+//     dq and dk/dv in scratch; here the dq kernel recomputes S and dP
+//     instead (7 products per tile pair instead of 5).  Both recompute p
+//     from (q, k, lse); delta = rowsum(do * o) comes from the caller, as the
+//     TPU launcher computes it outside its kernel;
+//   - B2 bf16 at d 64/128 (hb_dkv_wgmma_kernel, hb_dq_wgmma_kernel) is B1's
+//     structure with the backward's products: a producer warp's TMA ring,
+//     two consumer warpgroups of 64 rows (dq) or 64 keys (dk/dv) each, S and
+//     dP on wgmma from K-major operands, p and ds in registers, rounded to
+//     bf16 as the register A operand of dq += ds k, dv += p^T do and dk +=
+//     ds^T q (k, do, q MN-major, not transposed in memory), dq or dk/dv in
+//     registers to the end.  At d 128 the dk/dv kernel would hold two 64 x
+//     128 accumulators and two 64 x 64 score tiles; it parks the fp32 p in
+//     shared memory while dP is computed instead;
+//   - other bf16 products (d 16, 32) run on the tensor cores (nvcuda::wmma,
+//     16x16x16, fp32 accumulation from shared memory); fp32 inputs take a
+//     CUDA-core path with the same data flow (the CPU-comparable case).
+// Left for later work: no kernel overlaps its softmax or ds with its
+// warpgroup's products (two warpgroups in ping-pong, or two tiles in
+// flight); the dk/dv kernel's causal loops are uneven across CTAs (a
+// persistent grid would balance them).
 //
 // Semantics kept from the TPU kernels (tests/test_torch_flash_attention.py):
 //   - masking with NEG_INF = -1e30, never -inf; causal keeps k_pos <= q_pos;
@@ -442,6 +455,391 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
     }
 }
 
+// ------------------------------------------------ B2 backward, bf16 on wgmma
+constexpr int kBwdRows = 128;     // dq: q rows of a CTA; dk/dv: keys of a CTA
+constexpr int kBwdTile = 64;      // dq: keys per k tile; dk/dv: q rows per q tile
+constexpr int kBwdStages = 3;     // ring depth
+// two consumer warpgroups, then a producer warpgroup of which warp 8 loads:
+// the producer gives its registers back (setmaxnreg) so that each consumer
+// thread can hold up to kBwdConsumerRegs (the cap of a 288-thread CTA is 168)
+constexpr int kBwdThreads = 384;
+constexpr int kBwdProducerRegs = 40, kBwdConsumerRegs = 232;
+
+// Shared memory of the two backward kernels: the CTA's resident pair
+// [D/64 panels][128 rows][64] (dq: q and do; dk/dv: k and v), then per stage
+// the ringed pair [D/64 panels][64 rows][64] (dq: k and v; dk/dv: q and do);
+// dk/dv adds each consumer thread's fp32 p of the current q tile (32
+// values, 32 KB for the CTA).  1024 bytes of slack align the tiles.
+template <int D>
+struct BwdWgmmaSmem {
+  static constexpr int kPanels = D / 64;
+  static constexpr int kBig = kBwdRows * kPanel;      // one panel of a resident tile
+  static constexpr int kSmall = kBwdTile * kPanel;    // one panel of a ringed tile
+  static constexpr int kResident = 2 * kPanels * kBig;
+  static constexpr int kStage = 2 * kPanels * kSmall;
+  static constexpr int kP = 2 * 128 * 32 * 4;         // dk/dv only
+  static constexpr int kDqBytes = kResident + kBwdStages * kStage + 1024;
+  static constexpr int kDkvBytes = kResident + kBwdStages * kStage + kP + 1024;
+};
+
+// dq per q tile.  One CTA per (group, q tile of bq positions x rep heads =
+// at most 128 rows), q tiles longest first.  Warp 8 is the producer: one
+// TMA load of the q and do tiles (4-D boxes (64, bq, rep, 1) per panel,
+// zero past sq), then the k tiles' K and V (64 keys) through a kBwdStages
+// ring.  Warpgroup w owns rows w*64..: per k tile S = q k^T and dP = do v^T
+// (wgmma, K-major operands from shared memory), p = exp(s * scale - lse)
+// and ds = p (dP - delta) scale in registers, ds rounded to bf16 as the
+// register A operand of dq += ds k (k MN-major, not transposed in memory).
+// dq stays in registers to the end; causal: the k loop stops at the q
+// tile's last position.  Rows past rep * bq (idle when rep does not divide
+// 128) and past sq get p = ds = 0 and are never stored.
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    hb_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tdo,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv, Args a, int groups) {
+  using L = BwdWgmmaSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 2 * kBwdStages];
+  unsigned char* q_s = smem_raw + (1024 - smem_u32(smem_raw) % 1024) % 1024;
+  unsigned char* do_s = q_s + L::kPanels * L::kBig;
+  unsigned char* kv_s = q_s + L::kResident;  // stage s: k, then v
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + kBwdStages;
+
+  const int nq = (a.sq + a.bq - 1) / a.bq;
+  const int g = blockIdx.x % groups;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x) / groups) * a.bq;
+  const int nk = k_tiles(a, q0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kBwdStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * 128);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    // ------------------------------------------------------------ producer
+    setmaxnreg_dec<kBwdProducerRegs>();
+    if (warp == 8 && lane == 0) {
+      mbar_arrive_expect_tx(q_full, 2 * L::kPanels * kPanel * a.bq * a.rep);
+      for (int p = 0; p < L::kPanels; ++p) {
+        tma_load_4d(q_s + p * L::kBig, &tq, q_full, p * 64, q0, 0, g);
+        tma_load_4d(do_s + p * L::kBig, &tdo, q_full, p * 64, q0, 0, g);
+      }
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % kBwdStages;
+        mbar_wait(&empty[s], ((kt / kBwdStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], L::kStage);
+        unsigned char* k_dst = kv_s + s * L::kStage;
+        for (int p = 0; p < L::kPanels; ++p) {
+          tma_load_3d(k_dst + p * L::kSmall, &tk, &full[s], p * 64, kt * kBwdTile, g);
+          tma_load_3d(k_dst + (L::kPanels + p) * L::kSmall, &tv, &full[s], p * 64,
+                      kt * kBwdTile, g);
+        }
+      }
+    }
+    return;
+  }
+
+  // -------------------------------------------------------------- consumers
+  setmaxnreg_inc<kBwdConsumerRegs>();
+  const int wg = threadIdx.x / 128, wq = (threadIdx.x % 128) / 32;
+  // this thread's two rows of the accumulator layout (j = 0, 1: +8 rows),
+  // with lse in log2 units and delta; rows that are not real read p = 0
+  int head[2], pos[2];
+  bool row_ok[2];
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int m = wg * 64 + wq * 16 + lane / 4 + 8 * j;
+    head[j] = m / a.bq;
+    pos[j] = q0 + m % a.bq;
+    row_ok[j] = m < a.rep * a.bq && pos[j] < a.sq;
+    const size_t at = (static_cast<size_t>(g) * a.rep + head[j]) * a.sq + pos[j];
+    lse2[j] = row_ok[j] ? a.lse[at] * kLog2e : 0.f;
+    dlt[j] = row_ok[j] ? a.delta[at] : 0.f;
+  }
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  float sc[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+  const float sl2 = a.scale * kLog2e;
+
+  mbar_wait(q_full, 0);
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % kBwdStages;
+    const int k0 = kt * kBwdTile;
+    const unsigned char* k_s = kv_s + s * L::kStage;
+    const unsigned char* v_s = k_s + L::kPanels * L::kSmall;
+    mbar_wait(&full[s], (kt / kBwdStages) & 1);
+
+    // S = q k^T and dP = do v^T over D in k steps of 16
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      const int p = ks / 4, j = ks % 4;
+      const int row = p * L::kBig + wg * 64 * kPanel + j * 32;
+      wgmma_ss_n64<0, 0>(sc, smem_desc(q_s + row, 16, 1024),
+                         smem_desc(k_s + p * L::kSmall + j * 32, 16, 1024), ks > 0);
+      wgmma_ss_n64<0, 0>(dp, smem_desc(do_s + row, 16, 1024),
+                         smem_desc(v_s + p * L::kSmall + j * 32, 16, 1024), ks > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    // ds = p (dP - delta) scale, rounded to bf16: the A operand of dq += ds k
+    const bool edge = (a.causal && k0 + kBwdTile - 1 > q0) || k0 + kBwdTile > a.sk;
+    uint32_t af[16];
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int j = (i / 2) % 2;
+      float ds[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kp = k0 + (i / 4) * 8 + (lane % 4) * 2 + e;
+        float p = exp2f(sc[i + e] * sl2 - lse2[j]);
+        if (edge && (kp >= a.sk || (a.causal && kp > pos[j]))) p = 0.f;
+        ds[e] = row_ok[j] ? p * (dp[i + e] - dlt[j]) * a.scale : 0.f;
+      }
+      af[i / 2] = pack_bf16(ds[0], ds[1]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kBwdTile / 16; ++ks) {
+      const uint32_t a4[4] = {af[4 * ks], af[4 * ks + 1], af[4 * ks + 2], af[4 * ks + 3]};
+      wgmma_rs_mn<D>(dq, a4, smem_desc(k_s + ks * 16 * kPanel, L::kSmall, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+    mbar_arrive(&empty[s]);
+  }
+
+  __nv_bfloat16* dqg = static_cast<__nv_bfloat16*>(a.dq) + static_cast<size_t>(g) * a.rep * a.sq * D;
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int j = (i / 2) % 2;
+    if (!row_ok[j]) continue;
+    const int c = (i / 4) * 8 + (lane % 4) * 2;
+    *reinterpret_cast<__nv_bfloat162*>(dqg + (static_cast<size_t>(head[j]) * a.sq + pos[j]) * D +
+                                       c) = __floats2bfloat162_rn(dq[i], dq[i + 1]);
+  }
+}
+
+// dk and dv per k tile.  One CTA per (group, 128 keys), k tiles from the
+// first key (the longest causal loops first), K and V staged once.  Warp 8
+// is the producer: the K and V tiles (3-D boxes (64, 128, 1)), then the q
+// tiles' q and do (64 rows = bq positions x rep heads, 4-D boxes) through a
+// kBwdStages ring, with each tile row's position, lse (log2 units) and
+// delta written to shared memory beside them.  Warpgroup w owns keys
+// w*64..: per q tile S^T = k q^T and dP^T = v do^T (wgmma, K-major operands
+// from shared memory), p^T = exp(s * scale - lse) rounded to bf16 as the
+// register A operand of dv += p^T do, then ds^T = p^T (dP^T - delta) scale
+// rounded to bf16 for dk += ds^T q (do and q MN-major).  The contraction
+// over a tile's rows is the sum over the group's heads.  dk and dv stay in
+// registers to the end; the fp32 p waits in shared memory (each thread's
+// own 32 values) while dP is computed, so two 64 x d accumulators and one
+// 64 x 64 tile are live at a time.  Causal: the first q tile is the first
+// that reaches the CTA's first key.  Rows past rep * bq are zeroed once in
+// every stage (TMA never writes them) and, like rows past sq, read lse =
+// +inf: their p and ds are exactly 0.
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    hb_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tdo,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv, Args a, int groups) {
+  using L = BwdWgmmaSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 2 * kBwdStages];
+  __shared__ float st_lse[kBwdStages][kBwdTile], st_dlt[kBwdStages][kBwdTile];
+  __shared__ int st_pos[kBwdStages][kBwdTile];
+  unsigned char* k_s = smem_raw + (1024 - smem_u32(smem_raw) % 1024) % 1024;
+  unsigned char* v_s = k_s + L::kPanels * L::kBig;
+  unsigned char* ring = k_s + L::kResident;  // stage s: q, then do
+  float* p_keep = reinterpret_cast<float*>(ring + kBwdStages * L::kStage);
+  uint64_t* kv_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + kBwdStages;
+
+  const int g = blockIdx.x % groups;
+  const int k0 = static_cast<int>(blockIdx.x) / groups * kBwdRows;
+  const int rows = a.rep * a.bq;  // real rows of a q tile, at most 64
+  const int nq = (a.sq + a.bq - 1) / a.bq;
+  const int qt0 = a.causal ? min(k0 / a.bq, nq) : 0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kBwdStages; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&empty[s], 2 * 128);
+    }
+    mbar_fence_init();
+  }
+  if (rows < kBwdTile) {
+    // rows [rows, 64) of every ringed panel: zero once, for the async proxy
+    const int chunks = (kBwdTile - rows) * 8;  // 16-byte chunks of one panel
+    const int panels = kBwdStages * 2 * L::kPanels;
+    for (int i = threadIdx.x; i < panels * chunks; i += kBwdThreads)
+      *reinterpret_cast<uint4*>(ring + (i / chunks) * L::kSmall + rows * kPanel +
+                                (i % chunks) * 16) = make_uint4(0, 0, 0, 0);
+    fence_proxy_async();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    // ------------------------------------------------------------ producer
+    setmaxnreg_dec<kBwdProducerRegs>();
+    if (warp > 8) return;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(kv_full, 2 * L::kPanels * L::kBig);
+      for (int p = 0; p < L::kPanels; ++p) {
+        tma_load_3d(k_s + p * L::kBig, &tk, kv_full, p * 64, k0, g);
+        tma_load_3d(v_s + p * L::kBig, &tv, kv_full, p * 64, k0, g);
+      }
+    }
+    for (int c = 0; c < nq - qt0; ++c) {
+      const int s = c % kBwdStages, q0 = (qt0 + c) * a.bq;
+      mbar_wait(&empty[s], ((c / kBwdStages) & 1) ^ 1);
+      for (int r = lane; r < kBwdTile; r += 32) {
+        const int pos = q0 + r % a.bq;
+        const bool ok = r < rows && pos < a.sq;
+        const size_t at = (static_cast<size_t>(g) * a.rep + r / a.bq) * a.sq + pos;
+        st_pos[s][r] = pos;
+        st_lse[s][r] = ok ? a.lse[at] * kLog2e : __int_as_float(0x7f800000);
+        st_dlt[s][r] = ok ? a.delta[at] : 0.f;
+      }
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&full[s], 2 * L::kPanels * kPanel * rows);
+        unsigned char* dst = ring + s * L::kStage;
+        for (int p = 0; p < L::kPanels; ++p) {
+          tma_load_4d(dst + p * L::kSmall, &tq, &full[s], p * 64, q0, 0, g);
+          tma_load_4d(dst + (L::kPanels + p) * L::kSmall, &tdo, &full[s], p * 64, q0, 0, g);
+        }
+      } else {
+        mbar_arrive(&full[s]);  // the row statistics written above are released
+      }
+    }
+    return;
+  }
+
+  // -------------------------------------------------------------- consumers
+  setmaxnreg_inc<kBwdConsumerRegs>();
+  const int wg = threadIdx.x / 128, wq = (threadIdx.x % 128) / 32;
+  const int key = k0 + wg * 64 + wq * 16 + lane / 4;  // this thread's keys: key, key + 8
+  float* keep = p_keep + wg * 128 * 32 + threadIdx.x % 128;  // value i at keep[i * 128]
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  float sc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+  const float sl2 = a.scale * kLog2e;
+
+  mbar_wait(kv_full, 0);
+  for (int c = 0; c < nq - qt0; ++c) {
+    const int s = c % kBwdStages, q0 = (qt0 + c) * a.bq;
+    const unsigned char* q_t = ring + s * L::kStage;
+    const unsigned char* do_t = q_t + L::kPanels * L::kSmall;
+    mbar_wait(&full[s], (c / kBwdStages) & 1);
+
+    // S^T = k q^T over D in k steps of 16
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      const int p = ks / 4, j = ks % 4;
+      wgmma_ss_n64<0, 0>(sc, smem_desc(k_s + p * L::kBig + wg * 64 * kPanel + j * 32, 16, 1024),
+                         smem_desc(q_t + p * L::kSmall + j * 32, 16, 1024), ks > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+
+    // p^T, kept in fp32 for ds and rounded to bf16 for dv += p^T do
+    const bool edge = (a.causal && q0 < k0 + kBwdRows - 1) || k0 + kBwdRows > a.sk;
+    uint32_t af[16];
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int kp = key + 8 * ((i / 2) % 2);
+      float pv[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = (i / 4) * 8 + (lane % 4) * 2 + e;
+        float p = exp2f(sc[i + e] * sl2 - st_lse[s][col]);
+        if (edge && (kp >= a.sk || (a.causal && kp > st_pos[s][col]))) p = 0.f;
+        pv[e] = p;
+        keep[(i + e) * 128] = p;
+      }
+      af[i / 2] = pack_bf16(pv[0], pv[1]);
+    }
+
+    // dv += p^T do, and dP^T = v do^T into sc
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kBwdTile / 16; ++ks) {
+      const uint32_t a4[4] = {af[4 * ks], af[4 * ks + 1], af[4 * ks + 2], af[4 * ks + 3]};
+      wgmma_rs_mn<D>(dv, a4, smem_desc(do_t + ks * 16 * kPanel, L::kSmall, 1024));
+    }
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      const int p = ks / 4, j = ks % 4;
+      wgmma_ss_n64<0, 0>(sc, smem_desc(v_s + p * L::kBig + wg * 64 * kPanel + j * 32, 16, 1024),
+                         smem_desc(do_t + p * L::kSmall + j * 32, 16, 1024), ks > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dv);
+
+    // ds^T = p^T (dP^T - delta) scale, rounded to bf16 for dk += ds^T q
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      float ds[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = (i / 4) * 8 + (lane % 4) * 2 + e;
+        ds[e] = keep[(i + e) * 128] * (sc[i + e] - st_dlt[s][col]) * a.scale;
+      }
+      af[i / 2] = pack_bf16(ds[0], ds[1]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kBwdTile / 16; ++ks) {
+      const uint32_t a4[4] = {af[4 * ks], af[4 * ks + 1], af[4 * ks + 2], af[4 * ks + 3]};
+      wgmma_rs_mn<D>(dk, a4, smem_desc(q_t + ks * 16 * kPanel, L::kSmall, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dk);
+    mbar_arrive(&empty[s]);
+  }
+
+  const size_t koff = static_cast<size_t>(g) * a.sk * D;
+  __nv_bfloat16* dkg = static_cast<__nv_bfloat16*>(a.dk) + koff;
+  __nv_bfloat16* dvg = static_cast<__nv_bfloat16*>(a.dv) + koff;
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int kp = key + 8 * ((i / 2) % 2);
+    if (kp >= a.sk) continue;
+    const size_t at = static_cast<size_t>(kp) * D + (i / 4) * 8 + (lane % 4) * 2;
+    *reinterpret_cast<__nv_bfloat162*>(dkg + at) = __floats2bfloat162_rn(dk[i], dk[i + 1]);
+    *reinterpret_cast<__nv_bfloat162*>(dvg + at) = __floats2bfloat162_rn(dv[i], dv[i + 1]);
+  }
+}
+
 // lse and delta of rows [0, rep*bq) of a q tile; rows past sq read 0.
 __device__ void load_row_stats(float* lse_s, float* delta_s, const Args& a, int g, int q0) {
   const int M = a.rep * a.bq;
@@ -611,18 +1009,21 @@ cudaError_t launch(Kind kind, const Args& a, int groups, cudaStream_t stream) {
   if (smem > kSmemLimit || a.bq <= 0 || a.bk <= 0) return cudaErrorInvalidValue;
   // tensor-core tiles: 16-row multiples for every product's operands
   if (sizeof(T) == 2 && (m % 16 != 0 || a.bk % 16 != 0)) return cudaErrorInvalidValue;
-  void (*kernel)(Args) = kind == kDq ? hb_dq_kernel<T, D> : hb_dkv_kernel<T, D>;
-  if (kind == kFwd) {
-    // bf16 at d 64 and 128 runs hb_fwd_wgmma_kernel (launch_fwd_wgmma)
-    if constexpr (sizeof(T) == 2 && D >= 64) return cudaErrorInvalidValue;
-    else kernel = hb_fwd_kernel<T, D>;
+  // bf16 at d 64 and 128 runs the wgmma kernels (launch_fwd_wgmma,
+  // launch_bwd_wgmma): no shared-memory instantiation of those
+  if constexpr (sizeof(T) == 2 && D >= 64) {
+    return cudaErrorInvalidValue;
+  } else {
+    void (*kernel)(Args) = kind == kDq    ? hb_dq_kernel<T, D>
+                           : kind == kDkv ? hb_dkv_kernel<T, D>
+                                          : hb_fwd_kernel<T, D>;
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+    const int tiles = kind == kDkv ? (a.sk + a.bk - 1) / a.bk : (a.sq + a.bq - 1) / a.bq;
+    kernel<<<dim3(tiles, groups), kThreads, smem, stream>>>(a);
+    return cudaGetLastError();
   }
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (e != cudaSuccess) return e;
-  const int tiles = kind == kDkv ? (a.sk + a.bk - 1) / a.bk : (a.sq + a.bq - 1) / a.bq;
-  kernel<<<dim3(tiles, groups), kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
 }
 
 template <typename T>
@@ -661,6 +1062,58 @@ cudaError_t launch_fwd_wgmma(const Args& a, int groups, cudaStream_t stream) {
   if (e != cudaSuccess) return e;
   const int nq = (a.sq + a.bq - 1) / a.bq;
   hb_fwd_wgmma_kernel<D><<<nq * groups, kFwdThreads, L::kBytes, stream>>>(tq, tk, tv, a, groups);
+  return cudaGetLastError();
+}
+
+// B2 on wgmma: bf16, d 64 or 128; dk/dv with a.bk == kBwdRows keys and
+// q tiles of bq_kv positions (rep * bq_kv <= 64 rows), then dq with a.bk ==
+// kBwdTile keys and q tiles of bq_q positions (rep * bq_q <= 128 rows).
+// The tensor maps: q and do as (d, sq, rep, groups), k and v as (d, sk,
+// groups), one box shape per kernel.
+template <int D>
+cudaError_t launch_bwd_wgmma(Args a, int groups, int bq_kv, int bk_kv, int bq_q, int bk_q,
+                             cudaStream_t stream) {
+  using L = BwdWgmmaSmem<D>;
+  if (bk_kv != kBwdRows || bk_q != kBwdTile || bq_kv <= 0 || bq_q <= 0 ||
+      a.rep * bq_kv > kBwdTile || a.rep * bq_q > kBwdRows)
+    return cudaErrorInvalidValue;
+  const uint64_t row = D * 2;
+  const uint64_t sk = a.sk > 0 ? a.sk : 1;
+  const uint64_t qd[4] = {D, static_cast<uint64_t>(a.sq), static_cast<uint64_t>(a.rep),
+                          static_cast<uint64_t>(groups)};
+  const uint64_t qs[3] = {row, row * a.sq, row * a.sq * a.rep};
+  const uint64_t kd[3] = {D, sk, static_cast<uint64_t>(groups)};
+  const uint64_t ks[2] = {row, row * sk};
+  CUtensorMap maps[8];  // dk/dv: q, do, k, v; then dq's
+  for (int kind = 0; kind < 2; ++kind) {
+    const uint32_t qb[4] = {64, static_cast<uint32_t>(kind == 0 ? bq_kv : bq_q),
+                            static_cast<uint32_t>(a.rep), 1};
+    const uint32_t kb[3] = {64, static_cast<uint32_t>(kind == 0 ? kBwdRows : kBwdTile), 1};
+    CUtensorMap* m = maps + 4 * kind;
+    cudaError_t e = encode_bf16_map(&m[0], a.q, 4, qd, qs, qb);
+    if (e == cudaSuccess) e = encode_bf16_map(&m[1], a.dout, 4, qd, qs, qb);
+    if (e == cudaSuccess) e = encode_bf16_map(&m[2], a.k, 3, kd, ks, kb);
+    if (e == cudaSuccess) e = encode_bf16_map(&m[3], a.v, 3, kd, ks, kb);
+    if (e != cudaSuccess) return e;
+  }
+  cudaError_t e = cudaFuncSetAttribute(hb_dkv_wgmma_kernel<D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, L::kDkvBytes);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(hb_dq_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             L::kDqBytes);
+  if (e != cudaSuccess) return e;
+  a.bq = bq_kv;
+  a.bk = bk_kv;
+  const int nk = (a.sk + kBwdRows - 1) / kBwdRows;
+  hb_dkv_wgmma_kernel<D><<<nk * groups, kBwdThreads, L::kDkvBytes, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], a, groups);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  a.bq = bq_q;
+  a.bk = bk_q;
+  const int nq = (a.sq + bq_q - 1) / bq_q;
+  hb_dq_wgmma_kernel<D><<<nq * groups, kBwdThreads, L::kDqBytes, stream>>>(
+      maps[4], maps[5], maps[6], maps[7], a, groups);
   return cudaGetLastError();
 }
 
@@ -708,10 +1161,13 @@ int pt_hb_flash_forward(const void* q, const void* k, const void* v, void* o, vo
 // _hb_flash_backward: (q, k, v, do, lse, delta) -> dq (q's shape), dk, dv
 // (k's shape, summed over each group's rep heads).  Two launches on the
 // stream: dk/dv with tiles (bq_kv, bk_kv), then dq with (bq_q, bk_q).
+// wgmma: 1 takes hb_dkv_wgmma_kernel and hb_dq_wgmma_kernel (bf16, d 64 or
+// 128; the wrapper's bwd_route), 0 the wmma / CUDA-core hb_dkv_kernel and
+// hb_dq_kernel.
 int pt_hb_flash_backward(const void* q, const void* k, const void* v, const void* dout,
                          const void* lse, const void* delta, void* dq, void* dk, void* dv,
                          int groups, int rep, int sq, int sk, int d, int bq_kv, int bk_kv,
-                         int bq_q, int bk_q, int causal, float scale, int dtype,
+                         int bq_q, int bk_q, int causal, float scale, int dtype, int wgmma,
                          void* stream) {
   Args a{};
   a.q = q;
@@ -728,6 +1184,13 @@ int pt_hb_flash_backward(const void* q, const void* k, const void* v, const void
   a.sk = sk;
   a.causal = causal;
   a.scale = scale;
+  if (wgmma) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (dtype != kBF16) return cudaErrorInvalidValue;
+    if (d == 64) return launch_bwd_wgmma<64>(a, groups, bq_kv, bk_kv, bq_q, bk_q, st);
+    if (d == 128) return launch_bwd_wgmma<128>(a, groups, bq_kv, bk_kv, bq_q, bk_q, st);
+    return cudaErrorInvalidValue;
+  }
   a.bq = bq_kv;
   a.bk = bk_kv;
   cudaError_t e = dispatch(kDkv, a, groups, d, dtype, stream);

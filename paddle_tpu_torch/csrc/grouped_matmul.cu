@@ -4,10 +4,11 @@
 //
 // Replaces the two Pallas TPU kernel bodies of
 // paddle_tpu/ops/pallas/grouped_matmul.py:
-//   - _gmm_kernel (launcher grouped_matmul_raw, B7)   -> pt_grouped_matmul,
-//       kernel gmm_kernel: y[win_s] = x[win_s] @ w[wid_s] per segment s, with
-//       a float bank, an int8 bank and its per-(slice, out-channel) fp32
-//       scales, or w[wid_s]^T (the backward's dx, read in place);
+//   - _gmm_kernel (launcher grouped_matmul_raw, B7)   -> pt_grouped_matmul:
+//       y[win_s] = x[win_s] @ w[wid_s] per segment s, or w[wid_s]^T (the
+//       backward's dx, the bank read in place).  Kernel gmm_wgmma_kernel for
+//       a bf16 bank, gmm_kernel for an int8 bank (with its per-(slice,
+//       out-channel) fp32 scales) and for fp32 (the wrapper's gmm_route);
 //   - _outer_kernel (launcher grouped_outer_raw, B8)  -> pt_grouped_outer:
 //       out[s] = x[win_s]^T @ dy[win_s], fp32 [S, K, N]; kernel
 //       outer_wgmma_kernel for bf16, outer_kernel (CUDA cores) for fp32.
@@ -20,56 +21,67 @@
 // over 8 experts) B7 is a weight stream: every expert's [K, N] slice is read
 // once, 2 * 16 * K * N operations on K * N bytes (int8), far below the
 // card's ~295 operations per byte, so bytes bound it.  At the train cell
-// (16384 rows over 8 experts, K/N 4096/14336) it is a large GEMM, bound by
-// operations.  B8 at the train cell likewise.  The design, simple first:
-//   - B7: one CTA per (row tile of 64 rows of one segment, N tile of 64).
-//     The grid's row axis counts R / 64 + S tiles, the most the segments can
+// (16384 rows over 8 experts, K/N 4096/14336) B7 and B8 are large GEMMs:
+// B7 does 1.92 TFLOP on ~1.5 GB (x 0.13, the bank 0.94, y 0.47), 1.95 ms of
+// operations against 0.46 ms of bytes, so operations bound it and every
+// byte staged in shared memory has to feed many products.  The design:
+//   - B7 bf16 (gmm_wgmma_kernel, on the Hopper blocks of hopper.cuh): one
+//     CTA per 128-row x 256-column output tile of one segment's window, the
+//     tiles walked in groups of 8 N tiles with the row tiles inside so the
+//     CTAs in flight share x and weight slabs in L2.  The grid counts
+//     R / 128 + S row tiles times the N tiles, the most the segments can
 //     need; each CTA walks the segment table in device memory to find its
 //     segment and tile (no host sync sizes anything) and exits past the
-//     last tile.  A segment of at most 64 rows (every decode segment) is one
-//     row tile, so its expert's weight tile is read once per N tile;
-//   - B7: the CTA loops over K in steps of 64, staging the x rows and the
-//     weight tile in shared memory; the next step's tiles are loaded into registers
-//     while the tensor cores (bf16: nvcuda::wmma 16x16x16, fp32 accumulators
-//     in registers) or the CUDA cores (fp32: a 4x4 micro-tile per thread)
-//     multiply the current ones;
-//   - an int8 bank is widened to x's dtype as it is stored to shared memory
-//     (exact: |q| <= 127) and the fp32 accumulator is multiplied by
-//     w_scale[wid, n] before the cast to x's dtype, the TPU's order;
-//   - the transposed launch stores the tile of w[wid] ([N, K] rows, read
-//     contiguously along K) column-major in shared memory and reads it as a
-//     col_major wmma operand: no transposed copy of the bank;
-//   - rows at or past start + align(len), and past R, are masked: they
-//     belong to the next segment;
-//   - B8 bf16 (outer_wgmma_kernel, on the shared Hopper blocks of
-//     hopper.cuh).  At the train cell's dW (16384 rows over 8 experts, K/N
-//     4096/14336) it does 1.92 TFLOP on 0.6 GB of distinct input and 1.9 GB
-//     of fp32 output: 1.95 ms of operations against 0.75 ms of bytes, so
-//     operations bound it, and every byte staged in shared memory has to
-//     feed many products: one CTA per 128 x 256 output tile of one
-//     segment (85 flop per staged byte), its tiles walked in groups of 8 N
-//     tiles with the K tiles inside so the CTAs in flight share slabs in
-//     L2; a producer warp keeps 4 stages of 64 window rows in flight by
-//     TMA; two consumer warpgroups run m64n256k16 wgmma on them, x^T and
-//     dy both read as MN-major operands of the row-major tiles (no
-//     transposed copy), with 128 fp32 accumulators a thread in registers.  The window's last step
+//     last.  A producer warp keeps 4 stages of 64-deep K steps in flight by
+//     TMA: x's 128 window rows (K-major) and the weight tile, read through
+//     one 3-D tensor map over the bank with the expert as third coordinate:
+//     the forward's w[wid][k0:+64, n0:+256] as four MN-major 64-column
+//     panels, dx's w[wid][n0:+256, k0:+64] as one K-major panel of 256 rows
+//     (its contraction axis is contiguous: no transposed copy).  Two
+//     consumer warpgroups run m64n256k16 wgmma into 128 fp32 registers a
+//     thread, one group left in flight.  TMA zero-fills past R, K and N;
+//     rows of the next segment are multiplied but never stored (the
+//     epilogue masks rows at or past start + align(len)), and no row of y
+//     depends on another, so nothing needs zeroing in shared memory;
+//   - B7 int8 and fp32 (gmm_kernel): one CTA per (row tile of 64 rows of
+//     one segment, N tile of 64), the same segment walk; the CTA loops over
+//     K in steps of 64, staging the x rows and the weight tile in shared
+//     memory, the next step's tiles loaded into registers while the tensor
+//     cores (bf16 x over an int8 bank: nvcuda::wmma 16x16x16, fp32
+//     accumulators) or the CUDA cores (fp32: a 4x4 micro-tile per thread)
+//     multiply the current ones.  An int8 bank is widened to x's dtype as it
+//     is stored to shared memory (exact: |q| <= 127) and the fp32
+//     accumulator is multiplied by w_scale[wid, n] before the cast to x's
+//     dtype, the TPU's order.  A segment of at most 64 rows (every decode
+//     segment) is one row tile, so its expert's weight tile is read once per
+//     N tile.  The fp32 transposed launch stores the tile of w[wid] ([N, K]
+//     rows, read contiguously along K) column-major in shared memory;
+//   - B8 bf16 (outer_wgmma_kernel, on hopper.cuh).  At the train cell's dW
+//     it does 1.92 TFLOP on 0.6 GB of distinct input and 1.9 GB of fp32
+//     output: 1.95 ms of operations against 0.75 ms of bytes.  One CTA per
+//     128 x 256 output tile of one segment (85 flop per staged byte), its
+//     tiles walked in groups of 8 N tiles with the K tiles inside; a
+//     producer warp keeps 4 stages of 64 window rows in flight by TMA; two
+//     consumer warpgroups run m64n256k16 wgmma on them, x^T and dy both read
+//     as MN-major operands of the row-major tiles (no transposed copy), with
+//     128 fp32 accumulators a thread in registers.  The window's last step
 //     zeroes the rows that belong to the next segment in shared memory, then
 //     fences them to the async proxy, before the products read them.  Every
 //     tile is stored, an empty segment's as exact zeros.  No atomics:
 //     deterministic.  fp32 keeps the CUDA-core outer_kernel (one CTA per
 //     64 x 64 tile, chunks of 32 rows).
-// Left for later work: B7 on wgmma (it can share B8's ring and header), a
-// persistent grid with the epilogue overlapping the next tile's loads,
-// split-K for the decode weight stream.
+// Left for later work: B7 int8 on a decode-shaped tile (16 rows, more bytes
+// in flight per SM, split-K for the down projection), a persistent grid with
+// the epilogue overlapping the next tile's loads.
 
 #include <type_traits>
 
 #include "flash_common.cuh"  // kThreads, kPad, dtype helpers, wmma
-#include "hopper.cuh"        // TMA, mbarriers, wgmma (B8 bf16)
+#include "hopper.cuh"        // TMA, mbarriers, wgmma (B7 and B8 bf16)
 
 namespace {
 
-constexpr int kBM = 64;   // rows of a B7 tile (the wrapper's _KERNEL_ROWS)
+constexpr int kBM = 64;   // rows of a gmm_kernel tile (int8 bank, fp32)
 constexpr int kBN = 64;   // columns of a tile
 constexpr int kBK = 64;   // K step of B7; K tile of B8
 constexpr int kBR = 32;   // rows per step of B8
@@ -116,18 +128,20 @@ struct GmmArgs {
   int R, K, N, S, E, br;
 };
 
-// The segment and row range of the CTA's row tile g: segments in order,
-// each contributing ceil(align(len, br) / kBM) tiles.  False past the last.
+// The segment and row range of the CTA's row tile g of BM rows: segments in
+// order, each contributing ceil(align(len, br) / BM) tiles.  False past the
+// last.
+template <int BM>
 __device__ bool find_tile(const GmmArgs& a, int g, int& seg, int& row0, int& row_end) {
   int cum = 0;
   for (int s = 0; s < a.S; ++s) {
     const int len = max(a.lens[s], 0);
     const int alen = (len + a.br - 1) / a.br * a.br;
-    const int nt = (alen + kBM - 1) / kBM;
+    const int nt = (alen + BM - 1) / BM;
     if (g < cum + nt) {
       const int base = a.starts[s] / a.br * a.br;
       seg = s;
-      row0 = base + (g - cum) * kBM;
+      row0 = base + (g - cum) * BM;
       row_end = min(base + alen, a.R);
       return true;
     }
@@ -151,7 +165,7 @@ __global__ void __launch_bounds__(kThreads) gmm_kernel(GmmArgs a) {
   using L = GmmSmem<T, TW, TRANS>;
   __shared__ __align__(128) unsigned char smem[L::kBytes];
   int seg, row0, row_end;
-  if (!find_tile(a, blockIdx.y, seg, row0, row_end)) return;
+  if (!find_tile<kBM>(a, blockIdx.y, seg, row0, row_end)) return;
   const int wid = a.wids[seg];
   if (wid < 0 || wid >= a.E) return;
   const int n0 = blockIdx.x * kBN;
@@ -190,11 +204,12 @@ __global__ void __launch_bounds__(kThreads) gmm_kernel(GmmArgs a) {
     }
   };
 
+  // bf16 x (over an int8 bank, never transposed) on the tensor cores
   constexpr bool kTensor = std::is_same<T, __nv_bfloat16>::value;
+  static_assert(!(kTensor && TRANS), "a bf16 bank runs gmm_wgmma_kernel");
   const int warp = threadIdx.x >> 5;
   const int ti = warp >> 1, tj0 = (warp & 1) * 2;        // bf16: 2 of 16 tiles
   const int tr = threadIdx.x >> 4, tc = threadIdx.x & 15;  // fp32: 4x4 outputs
-  using BLayout = std::conditional_t<TRANS, wmma::col_major, wmma::row_major>;
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> c0, c1;
   float acc[4][4] = {};
   if constexpr (kTensor) {
@@ -212,15 +227,10 @@ __global__ void __launch_bounds__(kThreads) gmm_kernel(GmmArgs a) {
 #pragma unroll
       for (int kk = 0; kk < kBK; kk += 16) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, BLayout> fb0, fb1;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> fb0, fb1;
         wmma::load_matrix_sync(fa, xs + ti * 16 * L::kLdx + kk, L::kLdx);
-        if constexpr (TRANS) {
-          wmma::load_matrix_sync(fb0, ws + tj0 * 16 * L::kLdw + kk, L::kLdw);
-          wmma::load_matrix_sync(fb1, ws + (tj0 + 1) * 16 * L::kLdw + kk, L::kLdw);
-        } else {
-          wmma::load_matrix_sync(fb0, ws + kk * L::kLdw + tj0 * 16, L::kLdw);
-          wmma::load_matrix_sync(fb1, ws + kk * L::kLdw + (tj0 + 1) * 16, L::kLdw);
-        }
+        wmma::load_matrix_sync(fb0, ws + kk * L::kLdw + tj0 * 16, L::kLdw);
+        wmma::load_matrix_sync(fb1, ws + kk * L::kLdw + (tj0 + 1) * 16, L::kLdw);
         wmma::mma_sync(c0, fa, fb0, c0);
         wmma::mma_sync(c1, fa, fb1, c1);
       }
@@ -492,17 +502,150 @@ cudaError_t launch_outer_wgmma(const OuterArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------ B7, bf16 on wgmma
+constexpr int kGmmBM = 128;       // rows of a tile: two consumer warpgroups of 64
+constexpr int kGmmBN = 256;       // output columns of a tile
+constexpr int kGmmBK = 64;        // K per pipeline step
+constexpr int kGmmStages = 4;
+constexpr int kGmmThreads = 288;  // two consumer warpgroups, then one producer warp
+constexpr int kGmmGroup = 8;      // N tiles walked together, row tiles inside (L2 reuse)
+constexpr int kGmmPanel = 64 * 128;                // [64 rows][64] bf16
+constexpr int kGmmX = kGmmBM * 128;                // x rows [128][64]
+constexpr int kGmmStage = kGmmX + kGmmBN * kGmmBK * 2;  // x, then the weight tile
+constexpr int kGmmSmem = kGmmStages * kGmmStage + 1024;
+
+// One CTA per (row tile of 128 window rows of one segment, 256 output
+// columns); N tiles in groups of kGmmGroup with the row tiles inside.  Warp
+// 8 is the producer: per K step one TMA load of the x rows (64 columns of K)
+// and of the weight tile (TRANS: w[wid] rows n0.. of [N, K], K-major, one
+// 256-row panel; else rows k0.. of [K, N], four MN-major 64-column panels),
+// zero past R, K and N, through a kGmmStages ring.  Warpgroup w multiplies
+// x rows w*64.. (A, K-major) by the weight tile (B, 256 wide) into 128 fp32
+// registers a thread, one wgmma group left in flight; the epilogue stores
+// bf16 rows before the window's end and columns before N.
+template <bool TRANS>
+__global__ void __launch_bounds__(kGmmThreads, 1)
+    gmm_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                     const __grid_constant__ CUtensorMap tw, GmmArgs a, int row_tiles) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 * kGmmStages];
+  unsigned char* ring = smem_raw + (1024 - smem_u32(smem_raw) % 1024) % 1024;
+  uint64_t* full = bars;
+  uint64_t* empty = bars + kGmmStages;
+
+  const int nnt = (a.N + kGmmBN - 1) / kGmmBN;
+  const int t = blockIdx.x;
+  const int grp = t / (kGmmGroup * row_tiles);
+  const int gw = min(kGmmGroup, nnt - grp * kGmmGroup);
+  const int in_grp = t - grp * kGmmGroup * row_tiles;
+  const int n0 = (grp * kGmmGroup + in_grp % gw) * kGmmBN;
+  int seg, row0, row_end;
+  if (!find_tile<kGmmBM>(a, in_grp / gw, seg, row0, row_end) || a.wids[seg] < 0 ||
+      a.wids[seg] >= a.E)
+    return;
+  const int wid = a.wids[seg];
+  const int steps = (a.K + kGmmBK - 1) / kGmmBK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kGmmStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 2 * 128);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 8) {
+    // ------------------------------------------------------------ producer
+    if (lane == 0) {
+      for (int c = 0; c < steps; ++c) {
+        const int st = c % kGmmStages, k0 = c * kGmmBK;
+        mbar_wait(&empty[st], ((c / kGmmStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[st], kGmmStage);
+        unsigned char* dst = ring + st * kGmmStage;
+        tma_load_2d(dst, &tx, &full[st], k0, row0);
+        if constexpr (TRANS) {
+          tma_load_3d(dst + kGmmX, &tw, &full[st], k0, n0, wid);
+        } else {
+          for (int p = 0; p < kGmmBN / 64; ++p)
+            tma_load_3d(dst + kGmmX + p * kGmmPanel, &tw, &full[st], n0 + 64 * p, k0, wid);
+        }
+      }
+    }
+    return;
+  }
+
+  // -------------------------------------------------------------- consumers
+  const int wg = threadIdx.x / 128, wq = (threadIdx.x % 128) / 32;
+  float acc[kGmmBN / 2];
+#pragma unroll
+  for (int i = 0; i < kGmmBN / 2; ++i) acc[i] = 0.f;
+  for (int c = 0; c < steps; ++c) {
+    const int st = c % kGmmStages;
+    const unsigned char* tile = ring + st * kGmmStage;
+    mbar_wait(&full[st], (c / kGmmStages) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kGmmBK / 16; ++ks) {
+      const uint64_t da = smem_desc(tile + wg * 64 * 128 + ks * 32, 16, 1024);
+      if constexpr (TRANS) {
+        wgmma_ss_n256<0, 0>(acc, da, smem_desc(tile + kGmmX + ks * 32, 16, 1024), 1);
+      } else {
+        wgmma_ss_n256<0, 1>(acc, da, smem_desc(tile + kGmmX + ks * 16 * 128, kGmmPanel, 1024),
+                            1);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous step's products are done with their stage
+    if (c > 0) mbar_arrive(&empty[(c - 1) % kGmmStages]);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  __nv_bfloat16* y = static_cast<__nv_bfloat16*>(a.y);
+#pragma unroll
+  for (int i = 0; i < kGmmBN / 2; i += 2) {
+    const int row = row0 + wg * 64 + wq * 16 + lane / 4 + 8 * ((i / 2) % 2);
+    const int n = n0 + (i / 4) * 8 + (lane % 4) * 2;
+    if (row < row_end && n < a.N)
+      *reinterpret_cast<__nv_bfloat162*>(y + static_cast<size_t>(row) * a.N + n) =
+          __floats2bfloat162_rn(acc[i], acc[i + 1]);
+  }
+}
+
+// B7 bf16 on wgmma: x as (K, R); the bank as (N, K, E) (forward) or
+// (K, N, E) (TRANS, stored [E, N, K]).  R and K are at least 1 (the wrapper
+// returns before a launch otherwise).
+template <bool TRANS>
+cudaError_t launch_gmm_wgmma(const GmmArgs& a, cudaStream_t stream) {
+  const uint64_t K = a.K, N = a.N;
+  const uint64_t xd[2] = {K, static_cast<uint64_t>(a.R)}, xs[1] = {2 * K};
+  const uint32_t xb[2] = {64, kGmmBM};
+  const uint64_t inner = TRANS ? K : N, outer = TRANS ? N : K;
+  const uint64_t wd[3] = {inner, outer, static_cast<uint64_t>(a.E)};
+  const uint64_t ws[2] = {2 * inner, 2 * inner * outer};
+  const uint32_t wb[3] = {64, TRANS ? static_cast<uint32_t>(kGmmBN) : 64u, 1};
+  CUtensorMap tx, tw;
+  cudaError_t e = encode_bf16_map(&tx, a.x, 2, xd, xs, xb);
+  if (e == cudaSuccess) e = encode_bf16_map(&tw, a.w, 3, wd, ws, wb);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(gmm_wgmma_kernel<TRANS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kGmmSmem);
+  if (e != cudaSuccess) return e;
+  const int row_tiles = (a.R + kGmmBM - 1) / kGmmBM + a.S;
+  const long long tiles = static_cast<long long>(row_tiles) * ((a.N + kGmmBN - 1) / kGmmBN);
+  if (tiles <= 0 || tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  gmm_wgmma_kernel<TRANS><<<static_cast<unsigned>(tiles), kGmmThreads, kGmmSmem, stream>>>(
+      tx, tw, a, row_tiles);
+  return cudaGetLastError();
+}
+
 template <typename T, typename TW, bool TRANS>
 cudaError_t launch_gmm(const GmmArgs& a, cudaStream_t stream) {
   const dim3 grid((a.N + kBN - 1) / kBN, (a.R + kBM - 1) / kBM + a.S);
   gmm_kernel<T, TW, TRANS><<<grid, kThreads, 0, stream>>>(a);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch_gmm(const GmmArgs& a, int w_int8, int trans, cudaStream_t stream) {
-  if (w_int8) return trans ? cudaErrorInvalidValue : launch_gmm<T, int8_t, false>(a, stream);
-  return trans ? launch_gmm<T, T, true>(a, stream) : launch_gmm<T, T, false>(a, stream);
 }
 
 cudaError_t launch_outer(const OuterArgs& a, cudaStream_t stream) {
@@ -518,16 +661,27 @@ extern "C" {
 // grouped_matmul_raw: x [R, K]; w [E, K, N] (trans: [E, N, K]) in x's dtype
 // or int8 (w_int8) with scale [E, N] fp32 (nullptr: none); y [R, N]
 // zero-filled; starts/lens/wids [S] int32.  dtype 0 fp32, 1 bf16.
+// wgmma: 1 takes gmm_wgmma_kernel (bf16 x over a bf16 bank; the wrapper's
+// gmm_route), 0 gmm_kernel (an int8 bank, or fp32).
 int pt_grouped_matmul(const void* x, const void* w, const void* scale, void* y,
                       const void* starts, const void* lens, const void* wids, int R, int K,
                       int N, int S, int E, int block_rows, int dtype, int w_int8, int trans,
-                      void* stream) {
+                      int wgmma, void* stream) {
   const GmmArgs a{x, w, static_cast<const float*>(scale), y,
                   static_cast<const int*>(starts), static_cast<const int*>(lens),
                   static_cast<const int*>(wids), R, K, N, S, E, block_rows};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kBF16) return dispatch_gmm<__nv_bfloat16>(a, w_int8, trans, st);
-  if (dtype == kF32) return dispatch_gmm<float>(a, w_int8, trans, st);
+  if (wgmma) {
+    if (dtype != kBF16 || w_int8 || scale != nullptr) return cudaErrorInvalidValue;
+    return trans ? launch_gmm_wgmma<true>(a, st) : launch_gmm_wgmma<false>(a, st);
+  }
+  if (dtype == kBF16)  // bf16 x over an int8 bank (serving), never transposed
+    return w_int8 && !trans ? launch_gmm<__nv_bfloat16, int8_t, false>(a, st)
+                            : cudaErrorInvalidValue;
+  if (dtype == kF32) {
+    if (w_int8) return trans ? cudaErrorInvalidValue : launch_gmm<float, int8_t, false>(a, st);
+    return trans ? launch_gmm<float, float, true>(a, st) : launch_gmm<float, float, false>(a, st);
+  }
   return cudaErrorInvalidValue;
 }
 

@@ -11,6 +11,13 @@
 //                                              one n64 product per panel (B1's O += P V)
 //   2  c[64, 256] = a[64, 64]^T @ b[64, 256]   A and B MN-major, B 256 wide
 //                                              over four panels (B8's x^T dy)
+//   3  c[64, 256] = a[64, 64] @ b[64, 256]     A K-major, B MN-major over four
+//                                              panels (B7's forward x w)
+//   4  c[64, 256] = a[64, 64] @ b[256, 64]^T   A K-major, B K-major, one panel
+//                                              of 256 rows (B7's dx dy w^T)
+//   5  c[64, 128] = a[64, 64] @ b[64, 128]     A from registers, B MN-major over
+//                                              two panels as one n128 product
+//                                              (B2's dq, dk and dv at d 128)
 
 #include "hopper.cuh"
 
@@ -36,7 +43,7 @@ __global__ void __launch_bounds__(128) wgmma_probe_kernel(const __grid_constant_
   __shared__ __align__(8) uint64_t bar;
   unsigned char* a_s = smem_raw + (1024 - smem_u32(smem_raw) % 1024) % 1024;
   unsigned char* b_s = a_s + kPanelBytes;
-  const int b_panels = mode == 0 ? 1 : mode == 1 ? 2 : 4;
+  const int b_panels = mode == 0 ? 1 : (mode == 1 || mode == 5) ? 2 : 4;
   if (threadIdx.x == 0) {
     mbar_init(&bar, 1);
     mbar_fence_init();
@@ -45,11 +52,60 @@ __global__ void __launch_bounds__(128) wgmma_probe_kernel(const __grid_constant_
   if (threadIdx.x == 0) {
     mbar_arrive_expect_tx(&bar, (1 + b_panels) * kPanelBytes);
     tma_load_2d(a_s, &ta, &bar, 0, 0);
-    for (int p = 0; p < b_panels; ++p) tma_load_2d(b_s + p * kPanelBytes, &tb, &bar, 64 * p, 0);
+    // b's panels lie along its columns, or (mode 4) along its rows
+    for (int p = 0; p < b_panels; ++p)
+      tma_load_2d(b_s + p * kPanelBytes, &tb, &bar, mode == 4 ? 0 : 64 * p, mode == 4 ? 64 * p : 0);
   }
   mbar_wait(&bar, 0);
 
   const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  // the register fragment of a: rows w*16 + lane/4 (+8), k columns ks*16 + ...
+  auto fragment = [&](int ks, uint32_t (&af)[4]) {
+    const int r = w * 16 + lane / 4, k = ks * 16 + (lane % 4) * 2;
+    auto pair = [&](int row, int col) {
+      return pack_bf16(__bfloat162float(a[row * 64 + col]), __bfloat162float(a[row * 64 + col + 1]));
+    };
+    af[0] = pair(r, k);
+    af[1] = pair(r + 8, k);
+    af[2] = pair(r, k + 8);
+    af[3] = pair(r + 8, k + 8);
+  };
+  if (mode == 3 || mode == 4) {
+    float acc[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      const uint64_t da = smem_desc(a_s + ks * 32, 16, 1024);
+      if (mode == 3)
+        wgmma_ss_n256<0, 1>(acc, da, smem_desc(b_s + ks * 16 * 128, kPanelBytes, 1024), 1);
+      else
+        wgmma_ss_n256<0, 0>(acc, da, smem_desc(b_s + ks * 32, 16, 1024), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    store_acc(c, 256, 0, acc, 128);
+    return;
+  }
+  if (mode == 5) {
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      uint32_t af[4];
+      fragment(ks, af);
+      wgmma_rs_n128<1>(acc, af, smem_desc(b_s + ks * 16 * 128, kPanelBytes, 1024), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    store_acc(c, 128, 0, acc, 64);
+    return;
+  }
   if (mode == 0) {
     float acc[32];
 #pragma unroll
@@ -72,13 +128,8 @@ __global__ void __launch_bounds__(128) wgmma_probe_kernel(const __grid_constant_
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks) {
-      // the register fragment of rows w*16 + lane/4 (+8), k columns ks*16 + ...
-      const int r = w * 16 + lane / 4, k = ks * 16 + (lane % 4) * 2;
-      auto pair = [&](int row, int col) {
-        return pack_bf16(__bfloat162float(a[row * 64 + col]),
-                         __bfloat162float(a[row * 64 + col + 1]));
-      };
-      const uint32_t af[4] = {pair(r, k), pair(r + 8, k), pair(r, k + 8), pair(r + 8, k + 8)};
+      uint32_t af[4];
+      fragment(ks, af);
 #pragma unroll
       for (int p = 0; p < 2; ++p)
         wgmma_rs_n64<1>(acc[p], af, smem_desc(b_s + p * kPanelBytes + ks * 16 * 128,
@@ -111,13 +162,14 @@ __global__ void __launch_bounds__(128) wgmma_probe_kernel(const __grid_constant_
 
 extern "C" {
 
-// a [64, 64] bf16; b [64, 64] (mode 0), [64, 128] (1), [64, 256] (2) bf16;
-// c fp32 as the mode says.
+// a [64, 64] bf16; b [64, 64] (mode 0), [64, 128] (1, 5), [64, 256] (2, 3),
+// [256, 64] (4) bf16; c fp32 as the mode says.
 int pt_wgmma_probe(int mode, const void* a, const void* b, void* c, void* stream) {
-  if (mode < 0 || mode > 2) return cudaErrorInvalidValue;
-  const uint64_t bw = mode == 0 ? 64 : mode == 1 ? 128 : 256;
+  if (mode < 0 || mode > 5) return cudaErrorInvalidValue;
+  const uint64_t bw = mode == 0 || mode == 4 ? 64 : mode == 1 || mode == 5 ? 128 : 256;
+  const uint64_t bh = mode == 4 ? 256 : 64;
   const uint64_t ad[2] = {64, 64}, as[1] = {128};
-  const uint64_t bd[2] = {bw, 64}, bs[1] = {2 * bw};
+  const uint64_t bd[2] = {bw, bh}, bs[1] = {2 * bw};
   const uint32_t box[2] = {64, 64};
   CUtensorMap ta, tb;
   cudaError_t e = encode_bf16_map(&ta, a, 2, ad, as, box);

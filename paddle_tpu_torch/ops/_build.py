@@ -53,17 +53,22 @@ SIGNATURES = {
     "pt_hb_flash_forward": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             _I, _F, _I, _I, _P],
     "pt_hb_flash_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                             _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+                             _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     # kind, pointer array, int array, scale, dtype, stream
     "pt_masked_flash": [_I, _P, _P, _F, _I, _P],
     "pt_grouped_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                          _I, _I, _I, _P],
+                          _I, _I, _I, _I, _P],
     "pt_grouped_outer": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # mode, a, b, c, stream
     "pt_wgmma_probe": [_I, _P, _P, _P, _P],
 }
-# the bf16 kernels that must issue wgmma (HGMMA in their SASS): B1, B8
-WGMMA_KERNELS = ("hb_fwd_wgmma_kernel", "outer_wgmma_kernel")
+# the bf16 kernels that must issue wgmma (HGMMA in their SASS): B1, B2
+# (dk/dv, dq), B7 (forward and dx), B8
+WGMMA_KERNELS = ("hb_fwd_wgmma_kernel", "hb_dkv_wgmma_kernel",
+                 "hb_dq_wgmma_kernel", "gmm_wgmma_kernel", "outer_wgmma_kernel")
+# the shape of b that each mode of pt_wgmma_probe takes (csrc/wgmma_probe.cu)
+PROBE_B_SHAPES = {0: (64, 64), 1: (64, 128), 2: (64, 256), 3: (64, 256),
+                  4: (256, 64), 5: (64, 128)}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -251,16 +256,15 @@ def kernel_report(path: Optional[Path] = None) -> dict:
 
 def wgmma_probe(mode: int, a, b):
     """The one-tile layout probe of csrc/wgmma_probe.cu on CUDA bf16
-    tensors (a [64, 64], b [64, 64 / 128 / 256] by mode): c fp32 =
-    a @ b^T (mode 0), a @ b (1), a^T @ b (2)."""
+    tensors (a [64, 64], b as ``PROBE_B_SHAPES[mode]``): c fp32 = a @ b^T
+    (modes 0 and 4), a @ b (1, 3, 5), a^T @ b (2)."""
     import torch
-    width = (64, 128, 256)[mode]
-    if a.shape != (64, 64) or b.shape != (64, width):
-        raise ValueError(f"wgmma_probe mode {mode}: a [64, 64], b [64, "
-                         f"{width}]")
+    if a.shape != (64, 64) or tuple(b.shape) != PROBE_B_SHAPES[mode]:
+        raise ValueError(f"wgmma_probe mode {mode}: a [64, 64], b "
+                         f"{list(PROBE_B_SHAPES[mode])}")
     a, b = a.contiguous(), b.contiguous()
-    c = torch.empty((64, 64 if mode == 0 else width), dtype=torch.float32,
-                    device=a.device)
+    width = b.shape[0] if mode in (0, 4) else b.shape[1]
+    c = torch.empty((64, width), dtype=torch.float32, device=a.device)
     lib = library()
     check(lib, lib.pt_wgmma_probe(mode, a.data_ptr(), b.data_ptr(),
                                   c.data_ptr(),

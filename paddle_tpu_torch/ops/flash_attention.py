@@ -63,6 +63,10 @@ SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
 # its head dims, rows per CTA and keys per k tile
 WGMMA_FWD_HEAD_DIMS = (64, 128)
 WGMMA_FWD_ROWS, WGMMA_FWD_BK = 128, 64
+# the bf16 backward on wgmma (hb_dkv_wgmma_kernel, hb_dq_wgmma_kernel): the
+# same head dims; a dk/dv CTA covers 128 keys against q tiles of 64 rows, a
+# dq CTA 128 q rows against k tiles of 64 keys
+WGMMA_BWD_ROWS, WGMMA_BWD_TILE = 128, 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # shared memory a block may use on the H100 (dynamic, after opt-in)
 _SMEM_LIMIT = 227 * 1024
@@ -299,6 +303,25 @@ def fwd_route(d: int, dtype: torch.dtype) -> str:
     return "smem"
 
 
+def bwd_route(d: int, dtype: torch.dtype) -> str:
+    """Which CUDA kernels run the backward, by the forward's rule:
+    ``"wgmma"`` (``hb_dkv_wgmma_kernel`` + ``hb_dq_wgmma_kernel``: TMA ring,
+    wgmma, register accumulators) for bf16 at d 64 and 128; ``"smem"``
+    (``hb_dkv_kernel`` + ``hb_dq_kernel``: shared-memory accumulators, wmma
+    for bf16, CUDA cores for fp32) for bf16 at d 16 and 32 and for fp32."""
+    return fwd_route(d, dtype)
+
+
+def wgmma_bwd_tiles(rep: int) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    """((block_q, block_k) of the dk/dv kernel, (block_q, block_k) of the
+    dq kernel) on wgmma: dk/dv takes q tiles of 64 // rep positions x rep
+    heads (at most 64 rows) against its CTA's 128 keys; dq takes 128 // rep
+    positions x rep heads (at most 128 rows) against k tiles of 64 keys.
+    Rows past rep * block_q stay idle when rep does not divide 64 or 128."""
+    return ((WGMMA_BWD_TILE // rep, WGMMA_BWD_ROWS),
+            (WGMMA_BWD_ROWS // rep, WGMMA_BWD_TILE))
+
+
 def wgmma_fwd_tiles(rep: int) -> Tuple[int, int]:
     """(block_q, block_k) of the wgmma forward: the CTA's 128 rows (two
     warpgroups of 64) hold rep heads at block_q = 128 // rep positions
@@ -348,7 +371,9 @@ def hb_flash_backward(q, k, v, o, lse, do, causal: bool = True,
     [b*kvh, sk, d]) with dk/dv summed over the rep heads of each group.
     delta = rowsum(do * o) is one PyTorch reduction before the kernels, as
     the TPU launcher computes it outside its kernel.  One launch of this
-    wrapper runs two kernels: dk/dv per k tile, then dq per q tile."""
+    wrapper runs two kernels, chosen by ``bwd_route``: dk/dv per k tile,
+    then dq per q tile.  The wgmma pair also needs 16-byte aligned q, k, v
+    and do (TMA) and raises otherwise."""
     dev = _check("hb_flash_backward", q, k, v, o, lse, do)
     bkv, rep, sq, d = q.shape
     sk = k.shape[1]
@@ -369,14 +394,18 @@ def hb_flash_backward(q, k, v, o, lse, do, causal: bool = True,
     if dq.numel() == 0 or dk.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     delta = (do.float() * o.float()).sum(dim=-1)       # [bkv, rep, sq]
-    bq_kv, bk_kv = kernel_tiles("dkv", rep, d, q.dtype)
-    bq_q, bk_q = kernel_tiles("dq", rep, d, q.dtype)
+    wgmma = bwd_route(d, q.dtype) == "wgmma"
+    if wgmma:
+        (bq_kv, bk_kv), (bq_q, bk_q) = wgmma_bwd_tiles(rep)
+    else:
+        bq_kv, bk_kv = kernel_tiles("dkv", rep, d, q.dtype)
+        bq_q, bk_q = kernel_tiles("dq", rep, d, q.dtype)
     lib = _build.library()
     rc = lib.pt_hb_flash_backward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), bkv, rep, sq, sk, d, bq_kv, bk_kv, bq_q, bk_q,
-        int(causal), scale, _DTYPE_CODES[q.dtype], _stream())
+        int(causal), scale, _DTYPE_CODES[q.dtype], int(wgmma), _stream())
     _build.check(lib, rc, "hb_flash_backward")
     LAUNCHES["flash_attention_bwd"] += 1
     return dq, dk, dv

@@ -15,9 +15,13 @@ hand-written for Hopper in ``csrc/grouped_matmul.cu``:
   ``x[win]ᵀ · dy[win]`` of the backward's dW, fp32 [S, K, N].
 
 ``grouped_matmul`` is the differentiable form (``_GroupedMatmul``): dx is
-the B7 launch on the transposed slices, dW is B8 followed by an fp32
-``index_add_`` over ``seg_wids`` (repeated ids accumulate, as the JAX
-``.at[seg_wids].add`` does), cast to ``w.dtype``.
+the B7 launch on the transposed slices, made only when x needs a gradient;
+dW is B8 followed by an fp32 ``index_add_`` over ``seg_wids`` (repeated ids
+accumulate, as the JAX ``.at[seg_wids].add`` does), cast to ``w.dtype``.
+
+``gmm_route`` picks B7's kernel on the card by an explicit rule: a bf16
+bank runs ``gmm_wgmma_kernel`` (TMA ring, wgmma, register accumulators),
+forward and transposed; an int8 bank (serving) and fp32 run ``gmm_kernel``.
 
 On a CUDA tensor each launcher runs its kernel and counts the launch in
 ``LAUNCHES``; on a CPU tensor it runs the ``*_plain`` PyTorch version beside
@@ -33,7 +37,8 @@ row blocks, so a segment covers ``align(len)`` rows.  Rows that no segment
 covers are left unspecified by the JAX contract; here they are exact zeros,
 in the kernel and in the plain version alike, so no uninitialised memory
 reaches a ``torch.where`` or a product downstream.  On the card ``K`` and
-``N`` must be multiples of 8 (16-byte row loads).
+``N`` must be multiples of 8 (16-byte row loads, TMA strides), and the
+wgmma route's x and bank need 16-byte aligned bases.
 """
 
 from __future__ import annotations
@@ -50,7 +55,7 @@ LAUNCHES: Dict[str, int] = {"grouped_matmul": 0, "grouped_matmul_int8": 0,
                             "grouped_matmul_t": 0, "grouped_outer": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# the kernels' row tile (kBM in csrc/grouped_matmul.cu); a grid row per tile
+# gmm_kernel's row tile (kBM in csrc/grouped_matmul.cu); a grid row per tile
 _KERNEL_ROWS = 64
 _MAX_GRID_Y = 65535
 
@@ -58,6 +63,17 @@ _MAX_GRID_Y = 65535
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def gmm_route(dtype: torch.dtype, w_int8: bool) -> str:
+    """Which CUDA kernel runs B7 for x's dtype and the bank's kind:
+    ``"wgmma"`` (``gmm_wgmma_kernel``) for bf16 x over a bf16 bank, forward
+    and transposed (the train cell's GEMMs); ``"int8"`` (``gmm_kernel`` on
+    wmma, the int8 bank widened as staged) for an int8 bank (serving);
+    ``"cuda_cores"`` (``gmm_kernel``) for fp32."""
+    if w_int8:
+        return "int8"
+    return "wgmma" if dtype == torch.bfloat16 else "cuda_cores"
 
 
 def align_rows(n, block_rows: int):
@@ -218,9 +234,10 @@ def grouped_matmul_raw(x, w, seg_starts, seg_lens, seg_wids,
         if not t.is_contiguous():
             raise ValueError(f"{name}: {what} must be contiguous")
     y = torch.zeros((R, N), dtype=x.dtype, device=x.device)
-    if R == 0 or S == 0 or N == 0:
+    if R == 0 or S == 0 or N == 0 or K == 0:
         return y
-    if -(-R // _KERNEL_ROWS) + S > _MAX_GRID_Y:
+    route = gmm_route(x.dtype, w.dtype == torch.int8)
+    if route != "wgmma" and -(-R // _KERNEL_ROWS) + S > _MAX_GRID_Y:
         raise ValueError(f"{name}: {R} rows over {S} segments exceed the "
                          f"grid")
     scale = (None if w_scale is None
@@ -231,7 +248,8 @@ def grouped_matmul_raw(x, w, seg_starts, seg_lens, seg_wids,
         x.data_ptr(), w.data_ptr(), None if scale is None else
         scale.data_ptr(), y.data_ptr(), starts.data_ptr(), lens.data_ptr(),
         wids.data_ptr(), R, K, N, S, E, bm, _DTYPE_CODES[x.dtype],
-        int(w.dtype == torch.int8), int(bool(transpose_w)), _stream())
+        int(w.dtype == torch.int8), int(bool(transpose_w)),
+        int(route == "wgmma"), _stream())
     _build.check(lib, rc, name)
     key = ("grouped_matmul_t" if transpose_w else "grouped_matmul_int8"
            if w.dtype == torch.int8 else "grouped_matmul")
@@ -282,8 +300,10 @@ def grouped_outer_raw(x, dy, seg_starts, seg_lens, block_rows: int = 128):
 
 class _GroupedMatmul(torch.autograd.Function):
     """Mirror of ``_make_grouped_matmul``'s custom_vjp: forward B7; dx B7
-    on the transposed slices (always, as the JAX backward), dW B8 then an
-    fp32 ``index_add_`` over ``seg_wids`` cast to ``w.dtype``."""
+    on the transposed slices, only when x needs a gradient (the JAX
+    backward always computes it, and ``jit`` drops it when it is unused:
+    the gradients returned are the same); dW B8 then an fp32
+    ``index_add_`` over ``seg_wids`` cast to ``w.dtype``."""
 
     @staticmethod
     def forward(ctx, x, w, seg_starts, seg_lens, seg_wids, block_rows):
@@ -297,8 +317,10 @@ class _GroupedMatmul(torch.autograd.Function):
         x, w, seg_starts, seg_lens, seg_wids = ctx.saved_tensors
         bm = ctx.block_rows
         dy = dy.contiguous()
-        dx = grouped_matmul_raw(dy, w, seg_starts, seg_lens, seg_wids, bm,
-                                transpose_w=True).to(x.dtype)
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = grouped_matmul_raw(dy, w, seg_starts, seg_lens, seg_wids, bm,
+                                    transpose_w=True).to(x.dtype)
         dwseg = grouped_outer_raw(x, dy, seg_starts, seg_lens, bm)
         dw = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
         dw.index_add_(0, seg_wids.long(), dwseg)
@@ -309,6 +331,7 @@ def grouped_matmul(x, w, seg_starts, seg_lens, seg_wids,
                    block_rows: int = 128):
     """Differentiable grouped matmul over float weight banks (training):
     forward ``grouped_matmul_raw``; backward the transposed launch for dx
-    and per-segment outer products added over ``seg_wids`` for dW."""
+    (when x needs a gradient) and per-segment outer products added over
+    ``seg_wids`` for dW."""
     return _GroupedMatmul.apply(x, w, seg_starts, seg_lens, seg_wids,
                                 int(block_rows))

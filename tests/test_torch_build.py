@@ -1,7 +1,8 @@
 """The port's kernel build helpers and launch rules that run without a card:
 the ``ptxas -v`` log reader behind chip_smoke.py's per-kernel register,
-spill and shared-memory lines, and the explicit rule that picks the bf16
-flash forward's wgmma kernel."""
+spill and shared-memory lines, the explicit rules that pick the bf16 flash
+forward's and backward's wgmma kernels and their tiles, and the layout
+probe's shape guard."""
 
 import pytest
 import torch
@@ -44,6 +45,37 @@ def test_fwd_route_is_a_rule_on_head_dim_and_dtype(d, dtype):
 def test_wgmma_fwd_tiles_fill_at_most_128_rows(rep):
     bq, bk = fa.wgmma_fwd_tiles(rep)
     assert bk == 64 and rep * bq <= 128 and rep * (bq + 1) > 128
+
+
+@pytest.mark.parametrize("d", fa.SUPPORTED_HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bwd_route_is_a_rule_on_head_dim_and_dtype(d, dtype):
+    want = "wgmma" if dtype == torch.bfloat16 and d in (64, 128) else "smem"
+    assert fa.bwd_route(d, dtype) == want
+
+
+@pytest.mark.parametrize("rep", range(1, fa.MAX_REP + 1))
+def test_wgmma_bwd_tiles_fill_at_most_64_and_128_rows(rep):
+    """dk/dv: q tiles of at most 64 rows against 128 keys; dq: at most 128
+    rows against 64 keys; each as many whole positions as fit."""
+    (bq_kv, bk_kv), (bq_q, bk_q) = fa.wgmma_bwd_tiles(rep)
+    assert (bk_kv, bk_q) == (128, 64)
+    assert rep * bq_kv <= 64 < rep * (bq_kv + 1)
+    assert rep * bq_q <= 128 < rep * (bq_q + 1)
+
+
+@pytest.mark.parametrize("mode", sorted(_build.PROBE_B_SHAPES))
+def test_wgmma_probe_refuses_other_shapes(mode):
+    """The probe checks its operands' shapes before it builds or launches
+    anything (so this runs without a card)."""
+    a = torch.zeros(64, 64, dtype=torch.bfloat16)
+    rows, cols = _build.PROBE_B_SHAPES[mode]
+    with pytest.raises(ValueError, match=f"mode {mode}"):
+        _build.wgmma_probe(mode, a, torch.zeros(rows, cols + 8,
+                                                dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match=f"mode {mode}"):
+        _build.wgmma_probe(mode, a[:32], torch.zeros(rows, cols,
+                                                     dtype=torch.bfloat16))
 
 
 def test_wgmma_kernels_named_in_the_sources():

@@ -222,3 +222,46 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="rows"):
         gm.grouped_outer_raw(x[:8], torch.zeros(16, 8), *seg[:2],
                              block_rows=8)
+
+
+@pytest.mark.parametrize("x_needs_grad", [True, False])
+def test_grouped_matmul_dx_only_when_x_needs_it(x_needs_grad, monkeypatch):
+    """The backward launches the transposed B7 only when x needs a
+    gradient (the dropless block's first GEMM reads dispatched tokens that
+    need none); dW is the same either way, and dx, when made, equals the
+    plain transposed product of the output gradient."""
+    inp = _inputs("repeated_wids", 16, 24, 5)
+    calls = []
+    raw = gm.grouped_matmul_raw
+
+    def counted(*a, **kw):
+        calls.append(bool(kw.get("transpose_w", False)))
+        return raw(*a, **kw)
+
+    monkeypatch.setattr(gm, "grouped_matmul_raw", counted)
+    x = torch.from_numpy(inp["x"]).requires_grad_(x_needs_grad)
+    w = torch.from_numpy(inp["w"]).requires_grad_()
+    g = torch.from_numpy(inp["rng"].standard_normal(
+        (inp["x"].shape[0], 24)).astype(np.float32))
+    y = gm.grouped_matmul(x, w, *_seg_t(inp), block_rows=inp["bm"])
+    (y * g).sum().backward()
+    assert calls == [False] + ([True] if x_needs_grad else [])
+    want_dw = torch.zeros_like(w)
+    want_dw.index_add_(0, torch.from_numpy(inp["wids"]).long(),
+                       gm.grouped_outer_plain(x.detach(), g, *_seg_t(inp)[:2],
+                                              inp["bm"]))
+    assert torch.allclose(w.grad, want_dw, rtol=1e-6, atol=1e-6)
+    if x_needs_grad:
+        want_dx = gm.grouped_matmul_plain(g, w.detach(), *_seg_t(inp),
+                                          inp["bm"], transpose_w=True)
+        assert torch.equal(x.grad, want_dx)
+    else:
+        assert x.grad is None
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("w_int8", [False, True])
+def test_gmm_route_is_a_rule_on_dtype_and_bank(dtype, w_int8):
+    want = ("int8" if w_int8 else
+            "wgmma" if dtype == torch.bfloat16 else "cuda_cores")
+    assert gm.gmm_route(dtype, w_int8) == want
