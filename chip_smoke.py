@@ -7,15 +7,17 @@ Phases, each of which raises (and so exits non-zero) on failure:
 
 1. the card's name and power limit; the kernels' build from csrc/, with
    each kernel's registers, spill bytes and static shared memory
-   (``ptxas -v``) and whether its SASS holds HGMMA; the bf16 B1, B2, B7
-   and B8 kernels (``_build.WGMMA_KERNELS``) must;
+   (``ptxas -v``) and whether its SASS holds HGMMA; the bf16 B1, B2, B5,
+   B7 and B8 kernels (``_build.WGMMA_KERNELS``) must;
 2. every kernel launcher (flash_decode B4, paged_decode B3,
    ragged_paged_decode B3') at the Llama-3-8B attention shapes (32 q heads,
    8 kv heads, head dim 128) in bf16, int8 K/V and fp32, held against its
    plain PyTorch version on the same inputs (per-row error gate, see
-   ``row_error``), and timed beside its bandwidth bound, its plain version
-   and, for the dense case, one ``scaled_dot_product_attention`` call (a
-   yardstick the port never calls);
+   ``row_error``), and timed (the wrapper by CUDA events, and its kernels'
+   device time by the profiler: B4 is a split and a combine kernel)
+   beside its bandwidth bound, its plain version and, for the dense case,
+   one ``scaled_dot_product_attention`` call (a yardstick the port never
+   calls);
 3. serving at the full width (and depth) of ``LlamaConfig.llama3_8b()`` with
    random bf16 weights from a seeded generator: the chunked engine, the
    unified engine with the prefix cache, and one-shot ``generate``.  The
@@ -51,15 +53,19 @@ Phases, each of which raises (and so exits non-zero) on failure:
    bf16 and fp32, each held against its plain version (per-row gate; rows
    that see no key exact) and timed beside its bound over the visible
    pairs, its plain version and ``scaled_dot_product_attention`` with the
-   dense bool mask (a yardstick the port never calls);
+   dense bool mask (forward; for B6 its backward alone, with the
+   forward+backward beside it; a yardstick the port never calls); B5 runs
+   ``masked_fwd_wgmma_kernel`` for bf16 at head dim 64/128;
 8. packed-document training at the ``bench.py`` width and depth
    (MASKED_ACCUM micro-batches of 6 rows of 1024 tokens, documents of
    median DOC_MEDIAN with a padding tail, ``attention_mask`` segment ids):
    every attention call a B5 + fused B6 launch, losses finite and
    falling, the step-0 bf16 loss within 2e-2 of a plain fp32 masked
-   forward; step time, valid and all tokens/s, MFU, a micro-step profile;
+   forward; step time, valid and all tokens/s, MFU, a micro-step profile
+   in which every B5 call must run ``masked_fwd_wgmma_kernel``;
 9. the long-context recipe (s 8192, b 1, accum 2, documents of median
-   1024 truncated at the row end): B5 + B6 dq + dk/dv launches only, and
+   1024 truncated at the row end): B5 + B6 dq + dk/dv launches only (a
+   profiled forward's B5 calls all ``masked_fwd_wgmma_kernel``), and
    the causal document mask as FlashMask bands gives the segment-id
    logits within the bf16 gate;
 10. the grouped-matmul kernels (B7 float, int8 and on the transposed
@@ -196,7 +202,7 @@ def build_report():
     """Each kernel of the built library: registers, stack, spill bytes and
     static shared memory (ptxas -v), and whether its SASS holds HGMMA
     (cuobjdump).  Raises if a bf16 kernel that must issue wgmma (B1, B2,
-    B7, B8) does not."""
+    B5, B7, B8) does not."""
     from paddle_tpu_torch.ops import _build
     report = _build.kernel_report()
     for name, r in sorted(report.items()):
@@ -361,9 +367,18 @@ def _sdpa_ms(q, k, v, lens, flush):
         enable_gqa=True), 20, flush)
 
 
+# the CUDA kernels each decode launcher runs, as the profiler names them
+DECODE_KERNELS = {"flash_decode": ("decode_split_kernel",
+                                   "decode_combine_kernel"),
+                  "paged_decode": ("decode_attention_kernel",),
+                  "ragged_paged_decode": ("decode_attention_kernel",)}
+
+
 def kernel_cases(dev, flush):
     """Each launcher at the 8B attention shapes in every case; returns one
-    record per (launcher, case)."""
+    record per (launcher, case).  ``ms``: the wrapper by CUDA events (its
+    host launch time included); ``device_ms``: the profiler's device time
+    per call of each of its kernels, ``kernel_ms`` their sum."""
     import torch
     from paddle_tpu_torch.ops import decode_attention as da
 
@@ -391,9 +406,13 @@ def kernel_cases(dev, flush):
                             "length mask)")
             bms, by = bound(inp["nbytes"], inp["ops"], kind)
             ms, lo, hi = timing(lambda: kernel(*args), 50, flush)
+            # L2 flushed before each call, as for the events
+            device = _device_ms(lambda: (flush.zero_(), kernel(*args)), 10,
+                                DECODE_KERNELS[name])
             records.append(dict(
                 name=name, case=case, shape=inp["shape"], err=err, tol=tol,
                 max_abs_err=abs_err, ms=ms, ms_min=lo, ms_max=hi,
+                device_ms=device, kernel_ms=sum(device.values()),
                 plain_ms=time_ms(lambda: plain(*args), plain_reps[name],
                                  flush),
                 bound_ms=bms, bound_by=by, library_ms=library,
@@ -1089,8 +1108,11 @@ def masked_case(name, kind, dev, flush):
     each gated against its plain version (the backward from the plain
     forward's o and lse, once through each route), then timed beside its
     bound, the plain version and ``scaled_dot_product_attention`` with the
-    dense bool mask (forward; forward+backward for B6), a yardstick the
-    port never calls."""
+    dense bool mask (forward; for B6 its backward alone, the forward run
+    outside the timed window, with the forward+backward reading beside
+    it), a yardstick the port never calls.  B5's kernel is the one
+    ``masked_fwd_route`` names (``masked_fwd_wgmma_kernel`` for bf16 at d
+    64/128, else ``masked_fwd_kernel``)."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import flash_attention as fa
@@ -1137,6 +1159,16 @@ def masked_case(name, kind, dev, flush):
     def sdpa_fwd_bwd():
         torch.autograd.grad(sdpa(*leaves), leaves, do4)
 
+    def library_bwd():
+        try:
+            out = sdpa(*leaves)
+        except RuntimeError as e:          # the yardstick only
+            return f"failed: {str(e)[:120]}"
+        ms = library(lambda: torch.autograd.grad(out, leaves, do4,
+                                                 retain_graph=True))
+        del out
+        return ms
+
     long = q.shape[1] > 4096
     reps = (5 if kind == "bf16" else 3) if not long else 2
     plain_reps = 1
@@ -1156,12 +1188,12 @@ def masked_case(name, kind, dev, flush):
     # each kernel's own device time (the profiler), beside the wrapper's
     # (CUDA events: the live tables, delta and output buffers included)
     fwd = _device_ms(lambda: fa.flash_forward(q, k, v, *args, **kw), 2,
-                     ("masked_fwd_kernel",))
+                     ("masked_fwd",))
     fused = _device_ms(bwd("fused"), 2, ("masked_dkv_kernel", "cast_kernel"))
     split = _device_ms(bwd("split"), 2,
                        ("masked_dq_kernel", "masked_dkv_kernel"))
     times = {
-        "fwd": fwd["masked_fwd_kernel"], "fused": sum(fused.values()),
+        "fwd": fwd["masked_fwd"], "fused": sum(fused.values()),
         "dq": split["masked_dq_kernel"], "dkv": split["masked_dkv_kernel"],
         "wrapper_fwd": time_ms(lambda: fa.flash_forward(q, k, v, *args,
                                                         **kw), reps, flush),
@@ -1173,6 +1205,7 @@ def masked_case(name, kind, dev, flush):
         "plain_bwd": time_ms(lambda: fa.flash_backward_plain(
             q, k, v, wo, wlse, do, *args, **kw), plain_reps, flush),
         "library_fwd": library(lambda: sdpa(q4, k4, v4)),
+        "library_bwd": library_bwd(),
         "library_fwd_bwd": library(sdpa_fwd_bwd)}
     bounds = {}
     for kernel in ("fwd", "fused", "dq", "dkv"):
@@ -1180,6 +1213,7 @@ def masked_case(name, kind, dev, flush):
         bounds[kernel] = bound(nbytes, flops, kind)
     record = dict(case=name, kind=kind, shape=inp["shape"],
                   visible_pairs=inp["pairs"], dead_rows=int(dead.sum()),
+                  fwd_route=fa.masked_fwd_route(q.shape[2], q.dtype),
                   route_here=fa.flash_bwd_route(q.shape[1], k.shape[1],
                                                 q.shape[2]),
                   err=errs, max_abs_err=worst,
@@ -1438,6 +1472,14 @@ def masked_train_phase(dev):
                          rel=rel, tol=TRAIN_LOSS_TOL))
     result["profile"] = profile_train(step1, params, ids[0], labels[0],
                                       attention_mask=seg[0])
+    # every B5 call of the profiled micro-steps ran the wgmma kernel
+    calls = result["profile"]["flash_kernel_calls"]
+    want_calls = cfg.num_hidden_layers * result["profile"]["micro_steps"]
+    b5 = {n: c for n, c in calls.items() if "masked_fwd" in n}
+    if sorted(b5.values()) != [want_calls] or \
+            not all("masked_fwd_wgmma_kernel" in n for n in b5):
+        raise AssertionError(f"masked train: B5 kernels {b5}, expected "
+                             f"masked_fwd_wgmma_kernel {want_calls} times")
     del model, params, state, step, step1
     torch.cuda.empty_cache()
     return result
@@ -1496,12 +1538,26 @@ def long_context_phase(dev):
                             generator=torch.Generator(device=dev).manual_seed(
                                 SEED)).load_functional_state(params)
     del model, params
+    # every B5 call of a segment-id forward runs the wgmma kernel (the
+    # profiler can drop a window's records: up to 3 windows)
+    with torch.no_grad():
+        for _ in range(3):
+            b5 = profiled_calls(lambda: bf16(ids[0], attention_mask=seg[0]),
+                                "masked_fwd")
+            if b5:
+                break
+    result["b5_kernel_calls"] = b5
     fa.reset_launches()
     with torch.no_grad():
         by_ids = bf16(ids[0], attention_mask=seg[0])
         by_doc = bf16(ids[0], startend_row_indices=causal_document_row_indices(
             lens[0]))
     _sync()
+    if list(b5.values()) != [cfg.num_hidden_layers] or \
+            not all("masked_fwd_wgmma_kernel" in n for n in b5):
+        raise AssertionError(f"long context: B5 kernels {b5}, expected "
+                             f"masked_fwd_wgmma_kernel "
+                             f"{cfg.num_hidden_layers} times")
     err, abs_err = row_error(by_doc, by_ids)
     finite = bool(torch.isfinite(by_ids.float()).all())
     result["doc_mask_logits"] = dict(
@@ -1514,6 +1570,19 @@ def long_context_phase(dev):
     del bf16, by_ids, by_doc
     torch.cuda.empty_cache()
     return result
+
+
+def profiled_calls(fn, match):
+    """{kernel name: launches} of the device kernels whose name contains
+    ``match``, by ``torch.profiler`` over one call of ``fn``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        _sync()
+    return {e.key[:80]: e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and match in e.key}
 
 
 def profile_train(step1, params, ids, labels, micro_steps=2,
@@ -2019,7 +2088,9 @@ def moe_serving_phase(dev):
     rec["profile"] = profile_decode(
         cfg, params, dev, MOE_PROFILE_CHUNKS,
         classes={"grouped_matmul": ["gmm_kernel"],
-                 "decode_attention": ["decode_attention_kernel"],
+                 "decode_attention": ["decode_attention_kernel",
+                                      "decode_split_kernel",
+                                      "decode_combine_kernel"],
                  "dense_gemm": ["nvjet", "gemm", "cutlass", "sm90_xmma"]})
     print("mixtral profile: " + json.dumps(rec["profile"]), flush=True)
     rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -2339,19 +2410,23 @@ def main() -> int:
               f"err={r['err']:.3g} (per-row tol {r['tol']}) "
               f"max_abs_err={r['max_abs_err']:.3g} "
               f"launches={serving[path]['launches'][r['name']]} ({path} "
-              f"path) kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+              f"path) wrapper_ms={r['ms']:.4f} kernel_ms={r['kernel_ms']:.4f} "
+              f"{json.dumps(r['device_ms'])} plain_ms={r['plain_ms']:.4f} "
               f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
               f"library_ms={lib} [{r['library_call']}]", flush=True)
+    # ms: the kernels' device time (profiler); wrapper_ms: the wrapper by
+    # CUDA events, host launch time included, with its min and max
     kernels = []
     for name, (path, replaces) in main_path.items():
         bf16 = next(r for r in record["kernels"]
                     if r["name"] == name and r["case"] == "bf16")
         kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces,
+            "name": name, "kernel": "+".join(DECODE_KERNELS[name]),
+            "route": "cuda", "source": source, "replaces": replaces,
             "launches": serving[path]["launches"][name],
-            "max_abs_err": bf16["max_abs_err"], "ms": bf16["ms"],
-            "ms_min": bf16["ms_min"], "ms_max": bf16["ms_max"],
+            "max_abs_err": bf16["max_abs_err"], "ms": bf16["kernel_ms"],
+            "wrapper_ms": bf16["ms"], "ms_min": bf16["ms_min"],
+            "ms_max": bf16["ms_max"],
             "plain_ms": bf16["plain_ms"], "bound_ms": bf16["bound_ms"],
             "bound_by": bf16["bound_by"], "library_ms": bf16["library_ms"],
             "checked_by": f"kernel phase (bf16, int8, fp32 at the 8B "
@@ -2360,12 +2435,15 @@ def main() -> int:
                            if r["name"] == name}})
     flash_source = "paddle_tpu_torch/csrc/flash_attention.cu"
     flash_tpu = "paddle_tpu/ops/pallas/flash_attention.py"
-    for name, replaces in (("flash_attention_fwd", f"{flash_tpu}:471"),
-                           ("flash_attention_bwd", f"{flash_tpu}:592")):
+    for name, kernel, replaces in (
+            ("flash_attention_fwd", "hb_fwd_wgmma_kernel", f"{flash_tpu}:471"),
+            ("flash_attention_bwd", "hb_dkv_wgmma_kernel+hb_dq_wgmma_kernel",
+             f"{flash_tpu}:592")):
         bf16 = next(r for r in record["flash_kernels"]
                     if r["name"] == name and r["case"] == "bf16")
         kernels.append({
-            "name": name, "route": "cuda", "source": flash_source,
+            "name": name, "kernel": kernel, "route": "cuda",
+            "source": flash_source,
             "replaces": replaces,
             "launches": record["train"]["launches"][name],
             "max_abs_err": bf16["max_abs_err"], "ms": bf16["ms"],
@@ -2378,22 +2456,28 @@ def main() -> int:
                            for r in record["flash_kernels"]
                            if r["name"] == name}})
     masked_source = "paddle_tpu_torch/csrc/masked_flash_attention.cu"
-    for name, kernel, case, path, line in (
-            ("flash_masked_fwd", "fwd", "packed_docs", "masked_train", 209),
-            ("flash_masked_bwd_fused", "fused", "packed_docs", "masked_train",
-             857),
-            ("flash_masked_bwd_dq", "dq", "doc_bands_8k", "long_context",
-             939),
-            ("flash_masked_bwd_dkv", "dkv", "doc_bands_8k", "long_context",
-             988)):
+    for name, kernel, cuda, case, path, line in (
+            ("flash_masked_fwd", "fwd", "masked_fwd_wgmma_kernel",
+             "packed_docs", "masked_train", 209),
+            ("flash_masked_bwd_fused", "fused",
+             "masked_dkv_kernel<fused>+cast_kernel", "packed_docs",
+             "masked_train", 857),
+            ("flash_masked_bwd_dq", "dq", "masked_dq_kernel", "doc_bands_8k",
+             "long_context", 939),
+            ("flash_masked_bwd_dkv", "dkv", "masked_dkv_kernel<split>",
+             "doc_bands_8k", "long_context", 988)):
         route = {"dq": "split", "dkv": "split"}.get(kernel, kernel)
         rows = record["masked_kernels"]
         bf16 = next(r for r in rows if r["case"] == case
                     and r["kind"] == "bf16")
+        # B6's yardstick: SDPA's backward alone (its forward+backward in
+        # the masked phase's record)
         lib = bf16["times_ms"]["library_fwd" if kernel == "fwd"
-                               else "library_fwd_bwd"]
+                               else "library_bwd"]
+        fwd_bwd = bf16["times_ms"]["library_fwd_bwd"]
         kernels.append({
-            "name": name, "route": "cuda", "source": masked_source,
+            "name": name, "kernel": cuda, "route": "cuda",
+            "source": masked_source,
             "replaces": f"{flash_tpu}:{line}",
             "launches": record[path]["launches"][name],
             "max_abs_err": bf16["max_abs_err"][route],
@@ -2403,6 +2487,8 @@ def main() -> int:
             "bound_ms": bf16["bound_ms"][kernel],
             "bound_by": bf16["bound_by"][kernel],
             "library_ms": lib if isinstance(lib, float) else None,
+            "library_fwd_bwd_ms": (fwd_bwd if kernel != "fwd" and
+                                   isinstance(fwd_bwd, float) else None),
             "checked_by": f"masked kernel phase ({len(MASKED_CASES)} cases, "
                           f"bf16 and fp32; timed at {case}) and the {path} "
                           f"path",
@@ -2414,19 +2500,22 @@ def main() -> int:
     rows = record["grouped_kernels"]
     mixtral = record["mixtral"]
     moe_launches = record["moe_train"]["launches_total"]
-    for name, line, case, kind, launches, ops in (
-            ("grouped_matmul_int8", 82, "mixtral_decode_up", "int8",
+    for name, cuda, line, case, kind, launches, ops in (
+            ("grouped_matmul_int8", "gmm_kernel", 82, "mixtral_decode_up",
+             "int8",
              sum(mixtral[p]["grouped_launches"]["grouped_matmul_int8"]
                  for p in ("chunked", "unified", "generate")),
              ("fwd",)),
-            ("grouped_matmul_float", 82, "train_fwd", "bf16",
+            ("grouped_matmul_float", "gmm_wgmma_kernel", 82, "train_fwd",
+             "bf16",
              moe_launches["grouped_matmul"] + moe_launches["grouped_matmul_t"],
              ("fwd", "t")),
-            ("grouped_outer", 180, "train_dw", "bf16",
+            ("grouped_outer", "outer_wgmma_kernel", 180, "train_dw", "bf16",
              moe_launches["grouped_outer"], ("outer",))):
         r = next(x for x in rows if x["name"] == case and x["kind"] == kind)
         kernels.append({
-            "name": name, "route": "cuda", "source": gmm_source,
+            "name": name, "kernel": cuda, "route": "cuda",
+            "source": gmm_source,
             "replaces": f"{gmm_tpu}:{line}", "launches": launches,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "ms_min": r["ms_min"], "ms_max": r["ms_max"],

@@ -5,50 +5,80 @@
 // Replaces the two Pallas TPU kernel bodies of
 // paddle_tpu/ops/pallas/decode_attention.py:
 //   - _decode_kernel (launcher flash_decode_raw)            -> pt_flash_decode
+//       decode_split_kernel + decode_combine_kernel (dense cache, B4)
 //   - _paged_decode_kernel, nsp=2 (paged_decode_raw)        -> pt_paged_decode
 //   - _paged_decode_kernel, nsp=3 (ragged_paged_decode_raw) -> pt_ragged_paged_decode
-// One kernel template serves all three; PAGED selects the addressing.
+//       decode_attention_kernel (paged caches, B3 and B3')
 //
-// What bounds it on the H100: bandwidth.  Each (row, kv head) reads its
-// visible K/V rows once and does 4*rep*d flops per visible token, far
-// below the ~295 flops/byte needed to reach the tensor-core limit, so the
-// least time is the visible K/V bytes over 3.35 TB/s.  The design keeps
-// the fp32 softmax state, q and the scores in shared memory and streams
-// K and V from device memory exactly once per (row, kv head), walking only
-// the visible pages (the row's length bounds both traffic and work).  A
-// loop trip stages pages_per_step pages; both the score pass and the PV
-// pass split the trip's tokens over the CTA's 8 warps, each warp keeping
-// 4 K or V rows in flight (a thread walking tokens one by one was
-// latency-bound), with per-warp fp32 partial sums added once at the end.
+// What bounds them on the H100: bandwidth.  Each (row, kv head) reads its
+// visible K/V rows once and does 4*rep*d flops per visible token, about 4
+// flops a byte for bf16 K/V, far below the ~295 flops/byte needed to reach
+// the tensor-core limit, so the least time is the visible K/V bytes over
+// 3.35 TB/s.  What limits a kernel is how many SMs work and how many bytes
+// each keeps in flight.
 //
-// Simple design, left on the table for later work:
-//   - one CTA per (row, kv head): a decode batch of 8 sequences x 8 kv
-//     heads fills 64 of the 132 SMs, and a long sequence is not split
-//     across CTAs (no split-K);
-//   - fp32 CUDA-core dot products, no wgmma, no TMA or cp.async staging;
-//   - in the ragged mode a prefill row re-reads its sequence's pages once
-//     per row (L2 catches part of it); a multi-row q tile per sequence
-//     would read them once.
+// B4 (dense) splits the visible length over CTAs, the flash-decoding scheme:
+//   - decode_split_kernel: one CTA per (chunk of C tokens, kv head, row),
+//     the grid sized on the host from static shapes (seq_lens stays on the
+//     device); a CTA whose chunk starts at or past the row's length exits at
+//     once.  The chunk's K rows and its V rows are contiguous in the dense
+//     layout: one thread issues 1-D bulk copies of both at once (K in one
+//     window per warp's 32 keys, V in one, each on its own mbarrier), so
+//     the whole chunk is in flight and a warp starts its scores when its
+//     own keys land.  Scores on CUDA cores, with no shuffle reduction per
+//     score: each thread owns one key and walks d against q staged in
+//     shared memory in its own dtype (16-byte pieces, staggered across
+//     threads against bank conflicts); a warp per q head takes the chunk's
+//     max and sum; for p V each thread owns 8 output columns of one head
+//     and walks keys.  The chunk's fp32 partials (m, l, acc[rep, d]) go to
+//     a scratch the wrapper allocates;
+//   - decode_combine_kernel: per (row, q head), merges the row's
+//     ceil(len / C) partials in split order (deterministic): M = max m_c,
+//     l = sum l_c e^(m_c - M), o = sum acc_c e^(m_c - M) / l, one thread
+//     per output column.
+//   The chunk's addressing is one function (chunk_row), where a paged walk
+//   would map a chunk to its page.
+//
+// B3/B3' (paged) run one CTA per (row, kv head) walking the visible pages:
+// a loop trip stages pages_per_step pages; both the score pass and the PV
+// pass split the trip's tokens over the CTA's 8 warps, each warp keeping 4
+// K or V rows in flight, with per-warp fp32 partial sums added at the end.
+//
+// Left for later work: the paged kernels are not split over the sequence
+// (a decode batch of 8 sequences x 8 kv heads fills 64 of the 132 SMs) and
+// load synchronously; the split kernel's products run on CUDA cores (no
+// mma) and its chunks are not pipelined within a CTA; in the ragged mode a
+// prefill row re-reads its sequence's pages once per row (L2 catches part
+// of it).
 //
 // Semantics kept from the TPU kernels (tests/test_flash_decoding.py):
 //   - masking with NEG_INF = -1e30, never -inf;
 //   - a row that sees no key outputs exactly 0 (valid = m > NEG_INF/2,
 //     l == 0 -> 1);
 //   - K/V rows past the visible length never enter the sums, so garbage
-//     or NaN there (the trash page, unwritten cache) cannot poison them;
+//     or NaN there (the trash page, unwritten cache) cannot poison them:
+//     the split kernel's copy of a row's last chunk may bring some in, so
+//     their scores are masked and their V rows zeroed (0 x NaN is NaN);
+//   - dense lengths clamp to [0, t_max];
 //   - the logical page index clamps to the row's last visible page and to
 //     max_pages - 1; table entries of -1 clamp to page 0; the walk covers
 //     ceil(max_pages / pp) * pp logical pages, as the TPU grid does;
 //   - ragged rows with slot < 0 are padding: length 0, output 0;
 //   - GQA is group-major: q head kv*rep + r reads kv head kv;
 //   - scale multiplies the fp32 dot; p is rounded to v's dtype (after the
-//     int8 widening, q's dtype) before the PV product, whose sum is fp32;
+//     int8 widening, q's dtype) before the PV product, whose sum is fp32,
+//     and l sums the unrounded p.  The paged kernel rounds p against its
+//     running max, the split kernel against its chunk's own max (rescaled
+//     in fp32 by the combine), the plain version against the row's max:
+//     all three stay inside the two-bf16-ulp per-row gate;
 //   - int8 K/V are widened to q's dtype in the kernel; the dequant scales
 //     stay with the caller.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "hopper.cuh"  // mbarriers, 1-D bulk copies
 
 namespace {
 
@@ -89,25 +119,26 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
+// ------------------------------------------------- B3 / B3': paged caches
+
 struct Args {
   const void* q;       // [rows, h, d]
-  const void* k;       // dense [rows, kvh, t_max, d] | paged [n_pages, kvh, page, d]
+  const void* k;       // [n_pages, kvh, page, d]
   const void* v;
   void* o;             // [rows, h, d], q's dtype
   const int* lens;     // [rows] visible length
   const int* slots;    // [rows] page-table row (ragged) or nullptr (row == slot)
-  const int* tables;   // [slots, max_pages] physical page ids (paged only)
+  const int* tables;   // [slots, max_pages] physical page ids
   int h, kvh, rep;
-  int t_max;           // dense: cache rows per sequence
-  int page;            // paged: tokens per page
-  int max_pages;       // paged: table width
-  int pp;              // paged: pages staged per loop trip
-  int trips;           // paged: ceil(max_pages / pp)
-  int tile;            // tokens per loop trip (pp * page when paged)
+  int page;            // tokens per page
+  int max_pages;       // table width
+  int pp;              // pages staged per loop trip
+  int trips;           // ceil(max_pages / pp)
+  int tile;            // tokens per loop trip (pp * page)
   float scale;
 };
 
-template <typename TQ, typename TKV, int D, bool PAGED>
+template <typename TQ, typename TKV, int D>
 __global__ void __launch_bounds__(kThreads) decode_attention_kernel(Args a) {
   using TP = typename PvType<TQ, TKV>::type;
   constexpr int kCols = (D + 31) / 32;  // elements of a K/V row per lane
@@ -129,16 +160,12 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(Args a) {
 
   int len = a.lens[row];
   int slot = row;
-  if (PAGED) {
-    if (a.slots != nullptr) {
-      slot = a.slots[row];
-      if (slot < 0) {  // padding row: visibility 0, output forced to 0
-        slot = 0;
-        len = 0;
-      }
+  if (a.slots != nullptr) {
+    slot = a.slots[row];
+    if (slot < 0) {  // padding row: visibility 0, output forced to 0
+      slot = 0;
+      len = 0;
     }
-  } else {
-    len = min(len, a.t_max);
   }
   len = max(len, 0);
 
@@ -152,36 +179,26 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(Args a) {
 
   const TKV* kc = static_cast<const TKV*>(a.k);
   const TKV* vc = static_cast<const TKV*>(a.v);
-  int last = 0;  // last visible logical page, clamped to the table width
-  if (PAGED) {
-    last = max((len + a.page - 1) / a.page - 1, 0);
-    last = min(last, a.max_pages - 1);
-  }
-  const size_t dense_base = (static_cast<size_t>(row) * a.kvh + g) * static_cast<size_t>(a.t_max);
-  // element offset of token t of the trip starting at position start (a
-  // trip starts on a page boundary, so t / page indexes its staged pages)
-  auto row_offset = [&](int start, int t) -> size_t {
-    if (PAGED) {
-      const size_t phys = static_cast<size_t>(phys_s[t / a.page]);
-      return ((phys * a.kvh + g) * a.page + (t % a.page)) * D;
-    }
-    return (dense_base + start + t) * D;
+  // last visible logical page, clamped to the table width
+  const int last = min(max((len + a.page - 1) / a.page - 1, 0), a.max_pages - 1);
+  // element offset of token t of the trip (a trip starts on a page
+  // boundary, so t / page indexes its staged pages)
+  auto row_offset = [&](int t) -> size_t {
+    const size_t phys = static_cast<size_t>(phys_s[t / a.page]);
+    return ((phys * a.kvh + g) * a.page + (t % a.page)) * D;
   };
   float* acc_w = acc_s + warp * rep * D;
 
-  const int trips = PAGED ? a.trips : (len + a.tile - 1) / a.tile;
-  for (int trip = 0; trip < trips; ++trip) {
+  for (int trip = 0; trip < a.trips; ++trip) {
     const int start = trip * a.tile;
     if (start >= len) break;  // trips past the visible length do no work
     const int n = min(a.tile, len - start);  // visible tokens of this trip
     __syncthreads();  // previous trip's readers of phys_s / s_s are done
-    if (PAGED) {
-      for (int j = tid; j < a.pp; j += kThreads) {
-        const int li = min(trip * a.pp + j, last);
-        phys_s[j] = max(a.tables[static_cast<size_t>(slot) * a.max_pages + li], 0);
-      }
-      __syncthreads();
+    for (int j = tid; j < a.pp; j += kThreads) {
+      const int li = min(trip * a.pp + j, last);
+      phys_s[j] = max(a.tables[static_cast<size_t>(slot) * a.max_pages + li], 0);
     }
+    __syncthreads();
 
     // scores: each warp loads kUnroll visible K rows (lanes split d) before
     // it reduces them, so several rows are in flight per warp
@@ -189,7 +206,7 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(Args a) {
       float kr[kUnroll][kCols];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
-        const TKV* krow = kc + row_offset(start, min(t0 + u, n - 1));
+        const TKV* krow = kc + row_offset(min(t0 + u, n - 1));
 #pragma unroll
         for (int c = 0; c < kCols; ++c) {
           const int i = lane + 32 * c;
@@ -251,7 +268,7 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(Args a) {
         float vr[kUnroll][kCols];
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
-          const TKV* vrow = vc + row_offset(start, min(t0 + u, n - 1));
+          const TKV* vrow = vc + row_offset(min(t0 + u, n - 1));
 #pragma unroll
           for (int c = 0; c < kCols; ++c) {
             const int i = lane + 32 * c;
@@ -296,12 +313,346 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(Args a) {
   }
 }
 
-template <typename TQ, typename TKV, int D, bool PAGED>
-cudaError_t launch(const Args& a, int rows, cudaStream_t stream) {
+// ---------------------------------------------- B4: dense cache, split
+
+constexpr int kSplitThreads = 128;
+constexpr int kMaxChunk = kSplitThreads;  // keys of a chunk: one per thread in the score pass
+constexpr int kSplitHeads = 8;            // q heads a thread's score pass keeps in registers
+
+struct SplitArgs {
+  const void* q;      // [rows, h, d]
+  const void* k;      // [rows, kvh, t_max, d]
+  const void* v;
+  void* o;            // [rows, h, d], q's dtype
+  const int* lens;    // [rows] visible length
+  float* part_m;      // [rows, h, splits] chunk max (the scores' units)
+  float* part_l;      // [rows, h, splits] chunk sum of the unrounded p
+  float* part_acc;    // [rows, h, splits, d] chunk sum of p V
+  int h, kvh, rep, t_max;
+  int chunk, splits;  // C tokens per chunk, ceil(t_max / C) chunks
+  float scale;
+};
+
+// The cache row index of the first token of chunk c0 of (row, kv head g):
+// in the dense layout a chunk's K rows (and V rows) are contiguous from
+// here.  A paged walk would map (row, g, c0) to a page at this point.
+__device__ __forceinline__ size_t chunk_row(const SplitArgs& a, int row, int g, int c0) {
+  return (static_cast<size_t>(row) * a.kvh + g) * a.t_max + c0;
+}
+
+// A K/V row as 16-byte pieces (the whole row when it is shorter: int8 at d
+// 8), each widened to fp32.
+template <typename T, int D>
+struct Row {
+  static constexpr int kBytes = D * static_cast<int>(sizeof(T));
+  static constexpr int kPieceBytes = kBytes < 16 ? kBytes : 16;
+  static constexpr int kPiece = kPieceBytes / static_cast<int>(sizeof(T));  // elements
+  static constexpr int kPieces = kBytes / kPieceBytes;
+};
+
+// n 32-bit words of T as fp32 (x holds 4 / sizeof(T) values per word)
+__device__ __forceinline__ void widen_words(const uint32_t* w, int n, float* x, float*) {
+#pragma unroll
+  for (int i = 0; i < n; ++i) x[i] = __uint_as_float(w[i]);
+}
+__device__ __forceinline__ void widen_words(const uint32_t* w, int n, float* x, __nv_bfloat16*) {
+#pragma unroll
+  for (int i = 0; i < n; ++i) {
+    x[2 * i] = __uint_as_float(w[i] << 16);
+    x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void widen_words(const uint32_t* w, int n, float* x, int8_t*) {
+#pragma unroll
+  for (int i = 0; i < n; ++i)
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      x[4 * i + b] = static_cast<float>(static_cast<int8_t>((w[i] >> (8 * b)) & 0xffu));
+}
+
+// N elements of type T at p in shared memory (8 bytes aligned to 8, or a
+// multiple of 16 bytes aligned to 16) as fp32
+template <typename T, int N>
+__device__ __forceinline__ void load_widen(const unsigned char* p, float (&x)[N]) {
+  constexpr int kWords = N * static_cast<int>(sizeof(T)) / 4;
+  static_assert(kWords == 2 || kWords % 4 == 0, "an 8-byte or 16-byte multiple");
+  uint32_t w[kWords];
+  if constexpr (kWords == 2) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    w[0] = u.x;
+    w[1] = u.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < kWords; i += 4) {
+      const uint4 u = *reinterpret_cast<const uint4*>(p + 4 * i);
+      w[i] = u.x;
+      w[i + 1] = u.y;
+      w[i + 2] = u.z;
+      w[i + 3] = u.w;
+    }
+  }
+  widen_words(w, kWords, x, static_cast<T*>(nullptr));
+}
+
+// Dynamic shared memory of decode_split_kernel: the K and V chunks (each C
+// rows plus 32 bytes of slack for the 16-byte-aligned copy windows), q in
+// its own dtype [rep][D], the scores then p [rep][C], the PV partial sums
+// [slices][rep][D] and the chunk's m, l [rep].  Offsets are 128-byte
+// aligned.
+struct SplitSmem {
+  size_t kv, q, s, red, ml, bytes;
+};
+
+__host__ __device__ inline size_t align128(size_t x) { return (x + 127) / 128 * 128; }
+
+// PV work: units of (q head, 8 columns); when there are fewer units than
+// threads, `slices` threads share a unit, each over every slices-th key
+__host__ __device__ inline int pv_slices(int rep, int d) {
+  const int units = rep * d / 8;
+  return units >= kSplitThreads ? 1 : kSplitThreads / units;
+}
+
+__host__ __device__ inline SplitSmem split_smem(int rep, int d, int chunk, int q_bytes,
+                                                int kv_bytes) {
+  SplitSmem m;
+  m.kv = align128(static_cast<size_t>(chunk) * d * kv_bytes + 32);
+  m.q = 2 * m.kv;
+  m.s = m.q + align128(static_cast<size_t>(q_bytes) * rep * d);
+  m.red = m.s + align128(sizeof(float) * rep * chunk);
+  m.ml = m.red + align128(sizeof(float) * pv_slices(rep, d) * rep * d);
+  m.bytes = m.ml + sizeof(float) * 2 * rep;
+  return m;
+}
+
+// K arrives in up to kSplitWarps copies, one per warp's 32 keys, so that a
+// warp starts its scores when its own keys land
+constexpr int kSplitWarps = kSplitThreads / 32;
+
+template <typename TQ, typename TKV, int D>
+__global__ void __launch_bounds__(kSplitThreads) decode_split_kernel(SplitArgs a) {
+  using TP = typename PvType<TQ, TKV>::type;
+  using R = Row<TKV, D>;
+  extern __shared__ __align__(128) unsigned char dyn[];
+  __shared__ __align__(8) uint64_t bars[kSplitWarps + 1];  // K by warp, then V
+
+  const int c = blockIdx.x, g = blockIdx.y, row = blockIdx.z;
+  const int len = min(max(a.lens[row], 0), a.t_max);
+  const int c0 = c * a.chunk;
+  if (c0 >= len) return;  // no visible token in this chunk: no copy, no partial
+  const int n = min(a.chunk, len - c0);  // visible tokens of the chunk
+  const int n4 = min((n + 3) & ~3, a.chunk);  // the PV pass walks keys in fours
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rep = a.rep;
+  const SplitSmem L = split_smem(rep, D, a.chunk, sizeof(TQ), sizeof(TKV));
+  TQ* q_s = reinterpret_cast<TQ*>(dyn + L.q);
+  float* s_s = reinterpret_cast<float*>(dyn + L.s);
+  float* red_s = reinterpret_cast<float*>(dyn + L.red);
+  float* m_s = reinterpret_cast<float*>(dyn + L.ml);
+  float* l_s = m_s + rep;
+
+  // the chunk's rows [c0, c0 + n4), cut at t_max, in 16-byte-aligned copy
+  // windows (K and V are 16-byte aligned, so both share one shift): K in
+  // one window per warp's 32 rows, boundaries rounded down to 16 bytes (a
+  // warp's last row may end in the next window), V in one.  Rows past the
+  // length that the windows bring in are masked (K) and zeroed (V) below.
+  const size_t first = chunk_row(a, row, g, c0) * R::kBytes;
+  const int rows_in = min(n4, a.t_max - c0);
+  const unsigned char* kg = static_cast<const unsigned char*>(a.k) + first;
+  const unsigned char* vg = static_cast<const unsigned char*>(a.v) + first;
+  const int shift = static_cast<int>(reinterpret_cast<uintptr_t>(kg) & 15);
+  const int end = (shift + rows_in * R::kBytes + 15) & ~15;  // bytes of the window
+  const int k_copies = (rows_in + 31) / 32;
+  const unsigned char* k_s = dyn + shift;  // row j at k_s + j * R::kBytes
+  const unsigned char* v_s = dyn + L.kv + shift;
+  if (tid == 0) {
+    for (int i = 0; i <= kSplitWarps; ++i) mbar_init(&bars[i], 1);
+    mbar_fence_init();
+    for (int w = 0; w < k_copies; ++w) {
+      const int lo = (shift + w * 32 * R::kBytes) & ~15;
+      const int hi = w + 1 < k_copies ? (shift + (w + 1) * 32 * R::kBytes) & ~15 : end;
+      mbar_arrive_expect_tx(&bars[w], hi - lo);
+      bulk_load_1d(dyn + lo, kg - shift + lo, hi - lo, &bars[w]);
+    }
+    mbar_arrive_expect_tx(&bars[kSplitWarps], end);
+    bulk_load_1d(dyn + L.kv, vg - shift, end, &bars[kSplitWarps]);
+  }
+  const TQ* q = static_cast<const TQ*>(a.q) + (static_cast<size_t>(row) * a.h + static_cast<size_t>(g) * rep) * D;
+  for (int i = tid; i < rep * D; i += kSplitThreads) q_s[i] = q[i];
+  __syncthreads();  // q staged, the barriers initialised
+
+  // scores: thread j owns key j and walks d (pieces staggered by j) against
+  // q from shared memory; keys past the length score NEG_INF.  A warp waits
+  // for the windows that hold its rows.
+  if (tid < a.chunk) {
+    const int j = tid;
+    if (j < n) {
+      mbar_wait(&bars[warp], 0);
+      if (warp + 1 < k_copies) mbar_wait(&bars[warp + 1], 0);
+    }
+    for (int r0 = 0; r0 < rep; r0 += kSplitHeads) {
+      float acc[kSplitHeads];
+#pragma unroll
+      for (int rr = 0; rr < kSplitHeads; ++rr) acc[rr] = 0.f;
+      if (j < n) {
+#pragma unroll 4
+        for (int i = 0; i < R::kPieces; ++i) {
+          const int pc = (i + j) & (R::kPieces - 1);
+          float kx[R::kPiece];
+          load_widen<TKV>(k_s + j * R::kBytes + pc * R::kPieceBytes, kx);
+#pragma unroll
+          for (int rr = 0; rr < kSplitHeads; ++rr) {
+            if (r0 + rr < rep) {
+              float qx[R::kPiece];
+              load_widen<TQ>(reinterpret_cast<const unsigned char*>(
+                                 q_s + (r0 + rr) * D + pc * R::kPiece),
+                             qx);
+#pragma unroll
+              for (int e = 0; e < R::kPiece; ++e) acc[rr] += qx[e] * kx[e];
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int rr = 0; rr < kSplitHeads; ++rr)
+        if (r0 + rr < rep) s_s[(r0 + rr) * a.chunk + j] = j < n ? acc[rr] * a.scale : kNegInf;
+    }
+  }
+  __syncthreads();
+
+  // the chunk's softmax: one warp per q head over keys [0, n4)
+  for (int r = warp; r < rep; r += kSplitWarps) {
+    float mx = kNegInf;
+    for (int j = lane; j < n4; j += 32) mx = fmaxf(mx, s_s[r * a.chunk + j]);
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int j = lane; j < n4; j += 32) {
+      const float p = expf(s_s[r * a.chunk + j] - mx);
+      sum += p;
+      s_s[r * a.chunk + j] = round_to(p, static_cast<TP*>(nullptr));
+    }
+    sum = warp_sum(sum);
+    if (lane == 0) {
+      m_s[r] = mx;
+      l_s[r] = sum;
+    }
+  }
+  // warps whose keys are all past the length never waited for their K
+  // window: every copy lands before the CTA may exit
+  for (int w = 0; w < k_copies; ++w) mbar_wait(&bars[w], 0);
+  mbar_wait(&bars[kSplitWarps], 0);
+  // V rows [n, n4) past the length: zero, so p = 0 meets 0 and not NaN
+  for (int i = tid; i < (n4 - n) * R::kBytes / 4; i += kSplitThreads)
+    reinterpret_cast<uint32_t*>(const_cast<unsigned char*>(v_s) + n * R::kBytes)[i] = 0u;
+  __syncthreads();
+
+  // p V: a unit is (q head r, 8 columns); `slices` threads per unit split
+  // the keys, their fp32 sums added in shared memory
+  constexpr int kGroups = D / 8;
+  const int units = rep * kGroups;
+  const int slices = pv_slices(rep, D);
+  for (int it = tid; it < units * slices; it += kSplitThreads) {
+    const int u = it % units, sl = it / units;
+    const int r = u / kGroups, cg = u % kGroups;
+    float acc[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[e] = 0.f;
+    const float* p_r = s_s + r * a.chunk;
+#pragma unroll 4
+    for (int j = sl; j < n4; j += slices) {
+      const float p = p_r[j];
+      float vx[8];
+      load_widen<TKV>(v_s + j * R::kBytes + cg * 8 * sizeof(TKV), vx);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[e] += p * vx[e];
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) red_s[(sl * rep + r) * D + cg * 8 + e] = acc[e];
+  }
+  __syncthreads();
+
+  const size_t head0 = static_cast<size_t>(row) * a.h + static_cast<size_t>(g) * rep;
+  for (int idx = tid; idx < rep * D; idx += kSplitThreads) {
+    float sum = 0.f;
+    for (int sl = 0; sl < slices; ++sl) sum += red_s[sl * rep * D + idx];
+    const size_t at = (head0 + idx / D) * a.splits + c;
+    a.part_acc[at * D + idx % D] = sum;
+  }
+  for (int r = tid; r < rep; r += kSplitThreads) {
+    const size_t at = (head0 + r) * a.splits + c;
+    a.part_m[at] = m_s[r];
+    a.part_l[at] = l_s[r];
+  }
+}
+
+// One CTA per (q head, row): the row's ns = ceil(len / C) partial m and l
+// staged in shared memory, M = max m_c by a block reduction (exact in any
+// order), then thread dd merges column dd in split order: l = sum l_c
+// e^(m_c - M), o = sum acc_c e^(m_c - M) / l.
+template <typename TQ, int D>
+__global__ void __launch_bounds__(kSplitThreads) decode_combine_kernel(SplitArgs a) {
+  extern __shared__ float comb[];  // [splits] m, then [splits] l
+  __shared__ float wmax[kSplitWarps];
+  const int head = blockIdx.x, row = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int len = min(max(a.lens[row], 0), a.t_max);
+  const int ns = (len + a.chunk - 1) / a.chunk;  // chunks that hold a visible token
+  const size_t base = (static_cast<size_t>(row) * a.h + head) * a.splits;
+  float* m_c = comb;
+  float* l_c = comb + a.splits;
+  float mx = kNegInf;
+  for (int c = tid; c < ns; c += kSplitThreads) {
+    m_c[c] = a.part_m[base + c];
+    l_c[c] = a.part_l[base + c];
+    mx = fmaxf(mx, m_c[c]);
+  }
+  mx = warp_max(mx);
+  if (lane == 0) wmax[warp] = mx;
+  __syncthreads();
+  mx = wmax[0];
+#pragma unroll
+  for (int w = 1; w < kSplitWarps; ++w) mx = fmaxf(mx, wmax[w]);
+  if (tid >= D) return;
+  const float* acc_c = a.part_acc + base * D + tid;
+  float l = 0.f, acc = 0.f;
+#pragma unroll 4
+  for (int c = 0; c < ns; ++c) {  // merge in split order
+    const float w = expf(m_c[c] - mx);
+    l += l_c[c] * w;
+    acc += acc_c[static_cast<size_t>(c) * D] * w;
+  }
+  if (l == 0.f) l = 1.f;
+  const bool valid = mx > kNegInf * 0.5f;
+  store(static_cast<TQ*>(a.o) + (static_cast<size_t>(row) * a.h + head) * D + tid,
+        valid ? acc / l : 0.f);
+}
+
+template <typename TQ, typename TKV, int D>
+cudaError_t launch_split(const SplitArgs& a, int rows, cudaStream_t stream) {
+  const size_t smem = split_smem(a.rep, D, a.chunk, sizeof(TQ), sizeof(TKV)).bytes;
+  const size_t comb = sizeof(float) * 2 * static_cast<size_t>(a.splits);
+  if (a.chunk <= 0 || a.chunk > kMaxChunk || smem > 232448 || comb > 232448)
+    return cudaErrorInvalidValue;
+  auto split = decode_split_kernel<TQ, TKV, D>;
+  auto combine = decode_combine_kernel<TQ, D>;
+  cudaError_t e = cudaFuncSetAttribute(split, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(combine, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(comb));
+  if (e != cudaSuccess) return e;
+  split<<<dim3(a.splits, a.kvh, rows), kSplitThreads, smem, stream>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  combine<<<dim3(a.h, rows), kSplitThreads, comb, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename TQ, typename TKV, int D>
+cudaError_t launch_paged(const Args& a, int rows, cudaStream_t stream) {
   const size_t smem = sizeof(float) * ((1 + kWarps) * static_cast<size_t>(a.rep) * D +
                                        static_cast<size_t>(a.rep) * a.tile + 3 * a.rep) +
-                      sizeof(int) * (PAGED ? a.pp : 0);
-  auto kernel = decode_attention_kernel<TQ, TKV, D, PAGED>;
+                      sizeof(int) * a.pp;
+  auto kernel = decode_attention_kernel<TQ, TKV, D>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -312,41 +663,62 @@ cudaError_t launch(const Args& a, int rows, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename TQ, typename TKV, bool PAGED>
-cudaError_t dispatch_d(const Args& a, int rows, int d, cudaStream_t stream) {
+template <typename TQ, typename TKV>
+cudaError_t launch_d(const SplitArgs& a, int rows, int d, cudaStream_t s) {
   switch (d) {
-    case 8: return launch<TQ, TKV, 8, PAGED>(a, rows, stream);
-    case 16: return launch<TQ, TKV, 16, PAGED>(a, rows, stream);
-    case 32: return launch<TQ, TKV, 32, PAGED>(a, rows, stream);
-    case 64: return launch<TQ, TKV, 64, PAGED>(a, rows, stream);
-    case 128: return launch<TQ, TKV, 128, PAGED>(a, rows, stream);
+    case 8: return launch_split<TQ, TKV, 8>(a, rows, s);
+    case 16: return launch_split<TQ, TKV, 16>(a, rows, s);
+    case 32: return launch_split<TQ, TKV, 32>(a, rows, s);
+    case 64: return launch_split<TQ, TKV, 64>(a, rows, s);
+    case 128: return launch_split<TQ, TKV, 128>(a, rows, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <bool PAGED>
-int dispatch(const Args& a, int rows, int d, int q_dtype, int kv_dtype, void* stream) {
+template <typename TQ, typename TKV>
+cudaError_t launch_d(const Args& a, int rows, int d, cudaStream_t s) {
+  switch (d) {
+    case 8: return launch_paged<TQ, TKV, 8>(a, rows, s);
+    case 16: return launch_paged<TQ, TKV, 16>(a, rows, s);
+    case 32: return launch_paged<TQ, TKV, 32>(a, rows, s);
+    case 64: return launch_paged<TQ, TKV, 64>(a, rows, s);
+    case 128: return launch_paged<TQ, TKV, 128>(a, rows, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// the (q dtype, K/V dtype) pairs the launchers take; A selects the kernels
+// (SplitArgs: B4's split and combine, Args: the paged kernel)
+template <typename A>
+int dispatch(const A& a, int rows, int d, int q_dtype, int kv_dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (q_dtype == kF32 && kv_dtype == kF32) return dispatch_d<float, float, PAGED>(a, rows, d, s);
-  if (q_dtype == kBF16 && kv_dtype == kBF16) return dispatch_d<__nv_bfloat16, __nv_bfloat16, PAGED>(a, rows, d, s);
-  if (q_dtype == kF32 && kv_dtype == kI8) return dispatch_d<float, int8_t, PAGED>(a, rows, d, s);
+  if (q_dtype == kF32 && kv_dtype == kF32) return launch_d<float, float>(a, rows, d, s);
+  if (q_dtype == kBF16 && kv_dtype == kBF16) return launch_d<__nv_bfloat16, __nv_bfloat16>(a, rows, d, s);
+  if (q_dtype == kF32 && kv_dtype == kI8) return launch_d<float, int8_t>(a, rows, d, s);
   // an fp32 model over a bf16 cache (an int8-weight dict serves on bf16 pools)
-  if (q_dtype == kF32 && kv_dtype == kBF16) return dispatch_d<float, __nv_bfloat16, PAGED>(a, rows, d, s);
-  if (q_dtype == kBF16 && kv_dtype == kI8) return dispatch_d<__nv_bfloat16, int8_t, PAGED>(a, rows, d, s);
+  if (q_dtype == kF32 && kv_dtype == kBF16) return launch_d<float, __nv_bfloat16>(a, rows, d, s);
+  if (q_dtype == kBF16 && kv_dtype == kI8) return launch_d<__nv_bfloat16, int8_t>(a, rows, d, s);
   return cudaErrorInvalidValue;
 }
 
-Args base_args(const void* q, const void* k, const void* v, void* o, const void* lens,
-               int h, int kvh, float scale) {
+Args paged_args(const void* q, const void* k, const void* v, void* o, const void* lens,
+                const void* block_tables, int h, int kvh, int page, int max_pages, int pp,
+                float scale) {
   Args a{};
   a.q = q;
   a.k = k;
   a.v = v;
   a.o = o;
   a.lens = static_cast<const int*>(lens);
+  a.tables = static_cast<const int*>(block_tables);
   a.h = h;
   a.kvh = kvh;
   a.rep = h / kvh;
+  a.page = page;
+  a.max_pages = max_pages;
+  a.pp = pp;
+  a.trips = (max_pages + pp - 1) / pp;
+  a.tile = pp * page;
   a.scale = scale;
   return a;
 }
@@ -356,13 +728,30 @@ Args base_args(const void* q, const void* k, const void* v, void* o, const void*
 extern "C" {
 
 // flash_decode_raw: q [b, h, d]; k/v [b, kvh, t_max, d]; seq_lens [b] int32.
+// Two launches: decode_split_kernel over chunks of `chunk` tokens (partials
+// into part_m, part_l [b, h, ceil(t_max / chunk)] and part_acc [.., d], fp32
+// scratch of the caller), then decode_combine_kernel into o.
 int pt_flash_decode(const void* q, const void* k, const void* v, void* o, const void* seq_lens,
-                    int b, int h, int kvh, int t_max, int d, int tile, float scale,
-                    int q_dtype, int kv_dtype, void* stream) {
-  Args a = base_args(q, k, v, o, seq_lens, h, kvh, scale);
+                    void* part_m, void* part_l, void* part_acc, int b, int h, int kvh,
+                    int t_max, int d, int chunk, float scale, int q_dtype, int kv_dtype,
+                    void* stream) {
+  SplitArgs a{};
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.o = o;
+  a.lens = static_cast<const int*>(seq_lens);
+  a.part_m = static_cast<float*>(part_m);
+  a.part_l = static_cast<float*>(part_l);
+  a.part_acc = static_cast<float*>(part_acc);
+  a.h = h;
+  a.kvh = kvh;
+  a.rep = h / kvh;
   a.t_max = t_max;
-  a.tile = tile;
-  return dispatch<false>(a, b, d, q_dtype, kv_dtype, stream);
+  a.chunk = chunk;
+  a.splits = chunk > 0 ? (t_max + chunk - 1) / chunk : 0;
+  a.scale = scale;
+  return dispatch(a, b, d, q_dtype, kv_dtype, stream);
 }
 
 // paged_decode_raw: q [b, h, d]; pools [n_pages, kvh, page, d]; seq_lens [b];
@@ -370,15 +759,9 @@ int pt_flash_decode(const void* q, const void* k, const void* v, void* o, const 
 int pt_paged_decode(const void* q, const void* k, const void* v, void* o, const void* seq_lens,
                     const void* block_tables, int b, int h, int kvh, int page, int d,
                     int max_pages, int pp, float scale, int q_dtype, int kv_dtype, void* stream) {
-  Args a = base_args(q, k, v, o, seq_lens, h, kvh, scale);
-  a.slots = nullptr;
-  a.tables = static_cast<const int*>(block_tables);
-  a.page = page;
-  a.max_pages = max_pages;
-  a.pp = pp;
-  a.trips = (max_pages + pp - 1) / pp;
-  a.tile = pp * page;
-  return dispatch<true>(a, b, d, q_dtype, kv_dtype, stream);
+  const Args a = paged_args(q, k, v, o, seq_lens, block_tables, h, kvh, page, max_pages, pp,
+                            scale);
+  return dispatch(a, b, d, q_dtype, kv_dtype, stream);
 }
 
 // ragged_paged_decode_raw: q [T, h, d] packed rows; row_lens [T]; row_slot [T]
@@ -387,15 +770,9 @@ int pt_ragged_paged_decode(const void* q, const void* k, const void* v, void* o,
                            const void* row_lens, const void* row_slot, const void* block_tables,
                            int rows, int h, int kvh, int page, int d, int max_pages, int pp,
                            float scale, int q_dtype, int kv_dtype, void* stream) {
-  Args a = base_args(q, k, v, o, row_lens, h, kvh, scale);
+  Args a = paged_args(q, k, v, o, row_lens, block_tables, h, kvh, page, max_pages, pp, scale);
   a.slots = static_cast<const int*>(row_slot);
-  a.tables = static_cast<const int*>(block_tables);
-  a.page = page;
-  a.max_pages = max_pages;
-  a.pp = pp;
-  a.trips = (max_pages + pp - 1) / pp;
-  a.tile = pp * page;
-  return dispatch<true>(a, rows, d, q_dtype, kv_dtype, stream);
+  return dispatch(a, rows, d, q_dtype, kv_dtype, stream);
 }
 
 const char* pt_error_string(int code) {

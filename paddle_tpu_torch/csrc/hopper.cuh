@@ -1,6 +1,7 @@
-// Hopper (sm_90a) building blocks of the port's warpgroup kernels: TMA
-// tensor maps and loads, mbarriers, the shared-memory matrix descriptor and
-// the asynchronous warpgroup products (wgmma), in inline PTX.
+// Hopper (sm_90a) building blocks of the port's asynchronous kernels: TMA
+// tensor maps and loads, 1-D bulk copies, mbarriers, the shared-memory
+// matrix descriptor and the asynchronous warpgroup products (wgmma), in
+// inline PTX.
 //
 // The layout contract every user keeps: a bf16 tile lives in shared memory
 // as 64-column panels written by a TMA load with 128-byte swizzle, each
@@ -175,6 +176,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
+      : "memory");
+}
+
+// One bulk copy (the 1-D TMA, no tensor map) of `bytes` from global to
+// shared memory, completing `bytes` on the barrier: both addresses 16-byte
+// aligned, `bytes` a multiple of 16
+__device__ __forceinline__ void bulk_load_1d(void* dst, const void* src, uint32_t bytes,
+                                             uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

@@ -5,7 +5,9 @@
 //
 // Replaces the Pallas TPU kernel bodies of the per-head path of
 // paddle_tpu/ops/pallas/flash_attention.py:
-//   - _flash_kernel (launcher _flash_forward, B5)        -> masked_fwd_kernel
+//   - _flash_kernel (launcher _flash_forward, B5)        -> masked_fwd_wgmma_kernel
+//       (bf16 at head dim 64 and 128, the wrapper's masked_fwd_route) and
+//       masked_fwd_kernel (fp32, and bf16 at 16 and 32)
 //   - _flash_bwd_fused_kernel (_flash_backward, B6)      -> masked_dkv_kernel<fused>
 //   - _flash_bwd_dq_kernel (_flash_backward, B6)         -> masked_dq_kernel
 //   - _flash_bwd_dkv_kernel (_flash_backward, B6)        -> masked_dkv_kernel<split>
@@ -33,8 +35,8 @@
 // packed documents of median 256 tokens) a third of the causal triangle is
 // visible and the bytes bound it; at 8K with documents of median 1024 the
 // operations do.  The design:
-//   - a CTA covers hpc heads of one GQA group (hpc divides rep, at most 4)
-//     at bq query positions: the live list depends only on (batch, mask
+//   - a shared-memory kernel's CTA covers hpc heads of one GQA group (hpc
+//     divides rep, at most 4) at bq query positions: the live list depends only on (batch, mask
 //     head, q tile), and a mask head spans whole groups, so every head of
 //     the CTA shares it, and each K/V tile is staged once for hpc heads;
 //   - the inner loop runs inside the CTA with the fp32 softmax state and
@@ -53,10 +55,21 @@
 //     per (group, k tile) over the group's heads x live q tiles, with the
 //     group sum in shared memory: deterministic;
 //   - delta = rowsum(do * o) comes from the caller, as the TPU launcher
-//     computes it outside its kernels.
-// Simple design, left for later work: wmma from shared memory instead of
-// wgmma, synchronous loads instead of TMA or cp.async, the accumulator
-// rescaled in shared memory.
+//     computes it outside its kernels;
+//   - B5 bf16 at d 64/128 (masked_fwd_wgmma_kernel) is B1's warp-specialised
+//     forward (csrc/flash_attention.cu hb_fwd_wgmma_kernel) over the live
+//     list: a producer warp keeps the live K/V tiles (64 keys) in flight by
+//     TMA in a 3-stage mbarrier ring, with each tile's mask data (key ids,
+//     band rows) staged beside it; two consumer warpgroups own 64 of the
+//     CTA's 128 rows (hpc heads x 128 / hpc positions, hpc the largest
+//     divisor of rep up to 8, so a K/V tile serves up to 8 heads), keep S,
+//     the softmax state and O in registers and apply the mask per element
+//     there.  The CTA's own live list (masked_fwd_wgmma_tiles) is built at
+//     its tiles, not B6's.
+// Left for later work: B6 and the fp32 / small-d B5 run wmma from shared
+// memory with synchronous loads and the accumulator rescaled in shared
+// memory; the wgmma forward serialises its softmax and products inside a
+// warpgroup (no ping-pong).
 //
 // Semantics kept from the TPU kernels (tests/test_torch_masked_flash.py):
 //   - masking with NEG_INF = -1e30, never -inf: a row whose keys are all
@@ -67,6 +80,7 @@
 //     dv, ds to q's dtype for dk; query rows past sq contribute nothing.
 
 #include "flash_common.cuh"  // Mma, dtype helpers, warp reductions, kThreads
+#include "hopper.cuh"        // TMA, mbarriers, wgmma
 
 namespace {
 
@@ -263,6 +277,277 @@ __global__ void __launch_bounds__(kThreads) masked_fwd_kernel(MArgs a) {
     a.lse_out[(static_cast<size_t>(g) * a.rep + head0 + m / a.bq) * a.sq + pos] =
         valid ? m_s[m] + logf(l) : -kNegInf;
   }
+}
+
+// ------------------------------------------------- B5 forward, bf16 on wgmma
+constexpr int kWRows = 128;     // rows of a CTA: two consumer warpgroups of 64
+constexpr int kWBK = 64;        // keys per k tile
+constexpr int kWStages = 3;     // K/V ring depth
+// two consumer warpgroups, then a producer warpgroup of which warp 8 loads:
+// the producer gives its registers back (setmaxnreg) so that each consumer
+// thread can hold up to kWConsumerRegs (the cap of a 384-thread CTA is 168)
+constexpr int kWThreads = 384;
+constexpr int kWProducerRegs = 40, kWConsumerRegs = 232;
+constexpr int kPanel = 128;     // bytes of one row of a 64-column panel
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// Shared memory of masked_fwd_wgmma_kernel: q [D/64 panels][128 rows][64],
+// then per stage k and v [D/64 panels][kWBK rows][64]; 1024 bytes of slack
+// align the tiles to the swizzle atom.
+template <int D>
+struct MaskedWgmmaSmem {
+  static constexpr int kPanels = D / 64;
+  static constexpr int kQPanel = kWRows * kPanel;
+  static constexpr int kKVPanel = kWBK * kPanel;
+  static constexpr int kTile = kPanels * kKVPanel;  // one k or v tile
+  static constexpr int kBytes = kPanels * kQPanel + 2 * kWStages * kTile + 1024;
+};
+
+// One CTA per (q tile, group, head chunk): 128 rows = hpc heads x bq
+// positions of one GQA group (rows past hpc * bq idle, never loaded or
+// stored), q tiles longest first.  The q tile's live k-tile list
+// (count / idx at gate_row) is read from device memory; a CTA with an empty
+// list writes o = 0, lse = +1e30 and issues no load.  Warp 8 is the
+// producer: one TMA load of the q tile (a 4-D box (64, bq, hpc, 1) per
+// panel at (0, q0, head0, g), zero past sq), then each live k tile's K and V
+// through a kWStages ring of mbarriers, with the tile's first key and mask
+// data (64 key segment ids, the 4 band rows) written beside the stage by
+// the producer warp's 32 lanes.  Warpgroups 0 and 1 each own 64 rows: S = Q
+// K^T (wgmma, K-major operands from shared memory, S in registers), the
+// mask applied per element in registers by keep()'s rule, the online
+// softmax in registers, p rounded to bf16 in registers as the A operand of
+// O += P V (V MN-major from shared memory, not transposed in memory).
+template <int D>
+__global__ void __launch_bounds__(kWThreads, 1)
+    masked_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv, MArgs a, int groups) {
+  using L = MaskedWgmmaSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 2 * kWStages];
+  __shared__ int st_k0[kWStages];                 // first key of the staged tile
+  __shared__ __align__(8) int st_mask[kWStages][5][kWBK];  // key ids, lts, lte, uts, ute
+  unsigned char* q_s = smem_raw + (1024 - smem_u32(smem_raw) % 1024) % 1024;
+  unsigned char* kv_s = q_s + L::kPanels * L::kQPanel;  // stage s: k, then v
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + kWStages;
+
+  const int chunks = a.rep / a.hpc;
+  const int per_tile = groups * chunks;  // CTAs of one q tile
+  const int unit = static_cast<int>(blockIdx.x) % per_tile;
+  const int g = unit / chunks, head0 = (unit % chunks) * a.hpc;
+  const int qi = a.n_outer - 1 - static_cast<int>(blockIdx.x) / per_tile;
+  const int q0 = qi * a.bq;
+  const size_t at = static_cast<size_t>(gate_row(a, g)) * a.n_outer + qi;
+  const int cnt = a.count[at];
+  const int bi = g / a.kvh;  // batch entry
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kWStages; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&empty[s], 2 * 128);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    // ------------------------------------------------------------ producer
+    setmaxnreg_dec<kWProducerRegs>();
+    if (warp > 8 || cnt == 0) return;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(q_full, L::kPanels * kPanel * a.bq * a.hpc);
+      for (int p = 0; p < L::kPanels; ++p)
+        tma_load_4d(q_s + p * L::kQPanel, &tq, q_full, p * 64, q0, head0, g);
+    }
+    const int* live = a.idx + at * a.n_inner;
+    const size_t bstride = static_cast<size_t>(a.batch) * a.mask_h * a.sk;
+    const size_t brow = static_cast<size_t>(band_row(a, g)) * a.sk;
+    for (int jt = 0; jt < cnt; ++jt) {
+      const int s = jt % kWStages;
+      const int k0 = live[jt] * kWBK;
+      mbar_wait(&empty[s], ((jt / kWStages) & 1) ^ 1);
+      for (int j = lane; j < kWBK; j += 32) {
+        const int kp = k0 + j;
+        const bool in = kp < a.sk;
+        if (a.k_seg != nullptr)
+          st_mask[s][0][j] = in ? a.k_seg[static_cast<size_t>(bi) * a.sk + kp] : 0;
+        if (a.band != nullptr)
+          for (int c = 0; c < 4; ++c)
+            st_mask[s][1 + c][j] = in ? a.band[c * bstride + brow + kp] : 0;
+      }
+      if (lane == 0) {
+        st_k0[s] = k0;
+        mbar_arrive_expect_tx(&full[s], 2 * L::kTile);
+        unsigned char* k_dst = kv_s + s * 2 * L::kTile;
+        for (int p = 0; p < L::kPanels; ++p) {
+          tma_load_3d(k_dst + p * L::kKVPanel, &tk, &full[s], p * 64, k0, g);
+          tma_load_3d(k_dst + L::kTile + p * L::kKVPanel, &tv, &full[s], p * 64, k0, g);
+        }
+      } else {
+        mbar_arrive(&full[s]);  // the mask data written above is released
+      }
+    }
+    return;
+  }
+
+  // -------------------------------------------------------------- consumers
+  setmaxnreg_inc<kWConsumerRegs>();
+  const int wg = threadIdx.x / 128, wq = (threadIdx.x % 128) / 32;
+  // this thread's two rows of the accumulator layout (j = 0, 1: +8 rows),
+  // with their query segment ids, read once
+  int head[2], pos[2], qid[2];
+  bool row_ok[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int m = wg * 64 + wq * 16 + lane / 4 + 8 * j;
+    head[j] = head0 + m / a.bq;
+    pos[j] = q0 + m % a.bq;
+    row_ok[j] = m < a.hpc * a.bq && pos[j] < a.sq;  // rows past hpc * bq are never loaded
+    qid[j] = (a.q_seg != nullptr && row_ok[j]) ? a.q_seg[static_cast<size_t>(bi) * a.sq + pos[j]]
+                                               : 0;
+  }
+  const bool seg = a.q_seg != nullptr, bands = a.band != nullptr;
+  float o[L::kPanels][32];
+#pragma unroll
+  for (int p = 0; p < L::kPanels; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[p][i] = 0.f;
+  float sc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+  // running max in log2 units (scores times scale * log2 e) and this
+  // thread's share of the running sum (the 4 threads of a row add up at the end)
+  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+  const float sl2 = a.scale * kLog2e;
+
+  if (cnt > 0) mbar_wait(q_full, 0);
+  for (int jt = 0; jt < cnt; ++jt) {
+    const int s = jt % kWStages;
+    const unsigned char* k_s = kv_s + s * 2 * L::kTile;
+    const unsigned char* v_s = k_s + L::kTile;
+    mbar_wait(&full[s], (jt / kWStages) & 1);
+    const int k0 = st_k0[s];
+
+    // S = Q K^T over D in k steps of 16: panel ks / 4, 32 bytes per step
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      const int p = ks / 4, j = ks % 4;
+      const uint64_t da = smem_desc(q_s + p * L::kQPanel + wg * 64 * kPanel + j * 32, 16, 1024);
+      const uint64_t db = smem_desc(k_s + p * L::kKVPanel + j * 32, 16, 1024);
+      wgmma_ss_n64<0, 0>(sc, da, db, ks > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+
+    // the mask per element (keep()'s rule): value i sits in row j = (i / 2)
+    // % 2 at column (i / 4) * 8 + (lane % 4) * 2 + i % 2; the two columns of
+    // a pair share their mask loads
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int cg = 0; cg < 8; ++cg) {
+      const int col = cg * 8 + (lane % 4) * 2;
+      int2 kid = make_int2(0, 0), lts = kid, lte = kid, uts = kid, ute = kid;
+      if (seg) kid = *reinterpret_cast<const int2*>(&st_mask[s][0][col]);
+      if (bands) {
+        lts = *reinterpret_cast<const int2*>(&st_mask[s][1][col]);
+        lte = *reinterpret_cast<const int2*>(&st_mask[s][2][col]);
+        uts = *reinterpret_cast<const int2*>(&st_mask[s][3][col]);
+        ute = *reinterpret_cast<const int2*>(&st_mask[s][4][col]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = cg * 4 + e, j = e / 2, hi = e % 2;
+        const int kp = k0 + col + hi;
+        const int qp = pos[j];
+        bool keep = kp < a.sk && (!a.causal || qp >= kp);
+        if (seg) keep = keep && qid[j] == (hi ? kid.y : kid.x);
+        if (bands) {
+          const int b0 = hi ? lts.y : lts.x, b1 = hi ? lte.y : lte.x;
+          const int b2 = hi ? uts.y : uts.x, b3 = hi ? ute.y : ute.x;
+          keep = keep && !((qp >= b0 && qp < b1) || (qp >= b2 && qp < b3));
+        }
+        const float v = keep ? sc[i] * sl2 : kNegInf;
+        sc[i] = v;
+        mx[j] = fmaxf(mx[j], v);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 1));
+      mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 2));
+      const float m_new = fmaxf(m_run[j], mx[j]);
+      alpha[j] = exp2f(m_run[j] - m_new);
+      m_run[j] = m_new;
+      l_run[j] *= alpha[j];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int j = (i / 2) % 2;
+      const float p = exp2f(sc[i] - m_run[j]);
+      l_run[j] += p;  // l sums the unrounded p
+      sc[i] = p;
+    }
+#pragma unroll
+    for (int p = 0; p < L::kPanels; ++p)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[p][i] *= alpha[(i / 2) % 2];
+
+    // O += P V: p rounded to bf16 as the register A operand, V MN-major
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kWBK / 16; ++ks) {
+      const uint32_t af[4] = {pack_bf16(sc[8 * ks + 0], sc[8 * ks + 1]),
+                              pack_bf16(sc[8 * ks + 2], sc[8 * ks + 3]),
+                              pack_bf16(sc[8 * ks + 4], sc[8 * ks + 5]),
+                              pack_bf16(sc[8 * ks + 6], sc[8 * ks + 7])};
+#pragma unroll
+      for (int p = 0; p < L::kPanels; ++p) {
+        const uint64_t db = smem_desc(v_s + p * L::kKVPanel + ks * 16 * kPanel, L::kKVPanel, 1024);
+        wgmma_rs_n64<1>(o[p], af, db, 1);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int p = 0; p < L::kPanels; ++p) fence_regs(o[p]);
+    mbar_arrive(&empty[s]);
+  }
+
+  // a row that saw no key (m still NEG_INF, also every row of an empty
+  // list): o = 0 and lse = +1e30
+  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(a.o) + static_cast<size_t>(g) * a.rep * a.sq * D;
+  float inv[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    float l = l_run[j];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    if (l == 0.f) l = 1.f;
+    const bool valid = m_run[j] > kNegInf * 0.5f;
+    inv[j] = valid ? 1.f / l : 0.f;
+    if (row_ok[j] && lane % 4 == 0)
+      a.lse_out[(static_cast<size_t>(g) * a.rep + head[j]) * a.sq + pos[j]] =
+          valid ? (m_run[j] + log2f(l)) * kLn2 : -kNegInf;
+  }
+#pragma unroll
+  for (int p = 0; p < L::kPanels; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int j = (i / 2) % 2;
+      if (!row_ok[j]) continue;
+      const int c = p * 64 + (i / 4) * 8 + (lane % 4) * 2;
+      *reinterpret_cast<__nv_bfloat162*>(
+          og + (static_cast<size_t>(head[j]) * a.sq + pos[j]) * D + c) =
+          __floats2bfloat162_rn(o[p][i] * inv[j], o[p][i + 1] * inv[j]);
+    }
 }
 
 // lse and delta of the M rows of a q tile (heads head0.. of group g); rows
@@ -462,8 +747,9 @@ __global__ void cast_kernel(const float* src, T* dst, size_t n) {
     dst[i] = from_f<T>(src[i]);
 }
 
-// Kernel kinds of the C entry (ops/flash_attention.py MASKED_KINDS).
-enum Kind { kFwd = 0, kDq = 1, kDkv = 2, kFused = 3 };
+// Kernel kinds of the C entry (ops/flash_attention.py MASKED_KINDS, then
+// the wgmma forward).
+enum Kind { kFwd = 0, kDq = 1, kDkv = 2, kFused = 3, kFwdWgmma = 4 };
 
 // Dynamic shared memory of each kernel: the layouts above, in bytes
 // (ops/flash_attention.py masked_smem_bytes mirrors this to pick the tiles).
@@ -494,10 +780,18 @@ cudaError_t launch(Kind kind, const MArgs& a, int groups, cudaStream_t stream) {
     return cudaErrorInvalidValue;
   // tensor-core tiles: 16-row multiples for every product's operands
   if (sizeof(T) == 2 && (m % 16 != 0 || a.bk % 16 != 0)) return cudaErrorInvalidValue;
-  void (*kernel)(MArgs) = kind == kFwd ? masked_fwd_kernel<T, D>
-                          : kind == kDq ? masked_dq_kernel<T, D>
-                          : kind == kDkv ? masked_dkv_kernel<T, D, false>
-                                         : masked_dkv_kernel<T, D, true>;
+  // the bf16 forward at d 64 and 128 runs masked_fwd_wgmma_kernel
+  // (launch_fwd_wgmma): no shared-memory instantiation of it
+  void (*kernel)(MArgs) = nullptr;
+  if constexpr (sizeof(T) == 2 && D >= 64) {
+    if (kind == kFwd) return cudaErrorInvalidValue;
+  } else {
+    if (kind == kFwd) kernel = masked_fwd_kernel<T, D>;
+  }
+  if (kind != kFwd)
+    kernel = kind == kDq ? masked_dq_kernel<T, D>
+             : kind == kDkv ? masked_dkv_kernel<T, D, false>
+                            : masked_dkv_kernel<T, D, true>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return e;
@@ -511,6 +805,37 @@ cudaError_t launch(Kind kind, const MArgs& a, int groups, cudaStream_t stream) {
   const size_t n = static_cast<size_t>(groups) * a.rep * a.sq * D;
   const int blocks = static_cast<int>(n / kThreads / 8 + 1 < 4096 ? n / kThreads / 8 + 1 : 4096);
   cast_kernel<T><<<blocks, kThreads, 0, stream>>>(a.dq_acc, static_cast<T*>(a.dq), n);
+  return cudaGetLastError();
+}
+
+// B5 on wgmma: bf16, d 64 or 128, a.bk == kWBK, hpc * bq <= 128 rows.  The
+// tensor maps: q as (d, sq, rep, groups) with the box (64, bq, hpc, 1), k
+// and v as (d, sk, groups); one CTA per (q tile, group, head chunk).
+template <int D>
+cudaError_t launch_fwd_wgmma(const MArgs& a, int groups, cudaStream_t stream) {
+  using L = MaskedWgmmaSmem<D>;
+  if (a.bk != kWBK || a.bq <= 0 || a.hpc <= 0 || a.hpc > 8 || a.rep % a.hpc != 0 ||
+      a.hpc * a.bq > kWRows || a.n_outer != (a.sq + a.bq - 1) / a.bq || a.mask_h <= 0 ||
+      a.kvh % a.mask_h != 0 || a.gate_h <= 0 || a.kvh % a.gate_h != 0)
+    return cudaErrorInvalidValue;
+  const uint64_t row = D * 2;
+  const uint64_t qd[4] = {D, static_cast<uint64_t>(a.sq), static_cast<uint64_t>(a.rep),
+                          static_cast<uint64_t>(groups)};
+  const uint64_t qs[3] = {row, row * a.sq, row * a.sq * a.rep};
+  const uint32_t qb[4] = {64, static_cast<uint32_t>(a.bq), static_cast<uint32_t>(a.hpc), 1};
+  const uint64_t kd[3] = {D, static_cast<uint64_t>(a.sk), static_cast<uint64_t>(groups)};
+  const uint64_t ks[2] = {row, row * a.sk};
+  const uint32_t kb[3] = {64, kWBK, 1};
+  CUtensorMap tq, tk, tv;
+  cudaError_t e = encode_bf16_map(&tq, a.q, 4, qd, qs, qb);
+  if (e == cudaSuccess) e = encode_bf16_map(&tk, a.k, 3, kd, ks, kb);
+  if (e == cudaSuccess) e = encode_bf16_map(&tv, a.v, 3, kd, ks, kb);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(masked_fwd_wgmma_kernel<D>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  if (e != cudaSuccess) return e;
+  const int ctas = a.n_outer * groups * (a.rep / a.hpc);
+  masked_fwd_wgmma_kernel<D><<<ctas, kWThreads, L::kBytes, stream>>>(tq, tk, tv, a, groups);
   return cudaGetLastError();
 }
 
@@ -529,17 +854,18 @@ cudaError_t dispatch_d(Kind kind, const MArgs& a, int groups, int d, cudaStream_
 
 extern "C" {
 
-// One entry for the four kernels: kind (Kind), 17 pointers and 14 ints in
+// One entry for the five kernels: kind (Kind), 17 pointers and 14 ints in
 // the order of ops/flash_attention.py _masked_launch:
 //   ptrs: q, k, v, do, lse, delta, o, lse_out, dq, dq_acc, dk, dv, q_seg,
 //         k_seg, band, count, idx (null where a kind does not use one)
 //   ints: batch, kvh, rep, hpc, sq, sk, d, bq, bk, mask_h, gate_h, n_outer,
 //         n_inner, causal
 // The fused kind runs its pass, then (bf16) the cast of dq_acc into dq; for
-// fp32, dq_acc is dq itself.
+// fp32, dq_acc is dq itself.  kFwdWgmma runs masked_fwd_wgmma_kernel (bf16,
+// d 64 or 128: the wrapper's masked_fwd_route), kFwd masked_fwd_kernel.
 int pt_masked_flash(int kind, void* const* p, const int* n, float scale, int dtype,
                     void* stream) {
-  if (kind < kFwd || kind > kFused) return cudaErrorInvalidValue;
+  if (kind < kFwd || kind > kFwdWgmma) return cudaErrorInvalidValue;
   MArgs a{};
   a.q = p[0];
   a.k = p[1];
@@ -576,6 +902,12 @@ int pt_masked_flash(int kind, void* const* p, const int* n, float scale, int dty
   const int groups = a.batch * a.kvh;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Kind k = static_cast<Kind>(kind);
+  if (k == kFwdWgmma) {
+    if (dtype != kBF16) return cudaErrorInvalidValue;
+    if (d == 64) return launch_fwd_wgmma<64>(a, groups, s);
+    if (d == 128) return launch_fwd_wgmma<128>(a, groups, s);
+    return cudaErrorInvalidValue;
+  }
   if (dtype == kF32) return dispatch_d<float>(k, a, groups, d, s);
   if (dtype == kBF16) return dispatch_d<__nv_bfloat16>(k, a, groups, d, s);
   return cudaErrorInvalidValue;

@@ -2,9 +2,8 @@
 
 Every ``csrc/*.cu`` source (``decode_attention.cu``, ``flash_attention.cu``,
 ``masked_flash_attention.cu``, ``grouped_matmul.cu``, ``wgmma_probe.cu``; the
-middle three include ``flash_common.cuh``, and ``flash_attention.cu``,
-``grouped_matmul.cu`` and ``wgmma_probe.cu`` include ``hopper.cuh``, the
-TMA / mbarrier / wgmma building blocks) is compiled by its own ``nvcc``
+middle three include ``flash_common.cuh``, and every one ``hopper.cuh``,
+the TMA / bulk-copy / mbarrier / wgmma building blocks) is compiled by its own ``nvcc``
 process, all started together, into an object file; one more ``nvcc``
 links them into a shared library with a plain C interface (no PyTorch
 headers, so a build takes seconds), loaded with ``ctypes``.  The library
@@ -44,8 +43,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures of the library, as function -> argtypes
 SIGNATURES = {
-    "pt_flash_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
-                        _I, _P],
+    "pt_flash_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                        _I, _F, _I, _I, _P],
     "pt_paged_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                         _F, _I, _I, _P],
     "pt_ragged_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -63,9 +62,10 @@ SIGNATURES = {
     "pt_wgmma_probe": [_I, _P, _P, _P, _P],
 }
 # the bf16 kernels that must issue wgmma (HGMMA in their SASS): B1, B2
-# (dk/dv, dq), B7 (forward and dx), B8
+# (dk/dv, dq), B5, B7 (forward and dx), B8
 WGMMA_KERNELS = ("hb_fwd_wgmma_kernel", "hb_dkv_wgmma_kernel",
-                 "hb_dq_wgmma_kernel", "gmm_wgmma_kernel", "outer_wgmma_kernel")
+                 "hb_dq_wgmma_kernel", "masked_fwd_wgmma_kernel",
+                 "gmm_wgmma_kernel", "outer_wgmma_kernel")
 # the shape of b that each mode of pt_wgmma_probe takes (csrc/wgmma_probe.cu)
 PROBE_B_SHAPES = {0: (64, 64), 1: (64, 128), 2: (64, 256), 3: (64, 256),
                   4: (256, 64), 5: (64, 128)}

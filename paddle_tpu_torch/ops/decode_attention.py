@@ -13,19 +13,23 @@ keep the signatures, layouts and semantics of the TPU ones:
   visibility), row_slot [T] (< 0 = padding, output 0), block_tables
   [slots, max_pages].
 
-On a CUDA tensor each launcher runs its hand-written kernel
+On a CUDA tensor each launcher runs its hand-written kernels
 (``csrc/decode_attention.cu``) and counts the launch in ``LAUNCHES``;
 on a CPU tensor it runs the ``*_plain`` PyTorch version beside it.  There
 is no other route: a tensor on any other device raises.
 
-``pages_per_step`` keeps its TPU name and heuristic; on the GPU it is the
-number of pages a CTA stages per loop trip.
+``flash_decode`` splits each row's visible length over CTAs (a split
+kernel per chunk of C tokens, then a combine kernel): ``decode_split_plan``
+picks C from static shapes, ``split_merge_plain`` is the plain twin of the
+two kernels' arithmetic.  ``block_k`` keeps its TPU name and meaning
+(tokens per step) and caps C.  ``pages_per_step`` keeps its TPU name and
+heuristic; on the GPU it is the number of pages a CTA stages per loop trip.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -41,9 +45,16 @@ _PAGED_VMEM_BUDGET = 8 * 1024 * 1024
 _PAGED_TARGET_WINDOW = 512
 
 # shared memory a block may use on the H100, and the warps per CTA of the
-# kernel (kWarps in csrc/decode_attention.cu), which size its per-warp sums
+# paged kernel (kWarps in csrc/decode_attention.cu), which size its per-warp
+# sums
 _SMEM_LIMIT = 227 * 1024
 _KERNEL_WARPS = 8
+# the dense split kernel (decode_split_kernel): threads per CTA, which is
+# also the largest chunk (one key per thread in the score pass), the
+# smallest chunk, and the CTAs per SM its plan aims at over the H100's 132
+_SPLIT_THREADS = 128
+_MIN_CHUNK = 16
+_SPLIT_TARGET_CTAS = 2 * 132
 
 SUPPORTED_HEAD_DIMS = (8, 16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -56,6 +67,24 @@ LAUNCHES: Dict[str, int] = {"flash_decode": 0, "paged_decode": 0,
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def decode_split_plan(b: int, kvh: int, t_max: int,
+                      block_k: int = 512) -> Tuple[int, int]:
+    """(C, splits) of the dense split kernel, from static shapes only (the
+    lengths stay on the device).  C is a power of two, at most ``block_k``
+    (tokens per step) and _SPLIT_THREADS: the largest such chunk of at
+    least _MIN_CHUNK tokens whose grid at full length, b * kvh *
+    ceil(t_max / C) CTAs, still puts about _SPLIT_TARGET_CTAS CTAs on the
+    card (two per SM), else the smallest.  splits = ceil(t_max / C)."""
+    if block_k < 1:
+        raise ValueError(f"flash_decode: block_k {block_k} < 1")
+    cap = min(int(block_k), _SPLIT_THREADS)
+    chunk = 1 << (min(cap, _MIN_CHUNK).bit_length() - 1)
+    while chunk * 2 <= cap and \
+            b * kvh * -(-t_max // (chunk * 2)) >= _SPLIT_TARGET_CTAS:
+        chunk *= 2
+    return chunk, -(-t_max // chunk)
 
 
 def default_pages_per_step(page: int, kvh: int, d: int, max_pages: int,
@@ -113,6 +142,53 @@ def flash_decode_plain(q, k_cache, v_cache, seq_lens, scale=None):
     s_max = int(lens.max()) if lens.numel() else 0
     return _attend_plain(q, k_cache[:, :, :s_max], v_cache[:, :, :s_max],
                          lens, scale)
+
+
+def split_merge_plain(q, k_cache, v_cache, seq_lens, scale=None,
+                      chunk: int = 128):
+    """``flash_decode`` as its two kernels compute it, in plain PyTorch:
+    each chunk of ``chunk`` visible tokens gives fp32 partials (m_c = the
+    chunk's max score, l_c = the sum of the unrounded p = exp(s - m_c), acc_c
+    = p rounded to v's dtype (q's for int8 V) times V), and the combine
+    merges a row's ceil(len / chunk) partials in split order: M = max m_c,
+    l = sum l_c e^(m_c - M), o = sum acc_c e^(m_c - M) / l.  Keys past the
+    length score NEG_INF and their V rows are zeroed, so garbage there
+    never enters a sum; a row that sees no key outputs 0."""
+    b, h, d = q.shape
+    scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
+    kvh, t_max = k_cache.shape[1], k_cache.shape[2]
+    rep = h // kvh
+    pdt = q.dtype if v_cache.dtype == torch.int8 else v_cache.dtype
+    lens = seq_lens.to(torch.long).clamp(0, t_max)
+    qg = q.reshape(b, kvh, rep, d).float()
+    parts = []                                 # (live, m_c, l_c, acc_c)
+    for c0 in range(0, t_max, chunk):
+        vis = (c0 + torch.arange(min(chunk, t_max - c0), device=q.device)
+               [None, :] < lens[:, None])                      # [b, n]
+        kc = k_cache[:, :, c0:c0 + chunk].to(q.dtype).float()
+        vc = v_cache[:, :, c0:c0 + chunk].to(q.dtype)
+        s = torch.einsum("bgqd,bgsd->bgqs", qg, kc) * scale
+        s = torch.where(vis[:, None, None, :], s, torch.full_like(s, NEG_INF))
+        m_c = s.amax(-1, keepdim=True)
+        p = torch.exp(s - m_c)
+        vz = torch.where(vis[:, None, :, None], vc, torch.zeros_like(vc))
+        parts.append(((c0 < lens)[:, None, None, None], m_c,
+                      p.sum(-1, keepdim=True),
+                      torch.einsum("bgqs,bgsd->bgqd", p.to(pdt).float(),
+                                   vz.float())))
+    # the combine: over the chunks that hold a visible key, in split order
+    mx = torch.full((b, kvh, rep, 1), NEG_INF, device=q.device)
+    for live, m_c, _, _ in parts:
+        mx = torch.where(live, torch.maximum(mx, m_c), mx)
+    l = torch.zeros((b, kvh, rep, 1), device=q.device)
+    acc = torch.zeros((b, kvh, rep, d), device=q.device)
+    for live, m_c, l_c, acc_c in parts:
+        w = torch.exp(m_c - mx)
+        l = torch.where(live, l + l_c * w, l)
+        acc = torch.where(live, acc + acc_c * w, acc)
+    l = torch.where(l == 0.0, torch.ones_like(l), l)
+    out = torch.where(mx > NEG_INF * 0.5, acc / l, torch.zeros_like(acc))
+    return out.to(q.dtype).reshape(b, h, d)
 
 
 def _paged_rows_plain(q, key_cache, value_cache, lens, slots, block_tables,
@@ -242,7 +318,10 @@ def flash_decode(q, k_cache, v_cache, seq_lens, scale=None,
     ``flash_decode_raw``).  q [b, h, d]; k/v [b, kvh, t_max, d] (kvh
     divides h, heads group-major); seq_lens [b] = visible cache rows (the
     new token's K/V already written).  Returns [b, h, d] in q's dtype.
-    ``block_k``: tokens a CTA stages per loop trip."""
+    On the card: the split kernel over chunks of C tokens
+    (``decode_split_plan``; ``block_k`` caps C), its fp32 partials in a
+    scratch allocated here, then the combine kernel; K and V must be
+    16-byte aligned (their chunks are copied in bulk)."""
     _check_inputs(q, k_cache, v_cache, "flash_decode")
     dev = _on_device("flash_decode", q, k_cache, v_cache, seq_lens)
     b, h, d = q.shape
@@ -251,16 +330,22 @@ def flash_decode(q, k_cache, v_cache, seq_lens, scale=None,
     if dev == "cpu":
         return flash_decode_plain(q, k_cache, v_cache, seq_lens, scale)
     kvh, t_max = k_cache.shape[1], k_cache.shape[2]
+    if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
+        raise ValueError("flash_decode: K and V must be 16-byte aligned")
     out = torch.empty_like(q)
-    if b == 0:
-        return out
-    tile = _fit_tile(h // kvh, d, min(int(block_k), -(-t_max // 32) * 32),
-                     32)
+    if b == 0 or t_max == 0:          # no key to see: every row is 0
+        return out.zero_()
+    chunk, splits = decode_split_plan(b, kvh, t_max, block_k)
+    # one fp32 scratch: the chunks' m and l [b, h, splits], acc [.., d]
+    n = b * h * splits
+    part = torch.empty(n * (d + 2), dtype=torch.float32, device=q.device)
+    part_m, part_l, part_acc = part[:n], part[n:2 * n], part[2 * n:]
     lens = _i32(seq_lens)
     lib = _build.library()
     rc = lib.pt_flash_decode(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-        lens.data_ptr(), b, h, kvh, t_max, d, tile, float(scale),
+        lens.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
+        part_acc.data_ptr(), b, h, kvh, t_max, d, chunk, float(scale),
         _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_cache.dtype], _stream())
     _build.check(lib, rc, "flash_decode")
     LAUNCHES["flash_decode"] += 1

@@ -650,6 +650,35 @@ def masked_tiles(rep: int, d: int, dtype: torch.dtype):
     return hpc, bq, bk
 
 
+# the B5 forward on wgmma (csrc/masked_flash_attention.cu
+# masked_fwd_wgmma_kernel): its C kind, the most heads a CTA covers (the
+# q tile's TMA box) and its rows and keys per tile, B1's
+_MASKED_FWD_WGMMA_KIND = 4
+MASKED_WGMMA_MAX_HPC = 8
+
+
+def masked_fwd_route(d: int, dtype: torch.dtype) -> str:
+    """Which CUDA kernel runs the masked forward (B5), by ``fwd_route``'s
+    rule on the head dim and dtype: ``"wgmma"`` (``masked_fwd_wgmma_kernel``:
+    TMA ring over the live k tiles, wgmma, register accumulators, the mask
+    in registers) for bf16 at d 64 and 128; ``"smem"``
+    (``masked_fwd_kernel``: shared-memory accumulators, wmma for bf16, CUDA
+    cores for fp32) for bf16 at d 16 and 32 and for fp32."""
+    return fwd_route(d, dtype)
+
+
+def masked_fwd_wgmma_tiles(rep: int) -> Tuple[int, int, int]:
+    """(heads per CTA, block_q, block_k) of the wgmma masked forward: the
+    CTA's 128 rows (two warpgroups of 64) hold hpc heads, the largest
+    divisor of rep up to 8, at block_q = 128 // hpc positions (rows past
+    hpc * block_q stay idle when hpc does not divide 128), against k tiles
+    of 64 keys.  The forward's live tables are built at these tiles; B6
+    keeps ``masked_tiles``."""
+    hpc = max(c for c in range(1, min(rep, MASKED_WGMMA_MAX_HPC) + 1)
+              if rep % c == 0)
+    return hpc, WGMMA_FWD_ROWS // hpc, WGMMA_FWD_BK
+
+
 def _masked_launch(kind: str, ptrs: dict, ints: dict, scale: float,
                    dtype: torch.dtype) -> None:
     lib = _build.library()
@@ -658,8 +687,10 @@ def _masked_launch(kind: str, ptrs: dict, ints: dict, scale: float,
           for n in _MASKED_PTRS])
     i = (ctypes.c_int * len(_MASKED_INTS))(*[int(ints[n])
                                              for n in _MASKED_INTS])
-    rc = lib.pt_masked_flash(MASKED_KINDS[kind], p, i, scale,
-                             _DTYPE_CODES[dtype], _stream())
+    code = (_MASKED_FWD_WGMMA_KIND if kind == "fwd_wgmma"
+            else MASKED_KINDS[kind])
+    rc = lib.pt_masked_flash(code, p, i, scale, _DTYPE_CODES[dtype],
+                             _stream())
     _build.check(lib, rc, f"masked flash attention ({kind})")
 
 
@@ -713,8 +744,11 @@ def flash_forward(q, k, v, causal: bool, scale: Optional[float], h: int,
     ``_flash_kernel``, B5).  q [b*h, sq, d]; k/v [b*kvh, sk, d], one dtype
     (float32 or bfloat16); q_seg [b, sq] and k_seg [b, sk] segment ids;
     bands (lts, lte, uts, ute) each [b, mask_h, sk].  Returns (o
-    [b*h, sq, d] in q's dtype, lse [b*h, sq] fp32).  On the card the live
-    tables are built at the kernel's own tiles (``masked_tiles``)."""
+    [b*h, sq, d] in q's dtype, lse [b*h, sq] fp32).  On the card
+    ``masked_fwd_route`` picks the kernel and the live tables are built at
+    its own tiles (``masked_fwd_wgmma_tiles`` or ``masked_tiles``); the
+    wgmma kernel also needs 16-byte aligned q, k, v (TMA) and raises
+    otherwise."""
     dev = _check_masked("flash_forward", q, k, v, h, kvh, q_seg, k_seg,
                         bands, mask_h)
     bh, sq, d = q.shape
@@ -729,14 +763,16 @@ def flash_forward(q, k, v, causal: bool, scale: Optional[float], h: int,
     if o.numel() == 0 or sk == 0:
         return o.zero_(), lse.fill_(-NEG_INF)
     b, rep = bh // h, h // kvh
-    hpc, bq, bk = masked_tiles(rep, d, q.dtype)
+    wgmma = masked_fwd_route(d, q.dtype) == "wgmma"
+    hpc, bq, bk = (masked_fwd_wgmma_tiles(rep) if wgmma
+                   else masked_tiles(rep, d, q.dtype))
     nq, nk = -(-sq // bq), -(-sk // bk)
     gate_h = mask_h if bands is not None else 1
     count, idx = _compress_live(_live_tables(
         b, gate_h, nq, nk, bq, bk, sq, sk, causal, q_seg, k_seg, bands,
         device=q.device))
     qs, ks, band = _mask_tensors(q_seg, k_seg, bands, b, mask_h, sk)
-    _masked_launch("fwd", dict(q=q, k=k, v=v, o=o, lse_out=lse, q_seg=qs,
+    _masked_launch("fwd_wgmma" if wgmma else "fwd", dict(q=q, k=k, v=v, o=o, lse_out=lse, q_seg=qs,
                                k_seg=ks, band=band, count=count, idx=idx),
                    dict(batch=b, kvh=kvh, rep=rep, hpc=hpc, sq=sq, sk=sk,
                         d=d, bq=bq, bk=bk, mask_h=mask_h, gate_h=gate_h,

@@ -1,8 +1,8 @@
 """The port's kernel build helpers and launch rules that run without a card:
 the ``ptxas -v`` log reader behind chip_smoke.py's per-kernel register,
 spill and shared-memory lines, the explicit rules that pick the bf16 flash
-forward's and backward's wgmma kernels and their tiles, and the layout
-probe's shape guard."""
+forward's and backward's wgmma kernels (head-batched and masked) and their
+tiles, and the layout probe's shape guard."""
 
 import pytest
 import torch
@@ -62,6 +62,24 @@ def test_wgmma_bwd_tiles_fill_at_most_64_and_128_rows(rep):
     assert (bk_kv, bk_q) == (128, 64)
     assert rep * bq_kv <= 64 < rep * (bq_kv + 1)
     assert rep * bq_q <= 128 < rep * (bq_q + 1)
+
+
+@pytest.mark.parametrize("d", fa.SUPPORTED_HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_masked_fwd_route_is_a_rule_on_head_dim_and_dtype(d, dtype):
+    want = "wgmma" if dtype == torch.bfloat16 and d in (64, 128) else "smem"
+    assert fa.masked_fwd_route(d, dtype) == want
+
+
+@pytest.mark.parametrize("rep", range(1, 17))
+def test_masked_fwd_wgmma_tiles_fill_at_most_128_rows(rep):
+    """hpc divides rep and is its largest divisor up to 8 (the TMA box's
+    head extent); the CTA's 128 rows hold hpc heads at as many whole
+    positions as fit, against 64-key tiles."""
+    hpc, bq, bk = fa.masked_fwd_wgmma_tiles(rep)
+    assert rep % hpc == 0 and hpc <= 8
+    assert not any(rep % c == 0 for c in range(hpc + 1, min(rep, 8) + 1))
+    assert bk == 64 and hpc * bq <= 128 < hpc * (bq + 1)
 
 
 @pytest.mark.parametrize("mode", sorted(_build.PROBE_B_SHAPES))

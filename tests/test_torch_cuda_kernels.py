@@ -85,6 +85,57 @@ def test_flash_decode_kernel_matches_plain(dev, d, dtype, kv_int8):
     assert torch.all(got[0] == 0)
 
 
+# (q dtype, K/V dtype) pairs of the split kernels: bf16, int8 K/V under bf16
+# q, fp32, and fp32 q over a bf16 cache
+SPLIT_CASES = {"bf16": (torch.bfloat16, torch.bfloat16),
+               "int8": (torch.bfloat16, torch.int8),
+               "fp32": (torch.float32, torch.float32),
+               "fp32_over_bf16": (torch.float32, torch.bfloat16)}
+
+
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("rep", [1, 4, 8])
+@pytest.mark.parametrize("d", [8, 64, 128])
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_flash_decode_split_kernels_match_plain(dev, case, d, rep, b):
+    """B4's split and combine kernels against the plain version at the
+    plan's chunk C (b 1 over 300 positions: C 16; b 8 over 2100: C 128):
+    lengths 0, 1, C - 1, C, C + 1 and t_max (b 1: one call each), NaN keys
+    and values planted past every length (float caches).  The gate is the
+    bf16 one wherever p is rounded to bf16 (a bf16 or int8-under-bf16 V, and
+    fp32 q over a bf16 cache: the kernel rounds p against its chunk's max,
+    the plain version against the row's), else fp32's; rows that see no key
+    exactly 0."""
+    qdt, kvdt = SPLIT_CASES[case]
+    kvh, t_max = 2, 300 if b == 1 else 2100
+    h = rep * kvh
+    chunk, _ = da.decode_split_plan(b, kvh, t_max, 512)
+    assert chunk == (16 if b == 1 else 128)
+    lens = [0, 1, chunk - 1, chunk, chunk + 1, t_max]
+    calls = [[n] for n in lens] if b == 1 else [lens + [37, 2]]
+    tol = ROW_TOL["fp32" if kvdt == torch.float32 or
+                  (kvdt == torch.int8 and qdt == torch.float32) else "bf16"]
+    for i, row_lens in enumerate(calls):
+        q, k, v = _inputs(dev, b, h, kvh, d, (b, kvh, t_max, d), qdt,
+                          kvdt == torch.int8, 20 + i)
+        k, v = k.to(kvdt), v.to(kvdt)
+        if kvdt != torch.int8:
+            for r, n in enumerate(row_lens):
+                k[r, :, n:] = float("nan")
+                v[r, :, n:] = float("nan")
+        lens_t = torch.tensor(row_lens, dtype=torch.int32, device=dev)
+        before = da.LAUNCHES["flash_decode"]
+        got = da.flash_decode(q, k, v, lens_t)
+        torch.cuda.synchronize()
+        assert da.LAUNCHES["flash_decode"] == before + 1
+        want = da.flash_decode_plain(q, k, v, lens_t)
+        err, _ = row_error(got, want)
+        assert err <= tol, (row_lens, err)
+        for r, n in enumerate(row_lens):
+            if n == 0:
+                assert torch.all(got[r] == 0)
+
+
 @pytest.mark.parametrize("d", [8, 64, 128])
 @pytest.mark.parametrize("dtype,kv_int8", CASES)
 @pytest.mark.parametrize("pp", [1, 3, "auto"])
@@ -153,23 +204,46 @@ def test_generate_on_cuda_matches_cpu(dev):
     assert torch.equal(got, cpu.generate(ids, max_new_tokens=10))
 
 
-# faults planted into copies of the kernel source: (text, replacement)
+# faults planted into copies of csrc/decode_attention.cu: (text,
+# replacement, the launchers it breaks, the cases that show it, the factor
+# over the limit its reading must reach)
 PLANTED = {
-    # the second loop trip of every row is skipped
+    # the paged kernel skips the second loop trip of every row
     "skipped_trip": ("if (start >= len) break;",
-                     "if (start >= len) break;\n    if (trip == 1) continue;"),
-    # the accumulator is not rescaled when a later trip raises the max
+                     "if (start >= len) break;\n    if (trip == 1) continue;",
+                     ("paged_decode", "ragged_paged_decode"), ("bf16", "int8"),
+                     1),
+    # the paged kernel does not rescale its sums when a later trip raises
+    # the max
     "no_alpha_rescale": ("acc_w[(r0 + rr) * D + i] * alpha_s[r0 + rr]",
-                         "acc_w[(r0 + rr) * D + i]"),
+                         "acc_w[(r0 + rr) * D + i]",
+                         ("paged_decode", "ragged_paged_decode"),
+                         ("bf16", "int8"), 1),
+    # B4's combine drops each row's last split
+    "combine_drops_last_split": (
+        "for (int c = 0; c < ns; ++c) {  // merge in split order",
+        "for (int c = 0; c < ns - 1; ++c) {  // merge in split order",
+        ("flash_decode",), ("bf16", "int8"), 10),
+    # B4's split kernel stops zeroing the V rows past the length that its
+    # copy brings in: NaN planted there (float caches only) reaches the sum
+    "v_tail_not_zeroed": (
+        "reinterpret_cast<uint32_t*>(const_cast<unsigned char*>(v_s) + n * "
+        "R::kBytes)[i] = 0u;", "{}", ("flash_decode",), ("bf16",), 10),
 }
 
 
 def _readings(dev, case):
-    """Per-row gate error of each launcher at the serving shapes."""
+    """Per-row gate error of each launcher at the serving shapes, with NaN
+    planted past every row's length in flash_decode's float cache."""
     out = {}
     for name, inp in launcher_inputs(case, dev).items():
-        got = getattr(da, name)(*inp["args"])
-        want = getattr(da, name + "_plain")(*inp["args"])
+        args = inp["args"]
+        if name == "flash_decode" and args[1].dtype != torch.int8:
+            for r, n in enumerate(args[3].tolist()):
+                args[1][r, :, n:] = float("nan")
+                args[2][r, :, n:] = float("nan")
+        got = getattr(da, name)(*args)
+        want = getattr(da, name + "_plain")(*args)
         out[name] = row_error(got, want)[0]
     return out
 
@@ -197,21 +271,28 @@ def _build_planted(tmp_path, source_name, planted):
 
 
 def test_error_gate_catches_planted_faults(dev, tmp_path, monkeypatch):
-    libs = _build_planted(tmp_path, "decode_attention.cu", PLANTED)
+    """Each planted fault reads over the limit (the B4 faults at least 10
+    times over it) in every launcher it breaks, at the serving shapes; the
+    sound kernels read within it, NaN past the lengths included."""
+    libs = _build_planted(tmp_path, "decode_attention.cu",
+                          {f: v[:2] for f, v in PLANTED.items()})
     tol = ROW_TOL["bf16"]
     for case in ("bf16", "int8"):
         sound = _readings(dev, case)
         print(json.dumps({"kernel": "sound", "case": case, "tol": tol,
                           "row_error": sound}))
         assert max(sound.values()) <= tol, sound
-        for fault in PLANTED:
+        for fault, (_, _, broken, cases, factor) in PLANTED.items():
+            if case not in cases:
+                continue
             lib = _build.bind(ctypes.CDLL(str(libs[fault])))
             monkeypatch.setattr(_build, "_lib", lib)
             bad = _readings(dev, case)
             monkeypatch.undo()
             print(json.dumps({"kernel": fault, "case": case, "tol": tol,
                               "row_error": bad}))
-            assert min(bad.values()) > tol, (fault, case, bad)
+            assert min(bad[n] for n in broken) > factor * tol, \
+                (fault, case, bad)
 
 
 # ---------------------------------------------------------------- B1 / B2
@@ -441,6 +522,64 @@ def test_masked_flash_kernels_match_plain(dev, kind, case, monkeypatch):
         "flash_masked_bwd_dq": 1, "flash_masked_bwd_dkv": 1}
 
 
+@pytest.mark.parametrize("rep", [1, 2, 3, 4, 5, 6, 7, 8, 16])
+@pytest.mark.parametrize("case", list(MASKED_SWEEP))
+def test_masked_fwd_wgmma_matches_plain(dev, case, rep, monkeypatch):
+    """B5 on wgmma (bf16; head dims under 64 raised to 64, the smallest it
+    takes) on every MASKED_SWEEP case at rep 1 to 8 and 16: hpc heads of
+    128 // hpc positions per CTA (rep 5: 5 x 25 rows, 3 of 128 idle; rep 16:
+    8 x 16), the live lists at masked_fwd_wgmma_tiles, held against the plain
+    version with the per-row gate; rows that see no key exact (o = 0,
+    lse = +1e30)."""
+    b, sq, sk, _, kvh, d, causal, mask = MASKED_SWEEP[case]
+    monkeypatch.setattr(chip_smoke, "MASKED_CASES", {
+        case: (b, sq, sk, rep * kvh, kvh, max(d, 64), causal, mask)})
+    inp = masked_inputs(case, "bf16", dev)
+    q, k, v, kw = inp["q"], inp["k"], inp["v"], inp["kw"]
+    args = (inp["causal"], inp["scale"], inp["h"], inp["kvh"])
+    assert fa.masked_fwd_route(q.shape[-1], q.dtype) == "wgmma"
+    fa.reset_launches()
+    o, lse = fa.flash_forward(q, k, v, *args, **kw)
+    wo, wlse = fa.flash_forward_plain(q, k, v, *args, **kw)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_masked_fwd"] == 1
+    dead = wlse >= 1e30
+    errs, _ = masked_errors("bf16", {"o": o, "lse": lse},
+                            {"o": wo, "lse": wlse}, dead)
+    print(json.dumps({"case": [case, rep], "dead_rows": int(dead.sum()),
+                      **errs}))
+    tol = FLASH_ROW_TOL["bf16"]
+    assert all(e <= tol[n] for n, e in errs.items()), errs
+
+
+def test_masked_fwd_wgmma_empty_live_list(dev):
+    """Bands that hide rows [0, 160) from every key: the wgmma forward's q
+    tiles there have an empty live list, write o = 0 and lse = +1e30 and
+    load nothing; the other rows match the plain version."""
+    b, s, h, kvh, d = 2, 320, 8, 2, 128
+    g = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn(b * h, s, d, generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn(b * kvh, s, d, generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn(b * kvh, s, d, generator=g, device=dev).to(torch.bfloat16)
+    full = torch.full((b, 1, s), 160, dtype=torch.int32, device=dev)
+    zero = torch.zeros_like(full)
+    bands = (zero, full, full, full)             # key j hides rows [0, 160)
+    hpc, bq, bk = fa.masked_fwd_wgmma_tiles(h // kvh)
+    count, _ = fa._compress_live(fa._live_tables(
+        b, 1, -(-s // bq), -(-s // bk), bq, bk, s, s, False, bands=bands))
+    assert (count == 0).sum().item() == b * (160 // bq)
+    o, lse = fa.flash_forward(q, k, v, False, None, h, kvh, bands=bands,
+                              mask_h=1)
+    wo, wlse = fa.flash_forward_plain(q, k, v, False, d ** -0.5, h, kvh,
+                                      bands=bands, mask_h=1)
+    torch.cuda.synchronize()
+    dead = wlse >= 1e30
+    assert dead[:, :160].all() and not dead[:, 160:].any()
+    errs, _ = masked_errors("bf16", {"o": o, "lse": lse},
+                            {"o": wo, "lse": wlse}, dead)
+    assert all(e <= FLASH_ROW_TOL["bf16"][n] for n, e in errs.items()), errs
+
+
 def test_masked_train_step_on_cuda_matches_cpu(dev):
     """The port's fp32 masked train step (packed documents with a padding
     tail, and one all-padding micro-batch) on the card vs the same step on
@@ -488,17 +627,16 @@ def test_masked_train_step_on_cuda_matches_cpu(dev):
 
 # faults planted into copies of csrc/masked_flash_attention.cu
 PLANTED_MASKED = {
-    # the forward's live k-tile list is cut one tile short
-    "list_one_short": (
-        "for (int jt = 0; jt < cnt; ++jt) {\n    const int k0 = live[jt] * "
-        "a.bk;\n    __syncthreads();  // the previous tile's readers of k_s, "
-        "v_s, p_s",
-        "for (int jt = 0; jt < cnt - 1; ++jt) {\n    const int k0 = "
-        "live[jt] * a.bk;\n    __syncthreads();  // the previous tile's "
-        "readers of k_s, v_s, p_s"),
-    # queries see keys of other segments inside live tiles
-    "segment_mask_dropped": (
-        "if (a.q_seg != nullptr && qseg_s[r] != kseg_s[j]) return false;", ""),
+    # the wgmma forward skips each CTA's last live k tile (it still frees
+    # the stage, so the producer is not left waiting)
+    "wgmma_skips_last_tile": (
+        "mbar_wait(&full[s], (jt / kWStages) & 1);",
+        "mbar_wait(&full[s], (jt / kWStages) & 1);\n"
+        "    if (jt == cnt - 1) {\n      mbar_arrive(&empty[s]);\n"
+        "      continue;\n    }"),
+    # the wgmma forward's queries see keys of other segments in live tiles
+    "wgmma_ignores_segments": (
+        "if (seg) keep = keep && qid[j] == (hi ? kid.y : kid.x);", ""),
     # dk/dv lose the contribution of the group's second head
     "dkv_drops_head_1": (
         "if (k_pos >= a.sk) ds = 0.f;",
@@ -531,7 +669,7 @@ def test_masked_gate_catches_planted_faults(dev, tmp_path, monkeypatch):
     the output it breaks; the sound kernels read within the limits."""
     libs = _build_planted(tmp_path, "masked_flash_attention.cu",
                           PLANTED_MASKED)
-    faulty = {"list_one_short": "o", "segment_mask_dropped": "o",
+    faulty = {"wgmma_skips_last_tile": "o", "wgmma_ignores_segments": "o",
               "dkv_drops_head_1": "dk"}
     tol = FLASH_ROW_TOL["bf16"]
     sound = _masked_readings(dev)
@@ -877,8 +1015,8 @@ def test_wgmma_probe_matches_matmul(dev, mode):
 
 
 def test_wgmma_kernels_issue_hgmma(dev):
-    """The bf16 B1, B2, B7 and B8 kernels issue wgmma (HGMMA in their SASS)
-    and spill nothing (ptxas -v)."""
+    """The bf16 B1, B2, B5, B7 and B8 kernels issue wgmma (HGMMA in their
+    SASS) and spill nothing (ptxas -v)."""
     _build.library()
     report = _build.kernel_report()
     for name in _build.WGMMA_KERNELS:

@@ -105,6 +105,71 @@ def test_flash_decode_plain_int8_kv(qdt):
     _close(got.float().numpy(), np.asarray(want, np.float32), qdt, 127.0)
 
 
+@pytest.mark.parametrize("b,kvh,t_max", [(8, 8, 2048), (1, 8, 222),
+                                         (5, 2, 700), (64, 8, 8192),
+                                         (1, 1, 5), (3, 4, 1)])
+@pytest.mark.parametrize("block_k", [1, 3, 16, 100, 128, 512])
+def test_decode_split_plan_is_a_static_rule(b, kvh, t_max, block_k):
+    """C is a power of two, at most block_k and the split kernel's 128
+    threads, and the grid covers t_max; the plan takes static shapes only
+    (no lengths), and only shrinks C to keep two CTAs per SM in flight."""
+    import inspect
+    assert list(inspect.signature(port.decode_split_plan).parameters) == [
+        "b", "kvh", "t_max", "block_k"]
+    chunk, splits = port.decode_split_plan(b, kvh, t_max, block_k)
+    assert chunk & (chunk - 1) == 0 and chunk <= min(block_k, 128)
+    assert splits == -(-t_max // chunk)
+    top = 1 << (min(block_k, 128).bit_length() - 1)   # largest allowed
+    if 16 <= chunk < top:
+        assert b * kvh * -(-t_max // (2 * chunk)) < 2 * 132
+    assert port.decode_split_plan(b, kvh, t_max, block_k) == (chunk, splits)
+
+
+def test_decode_split_plan_at_the_main_shapes():
+    """The kernel phase's cache (8 rows x 8 kv heads x 2048) takes 128-token
+    chunks; generate's one row of 222 positions takes 16."""
+    assert port.decode_split_plan(8, 8, 2048, 512) == (128, 16)
+    assert port.decode_split_plan(1, 8, 222, 512) == (16, 14)
+    with pytest.raises(ValueError):
+        port.decode_split_plan(1, 1, 8, 0)
+
+
+@pytest.mark.parametrize("kv_dtype,qdt", [("fp32", "fp32"), ("int8", "fp32"),
+                                          ("fp32", "bf16"), ("int8", "bf16")])
+def test_split_merge_plain_matches_plain_and_pallas(kv_dtype, qdt):
+    """The split kernel's chunk partials merged as the combine kernel merges
+    them (``split_merge_plain``) against ``flash_decode_plain`` and the
+    Pallas ``flash_decode_raw`` (interpret mode): lengths 0, 1, C - 1, C,
+    C + 1 and t_max at the plan's C, with NaN keys and values planted past
+    each length (float caches).  fp32 1e-5; bf16 and int8 as _close."""
+    rng = np.random.default_rng(12)
+    b, h, kvh, d, t_max = 6, 8, 2, 32, 150
+    chunk, _ = port.decode_split_plan(b, kvh, t_max, 512)
+    lens = np.array([0, 1, chunk - 1, chunk, chunk + 1, t_max], np.int32)
+    q = ((0.05 if kv_dtype == "int8" else 1.0)
+         * rng.standard_normal((b, h, d))).astype(np.float32)
+    kc = _kv(rng, (b, kvh, t_max, d), kv_dtype)
+    vc = _kv(rng, (b, kvh, t_max, d), kv_dtype)
+    if kv_dtype == "fp32":
+        for i, n in enumerate(lens):
+            kc[i, :, n:] = np.nan
+            vc[i, :, n:] = np.nan
+    tdt, jdt = _DT[qdt]
+    kvt = tdt if kv_dtype == "fp32" else None
+    kvj = jdt if kv_dtype == "fp32" else None
+    got = port.split_merge_plain(_t(q, tdt), _t(kc, kvt), _t(vc, kvt),
+                                 _t(lens), chunk=chunk)
+    assert got.dtype == (torch.float32 if tdt is None else tdt)
+    vscale = 127.0 if kv_dtype == "int8" else 1.0
+    plain = port.flash_decode_plain(_t(q, tdt), _t(kc, kvt), _t(vc, kvt),
+                                    _t(lens))
+    _close(got.float().numpy(), plain.float().numpy(), qdt, vscale)
+    want = flash_decode_raw(_j(q, jdt), _j(kc, kvj), _j(vc, kvj), _j(lens),
+                            block_k=128)
+    _close(got.float().numpy(), np.asarray(want, np.float32), qdt, vscale)
+    assert np.all(got[0].float().numpy() == 0.0)   # sees no key -> exactly 0
+
+
 # ---------------------------------------------------------------- paged B3
 
 def _paged_inputs(rng, b, h, kvh, d, page, mp, kv_dtype="fp32"):
