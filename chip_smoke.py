@@ -8,7 +8,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
 1. the card's name and power limit; the kernels' build from csrc/, with
    each kernel's registers, spill bytes and static shared memory
    (``ptxas -v``) and whether its SASS holds HGMMA; the bf16 B1, B2, B5,
-   B7 and B8 kernels (``_build.WGMMA_KERNELS``) must;
+   B6, B7 and B8 kernels (``_build.WGMMA_KERNELS``) must;
 2. every kernel launcher (flash_decode B4, paged_decode B3,
    ragged_paged_decode B3') at the Llama-3-8B attention shapes (32 q heads,
    8 kv heads, head dim 128) in bf16, int8 K/V and fp32, held against its
@@ -54,18 +54,23 @@ Phases, each of which raises (and so exits non-zero) on failure:
    that see no key exact) and timed beside its bound over the visible
    pairs, its plain version and ``scaled_dot_product_attention`` with the
    dense bool mask (forward; for B6 its backward alone, with the
-   forward+backward beside it; a yardstick the port never calls); B5 runs
-   ``masked_fwd_wgmma_kernel`` for bf16 at head dim 64/128;
+   forward+backward beside it; a yardstick the port never calls); for
+   bf16 at head dim 64/128 B5 runs ``masked_fwd_wgmma_kernel`` and B6
+   ``masked_dkv_wgmma_kernel`` (fused or split) and
+   ``masked_dq_wgmma_kernel``;
 8. packed-document training at the ``bench.py`` width and depth
    (MASKED_ACCUM micro-batches of 6 rows of 1024 tokens, documents of
    median DOC_MEDIAN with a padding tail, ``attention_mask`` segment ids):
    every attention call a B5 + fused B6 launch, losses finite and
    falling, the step-0 bf16 loss within 2e-2 of a plain fp32 masked
    forward; step time, valid and all tokens/s, MFU, a micro-step profile
-   in which every B5 call must run ``masked_fwd_wgmma_kernel``;
+   in which every B5 call must run ``masked_fwd_wgmma_kernel`` and every
+   B6 call the fused ``masked_dkv_wgmma_kernel``;
 9. the long-context recipe (s 8192, b 1, accum 2, documents of median
    1024 truncated at the row end): B5 + B6 dq + dk/dv launches only (a
-   profiled forward's B5 calls all ``masked_fwd_wgmma_kernel``), and
+   profiled micro-step's B6 calls all ``masked_dq_wgmma_kernel`` +
+   ``masked_dkv_wgmma_kernel``, a profiled forward's B5 calls all
+   ``masked_fwd_wgmma_kernel``), and
    the causal document mask as FlashMask bands gives the segment-id
    logits within the bf16 gate;
 10. the grouped-matmul kernels (B7 float, int8 and on the transposed
@@ -202,7 +207,7 @@ def build_report():
     """Each kernel of the built library: registers, stack, spill bytes and
     static shared memory (ptxas -v), and whether its SASS holds HGMMA
     (cuobjdump).  Raises if a bf16 kernel that must issue wgmma (B1, B2,
-    B5, B7, B8) does not."""
+    B5, B6, B7, B8) does not."""
     from paddle_tpu_torch.ops import _build
     report = _build.kernel_report()
     for name, r in sorted(report.items()):
@@ -1103,6 +1108,12 @@ def _device_ms(fn, calls, names, attempts=3):
                          f"{attempts} windows")
 
 
+# B6's (dk/dv, dq) kernel names by masked_bwd_route (the fused pass is the
+# dk/dv kernel's other instantiation)
+B6_KERNELS = {"wgmma": ("masked_dkv_wgmma_kernel", "masked_dq_wgmma_kernel"),
+              "smem": ("masked_dkv_kernel", "masked_dq_kernel")}
+
+
 def masked_case(name, kind, dev, flush):
     """B5 and the three B6 kernels on MASKED_CASES[name] in bf16 or fp32:
     each gated against its plain version (the backward from the plain
@@ -1110,9 +1121,11 @@ def masked_case(name, kind, dev, flush):
     bound, the plain version and ``scaled_dot_product_attention`` with the
     dense bool mask (forward; for B6 its backward alone, the forward run
     outside the timed window, with the forward+backward reading beside
-    it), a yardstick the port never calls.  B5's kernel is the one
-    ``masked_fwd_route`` names (``masked_fwd_wgmma_kernel`` for bf16 at d
-    64/128, else ``masked_fwd_kernel``)."""
+    it), a yardstick the port never calls.  The kernels are the ones
+    ``masked_fwd_route`` and ``masked_bwd_route`` name (for bf16 at d
+    64/128 ``masked_fwd_wgmma_kernel``, ``masked_dkv_wgmma_kernel`` and
+    ``masked_dq_wgmma_kernel``, else ``masked_fwd_kernel``,
+    ``masked_dkv_kernel`` and ``masked_dq_kernel``)."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import flash_attention as fa
@@ -1189,16 +1202,32 @@ def masked_case(name, kind, dev, flush):
     # (CUDA events: the live tables, delta and output buffers included)
     fwd = _device_ms(lambda: fa.flash_forward(q, k, v, *args, **kw), 2,
                      ("masked_fwd",))
-    fused = _device_ms(bwd("fused"), 2, ("masked_dkv_kernel", "cast_kernel"))
-    split = _device_ms(bwd("split"), 2,
-                       ("masked_dq_kernel", "masked_dkv_kernel"))
+    route = fa.masked_bwd_route(q.shape[2], q.dtype)
+    dkv_name, dq_name = B6_KERNELS[route]
+    rep = h // kvh
+    tiles_kv, tiles_q = (fa.masked_bwd_wgmma_tiles(rep) if route == "wgmma"
+                         else (fa.masked_tiles(rep, q.shape[2], q.dtype),) * 2)
+    masks = (b, kw.get("mask_h", 1) if "bands" in kw else 1, q.shape[1],
+             k.shape[1], inp["causal"], kw.get("q_seg"), kw.get("k_seg"),
+             kw.get("bands"))
+    fused = _device_ms(bwd("fused"), 2, (dkv_name, "cast_kernel"))
+    split = _device_ms(bwd("split"), 2, (dq_name, dkv_name))
     times = {
         "fwd": fwd["masked_fwd"], "fused": sum(fused.values()),
-        "dq": split["masked_dq_kernel"], "dkv": split["masked_dkv_kernel"],
+        "dq": split[dq_name], "dkv": split[dkv_name],
         "wrapper_fwd": time_ms(lambda: fa.flash_forward(q, k, v, *args,
                                                         **kw), reps, flush),
         "wrapper_fused": time_ms(bwd("fused"), reps, flush),
         "wrapper_split": time_ms(bwd("split"), reps, flush),
+        # the wrapper's own work: the route's live tables, and delta
+        "tables_fused": time_ms(lambda: fa.masked_live_lists(
+            tiles_kv, *masks, transposed=True, device=dev), reps, flush),
+        "tables_split": time_ms(lambda: (
+            fa.masked_live_lists(tiles_q, *masks, device=dev),
+            fa.masked_live_lists(tiles_kv, *masks, transposed=True,
+                                 device=dev)), reps, flush),
+        "delta": time_ms(lambda: (do.float() * wo.float()).sum(dim=-1),
+                         reps, flush),
         "plain_fwd": time_ms(lambda: fa.flash_forward_plain(q, k, v, *args,
                                                             **kw),
                              plain_reps, flush),
@@ -1214,6 +1243,7 @@ def masked_case(name, kind, dev, flush):
     record = dict(case=name, kind=kind, shape=inp["shape"],
                   visible_pairs=inp["pairs"], dead_rows=int(dead.sum()),
                   fwd_route=fa.masked_fwd_route(q.shape[2], q.dtype),
+                  bwd_kernels=fa.masked_bwd_route(q.shape[2], q.dtype),
                   route_here=fa.flash_bwd_route(q.shape[1], k.shape[1],
                                                 q.shape[2]),
                   err=errs, max_abs_err=worst,
@@ -1480,6 +1510,15 @@ def masked_train_phase(dev):
             not all("masked_fwd_wgmma_kernel" in n for n in b5):
         raise AssertionError(f"masked train: B5 kernels {b5}, expected "
                              f"masked_fwd_wgmma_kernel {want_calls} times")
+    # ... and every B6 call the fused wgmma pass (the dk/dv kernel's fused
+    # instantiation; the dq sums' cast is not a masked_ kernel)
+    b6 = {n: c for n, c in calls.items() if "::masked_d" in n}
+    if sorted(b6.values()) != [want_calls] or \
+            not all("masked_dkv_wgmma_kernel" in n and "true" in n
+                    for n in b6):
+        raise AssertionError(f"masked train: B6 kernels {b6}, expected the "
+                             f"fused masked_dkv_wgmma_kernel {want_calls} "
+                             f"times")
     del model, params, state, step, step1
     torch.cuda.empty_cache()
     return result
@@ -1523,6 +1562,24 @@ def long_context_phase(dev):
                    flash_masked_bwd_dkv=want)
     if not all(np.isfinite(losses)):
         raise AssertionError(f"long context: losses {losses} not finite")
+    # every B6 call of one profiled micro-step runs the split wgmma pair
+    # (the profiler can drop a window's records: up to 3 windows)
+    step1 = build_train_step(model, opt, compute_dtype=torch.bfloat16)
+    for _ in range(3):
+        b6 = profiled_calls(lambda: step1.accumulate(
+            params, ids[0], labels[0], attention_mask=seg[0]), "::masked_d")
+        if b6:
+            break
+    del step1
+    torch.cuda.empty_cache()
+    if sorted(b6.values()) != [cfg.num_hidden_layers] * 2 or \
+            not any("masked_dq_wgmma_kernel" in n for n in b6) or \
+            not any("masked_dkv_wgmma_kernel" in n and "false" in n
+                    for n in b6):
+        raise AssertionError(f"long context: B6 kernels {b6}, expected "
+                             f"masked_dq_wgmma_kernel and the split "
+                             f"masked_dkv_wgmma_kernel "
+                             f"{cfg.num_hidden_layers} times each")
     tokens = LONG_ACCUM * LONG_SEQ
     result = dict(seq=LONG_SEQ, batch=1, accum=LONG_ACCUM,
                   doc_median=LONG_DOC_MEDIAN, documents=[len(r) for r in lens],
@@ -1530,7 +1587,8 @@ def long_context_phase(dev):
                   tokens_per_s=tokens / walls[-1],
                   mfu=6 * n_params * tokens / walls[-1] / H100_BF16_PEAK,
                   launches=counts, plain_calls=plain_calls,
-                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                  b6_kernel_calls=b6)
     del step, state
     torch.cuda.empty_cache()
 
@@ -2460,11 +2518,11 @@ def main() -> int:
             ("flash_masked_fwd", "fwd", "masked_fwd_wgmma_kernel",
              "packed_docs", "masked_train", 209),
             ("flash_masked_bwd_fused", "fused",
-             "masked_dkv_kernel<fused>+cast_kernel", "packed_docs",
+             "masked_dkv_wgmma_kernel<fused>+cast_kernel", "packed_docs",
              "masked_train", 857),
-            ("flash_masked_bwd_dq", "dq", "masked_dq_kernel", "doc_bands_8k",
-             "long_context", 939),
-            ("flash_masked_bwd_dkv", "dkv", "masked_dkv_kernel<split>",
+            ("flash_masked_bwd_dq", "dq", "masked_dq_wgmma_kernel",
+             "doc_bands_8k", "long_context", 939),
+            ("flash_masked_bwd_dkv", "dkv", "masked_dkv_wgmma_kernel<split>",
              "doc_bands_8k", "long_context", 988)):
         route = {"dq": "split", "dkv": "split"}.get(kernel, kernel)
         rows = record["masked_kernels"]
@@ -2482,6 +2540,9 @@ def main() -> int:
             "launches": record[path]["launches"][name],
             "max_abs_err": bf16["max_abs_err"][route],
             "ms": bf16["times_ms"][kernel],
+            "wrapper_ms": bf16["times_ms"]["wrapper_" + route],
+            "tables_ms": (bf16["times_ms"]["tables_" + route]
+                          if kernel != "fwd" else None),
             "plain_ms": bf16["times_ms"]["plain_fwd" if kernel == "fwd"
                                          else "plain_bwd"],
             "bound_ms": bf16["bound_ms"][kernel],

@@ -15,7 +15,8 @@
 //     and lbo = the byte distance to the next 64-column panel, used when
 //     the product is wider than 64; k step j starts j * 16 rows down.
 // A K-major operand may also span more than 64 rows of one panel (B7's
-// [256][64] weight tile for dx): sbo stays 1024.
+// [256][64] weight tile for dx): sbo stays 1024.  A tile that threads write
+// (swizzle128) keeps the same layout.
 // tests/test_torch_cuda_kernels.py gates every form the kernels use against
 // torch.matmul through pt_wgmma_probe (csrc/wgmma_probe.cu).
 //
@@ -219,6 +220,14 @@ template <int R>
 __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Byte offset of (row, byte) in a 128-byte-swizzled panel [rows][64] bf16
+// based at a 1024-byte boundary: the 16-byte chunk index is XORed with row
+// % 8, as a TMA load writes it, so threads can store an operand that wgmma
+// then reads through smem_desc (B6's ds^T tile)
+__device__ __forceinline__ uint32_t swizzle128(int row, int byte) {
+  return row * 128 + ((((byte >> 4) ^ row) & 7) << 4) + (byte & 15);
 }
 
 // two floats as a bf16x2 register (lo in the low half: the lower column)

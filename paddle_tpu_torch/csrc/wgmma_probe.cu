@@ -18,6 +18,9 @@
 //   5  c[64, 128] = a[64, 64] @ b[64, 128]     A from registers, B MN-major over
 //                                              two panels as one n128 product
 //                                              (B2's dq, dk and dv at d 128)
+//   6  c[64, 64]  = a[64, 64]^T @ b[64, 64]    A and B MN-major, n64, A stored by
+//                                              the threads through swizzle128
+//                                              (B6's fused dq = ds K from ds^T)
 
 #include "hopper.cuh"
 
@@ -43,18 +46,27 @@ __global__ void __launch_bounds__(128) wgmma_probe_kernel(const __grid_constant_
   __shared__ __align__(8) uint64_t bar;
   unsigned char* a_s = smem_raw + (1024 - smem_u32(smem_raw) % 1024) % 1024;
   unsigned char* b_s = a_s + kPanelBytes;
-  const int b_panels = mode == 0 ? 1 : (mode == 1 || mode == 5) ? 2 : 4;
+  const int b_panels = (mode == 0 || mode == 6) ? 1 : (mode == 1 || mode == 5) ? 2 : 4;
+  const bool a_by_threads = mode == 6;
   if (threadIdx.x == 0) {
     mbar_init(&bar, 1);
     mbar_fence_init();
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    mbar_arrive_expect_tx(&bar, (1 + b_panels) * kPanelBytes);
-    tma_load_2d(a_s, &ta, &bar, 0, 0);
+    mbar_arrive_expect_tx(&bar, ((a_by_threads ? 0 : 1) + b_panels) * kPanelBytes);
+    if (!a_by_threads) tma_load_2d(a_s, &ta, &bar, 0, 0);
     // b's panels lie along its columns, or (mode 4) along its rows
     for (int p = 0; p < b_panels; ++p)
       tma_load_2d(b_s + p * kPanelBytes, &tb, &bar, mode == 4 ? 0 : 64 * p, mode == 4 ? 64 * p : 0);
+  }
+  if (a_by_threads) {
+    // a's rows (the k index) as 128-byte rows of 32 bf16 pairs, swizzled
+    const uint32_t* a32 = reinterpret_cast<const uint32_t*>(a);
+    for (int i = threadIdx.x; i < 64 * 32; i += 128)
+      *reinterpret_cast<uint32_t*>(a_s + swizzle128(i / 32, (i % 32) * 4)) = a32[i];
+    fence_proxy_async();
+    __syncthreads();
   }
   mbar_wait(&bar, 0);
 
@@ -106,7 +118,20 @@ __global__ void __launch_bounds__(128) wgmma_probe_kernel(const __grid_constant_
     store_acc(c, 128, 0, acc, 64);
     return;
   }
-  if (mode == 0) {
+  if (mode == 6) {
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_ss_n64<1, 1>(acc, smem_desc(a_s + ks * 16 * 128, kPanelBytes, 1024),
+                         smem_desc(b_s + ks * 16 * 128, kPanelBytes, 1024), ks > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    store_acc(c, 64, 0, acc, 32);
+  } else if (mode == 0) {
     float acc[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[i] = 0.f;
@@ -162,11 +187,13 @@ __global__ void __launch_bounds__(128) wgmma_probe_kernel(const __grid_constant_
 
 extern "C" {
 
-// a [64, 64] bf16; b [64, 64] (mode 0), [64, 128] (1, 5), [64, 256] (2, 3),
-// [256, 64] (4) bf16; c fp32 as the mode says.
+// a [64, 64] bf16; b [64, 64] (modes 0, 6), [64, 128] (1, 5), [64, 256] (2,
+// 3), [256, 64] (4) bf16; c fp32 as the mode says.
 int pt_wgmma_probe(int mode, const void* a, const void* b, void* c, void* stream) {
-  if (mode < 0 || mode > 5) return cudaErrorInvalidValue;
-  const uint64_t bw = mode == 0 || mode == 4 ? 64 : mode == 1 || mode == 5 ? 128 : 256;
+  if (mode < 0 || mode > 6) return cudaErrorInvalidValue;
+  const uint64_t bw = mode == 0 || mode == 4 || mode == 6 ? 64
+                      : mode == 1 || mode == 5         ? 128
+                                                       : 256;
   const uint64_t bh = mode == 4 ? 256 : 64;
   const uint64_t ad[2] = {64, 64}, as[1] = {128};
   const uint64_t bd[2] = {bw, bh}, bs[1] = {2 * bw};

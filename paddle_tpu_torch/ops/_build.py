@@ -62,13 +62,14 @@ SIGNATURES = {
     "pt_wgmma_probe": [_I, _P, _P, _P, _P],
 }
 # the bf16 kernels that must issue wgmma (HGMMA in their SASS): B1, B2
-# (dk/dv, dq), B5, B7 (forward and dx), B8
+# (dk/dv, dq), B5, B6 (dk/dv split and fused, dq), B7 (forward and dx), B8
 WGMMA_KERNELS = ("hb_fwd_wgmma_kernel", "hb_dkv_wgmma_kernel",
                  "hb_dq_wgmma_kernel", "masked_fwd_wgmma_kernel",
+                 "masked_dkv_wgmma_kernel", "masked_dq_wgmma_kernel",
                  "gmm_wgmma_kernel", "outer_wgmma_kernel")
 # the shape of b that each mode of pt_wgmma_probe takes (csrc/wgmma_probe.cu)
 PROBE_B_SHAPES = {0: (64, 64), 1: (64, 128), 2: (64, 256), 3: (64, 256),
-                  4: (256, 64), 5: (64, 128)}
+                  4: (256, 64), 5: (64, 128), 6: (64, 64)}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -257,7 +258,7 @@ def kernel_report(path: Optional[Path] = None) -> dict:
 def wgmma_probe(mode: int, a, b):
     """The one-tile layout probe of csrc/wgmma_probe.cu on CUDA bf16
     tensors (a [64, 64], b as ``PROBE_B_SHAPES[mode]``): c fp32 = a @ b^T
-    (modes 0 and 4), a @ b (1, 3, 5), a^T @ b (2)."""
+    (modes 0 and 4), a @ b (1, 3, 5), a^T @ b (2, 6)."""
     import torch
     if a.shape != (64, 64) or tuple(b.shape) != PROBE_B_SHAPES[mode]:
         raise ValueError(f"wgmma_probe mode {mode}: a [64, 64], b "

@@ -14,7 +14,8 @@ Port of ``paddle_tpu/ops/pallas/flash_attention.py``.  Two kernel families:
   ``flash_forward`` mirrors ``_flash_forward`` (TPU body ``_flash_kernel``,
   B5) and ``flash_backward`` mirrors ``_flash_backward`` (B6: the fused
   one-pass kernel where ``flash_bwd_route`` says the TPU runs it, else the
-  dq and dk/dv kernels), both over the compressed live-tile lists of
+  dq and dk/dv kernels; ``masked_fwd_route`` and ``masked_bwd_route`` pick
+  wgmma or shared-memory kernels), both over the compressed live-tile lists of
   ``_live_tables``/``_compress_live``; q/o [b*h, sq, d], k/v [b*kvh, sk, d],
   lse [b*h, sq]; ``_Flash`` mirrors the ``_flash`` custom_vjp.
 
@@ -650,10 +651,12 @@ def masked_tiles(rep: int, d: int, dtype: torch.dtype):
     return hpc, bq, bk
 
 
-# the B5 forward on wgmma (csrc/masked_flash_attention.cu
-# masked_fwd_wgmma_kernel): its C kind, the most heads a CTA covers (the
-# q tile's TMA box) and its rows and keys per tile, B1's
-_MASKED_FWD_WGMMA_KIND = 4
+# the B5 forward and B6 backward on wgmma (csrc/masked_flash_attention.cu
+# masked_fwd_wgmma_kernel, masked_dq_wgmma_kernel, masked_dkv_wgmma_kernel
+# split and fused): their C kinds, and the most heads a CTA covers (the q
+# tile's TMA box)
+_MASKED_WGMMA_KINDS = {"fwd_wgmma": 4, "dq_wgmma": 5, "dkv_wgmma": 6,
+                       "fused_wgmma": 7}
 MASKED_WGMMA_MAX_HPC = 8
 
 
@@ -672,11 +675,52 @@ def masked_fwd_wgmma_tiles(rep: int) -> Tuple[int, int, int]:
     CTA's 128 rows (two warpgroups of 64) hold hpc heads, the largest
     divisor of rep up to 8, at block_q = 128 // hpc positions (rows past
     hpc * block_q stay idle when hpc does not divide 128), against k tiles
-    of 64 keys.  The forward's live tables are built at these tiles; B6
-    keeps ``masked_tiles``."""
+    of 64 keys.  The forward's live tables are built at these tiles."""
     hpc = max(c for c in range(1, min(rep, MASKED_WGMMA_MAX_HPC) + 1)
               if rep % c == 0)
     return hpc, WGMMA_FWD_ROWS // hpc, WGMMA_FWD_BK
+
+
+def masked_bwd_route(d: int, dtype: torch.dtype) -> str:
+    """Which CUDA kernels run the masked backward (B6), by ``fwd_route``'s
+    rule on the head dim and dtype: ``"wgmma"`` (``masked_dkv_wgmma_kernel``,
+    fused or split, and ``masked_dq_wgmma_kernel``: TMA ring over the live
+    lists, wgmma, register accumulators, the mask in registers) for bf16 at
+    d 64 and 128; ``"smem"`` (``masked_dkv_kernel`` and ``masked_dq_kernel``:
+    shared-memory accumulators, wmma for bf16, CUDA cores for fp32) for bf16
+    at d 16 and 32 and for fp32.  Which of the fused or split routes runs is
+    ``flash_bwd_route``'s separate question."""
+    return fwd_route(d, dtype)
+
+
+def masked_bwd_wgmma_tiles(rep: int):
+    """((hpc, block_q, block_k) of the dk/dv kernel, (hpc, block_q,
+    block_k) of the dq kernel) on wgmma, hpc the largest divisor of rep up
+    to 8 (the TMA box's head extent) in both: a dk/dv CTA holds 128 keys
+    against ringed q tiles of hpc heads x 64 // hpc positions (at most 64
+    rows); a dq CTA holds hpc heads x 128 // hpc positions (at most 128
+    rows) against ringed k tiles of 64 keys.  Each kernel's live table is
+    built at its own tiles."""
+    hpc = masked_fwd_wgmma_tiles(rep)[0]
+    return ((hpc, WGMMA_BWD_TILE // hpc, WGMMA_BWD_ROWS),
+            (hpc, WGMMA_BWD_ROWS // hpc, WGMMA_BWD_TILE))
+
+
+def masked_live_lists(tiles, b: int, gate_h: int, sq: int, sk: int,
+                      causal: bool, q_seg=None, k_seg=None, bands=None,
+                      transposed: bool = False, device=None):
+    """The live lists of one masked kernel at its own tiles (hpc, block_q,
+    block_k), as its launch takes them: ({count, idx}, {hpc, bq, bk,
+    n_outer, n_inner}); ``transposed`` gives each k tile's live q tiles
+    (the dk/dv kernels), else each q tile's live k tiles."""
+    hpc, bq, bk = tiles
+    nq, nk = -(-sq // bq), -(-sk // bk)
+    live = _live_tables(b, gate_h, nq, nk, bq, bk, sq, sk, causal, q_seg,
+                        k_seg, bands, device=device)
+    count, idx = _compress_live(live.transpose(1, 2) if transposed else live)
+    outer, inner = (nk, nq) if transposed else (nq, nk)
+    return (dict(count=count, idx=idx),
+            dict(hpc=hpc, bq=bq, bk=bk, n_outer=outer, n_inner=inner))
 
 
 def _masked_launch(kind: str, ptrs: dict, ints: dict, scale: float,
@@ -687,8 +731,7 @@ def _masked_launch(kind: str, ptrs: dict, ints: dict, scale: float,
           for n in _MASKED_PTRS])
     i = (ctypes.c_int * len(_MASKED_INTS))(*[int(ints[n])
                                              for n in _MASKED_INTS])
-    code = (_MASKED_FWD_WGMMA_KIND if kind == "fwd_wgmma"
-            else MASKED_KINDS[kind])
+    code = _MASKED_WGMMA_KINDS.get(kind, MASKED_KINDS.get(kind))
     rc = lib.pt_masked_flash(code, p, i, scale, _DTYPE_CODES[dtype],
                              _stream())
     _build.check(lib, rc, f"masked flash attention ({kind})")
@@ -764,19 +807,17 @@ def flash_forward(q, k, v, causal: bool, scale: Optional[float], h: int,
         return o.zero_(), lse.fill_(-NEG_INF)
     b, rep = bh // h, h // kvh
     wgmma = masked_fwd_route(d, q.dtype) == "wgmma"
-    hpc, bq, bk = (masked_fwd_wgmma_tiles(rep) if wgmma
-                   else masked_tiles(rep, d, q.dtype))
-    nq, nk = -(-sq // bq), -(-sk // bk)
     gate_h = mask_h if bands is not None else 1
-    count, idx = _compress_live(_live_tables(
-        b, gate_h, nq, nk, bq, bk, sq, sk, causal, q_seg, k_seg, bands,
-        device=q.device))
+    lists, tiles = masked_live_lists(
+        masked_fwd_wgmma_tiles(rep) if wgmma
+        else masked_tiles(rep, d, q.dtype), b, gate_h, sq, sk, causal, q_seg,
+        k_seg, bands, device=q.device)
     qs, ks, band = _mask_tensors(q_seg, k_seg, bands, b, mask_h, sk)
-    _masked_launch("fwd_wgmma" if wgmma else "fwd", dict(q=q, k=k, v=v, o=o, lse_out=lse, q_seg=qs,
-                               k_seg=ks, band=band, count=count, idx=idx),
-                   dict(batch=b, kvh=kvh, rep=rep, hpc=hpc, sq=sq, sk=sk,
-                        d=d, bq=bq, bk=bk, mask_h=mask_h, gate_h=gate_h,
-                        n_outer=nq, n_inner=nk, causal=causal),
+    _masked_launch("fwd_wgmma" if wgmma else "fwd",
+                   dict(q=q, k=k, v=v, o=o, lse_out=lse, q_seg=qs, k_seg=ks,
+                        band=band, **lists),
+                   dict(batch=b, kvh=kvh, rep=rep, sq=sq, sk=sk, d=d,
+                        mask_h=mask_h, gate_h=gate_h, causal=causal, **tiles),
                    scale, q.dtype)
     LAUNCHES["flash_masked_fwd"] += 1
     return o, lse
@@ -791,6 +832,10 @@ def flash_backward(q, k, v, o, lse, do, causal: bool, scale: Optional[float],
     launch of the fused pass (dq summed with fp32 atomics, so two runs may
     differ at fp32 rounding in dq); else a dq launch over the live k-tile
     lists and a dk/dv launch over the transposed lists (deterministic).
+    ``masked_bwd_route`` picks the kernels (wgmma or shared memory) and
+    their tiles (``masked_bwd_wgmma_tiles`` or ``masked_tiles``); each
+    kernel's live table is built at its own tiles.  The wgmma kernels also
+    need 16-byte aligned q, k, v and do (TMA) and raise otherwise.
     delta = rowsum(do * o) is one PyTorch reduction before the kernels, as
     the TPU launcher computes it outside its kernels."""
     dev = _check_masked("flash_backward", q, k, v, h, kvh, q_seg, k_seg,
@@ -811,19 +856,23 @@ def flash_backward(q, k, v, o, lse, do, causal: bool, scale: Optional[float],
     if q.numel() == 0 or k.numel() == 0:
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     b, rep = bh // h, h // kvh
-    hpc, bq, bk = masked_tiles(rep, d, q.dtype)
-    nq, nk = -(-sq // bq), -(-sk // bk)
+    wgmma = masked_bwd_route(d, q.dtype) == "wgmma"
+    if wgmma:
+        tiles_kv, tiles_q = masked_bwd_wgmma_tiles(rep)
+    else:
+        tiles_kv = tiles_q = masked_tiles(rep, d, q.dtype)
+    suffix = "_wgmma" if wgmma else ""
     gate_h = mask_h if bands is not None else 1
-    live = _live_tables(b, gate_h, nq, nk, bq, bk, sq, sk, causal, q_seg,
-                        k_seg, bands, device=q.device)
-    count_t, idx_t = _compress_live(live.transpose(1, 2))
+    masks = (b, gate_h, sq, sk, causal, q_seg, k_seg, bands)
     qs, ks, band = _mask_tensors(q_seg, k_seg, bands, b, mask_h, sk)
     delta = (do.float() * o.float()).sum(dim=-1)               # [bh, sq]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     ptrs = dict(q=q, k=k, v=v, do=do, lse=lse, delta=delta, dk=dk, dv=dv,
                 q_seg=qs, k_seg=ks, band=band)
-    ints = dict(batch=b, kvh=kvh, rep=rep, hpc=hpc, sq=sq, sk=sk, d=d, bq=bq,
-                bk=bk, mask_h=mask_h, gate_h=gate_h, causal=causal)
+    ints = dict(batch=b, kvh=kvh, rep=rep, sq=sq, sk=sk, d=d, mask_h=mask_h,
+                gate_h=gate_h, causal=causal)
+    kv_ptrs, kv_ints = masked_live_lists(tiles_kv, *masks, transposed=True,
+                                         device=q.device)
     if flash_bwd_route(sq, sk, d, blocks) == "fused":
         if q.dtype == torch.float32:
             dq = dq_acc = torch.zeros_like(q)
@@ -831,18 +880,18 @@ def flash_backward(q, k, v, o, lse, do, causal: bool, scale: Optional[float],
             dq = torch.empty_like(q)
             dq_acc = torch.zeros(q.shape, dtype=torch.float32,
                                  device=q.device)
-        _masked_launch("fused", dict(ptrs, dq=dq, dq_acc=dq_acc,
-                                     count=count_t, idx=idx_t),
-                       dict(ints, n_outer=nk, n_inner=nq), scale, q.dtype)
+        _masked_launch("fused" + suffix, dict(ptrs, dq=dq, dq_acc=dq_acc,
+                                              **kv_ptrs),
+                       dict(ints, **kv_ints), scale, q.dtype)
         LAUNCHES["flash_masked_bwd_fused"] += 1
         return dq, dk, dv
-    count, idx = _compress_live(live)
+    q_ptrs, q_ints = masked_live_lists(tiles_q, *masks, device=q.device)
     dq = torch.empty_like(q)
-    _masked_launch("dq", dict(ptrs, dq=dq, count=count, idx=idx),
-                   dict(ints, n_outer=nq, n_inner=nk), scale, q.dtype)
+    _masked_launch("dq" + suffix, dict(ptrs, dq=dq, **q_ptrs),
+                   dict(ints, **q_ints), scale, q.dtype)
     LAUNCHES["flash_masked_bwd_dq"] += 1
-    _masked_launch("dkv", dict(ptrs, count=count_t, idx=idx_t),
-                   dict(ints, n_outer=nk, n_inner=nq), scale, q.dtype)
+    _masked_launch("dkv" + suffix, dict(ptrs, **kv_ptrs),
+                   dict(ints, **kv_ints), scale, q.dtype)
     LAUNCHES["flash_masked_bwd_dkv"] += 1
     return dq, dk, dv
 

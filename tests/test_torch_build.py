@@ -82,6 +82,30 @@ def test_masked_fwd_wgmma_tiles_fill_at_most_128_rows(rep):
     assert bk == 64 and hpc * bq <= 128 < hpc * (bq + 1)
 
 
+@pytest.mark.parametrize("d", fa.SUPPORTED_HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_masked_bwd_route_is_a_rule_on_head_dim_and_dtype(d, dtype):
+    """B6's kernels by the forward's rule, whatever the fused/split route."""
+    want = "wgmma" if dtype == torch.bfloat16 and d in (64, 128) else "smem"
+    assert fa.masked_bwd_route(d, dtype) == want
+
+
+@pytest.mark.parametrize("rep", range(1, 17))
+def test_masked_bwd_wgmma_tiles_fill_at_most_64_and_128_rows(rep):
+    """One hpc for both kernels, the largest divisor of rep up to 8; dk/dv:
+    ringed q tiles of at most 64 rows against 128 keys; dq: at most 128
+    rows against ringed k tiles of 64 keys; each as many whole positions as
+    fit."""
+    (hpc, bq_kv, bk_kv), (hpc_q, bq_q, bk_q) = fa.masked_bwd_wgmma_tiles(rep)
+    assert hpc == hpc_q and rep % hpc == 0 and hpc <= 8
+    assert not any(rep % c == 0 for c in range(hpc + 1, min(rep, 8) + 1))
+    assert (bk_kv, bk_q) == (128, 64)
+    assert hpc * bq_kv <= 64 < hpc * (bq_kv + 1)
+    assert hpc * bq_q <= 128 < hpc * (bq_q + 1)
+    # the dq kernel's tiles are the wgmma forward's
+    assert (hpc, bq_q, bk_q) == fa.masked_fwd_wgmma_tiles(rep)
+
+
 @pytest.mark.parametrize("mode", sorted(_build.PROBE_B_SHAPES))
 def test_wgmma_probe_refuses_other_shapes(mode):
     """The probe checks its operands' shapes before it builds or launches

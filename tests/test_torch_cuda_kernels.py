@@ -580,6 +580,128 @@ def test_masked_fwd_wgmma_empty_live_list(dev):
     assert all(e <= FLASH_ROW_TOL["bf16"][n] for n, e in errs.items()), errs
 
 
+def _masked_bwd_case(case, rep, monkeypatch, dev):
+    """MASKED_SWEEP[case] at rep (bf16, head dims under 64 raised to 64):
+    the inputs, the plain forward's o and lse, the plain gradients with the
+    one-key rows' dq zeroed, and those rows."""
+    b, sq, sk, _, kvh, d, causal, mask = MASKED_SWEEP[case]
+    monkeypatch.setattr(chip_smoke, "MASKED_CASES", {
+        case: (b, sq, sk, rep * kvh, kvh, max(d, 64), causal, mask)})
+    inp = masked_inputs(case, "bf16", dev)
+    q, k, v, do, kw = inp["q"], inp["k"], inp["v"], inp["do"], inp["kw"]
+    args = (inp["causal"], inp["scale"], inp["h"], inp["kvh"])
+    wo, wlse = fa.flash_forward_plain(q, k, v, *args, **kw)
+    want = dict(zip(("dq", "dk", "dv"), fa.flash_backward_plain(
+        q, k, v, wo, wlse, do, *args, **kw)))
+    dead = wlse >= 1e30
+    counts = inp["keep"].sum(-1)
+    one_key = counts.repeat_interleave(inp["h"] // counts.shape[1],
+                                       dim=1).reshape(dead.shape) == 1
+    want["dq"] = torch.where(one_key[..., None], 0, want["dq"])
+    return inp, args, wo, wlse, want, dead, one_key
+
+
+@pytest.mark.parametrize("rep", [1, 2, 3, 4, 5, 6, 7, 8, 16])
+@pytest.mark.parametrize("case", list(MASKED_SWEEP))
+def test_masked_bwd_wgmma_matches_plain(dev, case, rep, monkeypatch):
+    """B6 on wgmma (bf16; head dims under 64 raised to 64), both routes
+    forced, on every MASKED_SWEEP case at rep 1 to 8 and 16: the fused
+    masked_dkv_wgmma_kernel, then masked_dq_wgmma_kernel +
+    masked_dkv_wgmma_kernel, each at masked_bwd_wgmma_tiles, held against
+    the plain backward (from the plain forward's o and lse) with the per-row
+    gate; dq exactly 0 on rows that see no key.  One-key rows are held as
+    in test_masked_flash_kernels_match_plain."""
+    inp, args, wo, wlse, want, dead, one_key = _masked_bwd_case(
+        case, rep, monkeypatch, dev)
+    q, k, v, do, kw = inp["q"], inp["k"], inp["v"], inp["do"], inp["kw"]
+    assert fa.masked_bwd_route(q.shape[-1], q.dtype) == "wgmma"
+    reading = {"case": [case, rep], "dead_rows": int(dead.sum())}
+    fa.reset_launches()
+    for route in ("fused", "split"):
+        with forced_route(route):
+            dq, dk, dv = fa.flash_backward(q, k, v, wo, wlse, do, *args,
+                                           **kw)
+        torch.cuda.synchronize()
+        noise = dq[one_key].float().abs().max().item() if one_key.any() \
+            else 0.0
+        assert noise <= 1e-5 * want["dq"].float().abs().max().item(), \
+            (route, noise)
+        dq = torch.where(one_key[..., None], 0, dq)
+        errs, _ = masked_errors("bf16", {"dq": dq, "dk": dk, "dv": dv},
+                                want, dead)
+        reading.update({f"{n}_{route}": e for n, e in errs.items()})
+    print(json.dumps(reading))
+    assert fa.LAUNCHES == dict.fromkeys(fa.LAUNCHES, 0) | {
+        "flash_masked_bwd_fused": 1, "flash_masked_bwd_dq": 1,
+        "flash_masked_bwd_dkv": 1}
+    tol = FLASH_ROW_TOL["bf16"]
+    assert all(e <= tol[n.split("_")[0]] for n, e in reading.items()
+               if n not in ("case", "dead_rows")), reading
+
+
+def test_masked_bwd_wgmma_empty_live_lists(dev):
+    """Bands where keys [256, 384) hide every row and the other keys hide
+    rows [0, 64): the dk/dv kernels' k tile over those keys has an empty
+    transposed list and the dq kernel's q tiles over rows [0, 64) an empty
+    list (no TMA is issued for either).  On both routes dk = dv = 0 on
+    those keys and dq = 0 on those rows, exactly; the rest matches the
+    plain version."""
+    b, s, h, kvh, d = 2, 384, 8, 2, 128
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+    q, do = r(b * h, s, d), r(b * h, s, d)
+    k, v = r(b * kvh, s, d), r(b * kvh, s, d)
+    lte = torch.full((b, 1, s), 64, dtype=torch.int32, device=dev)
+    lte[..., 256:] = s
+    zero, end = torch.zeros_like(lte), torch.full_like(lte, s)
+    bands = (zero, lte, end, end)
+    args = (False, d ** -0.5, h, kvh)
+    (hpc, bq_kv, bk_kv), (_, bq_q, bk_q) = fa.masked_bwd_wgmma_tiles(h // kvh)
+    live = fa._live_tables(b, 1, -(-s // bq_kv), -(-s // bk_kv), bq_kv,
+                           bk_kv, s, s, False, bands=bands)
+    count_t, _ = fa._compress_live(live.transpose(1, 2))
+    assert (count_t[:, 2] == 0).all() and (count_t[:, :2] > 0).all()
+    count, _ = fa._compress_live(fa._live_tables(
+        b, 1, -(-s // bq_q), -(-s // bk_q), bq_q, bk_q, s, s, False,
+        bands=bands))
+    assert (count[:, :64 // bq_q] == 0).all()
+    assert (count[:, 64 // bq_q:] > 0).all()
+    wo, wlse = fa.flash_forward_plain(q, k, v, *args, bands=bands, mask_h=1)
+    dead = wlse >= 1e30
+    assert dead[:, :64].all() and not dead[:, 64:].any()
+    want = dict(zip(("dq", "dk", "dv"), fa.flash_backward_plain(
+        q, k, v, wo, wlse, do, *args, bands=bands, mask_h=1)))
+    for route in ("fused", "split"):
+        with forced_route(route):
+            dq, dk, dv = fa.flash_backward(q, k, v, wo, wlse, do, *args,
+                                           bands=bands, mask_h=1)
+        torch.cuda.synchronize()
+        assert torch.all(dk[:, 256:] == 0) and torch.all(dv[:, 256:] == 0)
+        assert torch.all(dq[:, :64] == 0)
+        errs, _ = masked_errors("bf16", {"dq": dq, "dk": dk, "dv": dv},
+                                want, dead)
+        assert all(e <= FLASH_ROW_TOL["bf16"][n] for n, e in errs.items()), \
+            (route, errs)
+
+
+def test_masked_bwd_split_route_is_deterministic(dev):
+    """Two split-route runs of the wgmma B6 at packed_docs are bitwise
+    equal: dq is written once per row, dk/dv summed inside one CTA."""
+    inp = masked_inputs("packed_docs", "bf16", dev)
+    q, k, v, do, kw = inp["q"], inp["k"], inp["v"], inp["do"], inp["kw"]
+    args = (inp["causal"], inp["scale"], inp["h"], inp["kvh"])
+    o, lse = fa.flash_forward(q, k, v, *args, **kw)
+    with forced_route("split"):
+        first = fa.flash_backward(q, k, v, o, lse, do, *args, **kw)
+        second = fa.flash_backward(q, k, v, o, lse, do, *args, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 def test_masked_train_step_on_cuda_matches_cpu(dev):
     """The port's fp32 masked train step (packed documents with a padding
     tail, and one all-padding micro-batch) on the card vs the same step on
@@ -637,18 +759,29 @@ PLANTED_MASKED = {
     # the wgmma forward's queries see keys of other segments in live tiles
     "wgmma_ignores_segments": (
         "if (seg) keep = keep && qid[j] == (hi ? kid.y : kid.x);", ""),
-    # dk/dv lose the contribution of the group's second head
+    # the wgmma dk/dv kernel (fused here) drops the second head of every
+    # head chunk: its rows read lse = +inf, so their p and ds are 0
     "dkv_drops_head_1": (
-        "if (k_pos >= a.sk) ds = 0.f;",
-        "if (k_pos >= a.sk) ds = 0.f;\n    if (p_s != nullptr && m / a.bq == 1) "
-        "p = ds = 0.f;"),
+        "st_lse[s][r] = ok ? a.lse[row] * kLog2e : inf;",
+        "st_lse[s][r] = ok && r / a.bq != 1 ? a.lse[row] * kLog2e : inf;"),
+    # the wgmma dq kernel (split route) skips each CTA's last live k tile
+    # (it still frees the stage)
+    "dq_skips_last_tile": (
+        "mbar_wait(&full[s], (kt / kWStages) & 1);",
+        "mbar_wait(&full[s], (kt / kWStages) & 1);\n"
+        "    if (kt == cnt - 1) {\n      mbar_arrive(&empty[s]);\n"
+        "      continue;\n    }"),
+    # the fused pass drops the dq reduction of each CTA's first q tile
+    "fused_drops_first_dq": ("if (row >= 0) atomicAdd(",
+                             "if (row >= 0 && c != 0) atomicAdd("),
 }
 
 
 def _masked_readings(dev):
-    """Gate errors of B5 (o) and the fused B6 (dq, dk, dv) on chip_smoke's
-    packed_docs case (the masked train phase's attention call, bf16),
-    without the limits."""
+    """Gate errors of B5 (o), the fused B6 (dq, dk, dv: the route the
+    shape takes) and the split B6 (dq_split, dk_split, dv_split, forced) on
+    chip_smoke's packed_docs case (the masked train phase's attention call,
+    bf16), without the limits."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
     inp = masked_inputs("packed_docs", "bf16", dev)
@@ -656,11 +789,14 @@ def _masked_readings(dev):
     args = (inp["causal"], inp["scale"], inp["h"], inp["kvh"])
     o, _ = fa.flash_forward(q, k, v, *args, **kw)
     wo, wlse = fa.flash_forward_plain(q, k, v, *args, **kw)
-    got = fa.flash_backward(q, k, v, wo, wlse, do, *args, **kw)
     want = fa.flash_backward_plain(q, k, v, wo, wlse, do, *args, **kw)
     out = {"o": row_error(o, wo)[0]}
-    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+    got = fa.flash_backward(q, k, v, wo, wlse, do, *args, **kw)
+    with forced_route("split"):
+        split = fa.flash_backward(q, k, v, wo, wlse, do, *args, **kw)
+    for name, g, s_, w in zip(("dq", "dk", "dv"), got, split, want):
         out[name] = row_error(g, w, GRAD_ROW_FLOOR)[0]
+        out[name + "_split"] = row_error(s_, w, GRAD_ROW_FLOOR)[0]
     return out
 
 
@@ -670,18 +806,19 @@ def test_masked_gate_catches_planted_faults(dev, tmp_path, monkeypatch):
     libs = _build_planted(tmp_path, "masked_flash_attention.cu",
                           PLANTED_MASKED)
     faulty = {"wgmma_skips_last_tile": "o", "wgmma_ignores_segments": "o",
-              "dkv_drops_head_1": "dk"}
+              "dkv_drops_head_1": "dk", "dq_skips_last_tile": "dq_split",
+              "fused_drops_first_dq": "dq"}
     tol = FLASH_ROW_TOL["bf16"]
     sound = _masked_readings(dev)
     print(json.dumps({"kernel": "sound", "tol": tol, "row_error": sound}))
-    assert all(sound[n] <= tol[n] for n in sound), sound
+    assert all(sound[n] <= tol[n.split("_")[0]] for n in sound), sound
     for fault, out in faulty.items():
         lib = _build.bind(ctypes.CDLL(str(libs[fault])))
         monkeypatch.setattr(_build, "_lib", lib)
         bad = _masked_readings(dev)
         monkeypatch.undo()
         print(json.dumps({"kernel": fault, "tol": tol, "row_error": bad}))
-        assert bad[out] > 10 * tol[out], (fault, bad)
+        assert bad[out] > 10 * tol[out.split("_")[0]], (fault, bad)
 
 
 def test_decode_kernels_fp32_q_over_bf16_cache(dev):
@@ -999,8 +1136,9 @@ def test_wgmma_probe_matches_matmul(dev, mode):
     x^T dy), 3 A K-major and B MN-major over four panels (B7's forward), 4
     both K-major with B one 256-row panel (B7's dx), 5 A in registers and
     B MN-major over two panels as one n128 product (B2's products at d
-    128).  Exact products, fp32 sums of 64 terms in another order: 1e-5 of
-    the largest |c|."""
+    128), 6 both MN-major at n64 with A stored by the threads through
+    ``swizzle128`` (B6's fused dq = ds K).  Exact products, fp32 sums of 64
+    terms in another order: 1e-5 of the largest |c|."""
     g = torch.Generator(device=dev).manual_seed(mode)
     a = torch.randn(64, 64, generator=g, device=dev).to(torch.bfloat16)
     b = torch.randn(*_build.PROBE_B_SHAPES[mode], generator=g,
@@ -1008,15 +1146,16 @@ def test_wgmma_probe_matches_matmul(dev, mode):
     got = _build.wgmma_probe(mode, a, b)
     torch.cuda.synchronize()
     af, bf = a.float(), b.float()
-    want = af @ bf.T if mode in (0, 4) else (af.T if mode == 2 else af) @ bf
+    want = af @ bf.T if mode in (0, 4) else \
+        (af.T if mode in (2, 6) else af) @ bf
     err = (got - want).abs().max().item()
     print(json.dumps({"mode": mode, "max_abs_err": err}))
     assert err <= 1e-5 * want.abs().max().item(), err
 
 
 def test_wgmma_kernels_issue_hgmma(dev):
-    """The bf16 B1, B2, B5, B7 and B8 kernels issue wgmma (HGMMA in their
-    SASS) and spill nothing (ptxas -v)."""
+    """The bf16 B1, B2, B5, B6, B7 and B8 kernels issue wgmma (HGMMA in
+    their SASS) and spill nothing (ptxas -v)."""
     _build.library()
     report = _build.kernel_report()
     for name in _build.WGMMA_KERNELS:

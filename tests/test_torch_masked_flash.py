@@ -250,9 +250,12 @@ def test_masked_plain_matches_pallas_split_route(case, monkeypatch):
                                    "bands_per_head", "both"])
 def test_live_tables_match_jax(masks, causal):
     """_live_tables and _compress_live (and the transposed lists of the dk/dv
-    kernels) equal JAX's exactly, at TPU and GPU tile sizes: B6's and the
-    smem B5's, then the wgmma B5's (``masked_fwd_wgmma_tiles`` at rep 1, 4,
-    3, 5 and 16: block_q 128, 32, 42, 25 and 16 against 64 keys)."""
+    kernels) equal JAX's exactly, at TPU and GPU tile sizes: the smem
+    B5/B6's, then the wgmma B5's (``masked_fwd_wgmma_tiles`` at rep 1, 4,
+    3, 5 and 16: block_q 128, 32, 42, 25 and 16 against 64 keys), which are
+    also the wgmma B6 dq kernel's, then the wgmma B6 dk/dv kernel's
+    (``masked_bwd_wgmma_tiles``: block_q 64, 16, 21, 12 and 8 against 128
+    keys)."""
     rng = np.random.default_rng(7)
     b, s, kvh = 2, 200, 2
     tkw, jkw, mh = {}, {}, 1
@@ -275,9 +278,14 @@ def test_live_tables_match_jax(masks, causal):
         bands = _bands_of(sri, causal, s, b)
         tkw["bands"] = tuple(_i(x) for x in bands)
         jkw["bands"] = tuple(jnp.asarray(x) for x in bands)
-    wgmma = [fa.masked_fwd_wgmma_tiles(rep)[1:] for rep in (1, 4, 3, 5, 16)]
+    reps = (1, 4, 3, 5, 16)
+    wgmma = [fa.masked_fwd_wgmma_tiles(rep)[1:] for rep in reps]
     assert wgmma == [(128, 64), (32, 64), (42, 64), (25, 64), (16, 64)]
-    for bq, bk in ((512, 512), (16, 64), (64, 32), *wgmma):
+    bwd = [fa.masked_bwd_wgmma_tiles(rep) for rep in reps]
+    assert [t[1][1:] for t in bwd] == wgmma
+    bwd_kv = [t[0][1:] for t in bwd]
+    assert bwd_kv == [(64, 128), (16, 128), (21, 128), (12, 128), (8, 128)]
+    for bq, bk in ((512, 512), (16, 64), (64, 32), *wgmma, *bwd_kv):
         bq_, bk_ = jfa._clamp_block(bq, s), jfa._clamp_block(bk, s)
         nq, nk = -(-s // bq_), -(-s // bk_)
         want = jfa._live_tables(b, mh, nq, nk, bq_, bk_, s, s, causal, **jkw)
