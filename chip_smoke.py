@@ -14,7 +14,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    8 kv heads, head dim 128) in bf16, int8 K/V and fp32, held against its
    plain PyTorch version on the same inputs (per-row error gate, see
    ``row_error``), and timed (the wrapper by CUDA events, and its kernels'
-   device time by the profiler: B4 is a split and a combine kernel)
+   device time by the profiler: each launcher is a split and a combine
+   kernel, ``decode_split_kernel`` for B4, ``paged_split_kernel`` for B3
+   and B3')
    beside its bandwidth bound, its plain version and, for the dense case,
    one ``scaled_dot_product_attention`` call (a yardstick the port never
    calls);
@@ -74,25 +76,33 @@ Phases, each of which raises (and so exits non-zero) on failure:
    the causal document mask as FlashMask bands gives the segment-id
    logits within the bf16 gate;
 10. the grouped-matmul kernels (B7 float, int8 and on the transposed
-    bank; B8) on GMM_CASES: the Mixtral decode and prefill calls on int8
-    banks, the dropless train cell's three calls in bf16 and fp32, an
-    empty segment, one expert, unaligned lengths, repeated weight ids;
+    bank; B8) on GMM_CASES: the Mixtral decode, unified-step and prefill
+    calls on int8 banks (``gmm_int8_wgmma_kernel``, its device time by the
+    profiler beside, and the same bits and times with the grid order its
+    plan did not pick), the dropless train cell's three calls in bf16 and
+    fp32, an empty segment, one expert, unaligned lengths, repeated weight ids;
     each held against its plain version (per-row gate) and timed beside
     its bound, its plain version and ``torch._grouped_mm`` or a loop of
     per-segment ``torch.matmul`` (a yardstick the port never calls);
-11. Mixtral-8x7B serving at full width and depth (MIXTRAL_CFG), int8
+11. the dropless MoE train step (``parallel/expert.py``) at Mixtral's
+    expert shape: 2 B7 forward, 1 B7 dx (the first GEMM's input needs no
+    gradient) and 2 B8 launches per step, no plain call, losses finite and
+    falling, dropped 0, the step-0 loss within 2e-2 of a plain fp32
+    forward; ms per step and TFLOP/s over the five grouped GEMMs it runs,
+    and a profile of one more step;
+12. Mixtral-8x7B serving at full width and depth (MIXTRAL_CFG), int8
     weight-only with random weights, on the serving phase's traffic: the
     chunked and unified engines and ``_generate_greedy``; every MoE
     projection a B7 int8 launch and every decode attention call a kernel
     launch, the chunk launches without a host sync, the fp32
     teacher-forced check on the same int8 weights beside the count of
     (token, layer) pairs whose expert choice flipped; a decode profile;
-12. the dropless MoE train step (``parallel/expert.py``) at Mixtral's
-    expert shape: 2 B7 forward, 1 B7 dx (the first GEMM's input needs no
-    gradient) and 2 B8 launches per step, no plain call, losses finite and
-    falling, dropped 0, the step-0 loss within 2e-2 of a plain fp32
-    forward; ms per step and TFLOP/s over the five grouped GEMMs it runs,
-    and a profile of one more step;
+    one profiled window over a short session of each path in which every
+    B7 int8 call runs ``gmm_int8_wgmma_kernel`` (none ``gmm_kernel``);
+    then, on the 8B model built anew, one profiled window over a short
+    session of each of the chunked and unified paths in which every paged
+    decode call runs ``paged_split_kernel`` + ``decode_combine_kernel``.
+    These route checks come last: no later phase needs the profiler;
 13. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
     last.
 
@@ -243,6 +253,24 @@ def timing(fn, reps, flush):
     return statistics.median(times), min(times), max(times)
 
 
+def host_ms(fn, calls=100, reps=5):
+    """(median, min, max) host milliseconds per call of ``fn`` over ``reps``
+    batches of ``calls`` calls, each batch started on an idle card and
+    timed on the host's clock without a sync: what the wrapper costs the
+    host that enqueues it (a few hundred launches never fill the queue)."""
+    fn()
+    _sync()
+    times = []
+    for _ in range(reps):
+        _sync()
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t) * 1e3 / calls)
+    _sync()
+    return statistics.median(times), min(times), max(times)
+
+
 def time_ms(fn, reps, flush):
     """Median device milliseconds of ``fn`` (``timing``)."""
     return timing(fn, reps, flush)[0]
@@ -375,15 +403,18 @@ def _sdpa_ms(q, k, v, lens, flush):
 # the CUDA kernels each decode launcher runs, as the profiler names them
 DECODE_KERNELS = {"flash_decode": ("decode_split_kernel",
                                    "decode_combine_kernel"),
-                  "paged_decode": ("decode_attention_kernel",),
-                  "ragged_paged_decode": ("decode_attention_kernel",)}
+                  "paged_decode": ("paged_split_kernel",
+                                   "decode_combine_kernel"),
+                  "ragged_paged_decode": ("paged_split_kernel",
+                                          "decode_combine_kernel")}
 
 
 def kernel_cases(dev, flush):
     """Each launcher at the 8B attention shapes in every case; returns one
     record per (launcher, case).  ``ms``: the wrapper by CUDA events (its
     host launch time included); ``device_ms``: the profiler's device time
-    per call of each of its kernels, ``kernel_ms`` their sum."""
+    per call of each of its kernels, ``kernel_ms`` their sum; ``host_ms``:
+    the wrapper's host time per call (``host_ms``)."""
     import torch
     from paddle_tpu_torch.ops import decode_attention as da
 
@@ -414,10 +445,12 @@ def kernel_cases(dev, flush):
             # L2 flushed before each call, as for the events
             device = _device_ms(lambda: (flush.zero_(), kernel(*args)), 10,
                                 DECODE_KERNELS[name])
+            host = host_ms(lambda: kernel(*args))
             records.append(dict(
                 name=name, case=case, shape=inp["shape"], err=err, tol=tol,
                 max_abs_err=abs_err, ms=ms, ms_min=lo, ms_max=hi,
                 device_ms=device, kernel_ms=sum(device.values()),
+                host_ms=host[0], host_ms_min=host[1], host_ms_max=host[2],
                 plain_ms=time_ms(lambda: plain(*args), plain_reps[name],
                                  flush),
                 bound_ms=bms, bound_by=by, library_ms=library,
@@ -779,6 +812,79 @@ def profile_decode(cfg, params, dev, chunks, classes=None):
         "top_kernels": [{"name": e.key[:80],
                          "ms_per_step": e.self_device_time_total / 1e3 / steps,
                          "calls_per_step": e.count / steps} for e in top]}
+
+
+def route_profile(what, run, launches, keys, kernels, absent=()):
+    """``run()`` inside one ``torch.profiler`` window (device activity
+    only): every one of the wrapper launches counted under ``keys`` while
+    it runs must have run each CUDA kernel whose name contains an entry of
+    ``kernels`` (as many launches each) and none of ``absent``.  The
+    profiler can drop a window's records, so a window that did not record
+    every launch is profiled again, up to 3.  Returns {kernel: launches}
+    with the wrappers' launches in the window and the windows profiled."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for used in range(1, 4):
+        before = {k: launches[k] for k in keys}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            _sync()
+        window = {k: launches[k] - before[k] for k in keys}
+        n = sum(window.values())
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        got = {k: sum(e.count for e in events if k in e.key)
+               for k in (*kernels, *absent)}
+        if all(got[k] == n for k in kernels):
+            break
+    if n == 0 or any(got[k] != n for k in kernels) or \
+            any(got[k] for k in absent):
+        raise AssertionError(f"{what}: {n} launches of {list(keys)} ran "
+                             f"{got} (expected {list(kernels)} each, none "
+                             f"of {list(absent)})")
+    return dict(got, wrapper_launches=window, windows=used)
+
+
+def short_session(cfg, params, dev, unified):
+    """A short session of one engine path (two prompts of 40 and 90
+    tokens, 9 new tokens each; unified: a 64-token prefill budget), run to
+    its end: the calls a route check profiles."""
+    import numpy as np
+    from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+    kw = (dict(prefill_token_budget=64, enable_prefix_cache=True) if unified
+          else dict(decode_chunk_steps=8))
+    eng = ContinuousBatchingEngine(cfg, params, max_slots=8, num_pages=1025,
+                                   page_size=16, max_seq_len=2048,
+                                   device=dev, **kw)
+    rng = np.random.default_rng(SEED + 5)
+    for n in (40, 90):
+        eng.add_request(rng.integers(1, cfg.vocab_size, n).astype(np.int32),
+                        max_new_tokens=9)
+    eng.run()
+    eng.shutdown()
+
+
+def paged_routes(dev):
+    """Every paged decode call of a short chunked and a short unified
+    session of the 8B serving model (built anew from SEED, as the serving
+    phase builds it) on the paged split and combine kernels, one profiled
+    window per path.  Run last: no later phase needs the profiler."""
+    import torch
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops import decode_attention as da
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(),
+                              max_position_embeddings=2048)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
+                              generator=gen).functional_state()
+    out = {path: route_profile(
+        f"8B paged route ({path})",
+        lambda: short_session(cfg, params, dev, path == "unified"),
+        da.LAUNCHES, ("paged_decode", "ragged_paged_decode"),
+        DECODE_KERNELS["paged_decode"]) for path in ("chunked", "unified")}
+    del params
+    torch.cuda.empty_cache()
+    return out
 
 
 # ------------------------------------------------------ flash kernel phase
@@ -1422,12 +1528,19 @@ def train_phase(dev, accum=TRAIN_ACCUM):
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
         step0_check=dict(kernel_bf16=kernel_loss, plain_fp32=ref_loss,
                          rel=rel, tol=TRAIN_LOSS_TOL))
-    result["profile"] = profile_train(step1, params, ids[0], labels[0])
     # every B2 call of the profiled micro-steps ran the wgmma pair
     from paddle_tpu_torch.ops import flash_attention as fa
-    calls = result["profile"]["flash_kernel_calls"]
+
+    def b2_calls(prof):
+        return {n: c for n, c in prof["flash_kernel_calls"].items()
+                if "hb_dkv" in n or "hb_dq" in n}
+
+    result["profile"], result["profile_windows"] = until_counted(
+        lambda: profile_train(step1, params, ids[0], labels[0]),
+        lambda prof: sorted(b2_calls(prof).values()) == [
+            cfg.num_hidden_layers * prof["micro_steps"]] * 2)
     want_calls = cfg.num_hidden_layers * result["profile"]["micro_steps"]
-    b2 = {n: c for n, c in calls.items() if "hb_dkv" in n or "hb_dq" in n}
+    b2 = b2_calls(result["profile"])
     if fa.bwd_route(cfg.head_dim, torch.bfloat16) != "wgmma" or \
             sorted(b2.values()) != [want_calls] * 2 or \
             not all("wgmma" in n for n in b2):
@@ -1500,8 +1613,15 @@ def masked_train_phase(dev):
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
         step0_check=dict(kernel_bf16=kernel_loss, plain_fp32=ref_loss,
                          rel=rel, tol=TRAIN_LOSS_TOL))
-    result["profile"] = profile_train(step1, params, ids[0], labels[0],
-                                      attention_mask=seg[0])
+    def full(prof):
+        want = cfg.num_hidden_layers * prof["micro_steps"]
+        calls = prof["flash_kernel_calls"]
+        return all(sum(c for n, c in calls.items() if m in n) == want
+                   for m in ("masked_fwd", "::masked_d"))
+
+    result["profile"], result["profile_windows"] = until_counted(
+        lambda: profile_train(step1, params, ids[0], labels[0],
+                              attention_mask=seg[0]), full)
     # every B5 call of the profiled micro-steps ran the wgmma kernel
     calls = result["profile"]["flash_kernel_calls"]
     want_calls = cfg.num_hidden_layers * result["profile"]["micro_steps"]
@@ -1565,11 +1685,10 @@ def long_context_phase(dev):
     # every B6 call of one profiled micro-step runs the split wgmma pair
     # (the profiler can drop a window's records: up to 3 windows)
     step1 = build_train_step(model, opt, compute_dtype=torch.bfloat16)
-    for _ in range(3):
-        b6 = profiled_calls(lambda: step1.accumulate(
-            params, ids[0], labels[0], attention_mask=seg[0]), "::masked_d")
-        if b6:
-            break
+    b6, b6_windows = until_counted(
+        lambda: profiled_calls(lambda: step1.accumulate(
+            params, ids[0], labels[0], attention_mask=seg[0]), "::masked_d"),
+        lambda calls: sum(calls.values()) == 2 * cfg.num_hidden_layers)
     del step1
     torch.cuda.empty_cache()
     if sorted(b6.values()) != [cfg.num_hidden_layers] * 2 or \
@@ -1599,12 +1718,13 @@ def long_context_phase(dev):
     # every B5 call of a segment-id forward runs the wgmma kernel (the
     # profiler can drop a window's records: up to 3 windows)
     with torch.no_grad():
-        for _ in range(3):
-            b5 = profiled_calls(lambda: bf16(ids[0], attention_mask=seg[0]),
-                                "masked_fwd")
-            if b5:
-                break
+        b5, b5_windows = until_counted(
+            lambda: profiled_calls(lambda: bf16(ids[0],
+                                                attention_mask=seg[0]),
+                                   "masked_fwd"),
+            lambda calls: sum(calls.values()) == cfg.num_hidden_layers)
     result["b5_kernel_calls"] = b5
+    result["profile_windows"] = dict(b6=b6_windows, b5=b5_windows)
     fa.reset_launches()
     with torch.no_grad():
         by_ids = bf16(ids[0], attention_mask=seg[0])
@@ -1641,6 +1761,22 @@ def profiled_calls(fn, match):
         _sync()
     return {e.key[:80]: e.count for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and match in e.key}
+
+
+def until_counted(profile_fn, counted, windows=3):
+    """``profile_fn()`` (one profiled window) repeated until ``counted``
+    holds for its result, up to ``windows`` windows; returns (the last
+    result, the windows profiled), the second recorded beside each check.
+    The profiler can drop a window's device records, all or a few (a
+    launch count one short), and a dropped record is no launch of another
+    kernel: each check that follows stays exact, and passes on the best of
+    ``windows`` windows."""
+    out = profile_fn()
+    used = 1
+    while used < windows and not counted(out):
+        out = profile_fn()
+        used += 1
+    return out, used
 
 
 def profile_train(step1, params, ids, labels, micro_steps=2,
@@ -1717,8 +1853,9 @@ def _multinomial_lens(total, experts, seed):
 # block_rows).  op "fwd": y [R, N] = x [R, K] @ w[wid] [K, N]; "t": the same
 # product with the bank stored [E, N, K] (the backward's dx on w^T);
 # "outer": out [S, K, N] = x[win]^T @ dy[win] (B8).  The Mixtral decode call
-# (8 slots x top-2 = 16 rows over 8 experts, block_rows 8) and a 6 x 300-
-# token prefill call on the int8 bank; the dropless train cell's three
+# (8 slots x top-2 = 16 rows over 8 experts, block_rows 8), a unified-step
+# call (528 copies, R 592) and a 6 x 300-token prefill call on the int8
+# bank; the dropless train cell's three
 # calls (16384 copies over 8 experts, K/N 4096/14336); then an empty
 # segment, all rows on one expert, unaligned lengths at block_rows 128 and
 # repeated weight ids (the adapter shape).
@@ -1727,6 +1864,8 @@ GMM_CASES = {
                           4096, 14336, None, 8),
     "mixtral_decode_down": ("fwd", ("int8",), _decode_lens(8, 2, 8, SEED),
                             14336, 4096, None, 8),
+    "mixtral_unified_up": ("fwd", ("int8",), _multinomial_lens(528, 8, SEED),
+                           4096, 14336, None, 8),
     "mixtral_prefill_up": ("fwd", ("int8",),
                            _multinomial_lens(6 * 300 * 2, 8, SEED), 4096,
                            14336, None, 8),
@@ -1869,6 +2008,52 @@ def _gmm_library(inp):
     return loop, "loop of per-segment torch.matmul"
 
 
+# B7 int8's CUDA kernels (the reducer runs where K is split)
+GMM_INT8_KERNELS = ("gmm_int8_wgmma_kernel", "gmm_split_reduce_kernel")
+
+
+@contextlib.contextmanager
+def forced_int8_order(rows_inner):
+    """Make B7 int8 walk its grid with row tiles (True) or column tiles
+    (False) innermost whatever the shape, through the plan its wrapper
+    reads."""
+    from paddle_tpu_torch.ops import grouped_matmul as gm
+    plan = gm.gmm_int8_plan
+
+    def forced(*shape):
+        tile, splits, _, ctas = plan(*shape)
+        return tile, splits, rows_inner, ctas
+
+    gm.gmm_int8_plan = forced
+    try:
+        yield
+    finally:
+        gm.gmm_int8_plan = plan
+
+
+def int8_other_order(inp, reps, flush):
+    """B7 int8 on ``inp`` with the grid order its plan did not pick: the
+    same bits as the planned order (each CTA's sums do not depend on when
+    it runs), timed as the planned order is (CUDA events and profiler, L2
+    flushed), the evidence for ``gmm_int8_plan``'s order rule."""
+    import torch
+    from paddle_tpu_torch.ops import grouped_matmul as gm
+    (R, K), N = inp["x"].shape, inp["w"].shape[2]
+    rows_inner = not gm.gmm_int8_plan(R, K, N, len(inp["lens"]))[2]
+    planned = _gmm_call(inp)
+    with forced_int8_order(rows_inner):
+        got = _gmm_call(inp)
+        _sync()
+        if not torch.equal(got, planned):
+            raise AssertionError(f"grouped int8: the grid order changed "
+                                 f"the output at R {R}, K {K}, N {N}")
+        ms, lo, hi = timing(lambda: _gmm_call(inp), reps, flush)
+        device = _device_ms(lambda: (flush.zero_(), _gmm_call(inp)), 5,
+                            GMM_INT8_KERNELS)
+    return dict(rows_inner=rows_inner, ms=ms, ms_min=lo, ms_max=hi,
+                device_ms=device)
+
+
 def gmm_cases(dev, flush):
     """B7 (float, int8, transposed) and B8 on GMM_CASES, each gated against
     its plain version (per-row gate; rows no segment covers exact 0) and
@@ -1893,10 +2078,17 @@ def gmm_cases(dev, flush):
             bms, by = bound(inp["nbytes"], inp["ops"],
                             "fp32" if kind == "fp32" else "bf16")
             ms, lo, hi = timing(lambda: _gmm_call(inp), reps, flush)
+            # B7 int8: its kernels' device time by the profiler, L2 flushed
+            device = (_device_ms(lambda: (flush.zero_(), _gmm_call(inp)), 5,
+                                 GMM_INT8_KERNELS) if kind == "int8" else None)
+            other = (int8_other_order(inp, reps, flush)
+                     if kind == "int8" and name.startswith("mixtral_")
+                     else None)
             records.append(dict(
                 name=name, kind=kind, op=op, shape=inp["shape"],
                 lens=inp["lens"].tolist(), err=err, tol=tol,
                 max_abs_err=abs_err, ms=ms, ms_min=lo, ms_max=hi,
+                device_ms=device, other_order=other,
                 plain_ms=time_ms(lambda: _gmm_call(inp, plain=True),
                                  1 if big else 3, flush),
                 bound_ms=bms, bound_by=by,
@@ -2004,6 +2196,25 @@ def check_moe_launches(what, calls):
         raise AssertionError(f"{what}: grouped launches {gm.LAUNCHES} "
                              f"(expected {want}), calls {calls}")
     return dict(gm.LAUNCHES, moe_ffn_calls=calls["moe_ffn"])
+
+
+def int8_routes(cfg, params, prompt, dev):
+    """Every B7 int8 call of a short chunked and a short unified session
+    and of ``_generate_greedy`` (4 new tokens) on the Mixtral weights, one
+    profiled window per path, ran ``gmm_int8_wgmma_kernel``, none
+    ``gmm_kernel``."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models.generation import _generate_greedy
+    from paddle_tpu_torch.ops import grouped_matmul as gm
+    ids = torch.from_numpy(np.ascontiguousarray(prompt[None])).to(dev)
+    runs = {"chunked": lambda: short_session(cfg, params, dev, False),
+            "unified": lambda: short_session(cfg, params, dev, True),
+            "generate": lambda: _generate_greedy(cfg, params, ids, 4, -1)}
+    return {path: route_profile(
+        f"mixtral B7 int8 route ({path})", run, gm.LAUNCHES,
+        ("grouped_matmul_int8",), GMM_INT8_KERNELS[:1], ("::gmm_kernel<",))
+        for path, run in runs.items()}
 
 
 def served_choices(cfg, params, seqs, dev):
@@ -2145,12 +2356,15 @@ def moe_serving_phase(dev):
     print("mixtral generate: " + json.dumps(rec["generate"]), flush=True)
     rec["profile"] = profile_decode(
         cfg, params, dev, MOE_PROFILE_CHUNKS,
-        classes={"grouped_matmul": ["gmm_kernel"],
-                 "decode_attention": ["decode_attention_kernel",
+        classes={"grouped_matmul": list(GMM_INT8_KERNELS),
+                 "decode_attention": ["paged_split_kernel",
                                       "decode_split_kernel",
                                       "decode_combine_kernel"],
                  "dense_gemm": ["nvjet", "gemm", "cutlass", "sm90_xmma"]})
     print("mixtral profile: " + json.dumps(rec["profile"]), flush=True)
+    rec["grouped_routes"] = int8_routes(cfg, params, prompts[3], dev)
+    print("mixtral grouped routes: " + json.dumps(rec["grouped_routes"]),
+          flush=True)
     rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     print("mixtral: " + json.dumps({k: v for k, v in rec.items() if k not in
                                     ("chunked", "unified", "generate",
@@ -2442,11 +2656,16 @@ def main() -> int:
               f"[{r['ms_min']:.4f}, {r['ms_max']:.4f}] "
               f"({r['tflops']:.1f} TFLOP/s, {r['gbytes_per_s']:.0f} GB/s) "
               f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
-              f"({r['bound_by']}) library_ms={lib} [{r['library_call']}]",
-              flush=True)
-    record["mixtral"] = moe_serving_phase(dev)
+              f"({r['bound_by']}) library_ms={lib} [{r['library_call']}]"
+              + (f" device_ms={json.dumps(r['device_ms'])}"
+                 if r["device_ms"] else "")
+              + (f" other_order={json.dumps(r['other_order'])}"
+                 if r["other_order"] else ""), flush=True)
     record["moe_train"] = moe_train_phase(dev)
     print("moe train: " + json.dumps(record["moe_train"]), flush=True)
+    record["mixtral"] = moe_serving_phase(dev)
+    record["paged_routes"] = paged_routes(dev)
+    print("paged routes: " + json.dumps(record["paged_routes"]), flush=True)
     record["wall_s"] = time.perf_counter() - t0
     out_dir = HERE / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -2469,7 +2688,8 @@ def main() -> int:
               f"max_abs_err={r['max_abs_err']:.3g} "
               f"launches={serving[path]['launches'][r['name']]} ({path} "
               f"path) wrapper_ms={r['ms']:.4f} kernel_ms={r['kernel_ms']:.4f} "
-              f"{json.dumps(r['device_ms'])} plain_ms={r['plain_ms']:.4f} "
+              f"{json.dumps(r['device_ms'])} host_ms={r['host_ms']:.4f} "
+              f"plain_ms={r['plain_ms']:.4f} "
               f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
               f"library_ms={lib} [{r['library_call']}]", flush=True)
     # ms: the kernels' device time (profiler); wrapper_ms: the wrapper by
@@ -2483,8 +2703,9 @@ def main() -> int:
             "route": "cuda", "source": source, "replaces": replaces,
             "launches": serving[path]["launches"][name],
             "max_abs_err": bf16["max_abs_err"], "ms": bf16["kernel_ms"],
+            "device_ms": bf16["device_ms"],
             "wrapper_ms": bf16["ms"], "ms_min": bf16["ms_min"],
-            "ms_max": bf16["ms_max"],
+            "ms_max": bf16["ms_max"], "host_ms": bf16["host_ms"],
             "plain_ms": bf16["plain_ms"], "bound_ms": bf16["bound_ms"],
             "bound_by": bf16["bound_by"], "library_ms": bf16["library_ms"],
             "checked_by": f"kernel phase (bf16, int8, fp32 at the 8B "
@@ -2562,7 +2783,8 @@ def main() -> int:
     mixtral = record["mixtral"]
     moe_launches = record["moe_train"]["launches_total"]
     for name, cuda, line, case, kind, launches, ops in (
-            ("grouped_matmul_int8", "gmm_kernel", 82, "mixtral_decode_up",
+            ("grouped_matmul_int8", "+".join(GMM_INT8_KERNELS), 82,
+             "mixtral_decode_up",
              "int8",
              sum(mixtral[p]["grouped_launches"]["grouped_matmul_int8"]
                  for p in ("chunked", "unified", "generate")),
@@ -2589,6 +2811,15 @@ def main() -> int:
             "row_errors": {f"{x['name']}[{x['kind']}]": x["err"]
                            for x in rows if x["op"] in ops
                            and (x["kind"] == "int8") == (kind == "int8")}})
+        if kind == "int8":
+            # the serving calls' shapes: decode, unified, prefill
+            kernels[-1]["device_ms"] = r["device_ms"]
+            kernels[-1]["cases"] = {
+                x["name"]: {k: x[k] for k in ("ms", "ms_min", "ms_max",
+                                              "device_ms", "bound_ms",
+                                              "bound_by", "other_order")}
+                for x in rows if x["kind"] == "int8"
+                and x["name"].startswith("mixtral_")}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

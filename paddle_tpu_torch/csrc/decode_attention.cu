@@ -6,9 +6,9 @@
 // paddle_tpu/ops/pallas/decode_attention.py:
 //   - _decode_kernel (launcher flash_decode_raw)            -> pt_flash_decode
 //       decode_split_kernel + decode_combine_kernel (dense cache, B4)
-//   - _paged_decode_kernel, nsp=2 (paged_decode_raw)        -> pt_paged_decode
-//   - _paged_decode_kernel, nsp=3 (ragged_paged_decode_raw) -> pt_ragged_paged_decode
-//       decode_attention_kernel (paged caches, B3 and B3')
+//   - _paged_decode_kernel, nsp=2 (paged_decode_raw) and nsp=3
+//     (ragged_paged_decode_raw)                              -> pt_paged_decode
+//       paged_split_kernel + decode_combine_kernel (paged caches, B3 and B3')
 //
 // What bounds them on the H100: bandwidth.  Each (row, kv head) reads its
 // visible K/V rows once and does 4*rep*d flops per visible token, about 4
@@ -17,39 +17,36 @@
 // 3.35 TB/s.  What limits a kernel is how many SMs work and how many bytes
 // each keeps in flight.
 //
-// B4 (dense) splits the visible length over CTAs, the flash-decoding scheme:
-//   - decode_split_kernel: one CTA per (chunk of C tokens, kv head, row),
-//     the grid sized on the host from static shapes (seq_lens stays on the
-//     device); a CTA whose chunk starts at or past the row's length exits at
-//     once.  The chunk's K rows and its V rows are contiguous in the dense
-//     layout: one thread issues 1-D bulk copies of both at once (K in one
-//     window per warp's 32 keys, V in one, each on its own mbarrier), so
-//     the whole chunk is in flight and a warp starts its scores when its
-//     own keys land.  Scores on CUDA cores, with no shuffle reduction per
-//     score: each thread owns one key and walks d against q staged in
-//     shared memory in its own dtype (16-byte pieces, staggered across
-//     threads against bank conflicts); a warp per q head takes the chunk's
-//     max and sum; for p V each thread owns 8 output columns of one head
-//     and walks keys.  The chunk's fp32 partials (m, l, acc[rep, d]) go to
-//     a scratch the wrapper allocates;
+// All three launchers split the visible length over CTAs, the
+// flash-decoding scheme:
+//   - decode_split_kernel (dense) and paged_split_kernel (paged): one CTA
+//     per (chunk of C tokens, kv head, row), the grid sized on the host
+//     from static shapes (the lengths stay on the device); a CTA whose
+//     chunk starts at or past the row's length exits at once.  One thread
+//     issues 1-D bulk copies of the chunk's K rows (one mbarrier per warp's
+//     32 keys) and V rows (one more), so the whole chunk is in flight and a
+//     warp starts its scores when its own keys land.  Dense: a chunk's rows
+//     are contiguous (chunk_row), one window each for K and V.  Paged: C is
+//     a whole number of pages and one page of one kv head is contiguous in
+//     the pool [n_pages, kvh, page, d] (4 KB at page 16, d 128, bf16), so a
+//     chunk is copied page by page (page_row maps a token to its page
+//     through the block table), K cut at the warps' 32-key boundaries.
+//     Scores on CUDA cores, with no shuffle reduction per score: each
+//     thread owns one key and walks d against q staged in shared memory in
+//     its own dtype (16-byte pieces, staggered across threads against bank
+//     conflicts); a warp per q head takes the chunk's max and sum; for p V
+//     each thread owns 8 output columns of one head and walks keys.  The
+//     chunk's fp32 partials (m, l, acc[rep, d]) go to a scratch the wrapper
+//     allocates (split_chunk, shared by both kernels);
 //   - decode_combine_kernel: per (row, q head), merges the row's
 //     ceil(len / C) partials in split order (deterministic): M = max m_c,
 //     l = sum l_c e^(m_c - M), o = sum acc_c e^(m_c - M) / l, one thread
 //     per output column.
-//   The chunk's addressing is one function (chunk_row), where a paged walk
-//   would map a chunk to its page.
 //
-// B3/B3' (paged) run one CTA per (row, kv head) walking the visible pages:
-// a loop trip stages pages_per_step pages; both the score pass and the PV
-// pass split the trip's tokens over the CTA's 8 warps, each warp keeping 4
-// K or V rows in flight, with per-warp fp32 partial sums added at the end.
-//
-// Left for later work: the paged kernels are not split over the sequence
-// (a decode batch of 8 sequences x 8 kv heads fills 64 of the 132 SMs) and
-// load synchronously; the split kernel's products run on CUDA cores (no
-// mma) and its chunks are not pipelined within a CTA; in the ragged mode a
-// prefill row re-reads its sequence's pages once per row (L2 catches part
-// of it).
+// Left for later work: the products run on CUDA cores (no mma) and a CTA
+// holds one chunk (no pipeline within a CTA); in the ragged mode each row
+// of a prefill chunk reads its sequence's pages itself (its own CTAs; L2
+// catches the re-reads), where rows of one slot could share staged K/V.
 //
 // Semantics kept from the TPU kernels (tests/test_flash_decoding.py):
 //   - masking with NEG_INF = -1e30, never -inf;
@@ -57,20 +54,23 @@
 //     l == 0 -> 1);
 //   - K/V rows past the visible length never enter the sums, so garbage
 //     or NaN there (the trash page, unwritten cache) cannot poison them:
-//     the split kernel's copy of a row's last chunk may bring some in, so
-//     their scores are masked and their V rows zeroed (0 x NaN is NaN);
+//     the copy of a row's last chunk (dense) or page (paged) may bring some
+//     in, so their scores are masked and their V rows zeroed (0 x NaN is
+//     NaN);
 //   - dense lengths clamp to [0, t_max];
-//   - the logical page index clamps to the row's last visible page and to
-//     max_pages - 1; table entries of -1 clamp to page 0; the walk covers
-//     ceil(max_pages / pp) * pp logical pages, as the TPU grid does;
+//   - paged: the walk covers ceil(max_pages / pp) * pp logical pages, as
+//     the TPU grid does, so lengths clamp to that many pages' tokens; the
+//     logical page index clamps to max_pages - 1 (lengths past the table
+//     re-read its last page) and, for a visible token, never passes the
+//     row's last visible page; table entries of -1 clamp to page 0;
 //   - ragged rows with slot < 0 are padding: length 0, output 0;
 //   - GQA is group-major: q head kv*rep + r reads kv head kv;
 //   - scale multiplies the fp32 dot; p is rounded to v's dtype (after the
 //     int8 widening, q's dtype) before the PV product, whose sum is fp32,
-//     and l sums the unrounded p.  The paged kernel rounds p against its
-//     running max, the split kernel against its chunk's own max (rescaled
-//     in fp32 by the combine), the plain version against the row's max:
-//     all three stay inside the two-bf16-ulp per-row gate;
+//     and l sums the unrounded p.  The split kernels round p against their
+//     chunk's own max (rescaled in fp32 by the combine), the plain version
+//     against the row's max: both stay inside the two-bf16-ulp per-row
+//     gate;
 //   - int8 K/V are widened to q's dtype in the kernel; the dequant scales
 //     stay with the caller.
 
@@ -83,17 +83,8 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kUnroll = 4;     // K/V rows a warp loads before it uses them
-constexpr int kHeadChunk = 8;  // q heads accumulated in registers per PV pass
 
 enum DTypeCode { kF32 = 0, kBF16 = 1, kI8 = 2 };
-
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
-// int8 -> q's dtype is exact for |x| <= 127 in both fp32 and bf16
-__device__ __forceinline__ float widen(int8_t x) { return static_cast<float>(x); }
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
@@ -119,225 +110,51 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-// ------------------------------------------------- B3 / B3': paged caches
-
-struct Args {
-  const void* q;       // [rows, h, d]
-  const void* k;       // [n_pages, kvh, page, d]
-  const void* v;
-  void* o;             // [rows, h, d], q's dtype
-  const int* lens;     // [rows] visible length
-  const int* slots;    // [rows] page-table row (ragged) or nullptr (row == slot)
-  const int* tables;   // [slots, max_pages] physical page ids
-  int h, kvh, rep;
-  int page;            // tokens per page
-  int max_pages;       // table width
-  int pp;              // pages staged per loop trip
-  int trips;           // ceil(max_pages / pp)
-  int tile;            // tokens per loop trip (pp * page)
-  float scale;
-};
-
-template <typename TQ, typename TKV, int D>
-__global__ void __launch_bounds__(kThreads) decode_attention_kernel(Args a) {
-  using TP = typename PvType<TQ, TKV>::type;
-  constexpr int kCols = (D + 31) / 32;  // elements of a K/V row per lane
-  extern __shared__ float smem[];
-  const int rep = a.rep;
-  float* q_s = smem;                    // [rep][D] fp32 q
-  float* acc_s = q_s + rep * D;         // [kWarps][rep][D] per-warp fp32 sums
-  float* s_s = acc_s + kWarps * rep * D;  // [rep][tile] scores, then p
-  float* m_s = s_s + rep * a.tile;      // [rep] running max
-  float* l_s = m_s + rep;               // [rep] running sum
-  float* alpha_s = l_s + rep;           // [rep] rescale of this trip
-  int* phys_s = reinterpret_cast<int*>(alpha_s + rep);  // [pp] pages of this trip
-
-  const int row = blockIdx.x;
-  const int g = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-
-  int len = a.lens[row];
-  int slot = row;
-  if (a.slots != nullptr) {
-    slot = a.slots[row];
-    if (slot < 0) {  // padding row: visibility 0, output forced to 0
-      slot = 0;
-      len = 0;
-    }
-  }
-  len = max(len, 0);
-
-  const TQ* q = static_cast<const TQ*>(a.q) + (static_cast<size_t>(row) * a.h + static_cast<size_t>(g) * rep) * D;
-  for (int i = tid; i < rep * D; i += kThreads) q_s[i] = widen(q[i]);
-  for (int i = tid; i < kWarps * rep * D; i += kThreads) acc_s[i] = 0.f;
-  for (int r = tid; r < rep; r += kThreads) {
-    m_s[r] = kNegInf;
-    l_s[r] = 0.f;
-  }
-
-  const TKV* kc = static_cast<const TKV*>(a.k);
-  const TKV* vc = static_cast<const TKV*>(a.v);
-  // last visible logical page, clamped to the table width
-  const int last = min(max((len + a.page - 1) / a.page - 1, 0), a.max_pages - 1);
-  // element offset of token t of the trip (a trip starts on a page
-  // boundary, so t / page indexes its staged pages)
-  auto row_offset = [&](int t) -> size_t {
-    const size_t phys = static_cast<size_t>(phys_s[t / a.page]);
-    return ((phys * a.kvh + g) * a.page + (t % a.page)) * D;
-  };
-  float* acc_w = acc_s + warp * rep * D;
-
-  for (int trip = 0; trip < a.trips; ++trip) {
-    const int start = trip * a.tile;
-    if (start >= len) break;  // trips past the visible length do no work
-    const int n = min(a.tile, len - start);  // visible tokens of this trip
-    __syncthreads();  // previous trip's readers of phys_s / s_s are done
-    for (int j = tid; j < a.pp; j += kThreads) {
-      const int li = min(trip * a.pp + j, last);
-      phys_s[j] = max(a.tables[static_cast<size_t>(slot) * a.max_pages + li], 0);
-    }
-    __syncthreads();
-
-    // scores: each warp loads kUnroll visible K rows (lanes split d) before
-    // it reduces them, so several rows are in flight per warp
-    for (int t0 = warp * kUnroll; t0 < n; t0 += kWarps * kUnroll) {
-      float kr[kUnroll][kCols];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const TKV* krow = kc + row_offset(min(t0 + u, n - 1));
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) {
-          const int i = lane + 32 * c;
-          kr[u][c] = (i < D) ? widen(krow[i]) : 0.f;
-        }
-      }
-      for (int r = 0; r < rep; ++r) {
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          float part = 0.f;
-#pragma unroll
-          for (int c = 0; c < kCols; ++c) {
-            const int i = lane + 32 * c;
-            if (i < D) part += q_s[r * D + i] * kr[u][c];
-          }
-          part = warp_sum(part);
-          if (lane == 0 && t0 + u < n) s_s[r * a.tile + t0 + u] = part * a.scale;
-        }
-      }
-    }
-    __syncthreads();
-
-    // online softmax: one warp per q head
-    for (int r = warp; r < rep; r += kWarps) {
-      float mx = kNegInf;
-      for (int t = lane; t < n; t += 32) mx = fmaxf(mx, s_s[r * a.tile + t]);
-      mx = warp_max(mx);
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int t = lane; t < n; t += 32) {
-        const float p = expf(s_s[r * a.tile + t] - m_new);
-        sum += p;
-        s_s[r * a.tile + t] = round_to(p, static_cast<TP*>(nullptr));
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        alpha_s[r] = alpha;
-        l_s[r] = l_s[r] * alpha + sum;
-        m_s[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // PV: warps split the trip's tokens (kUnroll V rows in flight each),
-    // lanes split d; each warp keeps its own partial sums, summed at the end
-    for (int r0 = 0; r0 < rep; r0 += kHeadChunk) {
-      float acc[kHeadChunk][kCols];
-#pragma unroll
-      for (int rr = 0; rr < kHeadChunk; ++rr) {
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) {
-          const int i = lane + 32 * c;
-          acc[rr][c] = (r0 + rr < rep && i < D) ? acc_w[(r0 + rr) * D + i] * alpha_s[r0 + rr] : 0.f;
-        }
-      }
-      for (int t0 = warp * kUnroll; t0 < n; t0 += kWarps * kUnroll) {
-        float vr[kUnroll][kCols];
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          const TKV* vrow = vc + row_offset(min(t0 + u, n - 1));
-#pragma unroll
-          for (int c = 0; c < kCols; ++c) {
-            const int i = lane + 32 * c;
-            vr[u][c] = (i < D) ? widen(vrow[i]) : 0.f;
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          if (t0 + u >= n) break;
-#pragma unroll
-          for (int rr = 0; rr < kHeadChunk; ++rr) {
-            if (r0 + rr < rep) {
-              const float p = s_s[(r0 + rr) * a.tile + t0 + u];
-#pragma unroll
-              for (int c = 0; c < kCols; ++c) acc[rr][c] += p * vr[u][c];
-            }
-          }
-        }
-      }
-#pragma unroll
-      for (int rr = 0; rr < kHeadChunk; ++rr) {
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) {
-          const int i = lane + 32 * c;
-          if (r0 + rr < rep && i < D) acc_w[(r0 + rr) * D + i] = acc[rr][c];
-        }
-      }
-    }
-  }
-  __syncthreads();
-
-  TQ* o = static_cast<TQ*>(a.o) + (static_cast<size_t>(row) * a.h + static_cast<size_t>(g) * rep) * D;
-  for (int idx = tid; idx < rep * D; idx += kThreads) {
-    const int r = idx / D;
-    float sum = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) sum += acc_s[w * rep * D + idx];
-    float l = l_s[r];
-    if (l == 0.f) l = 1.f;
-    const bool valid = m_s[r] > kNegInf * 0.5f;
-    store(o + idx, valid ? sum / l : 0.f);
-  }
-}
-
-// ---------------------------------------------- B4: dense cache, split
+// ------------------------- B4 (dense), B3 and B3' (paged): split and combine
 
 constexpr int kSplitThreads = 128;
 constexpr int kMaxChunk = kSplitThreads;  // keys of a chunk: one per thread in the score pass
 constexpr int kSplitHeads = 8;            // q heads a thread's score pass keeps in registers
 
 struct SplitArgs {
-  const void* q;      // [rows, h, d]
-  const void* k;      // [rows, kvh, t_max, d]
+  const void* q;       // [rows, h, d]
+  const void* k;       // dense [rows, kvh, t_max, d]; paged pool [n_pages, kvh, page, d]
   const void* v;
-  void* o;            // [rows, h, d], q's dtype
-  const int* lens;    // [rows] visible length
-  float* part_m;      // [rows, h, splits] chunk max (the scores' units)
-  float* part_l;      // [rows, h, splits] chunk sum of the unrounded p
-  float* part_acc;    // [rows, h, splits, d] chunk sum of p V
-  int h, kvh, rep, t_max;
-  int chunk, splits;  // C tokens per chunk, ceil(t_max / C) chunks
+  void* o;             // [rows, h, d], q's dtype
+  const int* lens;     // [rows] visible length
+  const int* slots;    // paged, ragged: [rows] page-table row (< 0 padding); else nullptr
+  const int* tables;   // paged: [slots, max_pages] physical page ids; else nullptr
+  float* part_m;       // [rows, h, splits] chunk max (the scores' units)
+  float* part_l;       // [rows, h, splits] chunk sum of the unrounded p
+  float* part_acc;     // [rows, h, splits, d] chunk sum of p V
+  int h, kvh, rep;
+  int t_max;           // dense: cache rows; paged: tokens of the walked pages
+  int page, max_pages;  // paged: tokens per page, table width
+  int chunk, splits;   // C tokens per chunk, ceil(t_max / C) chunks
   float scale;
 };
 
+// A row's visible length: clamped to [0, t_max]; a ragged padding row
+// (slot < 0) sees nothing
+__device__ __forceinline__ int row_len(const SplitArgs& a, int row) {
+  if (a.slots != nullptr && a.slots[row] < 0) return 0;
+  return min(max(a.lens[row], 0), a.t_max);
+}
+
 // The cache row index of the first token of chunk c0 of (row, kv head g):
 // in the dense layout a chunk's K rows (and V rows) are contiguous from
-// here.  A paged walk would map (row, g, c0) to a page at this point.
+// here.
 __device__ __forceinline__ size_t chunk_row(const SplitArgs& a, int row, int g, int c0) {
   return (static_cast<size_t>(row) * a.kvh + g) * a.t_max + c0;
+}
+
+// The pool row index of token t of (table row `table`, kv head g): its
+// logical page clamped to the table's width, the physical page id clamped
+// to 0 (-1 marks an unused entry); the rest of t's page follows it.
+__device__ __forceinline__ size_t page_row(const SplitArgs& a, const int* table, int g, int t) {
+  const int li = min(t / a.page, a.max_pages - 1);
+  const size_t phys = static_cast<size_t>(max(table[li], 0));
+  return (phys * a.kvh + g) * a.page + t % a.page;
 }
 
 // A K/V row as 16-byte pieces (the whole row when it is shorter: int8 at d
@@ -428,18 +245,21 @@ __host__ __device__ inline SplitSmem split_smem(int rep, int d, int chunk, int q
 // warp starts its scores when its own keys land
 constexpr int kSplitWarps = kSplitThreads / 32;
 
-template <typename TQ, typename TKV, int D>
-__global__ void __launch_bounds__(kSplitThreads) decode_split_kernel(SplitArgs a) {
+// The work of one chunk of (row, kv head g), shared by the dense and the
+// paged split kernel once thread 0 has initialised the barriers and issued
+// the chunk's copies: K row j at k_s + j * row bytes (warp w's keys on
+// bars[w], and also on bars[w + 1] when SPILL: the dense windows' bounds
+// are rounded down to 16 bytes, so a warp's last key may lie in the next
+// window), V row j at v_s + j * row bytes on bars[kSplitWarps].  n visible
+// keys, k_copies barriers of K copies.  Writes the chunk's partials at
+// split index c.
+template <typename TQ, typename TKV, int D, bool SPILL>
+__device__ __forceinline__ void split_chunk(const SplitArgs& a, unsigned char* dyn,
+                                            uint64_t* bars, const unsigned char* k_s,
+                                            unsigned char* v_s, int row, int g, int c, int n,
+                                            int k_copies) {
   using TP = typename PvType<TQ, TKV>::type;
   using R = Row<TKV, D>;
-  extern __shared__ __align__(128) unsigned char dyn[];
-  __shared__ __align__(8) uint64_t bars[kSplitWarps + 1];  // K by warp, then V
-
-  const int c = blockIdx.x, g = blockIdx.y, row = blockIdx.z;
-  const int len = min(max(a.lens[row], 0), a.t_max);
-  const int c0 = c * a.chunk;
-  if (c0 >= len) return;  // no visible token in this chunk: no copy, no partial
-  const int n = min(a.chunk, len - c0);  // visible tokens of the chunk
   const int n4 = min((n + 3) & ~3, a.chunk);  // the PV pass walks keys in fours
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int rep = a.rep;
@@ -450,51 +270,27 @@ __global__ void __launch_bounds__(kSplitThreads) decode_split_kernel(SplitArgs a
   float* m_s = reinterpret_cast<float*>(dyn + L.ml);
   float* l_s = m_s + rep;
 
-  // the chunk's rows [c0, c0 + n4), cut at t_max, in 16-byte-aligned copy
-  // windows (K and V are 16-byte aligned, so both share one shift): K in
-  // one window per warp's 32 rows, boundaries rounded down to 16 bytes (a
-  // warp's last row may end in the next window), V in one.  Rows past the
-  // length that the windows bring in are masked (K) and zeroed (V) below.
-  const size_t first = chunk_row(a, row, g, c0) * R::kBytes;
-  const int rows_in = min(n4, a.t_max - c0);
-  const unsigned char* kg = static_cast<const unsigned char*>(a.k) + first;
-  const unsigned char* vg = static_cast<const unsigned char*>(a.v) + first;
-  const int shift = static_cast<int>(reinterpret_cast<uintptr_t>(kg) & 15);
-  const int end = (shift + rows_in * R::kBytes + 15) & ~15;  // bytes of the window
-  const int k_copies = (rows_in + 31) / 32;
-  const unsigned char* k_s = dyn + shift;  // row j at k_s + j * R::kBytes
-  const unsigned char* v_s = dyn + L.kv + shift;
-  if (tid == 0) {
-    for (int i = 0; i <= kSplitWarps; ++i) mbar_init(&bars[i], 1);
-    mbar_fence_init();
-    for (int w = 0; w < k_copies; ++w) {
-      const int lo = (shift + w * 32 * R::kBytes) & ~15;
-      const int hi = w + 1 < k_copies ? (shift + (w + 1) * 32 * R::kBytes) & ~15 : end;
-      mbar_arrive_expect_tx(&bars[w], hi - lo);
-      bulk_load_1d(dyn + lo, kg - shift + lo, hi - lo, &bars[w]);
-    }
-    mbar_arrive_expect_tx(&bars[kSplitWarps], end);
-    bulk_load_1d(dyn + L.kv, vg - shift, end, &bars[kSplitWarps]);
-  }
   const TQ* q = static_cast<const TQ*>(a.q) + (static_cast<size_t>(row) * a.h + static_cast<size_t>(g) * rep) * D;
   for (int i = tid; i < rep * D; i += kSplitThreads) q_s[i] = q[i];
   __syncthreads();  // q staged, the barriers initialised
 
   // scores: thread j owns key j and walks d (pieces staggered by j) against
   // q from shared memory; keys past the length score NEG_INF.  A warp waits
-  // for the windows that hold its rows.
+  // for the copies that hold its rows.
   if (tid < a.chunk) {
     const int j = tid;
     if (j < n) {
       mbar_wait(&bars[warp], 0);
-      if (warp + 1 < k_copies) mbar_wait(&bars[warp + 1], 0);
+      if (SPILL && warp + 1 < k_copies) mbar_wait(&bars[warp + 1], 0);
     }
     for (int r0 = 0; r0 < rep; r0 += kSplitHeads) {
       float acc[kSplitHeads];
 #pragma unroll
       for (int rr = 0; rr < kSplitHeads; ++rr) acc[rr] = 0.f;
       if (j < n) {
-#pragma unroll 4
+        // fp32 q over int8 K/V holds 16 widened pieces of each: unrolled by
+        // 4, ptxas spills in the paged kernel at d 128
+#pragma unroll(sizeof(TQ) == 4 && sizeof(TKV) == 1 ? 2 : 4)
         for (int i = 0; i < R::kPieces; ++i) {
           const int pc = (i + j) & (R::kPieces - 1);
           float kx[R::kPiece];
@@ -537,12 +333,12 @@ __global__ void __launch_bounds__(kSplitThreads) decode_split_kernel(SplitArgs a
     }
   }
   // warps whose keys are all past the length never waited for their K
-  // window: every copy lands before the CTA may exit
+  // copies: every copy lands before the CTA may exit
   for (int w = 0; w < k_copies; ++w) mbar_wait(&bars[w], 0);
   mbar_wait(&bars[kSplitWarps], 0);
   // V rows [n, n4) past the length: zero, so p = 0 meets 0 and not NaN
   for (int i = tid; i < (n4 - n) * R::kBytes / 4; i += kSplitThreads)
-    reinterpret_cast<uint32_t*>(const_cast<unsigned char*>(v_s) + n * R::kBytes)[i] = 0u;
+    reinterpret_cast<uint32_t*>(v_s + n * R::kBytes)[i] = 0u;
   __syncthreads();
 
   // p V: a unit is (q head r, 8 columns); `slices` threads per unit split
@@ -584,6 +380,93 @@ __global__ void __launch_bounds__(kSplitThreads) decode_split_kernel(SplitArgs a
   }
 }
 
+// B4: the dense cache.  The chunk's rows [c0, c0 + n4), cut at t_max, in
+// 16-byte-aligned copy windows (K and V are 16-byte aligned, so both share
+// one shift): K in one window per warp's 32 rows, boundaries rounded down
+// to 16 bytes (a warp's last row may end in the next window), V in one.
+// Rows past the length that the windows bring in are masked (K) and zeroed
+// (V) by split_chunk.
+template <typename TQ, typename TKV, int D>
+__global__ void __launch_bounds__(kSplitThreads) decode_split_kernel(SplitArgs a) {
+  using R = Row<TKV, D>;
+  extern __shared__ __align__(128) unsigned char dyn[];
+  __shared__ __align__(8) uint64_t bars[kSplitWarps + 1];  // K by warp, then V
+
+  const int c = blockIdx.x, g = blockIdx.y, row = blockIdx.z;
+  const int len = row_len(a, row);
+  const int c0 = c * a.chunk;
+  if (c0 >= len) return;  // no visible token in this chunk: no copy, no partial
+  const int n = min(a.chunk, len - c0);  // visible tokens of the chunk
+  const int n4 = min((n + 3) & ~3, a.chunk);
+  const SplitSmem L = split_smem(a.rep, D, a.chunk, sizeof(TQ), sizeof(TKV));
+
+  const size_t first = chunk_row(a, row, g, c0) * R::kBytes;
+  const int rows_in = min(n4, a.t_max - c0);
+  const unsigned char* kg = static_cast<const unsigned char*>(a.k) + first;
+  const unsigned char* vg = static_cast<const unsigned char*>(a.v) + first;
+  const int shift = static_cast<int>(reinterpret_cast<uintptr_t>(kg) & 15);
+  const int end = (shift + rows_in * R::kBytes + 15) & ~15;  // bytes of the window
+  const int k_copies = (rows_in + 31) / 32;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i <= kSplitWarps; ++i) mbar_init(&bars[i], 1);
+    mbar_fence_init();
+    for (int w = 0; w < k_copies; ++w) {
+      const int lo = (shift + w * 32 * R::kBytes) & ~15;
+      const int hi = w + 1 < k_copies ? (shift + (w + 1) * 32 * R::kBytes) & ~15 : end;
+      mbar_arrive_expect_tx(&bars[w], hi - lo);
+      bulk_load_1d(dyn + lo, kg - shift + lo, hi - lo, &bars[w]);
+    }
+    mbar_arrive_expect_tx(&bars[kSplitWarps], end);
+    bulk_load_1d(dyn + L.kv, vg - shift, end, &bars[kSplitWarps]);
+  }
+  split_chunk<TQ, TKV, D, true>(a, dyn, bars, dyn + shift, dyn + L.kv + shift, row, g, c, n,
+                                k_copies);
+}
+
+// B3 and B3': the paged pools.  The chunk is C / page whole pages of the
+// row's table row; its pages with a visible token are copied whole (rows
+// past the length masked and zeroed by split_chunk), K in pieces cut at the
+// warps' 32-key boundaries, each piece on its warp's barrier, V page by
+// page on one barrier.  A page of one kv head is contiguous in the pool.
+template <typename TQ, typename TKV, int D>
+__global__ void __launch_bounds__(kSplitThreads) paged_split_kernel(SplitArgs a) {
+  using R = Row<TKV, D>;
+  extern __shared__ __align__(128) unsigned char dyn[];
+  __shared__ __align__(8) uint64_t bars[kSplitWarps + 1];  // K by warp, then V
+
+  const int c = blockIdx.x, g = blockIdx.y, row = blockIdx.z;
+  const int len = row_len(a, row);
+  const int c0 = c * a.chunk;
+  if (c0 >= len) return;  // no visible token in this chunk: no copy, no partial
+  int n = min(a.chunk, len - c0);  // visible tokens of the paged chunk
+  const SplitSmem L = split_smem(a.rep, D, a.chunk, sizeof(TQ), sizeof(TKV));
+  const int* table = a.tables + static_cast<size_t>(a.slots != nullptr ? a.slots[row] : row) *
+                                    a.max_pages;
+  const int rows_in = (n + a.page - 1) / a.page * a.page;  // the copied pages' rows
+  const int k_copies = (rows_in + 31) / 32;
+  const unsigned char* kg = static_cast<const unsigned char*>(a.k);
+  const unsigned char* vg = static_cast<const unsigned char*>(a.v);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i <= kSplitWarps; ++i) mbar_init(&bars[i], 1);
+    mbar_fence_init();
+    for (int w = 0; w < k_copies; ++w) {
+      const int lo = w * 32, hi = min(lo + 32, rows_in);
+      mbar_arrive_expect_tx(&bars[w], (hi - lo) * R::kBytes);
+      for (int j = lo; j < hi;) {
+        const int next = min((j / a.page + 1) * a.page, hi);  // the end of j's page
+        bulk_load_1d(dyn + j * R::kBytes, kg + page_row(a, table, g, c0 + j) * R::kBytes,
+                     (next - j) * R::kBytes, &bars[w]);
+        j = next;
+      }
+    }
+    mbar_arrive_expect_tx(&bars[kSplitWarps], rows_in * R::kBytes);
+    for (int j = 0; j < rows_in; j += a.page)
+      bulk_load_1d(dyn + L.kv + j * R::kBytes, vg + page_row(a, table, g, c0 + j) * R::kBytes,
+                   a.page * R::kBytes, &bars[kSplitWarps]);
+  }
+  split_chunk<TQ, TKV, D, false>(a, dyn, bars, dyn, dyn + L.kv, row, g, c, n, k_copies);
+}
+
 // One CTA per (q head, row): the row's ns = ceil(len / C) partial m and l
 // staged in shared memory, M = max m_c by a block reduction (exact in any
 // order), then thread dd merges column dd in split order: l = sum l_c
@@ -594,8 +477,7 @@ __global__ void __launch_bounds__(kSplitThreads) decode_combine_kernel(SplitArgs
   __shared__ float wmax[kSplitWarps];
   const int head = blockIdx.x, row = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int len = min(max(a.lens[row], 0), a.t_max);
-  const int ns = (len + a.chunk - 1) / a.chunk;  // chunks that hold a visible token
+  const int ns = (row_len(a, row) + a.chunk - 1) / a.chunk;  // chunks that hold a visible token
   const size_t base = (static_cast<size_t>(row) * a.h + head) * a.splits;
   float* m_c = comb;
   float* l_c = comb + a.splits;
@@ -626,13 +508,17 @@ __global__ void __launch_bounds__(kSplitThreads) decode_combine_kernel(SplitArgs
         valid ? acc / l : 0.f);
 }
 
-template <typename TQ, typename TKV, int D>
+template <typename TQ, typename TKV, int D, bool PAGED>
 cudaError_t launch_split(const SplitArgs& a, int rows, cudaStream_t stream) {
   const size_t smem = split_smem(a.rep, D, a.chunk, sizeof(TQ), sizeof(TKV)).bytes;
   const size_t comb = sizeof(float) * 2 * static_cast<size_t>(a.splits);
   if (a.chunk <= 0 || a.chunk > kMaxChunk || smem > 232448 || comb > 232448)
     return cudaErrorInvalidValue;
-  auto split = decode_split_kernel<TQ, TKV, D>;
+  // paged: whole pages per chunk, each page's K/V bytes a multiple of 16 (1-D bulk copies)
+  if (PAGED && (a.page <= 0 || a.chunk % a.page != 0 || a.max_pages <= 0 ||
+                (a.page * D * static_cast<int>(sizeof(TKV))) % 16 != 0))
+    return cudaErrorInvalidValue;
+  auto split = PAGED ? paged_split_kernel<TQ, TKV, D> : decode_split_kernel<TQ, TKV, D>;
   auto combine = decode_combine_kernel<TQ, D>;
   cudaError_t e = cudaFuncSetAttribute(split, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
@@ -647,79 +533,67 @@ cudaError_t launch_split(const SplitArgs& a, int rows, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename TQ, typename TKV, int D>
-cudaError_t launch_paged(const Args& a, int rows, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((1 + kWarps) * static_cast<size_t>(a.rep) * D +
-                                       static_cast<size_t>(a.rep) * a.tile + 3 * a.rep) +
-                      sizeof(int) * a.pp;
-  auto kernel = decode_attention_kernel<TQ, TKV, D>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
-  const dim3 grid(rows, a.kvh);
-  kernel<<<grid, kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
-template <typename TQ, typename TKV>
+template <typename TQ, typename TKV, bool PAGED>
 cudaError_t launch_d(const SplitArgs& a, int rows, int d, cudaStream_t s) {
   switch (d) {
-    case 8: return launch_split<TQ, TKV, 8>(a, rows, s);
-    case 16: return launch_split<TQ, TKV, 16>(a, rows, s);
-    case 32: return launch_split<TQ, TKV, 32>(a, rows, s);
-    case 64: return launch_split<TQ, TKV, 64>(a, rows, s);
-    case 128: return launch_split<TQ, TKV, 128>(a, rows, s);
+    case 8: return launch_split<TQ, TKV, 8, PAGED>(a, rows, s);
+    case 16: return launch_split<TQ, TKV, 16, PAGED>(a, rows, s);
+    case 32: return launch_split<TQ, TKV, 32, PAGED>(a, rows, s);
+    case 64: return launch_split<TQ, TKV, 64, PAGED>(a, rows, s);
+    case 128: return launch_split<TQ, TKV, 128, PAGED>(a, rows, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename TQ, typename TKV>
-cudaError_t launch_d(const Args& a, int rows, int d, cudaStream_t s) {
-  switch (d) {
-    case 8: return launch_paged<TQ, TKV, 8>(a, rows, s);
-    case 16: return launch_paged<TQ, TKV, 16>(a, rows, s);
-    case 32: return launch_paged<TQ, TKV, 32>(a, rows, s);
-    case 64: return launch_paged<TQ, TKV, 64>(a, rows, s);
-    case 128: return launch_paged<TQ, TKV, 128>(a, rows, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-// the (q dtype, K/V dtype) pairs the launchers take; A selects the kernels
-// (SplitArgs: B4's split and combine, Args: the paged kernel)
-template <typename A>
-int dispatch(const A& a, int rows, int d, int q_dtype, int kv_dtype, void* stream) {
+// the (q dtype, K/V dtype) pairs the launchers take
+template <bool PAGED>
+int dispatch(const SplitArgs& a, int rows, int d, int q_dtype, int kv_dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (q_dtype == kF32 && kv_dtype == kF32) return launch_d<float, float>(a, rows, d, s);
-  if (q_dtype == kBF16 && kv_dtype == kBF16) return launch_d<__nv_bfloat16, __nv_bfloat16>(a, rows, d, s);
-  if (q_dtype == kF32 && kv_dtype == kI8) return launch_d<float, int8_t>(a, rows, d, s);
+  if (q_dtype == kF32 && kv_dtype == kF32) return launch_d<float, float, PAGED>(a, rows, d, s);
+  if (q_dtype == kBF16 && kv_dtype == kBF16)
+    return launch_d<__nv_bfloat16, __nv_bfloat16, PAGED>(a, rows, d, s);
+  if (q_dtype == kF32 && kv_dtype == kI8) return launch_d<float, int8_t, PAGED>(a, rows, d, s);
   // an fp32 model over a bf16 cache (an int8-weight dict serves on bf16 pools)
-  if (q_dtype == kF32 && kv_dtype == kBF16) return launch_d<float, __nv_bfloat16>(a, rows, d, s);
-  if (q_dtype == kBF16 && kv_dtype == kI8) return launch_d<__nv_bfloat16, int8_t>(a, rows, d, s);
+  if (q_dtype == kF32 && kv_dtype == kBF16)
+    return launch_d<float, __nv_bfloat16, PAGED>(a, rows, d, s);
+  if (q_dtype == kBF16 && kv_dtype == kI8)
+    return launch_d<__nv_bfloat16, int8_t, PAGED>(a, rows, d, s);
   return cudaErrorInvalidValue;
 }
 
-Args paged_args(const void* q, const void* k, const void* v, void* o, const void* lens,
-                const void* block_tables, int h, int kvh, int page, int max_pages, int pp,
-                float scale) {
-  Args a{};
+SplitArgs split_args(const void* q, const void* k, const void* v, void* o, const void* lens,
+                     void* part_m, void* part_l, void* part_acc, int h, int kvh, int t_max,
+                     int chunk, float scale) {
+  SplitArgs a{};
   a.q = q;
   a.k = k;
   a.v = v;
   a.o = o;
   a.lens = static_cast<const int*>(lens);
-  a.tables = static_cast<const int*>(block_tables);
+  a.part_m = static_cast<float*>(part_m);
+  a.part_l = static_cast<float*>(part_l);
+  a.part_acc = static_cast<float*>(part_acc);
   a.h = h;
   a.kvh = kvh;
   a.rep = h / kvh;
+  a.t_max = t_max;
+  a.chunk = chunk;
+  a.splits = chunk > 0 ? (t_max + chunk - 1) / chunk : 0;
+  a.scale = scale;
+  return a;
+}
+
+// the paged launchers' walk: ceil(max_pages / pp) * pp logical pages
+SplitArgs paged_split_args(const void* q, const void* k, const void* v, void* o,
+                           const void* lens, const void* tables, void* part_m, void* part_l,
+                           void* part_acc, int h, int kvh, int page, int max_pages, int pp,
+                           int chunk, float scale) {
+  const int walked = pp > 0 ? (max_pages + pp - 1) / pp * pp : 0;
+  SplitArgs a = split_args(q, k, v, o, lens, part_m, part_l, part_acc, h, kvh, walked * page,
+                           chunk, scale);
+  a.tables = static_cast<const int*>(tables);
   a.page = page;
   a.max_pages = max_pages;
-  a.pp = pp;
-  a.trips = (max_pages + pp - 1) / pp;
-  a.tile = pp * page;
-  a.scale = scale;
   return a;
 }
 
@@ -735,44 +609,25 @@ int pt_flash_decode(const void* q, const void* k, const void* v, void* o, const 
                     void* part_m, void* part_l, void* part_acc, int b, int h, int kvh,
                     int t_max, int d, int chunk, float scale, int q_dtype, int kv_dtype,
                     void* stream) {
-  SplitArgs a{};
-  a.q = q;
-  a.k = k;
-  a.v = v;
-  a.o = o;
-  a.lens = static_cast<const int*>(seq_lens);
-  a.part_m = static_cast<float*>(part_m);
-  a.part_l = static_cast<float*>(part_l);
-  a.part_acc = static_cast<float*>(part_acc);
-  a.h = h;
-  a.kvh = kvh;
-  a.rep = h / kvh;
-  a.t_max = t_max;
-  a.chunk = chunk;
-  a.splits = chunk > 0 ? (t_max + chunk - 1) / chunk : 0;
-  a.scale = scale;
-  return dispatch(a, b, d, q_dtype, kv_dtype, stream);
+  const SplitArgs a = split_args(q, k, v, o, seq_lens, part_m, part_l, part_acc, h, kvh, t_max,
+                                 chunk, scale);
+  return dispatch<false>(a, b, d, q_dtype, kv_dtype, stream);
 }
 
-// paged_decode_raw: q [b, h, d]; pools [n_pages, kvh, page, d]; seq_lens [b];
-// block_tables [b, max_pages] (-1 = unused).
-int pt_paged_decode(const void* q, const void* k, const void* v, void* o, const void* seq_lens,
-                    const void* block_tables, int b, int h, int kvh, int page, int d,
-                    int max_pages, int pp, float scale, int q_dtype, int kv_dtype, void* stream) {
-  const Args a = paged_args(q, k, v, o, seq_lens, block_tables, h, kvh, page, max_pages, pp,
-                            scale);
-  return dispatch(a, b, d, q_dtype, kv_dtype, stream);
-}
-
-// ragged_paged_decode_raw: q [T, h, d] packed rows; row_lens [T]; row_slot [T]
-// (< 0 = padding); block_tables [slots, max_pages].
-int pt_ragged_paged_decode(const void* q, const void* k, const void* v, void* o,
-                           const void* row_lens, const void* row_slot, const void* block_tables,
-                           int rows, int h, int kvh, int page, int d, int max_pages, int pp,
-                           float scale, int q_dtype, int kv_dtype, void* stream) {
-  Args a = paged_args(q, k, v, o, row_lens, block_tables, h, kvh, page, max_pages, pp, scale);
+// paged_decode_raw and ragged_paged_decode_raw: q [rows, h, d]; pools
+// [n_pages, kvh, page, d]; lens [rows]; row_slot [rows] (< 0 = padding), or
+// nullptr for one row per table row; block_tables [slots, max_pages] (-1 =
+// unused).  paged_split_kernel over chunks of `chunk` tokens (whole pages)
+// of the walked length ceil(max_pages / pp) * pp * page, partials as
+// pt_flash_decode's, then decode_combine_kernel.
+int pt_paged_decode(const void* q, const void* k, const void* v, void* o, const void* lens,
+                    const void* row_slot, const void* block_tables, void* part_m, void* part_l,
+                    void* part_acc, int rows, int h, int kvh, int page, int d, int max_pages,
+                    int pp, int chunk, float scale, int q_dtype, int kv_dtype, void* stream) {
+  SplitArgs a = paged_split_args(q, k, v, o, lens, block_tables, part_m, part_l, part_acc, h,
+                                 kvh, page, max_pages, pp, chunk, scale);
   a.slots = static_cast<const int*>(row_slot);
-  return dispatch(a, rows, d, q_dtype, kv_dtype, stream);
+  return dispatch<true>(a, rows, d, q_dtype, kv_dtype, stream);
 }
 
 const char* pt_error_string(int code) {

@@ -7,8 +7,10 @@
 //   - _gmm_kernel (launcher grouped_matmul_raw, B7)   -> pt_grouped_matmul:
 //       y[win_s] = x[win_s] @ w[wid_s] per segment s, or w[wid_s]^T (the
 //       backward's dx, the bank read in place).  Kernel gmm_wgmma_kernel for
-//       a bf16 bank, gmm_kernel for an int8 bank (with its per-(slice,
-//       out-channel) fp32 scales) and for fp32 (the wrapper's gmm_route);
+//       bf16 x over a bf16 bank, gmm_int8_wgmma_kernel (with
+//       gmm_split_reduce_kernel when K is split) for bf16 x over an int8
+//       bank with its per-(slice, out-channel) fp32 scales, gmm_kernel for
+//       fp32 x (the wrapper's gmm_route);
 //   - _outer_kernel (launcher grouped_outer_raw, B8)  -> pt_grouped_outer:
 //       out[s] = x[win_s]^T @ dy[win_s], fp32 [S, K, N]; kernel
 //       outer_wgmma_kernel for bf16, outer_kernel (CUDA cores) for fp32.
@@ -16,6 +18,7 @@
 // A segment's window is the TPU's: whole block_rows blocks from its start's
 // block, align(len, block_rows) rows, cut at R.  Rows no segment covers are
 // left to the caller's zero fill (the wrapper allocates y with zeros).
+// Segments whose weight id lies outside [0, E) are skipped.
 //
 // What bounds it on the H100.  At serving decode (8 slots x top-2 = 16 rows
 // over 8 experts) B7 is a weight stream: every expert's [K, N] slice is read
@@ -43,19 +46,43 @@
 //     rows of the next segment are multiplied but never stored (the
 //     epilogue masks rows at or past start + align(len)), and no row of y
 //     depends on another, so nothing needs zeroing in shared memory;
-//   - B7 int8 and fp32 (gmm_kernel): one CTA per (row tile of 64 rows of
-//     one segment, N tile of 64), the same segment walk; the CTA loops over
-//     K in steps of 64, staging the x rows and the weight tile in shared
-//     memory, the next step's tiles loaded into registers while the tensor
-//     cores (bf16 x over an int8 bank: nvcuda::wmma 16x16x16, fp32
-//     accumulators) or the CUDA cores (fp32: a 4x4 micro-tile per thread)
-//     multiply the current ones.  An int8 bank is widened to x's dtype as it
-//     is stored to shared memory (exact: |q| <= 127) and the fp32
-//     accumulator is multiplied by w_scale[wid, n] before the cast to x's
-//     dtype, the TPU's order.  A segment of at most 64 rows (every decode
-//     segment) is one row tile, so its expert's weight tile is read once per
-//     N tile.  The fp32 transposed launch stores the tile of w[wid] ([N, K]
-//     rows, read contiguously along K) column-major in shared memory;
+//   - B7 int8 (gmm_int8_wgmma_kernel): the int8 bank is a stream (46.7 GB of
+//     Mixtral's experts, read in place in its [E, K, N] layout: no repacked
+//     copy fits beside it), and a decode segment has 1-16 rows.  So the
+//     product runs swapped, y^T[n, rows] = w^T[n, k] x^T[k, rows]: the
+//     widened weight is wgmma's 64-row A operand and the segment's rows its
+//     narrow N (16, 64 or 128, picked on the host from R and S alone), so
+//     no row is padded to 64.  One CTA per (row tile of one segment, K
+//     split, 128 output columns), in the order the host's plan picks: row
+//     tiles innermost where the segments average more than two row tiles
+//     (prefill), so the tiles of one segment read each weight tile close
+//     together, else column tiles innermost (the CTAs in flight read
+//     neighbouring pieces of the same bank rows).
+//     A producer warp keeps 7 (row tile 16) or 4 stages in flight by TMA:
+//     the int8 tile w[wid][k0:+64, n0:+128] through an 8-bit tensor map over the bank
+//     (128-byte swizzle, the expert as third coordinate) and x's rows
+//     [NR][64].  Two CTAs fit an SM at row tiles 16 and 64, so 112 KB of
+//     weight bytes are in flight per SM at decode.  Each consumer
+//     warpgroup widens its 64 columns of the tile to bf16 (exact, a byte
+//     permute and one fp32 subtraction per element, widen_i8x4) into a
+//     swizzled panel of its own (two alternate), then runs 4 m64nNRk16
+//     products, A MN-major from the panel, B K-major from x's rows, one
+//     group left in flight.  The fp32 sums are multiplied by
+//     w_scale[wid, n] and cast to bf16, the TPU's order.  Where the grid
+//     would not fill the card (the down projection: K 14336, N 4096 gives
+//     32 column tiles per expert) K is split: each split stores its fp32
+//     sums in a scratch the wrapper allocates, and gmm_split_reduce_kernel
+//     adds them in split order before the scale and the cast
+//     (deterministic, no atomics);
+//   - B7 fp32 (gmm_kernel): one CTA per (row tile of 64 rows of one
+//     segment, N tile of 64), the same segment walk; the CTA loops over K
+//     in steps of 64, staging the x rows and the weight tile in shared
+//     memory, the next step's tiles loaded into registers while the CUDA
+//     cores multiply the current ones (a 4x4 micro-tile per thread).  An
+//     int8 bank under fp32 x is widened as it is stored to shared memory
+//     and its scale applied to the fp32 sums.  The transposed launch stores
+//     the tile of w[wid] ([N, K] rows, read contiguously along K)
+//     column-major in shared memory;
 //   - B8 bf16 (outer_wgmma_kernel, on hopper.cuh).  At the train cell's dW
 //     it does 1.92 TFLOP on 0.6 GB of distinct input and 1.9 GB of fp32
 //     output: 1.95 ms of operations against 0.75 ms of bytes.  One CTA per
@@ -70,18 +97,19 @@
 //     tile is stored, an empty segment's as exact zeros.  No atomics:
 //     deterministic.  fp32 keeps the CUDA-core outer_kernel (one CTA per
 //     64 x 64 tile, chunks of 32 rows).
-// Left for later work: B7 int8 on a decode-shaped tile (16 rows, more bytes
-// in flight per SM, split-K for the down projection), a persistent grid with
-// the epilogue overlapping the next tile's loads.
+// Left for later work: a persistent grid with the epilogue overlapping the
+// next tile's loads; B7 int8's epilogue stores single bf16 values (the
+// swapped product leaves a thread's consecutive registers on consecutive
+// rows), a transpose through shared memory would store rows whole.
 
 #include <type_traits>
 
-#include "flash_common.cuh"  // kThreads, kPad, dtype helpers, wmma
-#include "hopper.cuh"        // TMA, mbarriers, wgmma (B7 and B8 bf16)
+#include "flash_common.cuh"  // kThreads, kPad, dtype helpers
+#include "hopper.cuh"        // TMA, mbarriers, wgmma (B7 and B8 bf16, B7 int8)
 
 namespace {
 
-constexpr int kBM = 64;   // rows of a gmm_kernel tile (int8 bank, fp32)
+constexpr int kBM = 64;   // rows of a gmm_kernel tile (fp32 x)
 constexpr int kBN = 64;   // columns of a tile
 constexpr int kBK = 64;   // K step of B7; K tile of B8
 constexpr int kBR = 32;   // rows per step of B8
@@ -204,18 +232,9 @@ __global__ void __launch_bounds__(kThreads) gmm_kernel(GmmArgs a) {
     }
   };
 
-  // bf16 x (over an int8 bank, never transposed) on the tensor cores
-  constexpr bool kTensor = std::is_same<T, __nv_bfloat16>::value;
-  static_assert(!(kTensor && TRANS), "a bf16 bank runs gmm_wgmma_kernel");
-  const int warp = threadIdx.x >> 5;
-  const int ti = warp >> 1, tj0 = (warp & 1) * 2;        // bf16: 2 of 16 tiles
-  const int tr = threadIdx.x >> 4, tc = threadIdx.x & 15;  // fp32: 4x4 outputs
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c0, c1;
+  static_assert(std::is_same<T, float>::value, "bf16 x runs a wgmma kernel");
+  const int tr = threadIdx.x >> 4, tc = threadIdx.x & 15;  // 4x4 outputs
   float acc[4][4] = {};
-  if constexpr (kTensor) {
-    wmma::fill_fragment(c0, 0.f);
-    wmma::fill_fragment(c1, 0.f);
-  }
 
   load(0);
   for (int k0 = 0; k0 < a.K; k0 += kBK) {
@@ -223,46 +242,27 @@ __global__ void __launch_bounds__(kThreads) gmm_kernel(GmmArgs a) {
     stage();
     __syncthreads();
     if (k0 + kBK < a.K) load(k0 + kBK);  // in flight during the products
-    if constexpr (kTensor) {
-#pragma unroll
-      for (int kk = 0; kk < kBK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> fb0, fb1;
-        wmma::load_matrix_sync(fa, xs + ti * 16 * L::kLdx + kk, L::kLdx);
-        wmma::load_matrix_sync(fb0, ws + kk * L::kLdw + tj0 * 16, L::kLdw);
-        wmma::load_matrix_sync(fb1, ws + kk * L::kLdw + (tj0 + 1) * 16, L::kLdw);
-        wmma::mma_sync(c0, fa, fb0, c0);
-        wmma::mma_sync(c1, fa, fb1, c1);
-      }
-    } else {
 #pragma unroll 4
-      for (int kk = 0; kk < kBK; ++kk) {
-        float av[4], bv[4];
+    for (int kk = 0; kk < kBK; ++kk) {
+      float av[4], bv[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          av[i] = to_f(xs[(tr * 4 + i) * L::kLdx + kk]);
-          bv[i] = TRANS ? to_f(ws[(tc * 4 + i) * L::kLdw + kk])
-                        : to_f(ws[kk * L::kLdw + tc * 4 + i]);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * bv[j];
+      for (int i = 0; i < 4; ++i) {
+        av[i] = to_f(xs[(tr * 4 + i) * L::kLdx + kk]);
+        bv[i] = TRANS ? to_f(ws[(tc * 4 + i) * L::kLdw + kk])
+                      : to_f(ws[kk * L::kLdw + tc * 4 + i]);
       }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * bv[j];
     }
   }
 
   __syncthreads();  // the tiles' region becomes the fp32 output staging
-  if constexpr (kTensor) {
-    wmma::store_matrix_sync(os + ti * 16 * kLdo + tj0 * 16, c0, kLdo, wmma::mem_row_major);
-    wmma::store_matrix_sync(os + ti * 16 * kLdo + (tj0 + 1) * 16, c1, kLdo,
-                            wmma::mem_row_major);
-  } else {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) os[(tr * 4 + i) * kLdo + tc * 4 + j] = acc[i][j];
-  }
+    for (int j = 0; j < 4; ++j) os[(tr * 4 + i) * kLdo + tc * 4 + j] = acc[i][j];
   __syncthreads();
   T* y = static_cast<T*>(a.y);
   for (int c = threadIdx.x; c < kBM * kBN / 8; c += kThreads) {
@@ -277,12 +277,8 @@ __global__ void __launch_bounds__(kThreads) gmm_kernel(GmmArgs a) {
       out.v[i] = from_f<T>(v);
     }
     T* dst = y + static_cast<size_t>(row) * a.N + n;
-    if constexpr (sizeof(T) == 2) {
-      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(out.v);
-    } else {
-      reinterpret_cast<uint4*>(dst)[0] = reinterpret_cast<const uint4*>(out.v)[0];
-      reinterpret_cast<uint4*>(dst)[1] = reinterpret_cast<const uint4*>(out.v)[1];
-    }
+    reinterpret_cast<uint4*>(dst)[0] = reinterpret_cast<const uint4*>(out.v)[0];
+    reinterpret_cast<uint4*>(dst)[1] = reinterpret_cast<const uint4*>(out.v)[1];
   }
 }
 
@@ -641,6 +637,201 @@ cudaError_t launch_gmm_wgmma(const GmmArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------- B7 int8: bf16 x over an int8 bank
+constexpr int kQBN = 128;          // output columns of a tile: one 128-byte int8 row
+constexpr int kQBK = 64;           // K per pipeline step
+constexpr int kQThreads = 288;     // two consumer warpgroups (64 columns each), one producer warp
+constexpr int kQW = kQBK * kQBN;   // the int8 weight tile [64 k][128] of a stage
+constexpr int kQPanel = 64 * 128;  // a widened bf16 panel [64 k][64]
+
+// NR rows of a row tile (the products' N): 16 at decode, 64, 128
+template <int NR>
+struct QCfg {
+  static constexpr int kStages = NR == 16 ? 7 : 4;
+  static constexpr int kX = NR * 128;  // x rows [NR][64] bf16
+  static constexpr int kStage = kQW + kX;
+  // the ring, then two alternating widened panels per consumer warpgroup
+  static constexpr int kSmem = kStages * kStage + 4 * kQPanel + 1024;
+  static constexpr int kMinBlocks = NR == 128 ? 1 : 2;
+};
+
+// One CTA per (row tile rt of NR rows of one segment, K split, 128 output
+// columns n0..), row tiles innermost when rows_inner, else column tiles;
+// K splits outermost.  Warp 8 is the producer: per K step
+// of 64, a TMA load of the int8 tile w[wid][k0:+64, n0:+128] (8-bit map,
+// 128-byte swizzle) and of x's NR rows [row0:+NR, k0:+64] (bf16 map), zero
+// past R, K and N, through a kStages ring.  Warpgroup g widens columns
+// 64g.. of the int8 tile into its panel and multiplies it (A, MN-major:
+// y^T's 64 output channels) by x's rows (B, K-major: NR rows) into NR / 2
+// fp32 registers a thread.  splits == 1: y = bf16(sum * w_scale[wid, n]),
+// rows before the window's end and columns before N; else the split's fp32
+// sums go to part[split][R][N] for gmm_split_reduce_kernel.
+template <int NR>
+__global__ void __launch_bounds__(kQThreads, QCfg<NR>::kMinBlocks)
+    gmm_int8_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                          const __grid_constant__ CUtensorMap tw, GmmArgs a, int row_tiles,
+                          int splits, int rows_inner, float* part) {
+  using C = QCfg<NR>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 * C::kStages];
+  unsigned char* ring = smem_raw + (1024 - smem_u32(smem_raw) % 1024) % 1024;
+  unsigned char* wide = ring + C::kStages * C::kStage;
+  uint64_t* full = bars;
+  uint64_t* empty = bars + C::kStages;
+
+  const int t = blockIdx.x, n_tiles = (a.N + kQBN - 1) / kQBN, inner = t % (n_tiles * row_tiles);
+  const int rt = rows_inner ? inner % row_tiles : inner / n_tiles;
+  const int n0 = (rows_inner ? inner / row_tiles : inner % n_tiles) * kQBN;
+  const int split = t / (n_tiles * row_tiles);
+  int seg, row0, row_end;
+  if (!find_tile<NR>(a, rt, seg, row0, row_end)) return;
+  const int wid = a.wids[seg];
+  if (wid < 0 || wid >= a.E) return;
+  // this split's K steps [c0, c0 + steps); a split past K stores zeros
+  const int all = (a.K + kQBK - 1) / kQBK, per = (all + splits - 1) / splits;
+  const int c0 = min(split * per, all), steps = min(per, all - c0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < C::kStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 2 * 128);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 8) {
+    // ------------------------------------------------------------ producer
+    if (lane == 0) {
+      for (int c = 0; c < steps; ++c) {
+        const int st = c % C::kStages, k0 = (c0 + c) * kQBK;
+        mbar_wait(&empty[st], ((c / C::kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[st], C::kStage);
+        unsigned char* dst = ring + st * C::kStage;
+        tma_load_3d(dst, &tw, &full[st], n0, k0, wid);
+        tma_load_2d(dst + kQW, &tx, &full[st], k0, row0);
+      }
+    }
+    return;
+  }
+
+  // -------------------------------------------------------------- consumers
+  const int wg = threadIdx.x / 128, tq = threadIdx.x % 128, wq = tq / 32;
+  float acc[NR / 2];
+#pragma unroll
+  for (int i = 0; i < NR / 2; ++i) acc[i] = 0.f;
+  for (int c = 0; c < steps; ++c) {
+    const int st = c % C::kStages;
+    const unsigned char* tile = ring + st * C::kStage;
+    // the panel the products of step c - 2 read: done (waited below at c - 1)
+    unsigned char* panel = wide + (2 * wg + (c & 1)) * kQPanel;
+    mbar_wait(&full[st], (c / C::kStages) & 1);
+    widen_i8_panel(tile, panel, wg, tq);
+    fence_proxy_async();
+    named_barrier(1 + wg, 128);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kQBK / 16; ++ks)
+      wgmma_ss<NR, 1, 0>(acc, smem_desc(panel + ks * 16 * 128, kQPanel, 1024),
+                         smem_desc(tile + kQW + ks * 32, 16, 1024), 1);
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous step's products are done with their stage
+    if (c > 0) mbar_arrive(&empty[(c - 1) % C::kStages]);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // register i: output channel n (rows of y^T), row r (its columns)
+  const int n_lo = n0 + wg * 64 + wq * 16 + lane / 4;
+  if (splits == 1) {
+    __nv_bfloat16* y = static_cast<__nv_bfloat16*>(a.y);
+    const float* sc = a.scale + static_cast<size_t>(wid) * a.N;
+    const float s0 = n_lo < a.N ? sc[n_lo] : 0.f, s1 = n_lo + 8 < a.N ? sc[n_lo + 8] : 0.f;
+#pragma unroll
+    for (int i = 0; i < NR / 2; ++i) {
+      const int n = n_lo + 8 * ((i / 2) % 2);
+      const int row = row0 + (i / 4) * 8 + (lane % 4) * 2 + i % 2;
+      if (row < row_end && n < a.N)
+        y[static_cast<size_t>(row) * a.N + n] = __float2bfloat16(acc[i] * ((i / 2) % 2 ? s1 : s0));
+    }
+  } else {
+    float* out = part + static_cast<size_t>(split) * a.R * a.N;
+#pragma unroll
+    for (int i = 0; i < NR / 2; ++i) {
+      const int n = n_lo + 8 * ((i / 2) % 2);
+      const int row = row0 + (i / 4) * 8 + (lane % 4) * 2 + i % 2;
+      if (row < row_end && n < a.N) out[static_cast<size_t>(row) * a.N + n] = acc[i];
+    }
+  }
+}
+
+// B7 int8's K splits added in split order: one CTA per (row, 1024 columns);
+// the row's segment is the one whose window holds it (none, or a weight id
+// outside [0, E): the row stays the wrapper's zero).  y = bf16(sum *
+// w_scale[wid, n]).
+__global__ void __launch_bounds__(256) gmm_split_reduce_kernel(GmmArgs a, int splits,
+                                                               const float* part) {
+  const int row = blockIdx.x;
+  int wid = -1;
+  for (int s = 0; s < a.S; ++s) {
+    const int base = a.starts[s] / a.br * a.br;
+    const int end = min(base + (max(a.lens[s], 0) + a.br - 1) / a.br * a.br, a.R);
+    if (row >= base && row < end) {
+      wid = a.wids[s];
+      break;
+    }
+  }
+  if (wid < 0 || wid >= a.E) return;
+  const int n = (blockIdx.y * 256 + threadIdx.x) * 4;
+  if (n >= a.N) return;
+  const size_t at = static_cast<size_t>(row) * a.N + n, plane = static_cast<size_t>(a.R) * a.N;
+  float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int sp = 0; sp < splits; ++sp) {
+    const float4 v = *reinterpret_cast<const float4*>(part + sp * plane + at);
+    sum.x += v.x;
+    sum.y += v.y;
+    sum.z += v.z;
+    sum.w += v.w;
+  }
+  const float* sc = a.scale + static_cast<size_t>(wid) * a.N + n;
+  __nv_bfloat162* y = reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(a.y) + at);
+  y[0] = __floats2bfloat162_rn(sum.x * sc[0], sum.y * sc[1]);
+  y[1] = __floats2bfloat162_rn(sum.z * sc[2], sum.w * sc[3]);
+}
+
+// B7 int8: x as (K, R) bf16; the bank as (N, K, E) bytes.  N % 16 == 0 (the
+// bank's row stride), K % 8 == 0 (x's), both bases 16-byte aligned: the
+// wrapper checks.  part: splits x R x N fp32 when splits > 1.
+template <int NR>
+cudaError_t launch_gmm_int8(const GmmArgs& a, int splits, int rows_inner, float* part,
+                            cudaStream_t stream) {
+  using C = QCfg<NR>;
+  const uint64_t K = a.K, N = a.N;
+  const uint64_t xd[2] = {K, static_cast<uint64_t>(a.R)}, xs[1] = {2 * K};
+  const uint32_t xb[2] = {64, NR};
+  const uint64_t wd[3] = {N, K, static_cast<uint64_t>(a.E)}, ws[2] = {N, N * K};
+  const uint32_t wb[3] = {kQBN, kQBK, 1};
+  if (splits < 1 || (splits > 1 && part == nullptr) || a.scale == nullptr)
+    return cudaErrorInvalidValue;
+  CUtensorMap tx, tw;
+  cudaError_t e = encode_bf16_map(&tx, a.x, 2, xd, xs, xb);
+  if (e == cudaSuccess) e = encode_u8_map(&tw, a.w, 3, wd, ws, wb);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(gmm_int8_wgmma_kernel<NR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           C::kSmem);
+  if (e != cudaSuccess) return e;
+  const int row_tiles = (a.R + NR - 1) / NR + a.S;
+  const long long tiles = static_cast<long long>(row_tiles) * splits * ((a.N + kQBN - 1) / kQBN);
+  if (tiles <= 0 || tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  gmm_int8_wgmma_kernel<NR><<<static_cast<unsigned>(tiles), kQThreads, C::kSmem, stream>>>(
+      tx, tw, a, row_tiles, splits, rows_inner, part);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return e;
+  gmm_split_reduce_kernel<<<dim3(a.R, (a.N + 1023) / 1024), 256, 0, stream>>>(a, splits, part);
+  return cudaGetLastError();
+}
+
 template <typename T, typename TW, bool TRANS>
 cudaError_t launch_gmm(const GmmArgs& a, cudaStream_t stream) {
   const dim3 grid((a.N + kBN - 1) / kBN, (a.R + kBM - 1) / kBM + a.S);
@@ -660,29 +851,38 @@ extern "C" {
 
 // grouped_matmul_raw: x [R, K]; w [E, K, N] (trans: [E, N, K]) in x's dtype
 // or int8 (w_int8) with scale [E, N] fp32 (nullptr: none); y [R, N]
-// zero-filled; starts/lens/wids [S] int32.  dtype 0 fp32, 1 bf16.
-// wgmma: 1 takes gmm_wgmma_kernel (bf16 x over a bf16 bank; the wrapper's
-// gmm_route), 0 gmm_kernel (an int8 bank, or fp32).
+// zero-filled; starts/lens/wids [S] int32.  dtype 0 fp32, 1 bf16.  route
+// (the wrapper's gmm_route): 0 gmm_kernel (fp32 x), 1 gmm_wgmma_kernel (bf16
+// x over a bf16 bank), 2 gmm_int8_wgmma_kernel (bf16 x over an int8 bank,
+// row tile `rows_tile`, K in `splits` splits, row tiles innermost in the
+// grid when `rows_inner`, part: their fp32 scratch [splits, R, N] when
+// splits > 1).
 int pt_grouped_matmul(const void* x, const void* w, const void* scale, void* y,
-                      const void* starts, const void* lens, const void* wids, int R, int K,
-                      int N, int S, int E, int block_rows, int dtype, int w_int8, int trans,
-                      int wgmma, void* stream) {
+                      const void* starts, const void* lens, const void* wids, void* part, int R,
+                      int K, int N, int S, int E, int block_rows, int dtype, int w_int8,
+                      int trans, int route, int rows_tile, int splits, int rows_inner,
+                      void* stream) {
   const GmmArgs a{x, w, static_cast<const float*>(scale), y,
                   static_cast<const int*>(starts), static_cast<const int*>(lens),
                   static_cast<const int*>(wids), R, K, N, S, E, block_rows};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (wgmma) {
+  float* p = static_cast<float*>(part);
+  if (route == 1) {
     if (dtype != kBF16 || w_int8 || scale != nullptr) return cudaErrorInvalidValue;
     return trans ? launch_gmm_wgmma<true>(a, st) : launch_gmm_wgmma<false>(a, st);
   }
-  if (dtype == kBF16)  // bf16 x over an int8 bank (serving), never transposed
-    return w_int8 && !trans ? launch_gmm<__nv_bfloat16, int8_t, false>(a, st)
-                            : cudaErrorInvalidValue;
-  if (dtype == kF32) {
-    if (w_int8) return trans ? cudaErrorInvalidValue : launch_gmm<float, int8_t, false>(a, st);
-    return trans ? launch_gmm<float, float, true>(a, st) : launch_gmm<float, float, false>(a, st);
+  if (route == 2) {
+    if (dtype != kBF16 || !w_int8 || trans) return cudaErrorInvalidValue;
+    switch (rows_tile) {
+      case 16: return launch_gmm_int8<16>(a, splits, rows_inner, p, st);
+      case 64: return launch_gmm_int8<64>(a, splits, rows_inner, p, st);
+      case 128: return launch_gmm_int8<128>(a, splits, rows_inner, p, st);
+      default: return cudaErrorInvalidValue;
+    }
   }
-  return cudaErrorInvalidValue;
+  if (route != 0 || dtype != kF32) return cudaErrorInvalidValue;
+  if (w_int8) return trans ? cudaErrorInvalidValue : launch_gmm<float, int8_t, false>(a, st);
+  return trans ? launch_gmm<float, float, true>(a, st) : launch_gmm<float, float, false>(a, st);
 }
 
 // grouped_outer_raw: x [R, K], dy [R, N] (one dtype); out [S, K, N] fp32,

@@ -59,14 +59,16 @@ EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A bf16 tensor map with 128-byte swizzle and zero fill out of bounds:
-// dims innermost first, strides in bytes of dims 1.. (rank - 1 of them),
-// box in elements with box[0] = 64 (one 128-byte swizzle row).  Refuses
-// what TMA cannot encode: a base not 16-byte aligned, a stride not a
-// multiple of 16 bytes, a box dimension over 256.
-cudaError_t encode_bf16_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
-                            const uint64_t* strides, const uint32_t* box) {
-  if (reinterpret_cast<uintptr_t>(base) % 16 != 0 || box[0] != 64) return cudaErrorInvalidValue;
+// A tensor map with 128-byte swizzle and zero fill out of bounds: dims
+// innermost first, strides in bytes of dims 1.. (rank - 1 of them), box in
+// elements with box[0] one 128-byte swizzle row.  Refuses what TMA cannot
+// encode: a base not 16-byte aligned, a stride not a multiple of 16 bytes,
+// a box dimension over 256.
+cudaError_t encode_map(CUtensorMap* map, CUtensorMapDataType type, uint32_t row_elems,
+                       const void* base, int rank, const uint64_t* dims,
+                       const uint64_t* strides, const uint32_t* box) {
+  if (reinterpret_cast<uintptr_t>(base) % 16 != 0 || box[0] != row_elems)
+    return cudaErrorInvalidValue;
   for (int i = 0; i < rank; ++i)
     if (box[i] == 0 || box[i] > 256 || dims[i] == 0) return cudaErrorInvalidValue;
   for (int i = 0; i + 1 < rank; ++i)
@@ -81,10 +83,22 @@ cudaError_t encode_bf16_map(CUtensorMap* map, const void* base, int rank, const 
     e[i] = 1;
     if (i + 1 < rank) s[i] = strides[i];
   }
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), d,
-                        s, b, e, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  const CUresult r = fn(map, type, rank, const_cast<void*>(base), d, s, b, e,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// bf16 elements: box[0] = 64
+cudaError_t encode_bf16_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
+                            const uint64_t* strides, const uint32_t* box) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 64, base, rank, dims, strides, box);
+}
+
+// 8-bit elements (an int8 bank, moved as bytes): box[0] = 128
+cudaError_t encode_u8_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
+                          const uint64_t* strides, const uint32_t* box) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 128, base, rank, dims, strides, box);
 }
 
 // ---------------------------------------------------------------- device
@@ -294,6 +308,42 @@ __device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t da, uint
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
+// D[64, 16] (+)= A[64, 16] B[16, 16], A and B from shared memory
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// D[64, 128] (+)= A[64, 16] B[16, 128], A and B from shared memory
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
 // D[64, 64] (+)= A[64, 16] B[16, 64], A from registers (a), B from shared memory
 template <int TB>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int scale_d) {
@@ -342,6 +392,63 @@ __device__ __forceinline__ void wgmma_rs_mn(float (&d)[N / 2], const uint32_t (&
   static_assert(N == 64 || N == 128, "width");
   if constexpr (N == 64) wgmma_rs_n64<1>(d, a, db, 1);
   else wgmma_rs_n128<1>(d, a, db, 1);
+}
+
+// D[64, N] (+)= A[64, 16] B[16, N] for N = 16, 64 or 128, A and B from
+// shared memory (B7 int8's swapped product: A the widened weight, MN-major;
+// B x's rows, K-major)
+template <int N, int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d) {
+  static_assert(N == 16 || N == 64 || N == 128, "width");
+  if constexpr (N == 16) wgmma_ss_n16<TA, TB>(d, da, db, scale_d);
+  else if constexpr (N == 64) wgmma_ss_n64<TA, TB>(d, da, db, scale_d);
+  else wgmma_ss_n128<TA, TB>(d, da, db, scale_d);
+}
+
+// Four int8 (one 32-bit word, lowest byte first) as two bf16x2 words,
+// exactly (|q| <= 128 has at most 8 significant bits): each byte, its sign
+// bit flipped (q + 128), becomes the low byte of the fp32 2^23 + q + 128,
+// minus 2^23 + 128 that is q in fp32, whose upper half is q in bf16.
+__device__ __forceinline__ void widen_i8x4(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  const uint32_t u = w ^ 0x80808080u;
+  float f[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    uint32_t b;
+    asm("prmt.b32 %0, %1, %2, %3;" : "=r"(b) : "r"(u), "r"(0x4B000000u), "r"(0x7440u | i));
+    f[i] = __uint_as_float(b) - 8388736.0f;
+  }
+  asm("prmt.b32 %0, %1, %2, 0x7632;" : "=r"(lo) : "r"(__float_as_uint(f[0])), "r"(__float_as_uint(f[1])));
+  asm("prmt.b32 %0, %1, %2, 0x7632;" : "=r"(hi) : "r"(__float_as_uint(f[2])), "r"(__float_as_uint(f[3])));
+}
+
+// Widen half `half` (columns 64 * half .. +64) of an int8 tile [64 k][128]
+// that a TMA load with 128-byte swizzle wrote (the 16-byte chunk index of
+// row k XORed with k % 8) into a bf16 panel [64 k][64] in the layout a
+// 128-byte-swizzled TMA load of bf16 writes (swizzle128): the MN-major A
+// operand of a wgmma over the tile's columns.  The 128 threads of a
+// warpgroup (t) each move two 16-byte chunks; the 8 threads of one
+// shared-memory phase take rows k and k + 4 and the odd rows store their
+// upper 16 bytes first, so no phase has a bank conflict.
+__device__ __forceinline__ void widen_i8_panel(const unsigned char* src, unsigned char* dst,
+                                               int half, int t) {
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int c = t + 128 * u;
+    const int j = c & 3, hi4 = (c >> 2) & 1, g = c >> 3;
+    const int k = (g >> 2) * 8 + (g & 3) + 4 * hi4;
+    const uint4 q = *reinterpret_cast<const uint4*>(
+        src + k * 128 + ((((4 * half + j) ^ k) & 7) << 4));
+    uint4 h0, h1;
+    widen_i8x4(q.x, h0.x, h0.y);
+    widen_i8x4(q.y, h0.z, h0.w);
+    widen_i8x4(q.z, h1.x, h1.y);
+    widen_i8x4(q.w, h1.z, h1.w);
+    const uint4 first = hi4 ? h1 : h0, second = hi4 ? h0 : h1;
+    const int b0 = 32 * j + 16 * hi4, b1 = 32 * j + 16 * (1 - hi4);
+    *reinterpret_cast<uint4*>(dst + swizzle128(k, b0)) = first;
+    *reinterpret_cast<uint4*>(dst + swizzle128(k, b1)) = second;
+  }
 }
 
 }  // namespace

@@ -21,6 +21,11 @@
 //   6  c[64, 64]  = a[64, 64]^T @ b[64, 64]    A and B MN-major, n64, A stored by
 //                                              the threads through swizzle128
 //                                              (B6's fused dq = ds K from ds^T)
+//   7, 8, 9  c[128, NR] = q[64, 128]^T @ b[NR, 64]^T for NR 16, 64, 128: q
+//            int8 loaded through an 8-bit tensor map (128-byte swizzle),
+//            widened to bf16 by widen_i8_panel into two swizzled panels (A,
+//            MN-major), b K-major; wgmma m64nNRk16, two per k step (B7
+//            int8's swapped product, gmm_int8_wgmma_kernel)
 
 #include "hopper.cuh"
 
@@ -36,6 +41,69 @@ __device__ __forceinline__ void store_acc(float* c, int ldc, int col0, const flo
     c[row * ldc + col] = acc[i];
     c[row * ldc + col + 1] = acc[i + 1];
   }
+}
+
+// modes 7-9: the B7 int8 form at row tile NR (one warpgroup takes both
+// 64-column halves of the int8 tile)
+template <int NR>
+__global__ void __launch_bounds__(128) wgmma_int8_probe_kernel(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tb, float* c) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bar;
+  unsigned char* q_s = smem_raw + (1024 - smem_u32(smem_raw) % 1024) % 1024;  // [64][128] int8
+  unsigned char* b_s = q_s + 64 * 128;                                        // [NR][64] bf16
+  unsigned char* panels = b_s + NR * 128;                                     // 2 x [64][64] bf16
+  if (threadIdx.x == 0) {
+    mbar_init(&bar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_arrive_expect_tx(&bar, 64 * 128 + NR * 128);
+    tma_load_2d(q_s, &tq, &bar, 0, 0);
+    tma_load_2d(b_s, &tb, &bar, 0, 0);
+  }
+  mbar_wait(&bar, 0);
+  for (int h = 0; h < 2; ++h) widen_i8_panel(q_s, panels + h * kPanelBytes, h, threadIdx.x);
+  fence_proxy_async();
+  __syncthreads();
+  float acc[2][NR / 2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int i = 0; i < NR / 2; ++i) acc[h][i] = 0.f;
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      wgmma_ss<NR, 1, 0>(acc[h], smem_desc(panels + h * kPanelBytes + ks * 16 * 128, kPanelBytes, 1024),
+                         smem_desc(b_s + ks * 32, 16, 1024), 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    fence_regs(acc[h]);
+    store_acc(c + h * 64 * NR, NR, 0, acc[h], NR / 2);
+  }
+}
+
+template <int NR>
+cudaError_t launch_int8_probe(const void* a, const void* b, float* c, cudaStream_t stream) {
+  const uint64_t qd[2] = {128, 64}, qs[1] = {128};
+  const uint32_t qb[2] = {128, 64};
+  const uint64_t bd[2] = {64, NR}, bs[1] = {128};
+  const uint32_t bb[2] = {64, NR};
+  CUtensorMap tq, tb;
+  cudaError_t e = encode_u8_map(&tq, a, 2, qd, qs, qb);
+  if (e == cudaSuccess) e = encode_bf16_map(&tb, b, 2, bd, bs, bb);
+  if (e != cudaSuccess) return e;
+  const int smem = 64 * 128 + NR * 128 + 2 * kPanelBytes + 1024;
+  e = cudaFuncSetAttribute(wgmma_int8_probe_kernel<NR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem);
+  if (e != cudaSuccess) return e;
+  wgmma_int8_probe_kernel<NR><<<1, 128, smem, stream>>>(tq, tb, c);
+  return cudaGetLastError();
 }
 
 __global__ void __launch_bounds__(128) wgmma_probe_kernel(const __grid_constant__ CUtensorMap ta,
@@ -188,8 +256,14 @@ __global__ void __launch_bounds__(128) wgmma_probe_kernel(const __grid_constant_
 extern "C" {
 
 // a [64, 64] bf16; b [64, 64] (modes 0, 6), [64, 128] (1, 5), [64, 256] (2,
-// 3), [256, 64] (4) bf16; c fp32 as the mode says.
+// 3), [256, 64] (4) bf16; c fp32 as the mode says.  Modes 7, 8, 9: a
+// [64, 128] int8, b [NR, 64] bf16 for NR 16, 64, 128, c [128, NR].
 int pt_wgmma_probe(int mode, const void* a, const void* b, void* c, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* cf = static_cast<float*>(c);
+  if (mode == 7) return launch_int8_probe<16>(a, b, cf, st);
+  if (mode == 8) return launch_int8_probe<64>(a, b, cf, st);
+  if (mode == 9) return launch_int8_probe<128>(a, b, cf, st);
   if (mode < 0 || mode > 6) return cudaErrorInvalidValue;
   const uint64_t bw = mode == 0 || mode == 4 || mode == 6 ? 64
                       : mode == 1 || mode == 5         ? 128

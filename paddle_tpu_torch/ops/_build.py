@@ -45,31 +45,40 @@ _F = ctypes.c_float
 SIGNATURES = {
     "pt_flash_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                         _I, _F, _I, _I, _P],
-    "pt_paged_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                        _F, _I, _I, _P],
-    "pt_ragged_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                               _I, _I, _I, _F, _I, _I, _P],
+    # q, k, v, o, lens, slots (or null), tables, part_m, part_l, part_acc,
+    # rows, h, kvh, page, d, max_pages, pp, chunk, scale, q dtype, kv dtype,
+    # stream
+    "pt_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                        _I, _I, _I, _I, _I, _F, _I, _I, _P],
     "pt_hb_flash_forward": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             _I, _F, _I, _I, _P],
     "pt_hb_flash_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                              _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     # kind, pointer array, int array, scale, dtype, stream
     "pt_masked_flash": [_I, _P, _P, _F, _I, _P],
-    "pt_grouped_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                          _I, _I, _I, _I, _P],
+    # x, w, scale, y, starts, lens, wids, part, R, K, N, S, E, block_rows,
+    # dtype, w_int8, trans, route, rows_tile, splits, rows_inner, stream
+    "pt_grouped_matmul": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "pt_grouped_outer": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # mode, a, b, c, stream
     "pt_wgmma_probe": [_I, _P, _P, _P, _P],
 }
 # the bf16 kernels that must issue wgmma (HGMMA in their SASS): B1, B2
-# (dk/dv, dq), B5, B6 (dk/dv split and fused, dq), B7 (forward and dx), B8
+# (dk/dv, dq), B5, B6 (dk/dv split and fused, dq), B7 (forward and dx; bf16
+# x over an int8 bank), B8
 WGMMA_KERNELS = ("hb_fwd_wgmma_kernel", "hb_dkv_wgmma_kernel",
                  "hb_dq_wgmma_kernel", "masked_fwd_wgmma_kernel",
                  "masked_dkv_wgmma_kernel", "masked_dq_wgmma_kernel",
-                 "gmm_wgmma_kernel", "outer_wgmma_kernel")
+                 "gmm_wgmma_kernel", "gmm_int8_wgmma_kernel",
+                 "outer_wgmma_kernel")
 # the shape of b that each mode of pt_wgmma_probe takes (csrc/wgmma_probe.cu)
 PROBE_B_SHAPES = {0: (64, 64), 1: (64, 128), 2: (64, 256), 3: (64, 256),
-                  4: (256, 64), 5: (64, 128), 6: (64, 64)}
+                  4: (256, 64), 5: (64, 128), 6: (64, 64), 7: (16, 64),
+                  8: (64, 64), 9: (128, 64)}
+# modes whose a is an int8 tile [64, 128] (B7 int8's widened weight), the
+# others' a is bf16 [64, 64]
+PROBE_INT8_MODES = (7, 8, 9)
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -256,16 +265,22 @@ def kernel_report(path: Optional[Path] = None) -> dict:
 
 
 def wgmma_probe(mode: int, a, b):
-    """The one-tile layout probe of csrc/wgmma_probe.cu on CUDA bf16
-    tensors (a [64, 64], b as ``PROBE_B_SHAPES[mode]``): c fp32 = a @ b^T
-    (modes 0 and 4), a @ b (1, 3, 5), a^T @ b (2, 6)."""
+    """The one-tile layout probe of csrc/wgmma_probe.cu on CUDA tensors:
+    modes 0-6 take a bf16 [64, 64] and b bf16 as ``PROBE_B_SHAPES[mode]``,
+    c fp32 = a @ b^T (modes 0 and 4), a @ b (1, 3, 5), a^T @ b (2, 6);
+    modes 7-9 (``PROBE_INT8_MODES``) take a int8 [64, 128] and b bf16 [NR,
+    64], c fp32 [128, NR] = a^T @ b^T."""
     import torch
-    if a.shape != (64, 64) or tuple(b.shape) != PROBE_B_SHAPES[mode]:
-        raise ValueError(f"wgmma_probe mode {mode}: a [64, 64], b "
-                         f"{list(PROBE_B_SHAPES[mode])}")
+    int8 = mode in PROBE_INT8_MODES
+    a_shape = (64, 128) if int8 else (64, 64)
+    if mode not in PROBE_B_SHAPES or tuple(a.shape) != a_shape or \
+            tuple(b.shape) != PROBE_B_SHAPES[mode]:
+        raise ValueError(f"wgmma_probe mode {mode}: a {list(a_shape)}, b "
+                         f"{list(PROBE_B_SHAPES.get(mode, ()))}")
     a, b = a.contiguous(), b.contiguous()
-    width = b.shape[0] if mode in (0, 4) else b.shape[1]
-    c = torch.empty((64, width), dtype=torch.float32, device=a.device)
+    shape = ((128, b.shape[0]) if int8 else
+             (64, b.shape[0] if mode in (0, 4) else b.shape[1]))
+    c = torch.empty(shape, dtype=torch.float32, device=a.device)
     lib = library()
     check(lib, lib.pt_wgmma_probe(mode, a.data_ptr(), b.data_ptr(),
                                   c.data_ptr(),

@@ -18,16 +18,19 @@ On a CUDA tensor each launcher runs its hand-written kernels
 on a CPU tensor it runs the ``*_plain`` PyTorch version beside it.  There
 is no other route: a tensor on any other device raises.
 
-``flash_decode`` splits each row's visible length over CTAs (a split
-kernel per chunk of C tokens, then a combine kernel): ``decode_split_plan``
-picks C from static shapes, ``split_merge_plain`` is the plain twin of the
-two kernels' arithmetic.  ``block_k`` keeps its TPU name and meaning
-(tokens per step) and caps C.  ``pages_per_step`` keeps its TPU name and
-heuristic; on the GPU it is the number of pages a CTA stages per loop trip.
+All three split each row's visible length over CTAs (a split kernel per
+chunk of C tokens, then a combine kernel): ``decode_split_plan`` picks C
+from static shapes, ``paged_split_plan`` the paged launchers' C (a whole
+number of pages); ``split_merge_plain`` and ``paged_split_merge_plain`` are
+the plain twins of the kernels' arithmetic.  ``block_k`` keeps its TPU name
+and meaning (tokens per step) and caps the dense C.  ``pages_per_step``
+keeps its TPU name, heuristic and argument check; the walk covers
+ceil(max_pages / pp) * pp logical pages, as the TPU grid does.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Tuple
 
@@ -44,14 +47,10 @@ NEG_INF = -1e30
 _PAGED_VMEM_BUDGET = 8 * 1024 * 1024
 _PAGED_TARGET_WINDOW = 512
 
-# shared memory a block may use on the H100, and the warps per CTA of the
-# paged kernel (kWarps in csrc/decode_attention.cu), which size its per-warp
-# sums
-_SMEM_LIMIT = 227 * 1024
-_KERNEL_WARPS = 8
-# the dense split kernel (decode_split_kernel): threads per CTA, which is
-# also the largest chunk (one key per thread in the score pass), the
-# smallest chunk, and the CTAs per SM its plan aims at over the H100's 132
+# the split kernels (decode_split_kernel, paged_split_kernel): threads per
+# CTA, which is also the largest chunk (one key per thread in the score
+# pass), the smallest chunk, and the CTAs per SM their plan aims at over
+# the H100's 132
 _SPLIT_THREADS = 128
 _MIN_CHUNK = 16
 _SPLIT_TARGET_CTAS = 2 * 132
@@ -69,6 +68,7 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+@functools.lru_cache(maxsize=256)
 def decode_split_plan(b: int, kvh: int, t_max: int,
                       block_k: int = 512) -> Tuple[int, int]:
     """(C, splits) of the dense split kernel, from static shapes only (the
@@ -85,6 +85,23 @@ def decode_split_plan(b: int, kvh: int, t_max: int,
             b * kvh * -(-t_max // (chunk * 2)) >= _SPLIT_TARGET_CTAS:
         chunk *= 2
     return chunk, -(-t_max // chunk)
+
+
+@functools.lru_cache(maxsize=256)
+def paged_split_plan(rows: int, kvh: int, page: int, max_pages: int,
+                     pp: int) -> Tuple[int, int]:
+    """(C, splits) of the paged split kernel, from static shapes only: the
+    walk covers ceil(max_pages / pp) * pp pages of ``page`` tokens; C is
+    ``decode_split_plan``'s chunk over that length, cut down to a whole
+    number of pages (at least one page, so ``page`` <= _SPLIT_THREADS);
+    splits = ceil(walked tokens / C)."""
+    if not 1 <= page <= _SPLIT_THREADS:
+        raise ValueError(f"paged decode: page {page} outside [1, "
+                         f"{_SPLIT_THREADS}] on the card")
+    t_walk = -(-max_pages // pp) * pp * page
+    chunk, _ = decode_split_plan(rows, kvh, t_walk)
+    chunk = max(page, chunk // page * page)
+    return chunk, -(-t_walk // chunk)
 
 
 def default_pages_per_step(page: int, kvh: int, d: int, max_pages: int,
@@ -191,33 +208,70 @@ def split_merge_plain(q, k_cache, v_cache, seq_lens, scale=None,
     return out.to(q.dtype).reshape(b, h, d)
 
 
-def _paged_rows_plain(q, key_cache, value_cache, lens, slots, block_tables,
-                      scale, pp):
-    """Gather each row's logical pages exactly as the kernel walks them:
-    ceil(max_pages / pp) * pp logical pages, each clamped to the row's last
-    visible page and to the table width, -1 entries clamped to page 0."""
-    T = q.shape[0]
-    page = key_cache.shape[2]
-    max_pages = block_tables.shape[1]
+def _gather_pages(pool, block_tables, slots, pages):
+    """Each row's first ``pages`` logical pages of ``pool`` [n_pages, kvh,
+    page, d] as a dense [rows, kvh, pages * page, d] cache, as the kernels
+    walk them: the logical page clamped to the table's width, -1 entries
+    to page 0."""
+    rows, max_pages = slots.shape[0], block_tables.shape[1]
+    li = torch.arange(pages, device=pool.device).clamp(max=max_pages - 1)
+    phys = block_tables.to(torch.long)[slots.to(torch.long)[:, None],
+                                       li[None, :]].clamp(min=0)
+    x = pool[phys]                                # [rows, pages, kvh, page, d]
+    return x.permute(0, 2, 1, 3, 4).reshape(rows, pool.shape[1],
+                                            pages * pool.shape[2],
+                                            pool.shape[3])
+
+
+def _walk_lens(lens, row_slot, page, max_pages, pp):
+    """(lengths, table rows) of the paged launchers' rows: padding rows
+    (slot < 0) see nothing and read table row 0; lengths clamp to the
+    ceil(max_pages / pp) * pp walked pages."""
+    if row_slot is None:
+        slots = torch.arange(lens.shape[0], device=lens.device)
+    else:
+        lens = torch.where(row_slot < 0, torch.zeros_like(lens), lens)
+        slots = row_slot.clamp(min=0)
     walked = -(-max_pages // pp) * pp
-    lens = lens.to(torch.long).clamp(min=0)
-    lens = torch.minimum(lens, torch.full_like(lens, walked * page))
-    need = int(-(-int(lens.max()) // page)) if T else 0        # pages visible
+    return lens.to(torch.long).clamp(0, walked * page), slots
+
+
+def _paged_rows_plain(q, key_cache, value_cache, lens, row_slot,
+                      block_tables, scale, pp):
+    """The rows' visible pages gathered (``_gather_pages``), then the
+    shared attention math."""
+    page = key_cache.shape[2]
+    lens, slots = _walk_lens(lens, row_slot, page, block_tables.shape[1], pp)
+    need = int(-(-int(lens.max()) // page)) if q.shape[0] else 0
     if need == 0:
         return torch.zeros_like(q)
-    last = ((lens + page - 1) // page - 1).clamp(0, max_pages - 1)
-    li = torch.arange(need, device=q.device)
-    idx = torch.minimum(li[None, :], last[:, None])           # [T, need]
-    phys = block_tables.to(torch.long)[slots.to(torch.long)[:, None], idx]
-    phys = phys.clamp(min=0)
-    kvh, d = key_cache.shape[1], key_cache.shape[3]
+    return _attend_plain(q, _gather_pages(key_cache, block_tables, slots,
+                                          need),
+                         _gather_pages(value_cache, block_tables, slots,
+                                       need), lens, scale)
 
-    def gather(pool):
-        x = pool[phys]                                        # [T, need, kvh, page, d]
-        return x.permute(0, 2, 1, 3, 4).reshape(T, kvh, need * page, d)
 
-    return _attend_plain(q, gather(key_cache), gather(value_cache), lens,
-                         scale)
+def paged_split_merge_plain(q, key_cache, value_cache, lens, block_tables,
+                            row_slot=None, scale=None, pages_per_step="auto",
+                            chunk=None):
+    """``paged_decode`` (``row_slot`` None) or ``ragged_paged_decode`` as
+    the paged split and combine kernels compute it, in plain PyTorch: each
+    row's walked pages gathered (``_gather_pages``), then
+    ``split_merge_plain`` over chunks of ``chunk`` tokens (default
+    ``paged_split_plan``'s)."""
+    T, h, d = q.shape
+    scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
+    kvh, page = key_cache.shape[1], key_cache.shape[2]
+    max_pages = block_tables.shape[1]
+    pp = _resolve_pp(pages_per_step, key_cache, max_pages)
+    if chunk is None:
+        chunk, _ = paged_split_plan(T, kvh, page, max_pages, pp)
+    lens, slots = _walk_lens(lens, row_slot, page, max_pages, pp)
+    walked = -(-max_pages // pp) * pp
+    return split_merge_plain(
+        q, _gather_pages(key_cache, block_tables, slots, walked),
+        _gather_pages(value_cache, block_tables, slots, walked), lens, scale,
+        chunk)
 
 
 def _resolve_pp(pages_per_step, key_cache, max_pages):
@@ -234,8 +288,7 @@ def paged_decode_plain(q, key_cache, value_cache, seq_lens, block_tables,
     d = q.shape[-1]
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
     pp = _resolve_pp(pages_per_step, key_cache, block_tables.shape[1])
-    slots = torch.arange(q.shape[0], device=q.device)
-    return _paged_rows_plain(q, key_cache, value_cache, seq_lens, slots,
+    return _paged_rows_plain(q, key_cache, value_cache, seq_lens, None,
                              block_tables, scale, pp)
 
 
@@ -247,10 +300,7 @@ def ragged_paged_decode_plain(q, key_cache, value_cache, row_lens, row_slot,
     d = q.shape[-1]
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
     pp = _resolve_pp(pages_per_step, key_cache, block_tables.shape[1])
-    pad = row_slot < 0
-    lens = torch.where(pad, torch.zeros_like(row_lens), row_lens)
-    slots = row_slot.clamp(min=0)
-    return _paged_rows_plain(q, key_cache, value_cache, lens, slots,
+    return _paged_rows_plain(q, key_cache, value_cache, row_lens, row_slot,
                              block_tables, scale, pp)
 
 
@@ -300,16 +350,14 @@ def _stream():
     return torch.cuda.current_stream().cuda_stream
 
 
-def _fit_tile(rep, d, tile, unit):
-    """Largest multiple of ``unit`` <= tile for which the CTA's shared
-    memory fits the card: fp32 q and per-warp sums, the staged fp32 scores
-    [rep, tile], the softmax state and the staged page ids."""
-    fixed = 4 * ((1 + _KERNEL_WARPS) * rep * d + 3 * rep + tile // unit + 1)
-    cap = (_SMEM_LIMIT - fixed) // (4 * rep)
-    if cap < unit:
-        raise ValueError(f"a {rep}-head group cannot stage one {unit}-token "
-                         f"block in shared memory")
-    return max(unit, min(tile, cap) // unit * unit)
+def _partials(rows, h, d, splits, device):
+    """One fp32 scratch of the split kernels' partials and the addresses
+    of its parts: the chunks' m and l [rows, h, splits], acc [.., d].  The
+    caller holds the scratch until its kernels are enqueued."""
+    n = rows * h * splits
+    part = torch.empty(n * (d + 2), dtype=torch.float32, device=device)
+    base = part.data_ptr()
+    return part, base, base + 4 * n, base + 8 * n
 
 
 def flash_decode(q, k_cache, v_cache, seq_lens, scale=None,
@@ -336,26 +384,57 @@ def flash_decode(q, k_cache, v_cache, seq_lens, scale=None,
     if b == 0 or t_max == 0:          # no key to see: every row is 0
         return out.zero_()
     chunk, splits = decode_split_plan(b, kvh, t_max, block_k)
-    # one fp32 scratch: the chunks' m and l [b, h, splits], acc [.., d]
-    n = b * h * splits
-    part = torch.empty(n * (d + 2), dtype=torch.float32, device=q.device)
-    part_m, part_l, part_acc = part[:n], part[n:2 * n], part[2 * n:]
+    part, part_m, part_l, part_acc = _partials(b, h, d, splits, q.device)
     lens = _i32(seq_lens)
     lib = _build.library()
     rc = lib.pt_flash_decode(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-        lens.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
-        part_acc.data_ptr(), b, h, kvh, t_max, d, chunk, float(scale),
+        lens.data_ptr(), part_m, part_l,
+        part_acc, b, h, kvh, t_max, d, chunk, float(scale),
         _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_cache.dtype], _stream())
     _build.check(lib, rc, "flash_decode")
     LAUNCHES["flash_decode"] += 1
     return out
 
 
-def _paged_pp(pages_per_step, key_cache, max_pages, rep):
+def _paged_kernel(name, q, key_cache, value_cache, lens, row_slot,
+                  block_tables, scale, pages_per_step):
+    """The card side of both paged launchers (``row_slot`` None: one row
+    per table row): the paged split kernel over chunks of whole pages
+    (``paged_split_plan``), then the combine kernel.  The pools' pages are
+    bulk-copied, so both pools must be 16-byte aligned and one page of one
+    kv head a multiple of 16 bytes."""
+    rows, h, d = q.shape
+    kvh, page = key_cache.shape[1], key_cache.shape[2]
+    max_pages = block_tables.shape[1]
+    out = torch.empty_like(q)
+    if rows == 0:
+        return out
+    if key_cache.data_ptr() % 16 or value_cache.data_ptr() % 16:
+        raise ValueError(f"{name}: K and V pools must be 16-byte aligned")
+    if page * d * key_cache.element_size() % 16:
+        raise ValueError(f"{name}: a page of {page} x {d} "
+                         f"{key_cache.dtype} is not a multiple of 16 bytes")
+    if rows > 65535 or max_pages == 0:
+        raise ValueError(f"{name}: {rows} rows, {max_pages} table columns "
+                         f"on the card")
     pp = _resolve_pp(pages_per_step, key_cache, max_pages)
-    page, d = key_cache.shape[2], key_cache.shape[3]
-    return _fit_tile(rep, d, pp * page, page) // page
+    chunk, splits = paged_split_plan(rows, kvh, page, max_pages, pp)
+    part, part_m, part_l, part_acc = _partials(rows, h, d, splits,
+                                               q.device)
+    lens, tables = _i32(lens), _i32(block_tables)
+    slots = None if row_slot is None else _i32(row_slot)
+    lib = _build.library()
+    rc = lib.pt_paged_decode(
+        q.data_ptr(), key_cache.data_ptr(), value_cache.data_ptr(),
+        out.data_ptr(), lens.data_ptr(),
+        None if slots is None else slots.data_ptr(), tables.data_ptr(),
+        part_m, part_l, part_acc, rows, h,
+        kvh, page, d, max_pages, pp, chunk, float(scale),
+        _DTYPE_CODES[q.dtype], _DTYPE_CODES[key_cache.dtype], _stream())
+    _build.check(lib, rc, name)
+    LAUNCHES[name] += 1
+    return out
 
 
 def paged_decode(q, key_cache, value_cache, seq_lens, block_tables,
@@ -365,32 +444,18 @@ def paged_decode(q, key_cache, value_cache, seq_lens, block_tables,
     tokens, the current one included); block_tables [b, max_pages]
     physical page ids, -1 for unused entries.  Only the visible pages are
     read; lengths past the table (the lookahead chunk of a finished
-    sequence) re-read the last page and stay finite."""
+    sequence) re-read the last page and stay finite.  On the card: the
+    paged split and combine kernels (``_paged_kernel``)."""
     _check_inputs(q, key_cache, value_cache, "paged_decode")
     dev = _on_device("paged_decode", q, key_cache, value_cache, seq_lens,
                      block_tables)
-    b, h, d = q.shape
     if scale is None:
-        scale = 1.0 / math.sqrt(d)
+        scale = 1.0 / math.sqrt(q.shape[-1])
     if dev == "cpu":
         return paged_decode_plain(q, key_cache, value_cache, seq_lens,
                                   block_tables, scale, pages_per_step)
-    kvh, page = key_cache.shape[1], key_cache.shape[2]
-    max_pages = block_tables.shape[1]
-    out = torch.empty_like(q)
-    if b == 0:
-        return out
-    pp = _paged_pp(pages_per_step, key_cache, max_pages, h // kvh)
-    lens, tables = _i32(seq_lens), _i32(block_tables)
-    lib = _build.library()
-    rc = lib.pt_paged_decode(
-        q.data_ptr(), key_cache.data_ptr(), value_cache.data_ptr(),
-        out.data_ptr(), lens.data_ptr(), tables.data_ptr(), b, h, kvh, page,
-        d, max_pages, pp, float(scale), _DTYPE_CODES[q.dtype],
-        _DTYPE_CODES[key_cache.dtype], _stream())
-    _build.check(lib, rc, "paged_decode")
-    LAUNCHES["paged_decode"] += 1
-    return out
+    return _paged_kernel("paged_decode", q, key_cache, value_cache, seq_lens,
+                         None, block_tables, scale, pages_per_step)
 
 
 def ragged_paged_decode(q, key_cache, value_cache, row_lens, row_slot,
@@ -399,30 +464,17 @@ def ragged_paged_decode(q, key_cache, value_cache, row_lens, row_slot,
     ``ragged_paged_decode_raw``): decode slots give one row each, prefill
     chunks one row per prompt token.  Row r attends positions
     < row_lens[r] of sequence row_slot[r] (its K/V already scattered into
-    the pages); rows with row_slot < 0 are padding and output 0."""
+    the pages); rows with row_slot < 0 are padding and output 0.  On the
+    card: ``paged_decode``'s kernels, each row split on its own."""
     _check_inputs(q, key_cache, value_cache, "ragged_paged_decode")
     dev = _on_device("ragged_paged_decode", q, key_cache, value_cache,
                      row_lens, row_slot, block_tables)
-    T, h, d = q.shape
     if scale is None:
-        scale = 1.0 / math.sqrt(d)
+        scale = 1.0 / math.sqrt(q.shape[-1])
     if dev == "cpu":
         return ragged_paged_decode_plain(q, key_cache, value_cache, row_lens,
                                          row_slot, block_tables, scale,
                                          pages_per_step)
-    kvh, page = key_cache.shape[1], key_cache.shape[2]
-    max_pages = block_tables.shape[1]
-    out = torch.empty_like(q)
-    if T == 0:
-        return out
-    pp = _paged_pp(pages_per_step, key_cache, max_pages, h // kvh)
-    lens, slots, tables = _i32(row_lens), _i32(row_slot), _i32(block_tables)
-    lib = _build.library()
-    rc = lib.pt_ragged_paged_decode(
-        q.data_ptr(), key_cache.data_ptr(), value_cache.data_ptr(),
-        out.data_ptr(), lens.data_ptr(), slots.data_ptr(), tables.data_ptr(),
-        T, h, kvh, page, d, max_pages, pp, float(scale),
-        _DTYPE_CODES[q.dtype], _DTYPE_CODES[key_cache.dtype], _stream())
-    _build.check(lib, rc, "ragged_paged_decode")
-    LAUNCHES["ragged_paged_decode"] += 1
-    return out
+    return _paged_kernel("ragged_paged_decode", q, key_cache, value_cache,
+                         row_lens, row_slot, block_tables, scale,
+                         pages_per_step)

@@ -21,7 +21,11 @@ accumulate, as the JAX ``.at[seg_wids].add`` does), cast to ``w.dtype``.
 
 ``gmm_route`` picks B7's kernel on the card by an explicit rule: a bf16
 bank runs ``gmm_wgmma_kernel`` (TMA ring, wgmma, register accumulators),
-forward and transposed; an int8 bank (serving) and fp32 run ``gmm_kernel``.
+forward and transposed; bf16 x over an int8 bank (serving) runs
+``gmm_int8_wgmma_kernel`` (the bank streamed by TMA and widened in shared
+memory, the product swapped so a segment's few rows are wgmma's narrow N),
+its row tile and K splits picked by ``gmm_int8_plan`` from static shapes;
+fp32 x runs ``gmm_kernel``.
 
 On a CUDA tensor each launcher runs its kernel and counts the launch in
 ``LAUNCHES``; on a CPU tensor it runs the ``*_plain`` PyTorch version beside
@@ -37,12 +41,14 @@ row blocks, so a segment covers ``align(len)`` rows.  Rows that no segment
 covers are left unspecified by the JAX contract; here they are exact zeros,
 in the kernel and in the plain version alike, so no uninitialised memory
 reaches a ``torch.where`` or a product downstream.  On the card ``K`` and
-``N`` must be multiples of 8 (16-byte row loads, TMA strides), and the
-wgmma route's x and bank need 16-byte aligned bases.
+``N`` must be multiples of 8 (16-byte row loads, TMA strides), ``N`` of 16
+over an int8 bank (its rows are the TMA stride), and the wgmma routes' x
+and bank need 16-byte aligned bases.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import torch
@@ -55,9 +61,20 @@ LAUNCHES: Dict[str, int] = {"grouped_matmul": 0, "grouped_matmul_int8": 0,
                             "grouped_matmul_t": 0, "grouped_outer": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the C interface's route codes (pt_grouped_matmul)
+_ROUTE_CODES = {"cuda_cores": 0, "int8": 0, "wgmma": 1, "int8_wgmma": 2}
 # gmm_kernel's row tile (kBM in csrc/grouped_matmul.cu); a grid row per tile
 _KERNEL_ROWS = 64
 _MAX_GRID_Y = 65535
+# gmm_int8_wgmma_kernel: its row tiles (the products' N), output columns
+# per CTA, K per pipeline step; the H100's SMs; the fewest K steps a split
+# takes and the most splits
+_INT8_ROW_TILES = (16, 64, 128)
+_INT8_COLS = 128
+_INT8_STEP = 64
+_SMS = 132
+_INT8_MIN_SPLIT_STEPS = 8
+_INT8_MAX_SPLITS = 8
 
 
 def reset_launches() -> None:
@@ -68,12 +85,45 @@ def reset_launches() -> None:
 def gmm_route(dtype: torch.dtype, w_int8: bool) -> str:
     """Which CUDA kernel runs B7 for x's dtype and the bank's kind:
     ``"wgmma"`` (``gmm_wgmma_kernel``) for bf16 x over a bf16 bank, forward
-    and transposed (the train cell's GEMMs); ``"int8"`` (``gmm_kernel`` on
-    wmma, the int8 bank widened as staged) for an int8 bank (serving);
-    ``"cuda_cores"`` (``gmm_kernel``) for fp32."""
-    if w_int8:
-        return "int8"
-    return "wgmma" if dtype == torch.bfloat16 else "cuda_cores"
+    and transposed (the train cell's GEMMs); ``"int8_wgmma"``
+    (``gmm_int8_wgmma_kernel``) for bf16 x over an int8 bank (serving);
+    ``"int8"`` for fp32 x over an int8 bank and ``"cuda_cores"`` for fp32 x
+    over an fp32 bank (``gmm_kernel``)."""
+    if dtype == torch.bfloat16:
+        return "int8_wgmma" if w_int8 else "wgmma"
+    return "int8" if w_int8 else "cuda_cores"
+
+
+@functools.lru_cache(maxsize=256)
+def gmm_int8_plan(R: int, K: int, N: int, S: int):
+    """(row tile, K splits, rows innermost, CTAs) of
+    ``gmm_int8_wgmma_kernel`` from static shapes only (segment lengths stay
+    on the device).  The row tile is the products' N: 16 when R <= 16
+    (S + 1) (decode: a segment holds a few rows), 64 when R <= 64 (S + 1),
+    else 128.  The grid holds R / tile + S row tiles (the most the segments
+    can need) x splits x ceil(N / 128).  About max(S, R / tile) of its row
+    tiles hold rows; K is split in two while those live CTAs fill fewer
+    than two waves of the card (two CTAs per SM at tiles 16 and 64, one at
+    128), each split keeping at least _INT8_MIN_SPLIT_STEPS K steps of 64,
+    at most _INT8_MAX_SPLITS.  Row tiles run innermost when the segments
+    average more than two row tiles (R > 2 tile (S + 1), the prefill
+    calls), so a segment's tiles read each weight tile close together;
+    else column tiles, so the CTAs in flight read neighbouring pieces of
+    the same bank rows, faster at the decode and unified calls
+    (``chip_smoke.py`` times both orders at the Mixtral calls)."""
+    tile = next((t for t in _INT8_ROW_TILES[:-1] if R <= t * (S + 1)),
+                _INT8_ROW_TILES[-1])
+    row_tiles = -(-R // tile) + S
+    col_tiles = -(-N // _INT8_COLS)
+    live = max(S, -(-R // tile)) * col_tiles
+    slots = (1 if tile == 128 else 2) * _SMS
+    steps = -(-K // _INT8_STEP)
+    splits = 1
+    while (splits * 2 <= _INT8_MAX_SPLITS and live * splits < 2 * slots
+           and steps >= 2 * splits * _INT8_MIN_SPLIT_STEPS):
+        splits *= 2
+    rows_inner = R > 2 * tile * (S + 1)
+    return tile, splits, rows_inner, row_tiles * splits * col_tiles
 
 
 def align_rows(n, block_rows: int):
@@ -227,29 +277,42 @@ def grouped_matmul_raw(x, w, seg_starts, seg_lens, seg_wids,
                                     w_scale, transpose_w)
     if transpose_w and w.dtype == torch.int8:
         raise ValueError(f"{name}: the transposed launch takes float banks")
+    route = gmm_route(x.dtype, w.dtype == torch.int8)
     if K % 8 or N % 8:
         raise ValueError(f"{name}: K {K} and N {N} must be multiples of 8 "
                          f"on the card")
+    if route == "int8_wgmma" and N % 16:
+        raise ValueError(f"{name}: N {N} of an int8 bank must be a multiple "
+                         f"of 16 on the card (its rows are a TMA stride)")
     for t, what in ((x, "x"), (w, "w")):
         if not t.is_contiguous():
             raise ValueError(f"{name}: {what} must be contiguous")
     y = torch.zeros((R, N), dtype=x.dtype, device=x.device)
     if R == 0 or S == 0 or N == 0 or K == 0:
         return y
-    route = gmm_route(x.dtype, w.dtype == torch.int8)
-    if route != "wgmma" and -(-R // _KERNEL_ROWS) + S > _MAX_GRID_Y:
+    tile, splits, rows_inner = 0, 1, False
+    if route == "int8_wgmma":
+        tile, splits, rows_inner, ctas = gmm_int8_plan(R, K, N, S)
+        if ctas >= 2 ** 31:
+            raise ValueError(f"{name}: {R} rows over {S} segments exceed "
+                             f"the grid")
+    elif route != "wgmma" and -(-R // _KERNEL_ROWS) + S > _MAX_GRID_Y:
         raise ValueError(f"{name}: {R} rows over {S} segments exceed the "
                          f"grid")
     scale = (None if w_scale is None
              else w_scale.to(torch.float32).contiguous())
     starts, lens, wids = _i32(seg_starts), _i32(seg_lens), _i32(seg_wids)
+    # the K splits' fp32 sums, added in split order by the kernel's reducer
+    part = (torch.empty((splits, R, N), dtype=torch.float32, device=x.device)
+            if splits > 1 else None)
     lib = _build.library()
     rc = lib.pt_grouped_matmul(
         x.data_ptr(), w.data_ptr(), None if scale is None else
         scale.data_ptr(), y.data_ptr(), starts.data_ptr(), lens.data_ptr(),
-        wids.data_ptr(), R, K, N, S, E, bm, _DTYPE_CODES[x.dtype],
-        int(w.dtype == torch.int8), int(bool(transpose_w)),
-        int(route == "wgmma"), _stream())
+        wids.data_ptr(), None if part is None else part.data_ptr(), R, K, N,
+        S, E, bm, _DTYPE_CODES[x.dtype], int(w.dtype == torch.int8),
+        int(bool(transpose_w)), _ROUTE_CODES[route], tile, splits,
+        int(rows_inner), _stream())
     _build.check(lib, rc, name)
     key = ("grouped_matmul_t" if transpose_w else "grouped_matmul_int8"
            if w.dtype == torch.int8 else "grouped_matmul")

@@ -136,11 +136,48 @@ def test_flash_decode_split_kernels_match_plain(dev, case, d, rep, b):
                 assert torch.all(got[r] == 0)
 
 
+def _plant_unseen(k, v, tables, lens, slots, walked):
+    """NaN in every pool position no row sees (float pools): past each
+    row's length, the unused table entries and the trash page.  A row sees
+    token t < min(len, walked * page) at logical page min(t // page,
+    max_pages - 1), its table entry clamped to page 0."""
+    page, max_pages = k.shape[2], tables.shape[1]
+    seen = torch.zeros(k.shape[0], page, dtype=torch.bool)
+    tab = tables.cpu().long()
+    for n, slot in zip(lens, slots):
+        if slot < 0:
+            continue
+        t = torch.arange(min(max(n, 0), walked * page))
+        phys = tab[slot, (t // page).clamp(max=max_pages - 1)].clamp(min=0)
+        seen[phys, t % page] = True
+    unseen = (~seen).to(k.device)[:, None, :, None]
+    k.masked_fill_(unseen, float("nan"))
+    v.masked_fill_(unseen, float("nan"))
+
+
+def _force_chunk(monkeypatch, chunk):
+    """Run the paged split kernel at ``chunk`` tokens (whole pages) instead
+    of the plan's."""
+    if chunk == "plan":
+        return
+    def forced(rows, kvh, page, max_pages, pp):
+        t_walk = -(-max_pages // pp) * pp * page
+        return chunk, -(-t_walk // chunk)
+    monkeypatch.setattr(da, "paged_split_plan", forced)
+
+
+@pytest.mark.parametrize("chunk", ["plan", 48])
 @pytest.mark.parametrize("d", [8, 64, 128])
 @pytest.mark.parametrize("dtype,kv_int8", CASES)
 @pytest.mark.parametrize("pp", [1, 3, "auto"])
-def test_paged_decode_kernel_matches_plain(dev, d, dtype, kv_int8, pp):
-    b, h, kvh, page, mp = 4, 8, 2, 16, 9
+def test_paged_decode_kernel_matches_plain(dev, d, dtype, kv_int8, pp, chunk,
+                                           monkeypatch):
+    """The paged split and combine kernels (B3) at the plan's chunk (one
+    page of 16 here) and at a forced chunk of three pages: rows that see
+    nothing, end mid-page and mid-chunk, a -1 entry inside the visible
+    range, a length past the table; NaN planted everywhere no row sees
+    (float pools), the trash page included."""
+    b, h, kvh, page, mp = 8, 8, 2, 16, 9
     n_pages = b * mp + 1
     q, k, v = _inputs(dev, b, h, kvh, d, (n_pages, kvh, page, d), dtype,
                       kv_int8, 2)
@@ -150,16 +187,31 @@ def test_paged_decode_kernel_matches_plain(dev, d, dtype, kv_int8, pp):
     tables[0, 1:] = -1                       # unused tail entries
     tables[2, 3] = -1                        # -1 inside the visible range
     tables = tables.to(dev)
-    lens = torch.tensor([7, 0, 100, 999], dtype=torch.int32, device=dev)
+    lens = [7, 0, 100, 999, 40, 57, 95, 143]
+    if not kv_int8:
+        step = da._resolve_pp(pp, k, mp)
+        _plant_unseen(k, v, tables, lens, range(b), -(-mp // step) * step)
+    _force_chunk(monkeypatch, chunk)
+    lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    before = da.LAUNCHES["paged_decode"]
     got = da.paged_decode(q, k, v, lens, tables, pages_per_step=pp)
     torch.cuda.synchronize()
+    assert da.LAUNCHES["paged_decode"] == before + 1
     want = da.paged_decode_plain(q, k, v, lens, tables, pages_per_step=pp)
     _err(got, want, dtype)
+    assert torch.all(got[1] == 0)
 
 
+@pytest.mark.parametrize("chunk", ["plan", 48])
 @pytest.mark.parametrize("d", [8, 128])
 @pytest.mark.parametrize("dtype,kv_int8", CASES)
-def test_ragged_paged_decode_kernel_matches_plain(dev, d, dtype, kv_int8):
+def test_ragged_paged_decode_kernel_matches_plain(dev, d, dtype, kv_int8,
+                                                  chunk, monkeypatch):
+    """The paged split and combine kernels (B3') on packed rows: decode
+    rows, a prefill chunk of slot 0 (lengths 40-70, ending mid-page and,
+    at the forced three-page chunk, mid-chunk), padding rows; the plan's
+    chunk here is the whole walk (8 pages).  NaN planted everywhere no row
+    sees (float pools)."""
     slots, h, kvh, page, mp = 3, 32, 8, 16, 8
     n_pages = slots * mp + 1
     lens = [70, 0, 17] + list(range(40, 71)) + [5, 9]
@@ -168,13 +220,18 @@ def test_ragged_paged_decode_kernel_matches_plain(dev, d, dtype, kv_int8):
                       dtype, kv_int8, 4)
     tables = torch.arange(n_pages - 1, dtype=torch.int32).reshape(slots, mp)
     tables = tables.flip(1).contiguous().to(dev)
+    if not kv_int8:
+        _plant_unseen(k, v, tables, lens, slot, mp)
+    _force_chunk(monkeypatch, chunk)
     lens = torch.tensor(lens, dtype=torch.int32, device=dev)
     slot = torch.tensor(slot, dtype=torch.int32, device=dev)
+    before = da.LAUNCHES["ragged_paged_decode"]
     got = da.ragged_paged_decode(q, k, v, lens, slot, tables)
     torch.cuda.synchronize()
+    assert da.LAUNCHES["ragged_paged_decode"] == before + 1
     want = da.ragged_paged_decode_plain(q, k, v, lens, slot, tables)
     _err(got, want, dtype)
-    assert torch.all(got[-2:] == 0)
+    assert torch.all(got[-2:] == 0) and torch.all(got[1] == 0)
 
 
 def test_cuda_guards_raise(dev):
@@ -208,40 +265,56 @@ def test_generate_on_cuda_matches_cpu(dev):
 # replacement, the launchers it breaks, the cases that show it, the factor
 # over the limit its reading must reach)
 PLANTED = {
-    # the paged kernel skips the second loop trip of every row
-    "skipped_trip": ("if (start >= len) break;",
-                     "if (start >= len) break;\n    if (trip == 1) continue;",
-                     ("paged_decode", "ragged_paged_decode"), ("bf16", "int8"),
-                     1),
-    # the paged kernel does not rescale its sums when a later trip raises
-    # the max
-    "no_alpha_rescale": ("acc_w[(r0 + rr) * D + i] * alpha_s[r0 + rr]",
-                         "acc_w[(r0 + rr) * D + i]",
-                         ("paged_decode", "ragged_paged_decode"),
-                         ("bf16", "int8"), 1),
+    # the paged split kernel treats every row's second chunk as empty (no
+    # visible key: its partial carries no weight)
+    "skipped_trip": (
+        "int n = min(a.chunk, len - c0);  // visible tokens of the paged chunk",
+        "int n = c == 1 ? 0 : min(a.chunk, len - c0);",
+        ("paged_decode", "ragged_paged_decode"), ("bf16", "int8"), 10),
+    # the combine does not rescale each chunk's p V sums to the row's max
+    "no_alpha_rescale": ("acc += acc_c[static_cast<size_t>(c) * D] * w;",
+                         "acc += acc_c[static_cast<size_t>(c) * D];",
+                         ("flash_decode", "paged_decode",
+                          "ragged_paged_decode"), ("bf16", "int8"), 10),
+    # the paged walk maps every token to the next logical page's entry
+    "wrong_page": ("const int li = min(t / a.page, a.max_pages - 1);",
+                   "const int li = min(t / a.page + 1, a.max_pages - 1);",
+                   ("paged_decode", "ragged_paged_decode"), ("bf16", "int8"),
+                   10),
     # B4's combine drops each row's last split
     "combine_drops_last_split": (
         "for (int c = 0; c < ns; ++c) {  // merge in split order",
         "for (int c = 0; c < ns - 1; ++c) {  // merge in split order",
         ("flash_decode",), ("bf16", "int8"), 10),
-    # B4's split kernel stops zeroing the V rows past the length that its
+    # the split kernels stop zeroing the V rows past the length that their
     # copy brings in: NaN planted there (float caches only) reaches the sum
     "v_tail_not_zeroed": (
-        "reinterpret_cast<uint32_t*>(const_cast<unsigned char*>(v_s) + n * "
-        "R::kBytes)[i] = 0u;", "{}", ("flash_decode",), ("bf16",), 10),
+        "reinterpret_cast<uint32_t*>(v_s + n * R::kBytes)[i] = 0u;", "{}",
+        ("flash_decode", "paged_decode", "ragged_paged_decode"), ("bf16",),
+        10),
 }
 
 
 def _readings(dev, case):
     """Per-row gate error of each launcher at the serving shapes, with NaN
-    planted past every row's length in flash_decode's float cache."""
+    planted past every row's length in flash_decode's float cache and in
+    every pool position no row sees in the paged launchers' float pools."""
     out = {}
     for name, inp in launcher_inputs(case, dev).items():
-        args = inp["args"]
+        args = list(inp["args"])
         if name == "flash_decode" and args[1].dtype != torch.int8:
             for r, n in enumerate(args[3].tolist()):
                 args[1][r, :, n:] = float("nan")
                 args[2][r, :, n:] = float("nan")
+        elif name != "flash_decode" and args[1].dtype != torch.int8:
+            tables = args[-1]
+            slots = (args[4].tolist() if name == "ragged_paged_decode"
+                     else range(len(args[3])))
+            mp = tables.shape[1]
+            pp = da._resolve_pp("auto", args[1], mp)
+            args[1], args[2] = args[1].clone(), args[2].clone()
+            _plant_unseen(args[1], args[2], tables, args[3].tolist(), slots,
+                          -(-mp // pp) * pp)
         got = getattr(da, name)(*args)
         want = getattr(da, name + "_plain")(*args)
         out[name] = row_error(got, want)[0]
@@ -271,9 +344,9 @@ def _build_planted(tmp_path, source_name, planted):
 
 
 def test_error_gate_catches_planted_faults(dev, tmp_path, monkeypatch):
-    """Each planted fault reads over the limit (the B4 faults at least 10
-    times over it) in every launcher it breaks, at the serving shapes; the
-    sound kernels read within it, NaN past the lengths included."""
+    """Each planted fault reads at least 10 times over the limit in every
+    launcher it breaks, at the serving shapes; the sound kernels read
+    within it, NaN past the lengths included."""
     libs = _build_planted(tmp_path, "decode_attention.cu",
                           {f: v[:2] for f, v in PLANTED.items()})
     tol = ROW_TOL["bf16"]
@@ -823,7 +896,13 @@ def test_masked_gate_catches_planted_faults(dev, tmp_path, monkeypatch):
 
 def test_decode_kernels_fp32_q_over_bf16_cache(dev):
     """An fp32 model serving an int8-weight dict runs on bf16 pools: the
-    decode kernels take fp32 q over bf16 K/V (p rounded to bf16, as v)."""
+    decode kernels take fp32 q over bf16 K/V (p rounded to bf16, as v).
+    Against the independent ``paged_decode_plain`` the gate is bf16's, as
+    B4's split test holds the same pair: the split kernel rounds p against
+    its chunk's max (one page at this shape's plan), the plain version
+    against the row's.  Against ``paged_split_merge_plain``, which rounds
+    p to bf16 where the kernel does (and is held against the Pallas kernel
+    at this dtype pair on the CPU), the gate is fp32's."""
     b, h, kvh, d, page, mp = 3, 8, 2, 64, 16, 6
     n_pages = b * mp + 1
     q, k, v = _inputs(dev, b, h, kvh, d, (n_pages, kvh, page, d),
@@ -834,7 +913,9 @@ def test_decode_kernels_fp32_q_over_bf16_cache(dev):
     got = da.paged_decode(q, k, v, lens, tables)
     torch.cuda.synchronize()
     assert got.dtype == torch.float32
-    _err(got, da.paged_decode_plain(q, k, v, lens, tables), torch.float32)
+    _err(got, da.paged_decode_plain(q, k, v, lens, tables), torch.bfloat16)
+    _err(got, da.paged_split_merge_plain(q, k, v, lens, tables),
+         torch.float32)
 
 
 # ---------------------------------------------------------------- B7 / B8
@@ -896,15 +977,39 @@ def _gmm_case(dev, K, N, lens, bm, kind, op, seed=0, wids=None):
     return inp
 
 
-@pytest.mark.parametrize("case", list(GMM_SWEEP))
-@pytest.mark.parametrize("kind,op", [("bf16", "fwd"), ("fp32", "fwd"),
-                                     ("int8", "fwd"), ("bf16", "t"),
-                                     ("fp32", "t"), ("bf16", "outer"),
-                                     ("fp32", "outer")])
+# the int8 cases of chip_smoke's GMM_CASES (the Mixtral decode, unified and
+# prefill calls among them), run by test_grouped_kernels_match_plain beside
+# the sweep
+INT8_CHIP_CASES = [n for n, c in chip_smoke.GMM_CASES.items()
+                   if "int8" in c[1]]
+
+
+GMM_KINDS = [("bf16", "fwd"), ("fp32", "fwd"), ("int8", "fwd"),
+             ("bf16", "t"), ("fp32", "t"), ("bf16", "outer"),
+             ("fp32", "outer")]
+
+
+@pytest.mark.parametrize("case,kind,op",
+                         [(c, k, o) for c in GMM_SWEEP for k, o in GMM_KINDS]
+                         + [(f"chip:{n}", "int8", "fwd")
+                            for n in INT8_CHIP_CASES])
 def test_grouped_kernels_match_plain(dev, case, kind, op):
+    """Every B7/B8 kernel on the sweep (bf16 x over an int8 bank on
+    ``gmm_int8_wgmma_kernel``: row tiles 16, 64 and 128, K split and not)
+    and, for the int8 route, on every int8 chip_smoke case.  The int8
+    route takes N a multiple of 16 (the bank's row is a TMA stride): a
+    sweep width off 16 raises there, and the case runs at N rounded up to
+    16 instead, still off the kernel's 128-column tiles."""
     from paddle_tpu_torch.ops import grouped_matmul as gm
-    K, N, lens, bm = GMM_SWEEP[case]
-    inp = _gmm_case(dev, K, N, lens, bm, kind, op)
+    if case.startswith("chip:"):
+        inp = chip_smoke.gmm_inputs(case[5:], "int8", dev)
+    else:
+        K, N, lens, bm = GMM_SWEEP[case]
+        if kind == "int8" and N % 16:
+            with pytest.raises(ValueError, match="multiple of 16"):
+                chip_smoke._gmm_call(_gmm_case(dev, K, N, lens, bm, kind, op))
+            N = -(-N // 16) * 16
+        inp = _gmm_case(dev, K, N, lens, bm, kind, op)
     gm.reset_launches()
     got = chip_smoke._gmm_call(inp)
     torch.cuda.synchronize()
@@ -913,7 +1018,40 @@ def test_grouped_kernels_match_plain(dev, case, kind, op):
         op, "grouped_matmul_int8" if kind == "int8" else "grouped_matmul")
     assert gm.LAUNCHES[key] == 1 and sum(gm.LAUNCHES.values()) == 1
     err, _ = row_error(got, want)
+    print(json.dumps({"case": case, "kind": kind, "op": op,
+                      "row_error": err}))
     assert err <= ROW_TOL["fp32" if kind == "fp32" else "bf16"], err
+
+
+def test_grouped_int8_split_route_is_deterministic(dev):
+    """B7 int8 with K split (the Mixtral decode down projection: 4 splits
+    by ``gmm_int8_plan``) gives the same bits in two runs: the splits' fp32
+    sums are added in split order, no atomics."""
+    from paddle_tpu_torch.ops import grouped_matmul as gm
+    inp = chip_smoke.gmm_inputs("mixtral_decode_down", "int8", dev)
+    R, K = inp["x"].shape
+    assert gm.gmm_int8_plan(R, K, inp["w"].shape[2], len(inp["lens"]))[1] > 1
+    first = chip_smoke._gmm_call(inp)
+    second = chip_smoke._gmm_call(inp)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("case", [n for n, c in chip_smoke.GMM_CASES.items()
+                                  if n.startswith("mixtral_")
+                                  and "int8" in c[1]])
+@pytest.mark.parametrize("rows_inner", [False, True])
+def test_grouped_int8_grid_orders_agree(dev, case, rows_inner):
+    """B7 int8 with either grid order (row tiles or column tiles
+    innermost, whatever ``gmm_int8_plan`` picks) gives the planned order's
+    bits on every Mixtral case: a CTA's sums do not depend on when it
+    runs."""
+    inp = chip_smoke.gmm_inputs(case, "int8", dev)
+    planned = chip_smoke._gmm_call(inp)
+    with chip_smoke.forced_int8_order(rows_inner):
+        got = chip_smoke._gmm_call(inp)
+    torch.cuda.synchronize()
+    assert torch.equal(got, planned)
 
 
 @pytest.mark.parametrize("case", [n for n, c in chip_smoke.GMM_CASES.items()
@@ -1037,16 +1175,19 @@ def test_sparse_generate_on_cuda_matches_cpu(dev):
 
 # faults planted into copies of csrc/grouped_matmul.cu: (text, replacement)
 PLANTED_GMM = {
-    # B7 int8 (gmm_kernel) skips the last row tile of a segment longer than
-    # one tile
+    # B7 int8 (gmm_int8_wgmma_kernel) skips the last row tile of a segment
+    # longer than one tile
     "skips_last_row_tile": (
-        "  if (wid < 0 || wid >= a.E) return;",
-        "  if (wid < 0 || wid >= a.E) return;\n  if (row0 + kBM >= row_end "
-        "&& (a.lens[seg] + a.br - 1) / a.br * a.br > kBM) return;"),
-    # B7 drops the int8 bank's dequant scale
+        "  // this split's K steps [c0, c0 + steps); a split past K stores zeros",
+        "  if (row0 + NR >= row_end && (a.lens[seg] + a.br - 1) / a.br * a.br "
+        "> NR) return;"),
+    # B7 int8 drops the int8 bank's dequant scale
     "int8_scale_dropped": (
-        "if (a.scale != nullptr) v *= a.scale[static_cast<size_t>(wid) * "
-        "a.N + n + i];", ""),
+        "__float2bfloat16(acc[i] * ((i / 2) % 2 ? s1 : s0));",
+        "__float2bfloat16(acc[i]);"),
+    # B7 int8's reducer drops the last K split's fp32 sums
+    "int8_split_dropped": ("for (int sp = 0; sp < splits; ++sp) {",
+                           "for (int sp = 0; sp < splits - 1; ++sp) {"),
     # B8 (bf16, wgmma) leaves an empty segment's tile unwritten
     "outer_empty_unwritten": (
         "  const int steps = row_end > base ? (row_end - base + kOutBR - 1) "
@@ -1060,14 +1201,15 @@ PLANTED_GMM = {
         "for (int ks = 0; ks < (c == 1 ? 0 : kGmmBK / 16); ++ks) {"),
     # B7 bf16 stores its tile's rows past the window's end (the next
     # segment's, or rows no segment covers)
-    "wgmma_stores_past_window": ("if (row < row_end && n < a.N)",
-                                 "if (row < a.R && n < a.N)"),
+    "wgmma_stores_past_window": ("if (row < row_end && n < a.N)\n      *reinterpret_cast<__nv_bfloat162*>",
+                                 "if (row < a.R && n < a.N)\n      *reinterpret_cast<__nv_bfloat162*>"),
 }
 
 
 def _gmm_readings(dev):
     """Gate errors of B7 (bf16, int8) and B8 (bf16) on segments longer
-    than one row tile, with an empty segment, without the limits; and of
+    than one row tile, with an empty segment, without the limits; of B7
+    int8 at a decode shape with K split; and of
     B7 bf16 on two windows with rows between them that no segment covers
     (their x rows not zero), whose plain output is exactly 0.  B8's output
     block is recycled from a NaN-filled one first, so a tile left
@@ -1087,6 +1229,12 @@ def _gmm_readings(dev):
     assert gm.gmm_route(torch.bfloat16, False) == "wgmma"
     out["fwd[bf16,gaps]"] = row_error(chip_smoke._gmm_call(gaps),
                                       chip_smoke._gmm_call(gaps, plain=True))[0]
+    # B7 int8 at a decode shape, K split in 8 (gmm_int8_plan)
+    split = _gmm_case(dev, 4096, 256, [2, 3, 1, 2, 2, 2, 3, 1], 8, "int8",
+                      "fwd")
+    assert gm.gmm_int8_plan(80, 4096, 256, 8) == (16, 8, False, 13 * 8 * 2)
+    out["fwd[int8,split]"] = row_error(
+        chip_smoke._gmm_call(split), chip_smoke._gmm_call(split, plain=True))[0]
     for kind, op in (("bf16", "fwd"), ("int8", "fwd"), ("bf16", "outer")):
         inp = _gmm_case(dev, 256, 256, [100, 0, 3, 200, 65], 8, kind, op)
         want = chip_smoke._gmm_call(inp, plain=True)
@@ -1109,6 +1257,7 @@ def test_grouped_gate_catches_planted_faults(dev, tmp_path, monkeypatch):
     libs = _build_planted(tmp_path, "grouped_matmul.cu", PLANTED_GMM)
     faulty = {"skips_last_row_tile": "fwd[int8]",
               "int8_scale_dropped": "fwd[int8]",
+              "int8_split_dropped": "fwd[int8,split]",
               "outer_empty_unwritten": "outer[bf16]",
               "wgmma_skipped_k_step": "fwd[bf16]",
               "wgmma_stores_past_window": "fwd[bf16,gaps]"}
@@ -1137,17 +1286,29 @@ def test_wgmma_probe_matches_matmul(dev, mode):
     both K-major with B one 256-row panel (B7's dx), 5 A in registers and
     B MN-major over two panels as one n128 product (B2's products at d
     128), 6 both MN-major at n64 with A stored by the threads through
-    ``swizzle128`` (B6's fused dq = ds K).  Exact products, fp32 sums of 64
-    terms in another order: 1e-5 of the largest |c|."""
+    ``swizzle128`` (B6's fused dq = ds K); 7, 8, 9 an int8 tile [64, 128]
+    loaded through the 8-bit tensor map, widened to bf16 panels by
+    ``widen_i8_panel`` (A, MN-major) against b K-major at n 16, 64, 128
+    (B7 int8's swapped product), the extreme bytes -128 and 127 included.
+    Exact products, fp32 sums of 64 terms in another order: 1e-5 of the
+    largest |c|."""
     g = torch.Generator(device=dev).manual_seed(mode)
-    a = torch.randn(64, 64, generator=g, device=dev).to(torch.bfloat16)
     b = torch.randn(*_build.PROBE_B_SHAPES[mode], generator=g,
                     device=dev).to(torch.bfloat16)
+    if mode in _build.PROBE_INT8_MODES:
+        a = torch.randint(-127, 128, (64, 128), generator=g, device=dev,
+                          dtype=torch.int8)
+        a[0, :4] = torch.tensor([-128, 127, -1, 0], dtype=torch.int8)
+    else:
+        a = torch.randn(64, 64, generator=g, device=dev).to(torch.bfloat16)
     got = _build.wgmma_probe(mode, a, b)
     torch.cuda.synchronize()
     af, bf = a.float(), b.float()
-    want = af @ bf.T if mode in (0, 4) else \
-        (af.T if mode in (2, 6) else af) @ bf
+    if mode in _build.PROBE_INT8_MODES:
+        want = af.T @ bf.T
+    else:
+        want = af @ bf.T if mode in (0, 4) else \
+            (af.T if mode in (2, 6) else af) @ bf
     err = (got - want).abs().max().item()
     print(json.dumps({"mode": mode, "max_abs_err": err}))
     assert err <= 1e-5 * want.abs().max().item(), err

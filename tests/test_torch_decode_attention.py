@@ -267,6 +267,116 @@ def test_paged_decode_plain_dtypes(kv_dtype, qdt):
            127.0 if kv_dtype == "int8" else 1.0)
 
 
+@pytest.mark.parametrize("rows,kvh", [(8, 8), (264, 8), (1, 1), (4, 2)])
+@pytest.mark.parametrize("page,max_pages,pp", [(16, 128, 32), (16, 9, 1),
+                                               (16, 9, 3), (8, 7, 2),
+                                               (48, 5, 5), (128, 4, 1)])
+def test_paged_split_plan_is_a_static_rule(rows, kvh, page, max_pages, pp):
+    """C is a whole number of pages (at least one, at most the split
+    kernel's 128 threads): ``decode_split_plan``'s chunk over the walked
+    length ceil(max_pages / pp) * pp * page, cut down to pages; the grid
+    at full length covers the walk.  Static shapes only (no lengths)."""
+    import inspect
+    assert list(inspect.signature(port.paged_split_plan).parameters) == [
+        "rows", "kvh", "page", "max_pages", "pp"]
+    chunk, splits = port.paged_split_plan(rows, kvh, page, max_pages, pp)
+    walk = -(-max_pages // pp) * pp * page
+    dense, _ = port.decode_split_plan(rows, kvh, walk)
+    assert chunk % page == 0 and page <= chunk <= 128
+    assert chunk == max(page, dense // page * page)
+    assert (splits - 1) * chunk < walk <= splits * chunk
+    assert port.paged_split_plan(rows, kvh, page, max_pages, pp) == (
+        chunk, splits)
+
+
+def test_paged_split_plan_at_the_main_shapes():
+    """The serving pools (page 16, 128 table columns, pp 32): the chunked
+    engine's 8 rows and the unified engine's 264 take 8-page chunks, 16
+    of them; a page over 128 tokens is refused."""
+    assert port.paged_split_plan(8, 8, 16, 128, 32) == (128, 16)
+    assert port.paged_split_plan(264, 8, 16, 128, 32) == (128, 16)
+    with pytest.raises(ValueError, match="page"):
+        port.paged_split_plan(8, 8, 256, 4, 1)
+
+
+def _plant_unseen_np(kp, vp, tables, lens, slots, walked):
+    """NaN in every pool position no row sees (past each length, unused
+    entries, the trash page), by the kernels' walk and clamps."""
+    page, mp = kp.shape[2], tables.shape[1]
+    seen = np.zeros((kp.shape[0], page), bool)
+    for n, s in zip(lens, slots):
+        if s < 0:
+            continue
+        t = np.arange(min(max(int(n), 0), walked * page))
+        phys = np.maximum(tables[s, np.minimum(t // page, mp - 1)], 0)
+        seen[phys, t % page] = True
+    unseen = np.broadcast_to(~seen[:, None, :, None], kp.shape)
+    kp[unseen] = np.nan
+    vp[unseen] = np.nan
+
+
+@pytest.mark.parametrize("chunk", ["plan", 48])
+@pytest.mark.parametrize("kv_dtype,qdt", [("fp32", "fp32"), ("fp32", "bf16"),
+                                          ("int8", "bf16"), ("bf16", "fp32")])
+@pytest.mark.parametrize("ragged", [False, True])
+def test_paged_split_merge_plain_matches_pallas(ragged, kv_dtype, qdt, chunk):
+    """The paged split and combine kernels' arithmetic
+    (``paged_split_merge_plain``: each row's walked pages gathered, then
+    ``split_merge_plain`` over chunks of whole pages) against the Pallas
+    ``paged_decode_raw`` / ``ragged_paged_decode_raw`` (interpret mode)
+    and the port's plain versions, at the plan's chunk and a forced
+    three-page one: lengths 0, ending mid-page and mid-chunk, past the
+    table; a -1 entry inside the visible range; padding rows (ragged); NaN
+    everywhere no row sees (float pools).  The pools are q's dtype, int8
+    under bf16 q, or bf16 under fp32 q (an fp32 model on an int8 dict's
+    bf16 pools).  fp32 1e-5; bf16 and int8, and fp32 q over bf16 K/V (p
+    rounded to bf16 against the chunk's max here, the running max in
+    Pallas and the row's in the plain versions), as _close's bf16."""
+    rng = np.random.default_rng(21 + ragged)
+    b, h, kvh, d, page, mp, pp = 6, 8, 2, 16, 16, 9, 3
+    q, kp, vp, tables = _paged_inputs(rng, b, h, kvh, d, page, mp, kv_dtype)
+    tables[0, 1:] = -1
+    tables[2, 3] = -1
+    if ragged:
+        lens, slots = _ragged_rows(rng, [7, 0, 100, 999, 57, 95], 2)
+        q = ((0.05 if kv_dtype == "int8" else 1.0) * rng.standard_normal(
+            (len(lens), h, d))).astype(np.float32)
+    else:
+        lens = np.array([7, 0, 100, 999, 57, 95], np.int32)
+        slots = np.arange(b, dtype=np.int32)
+    if kv_dtype != "int8":
+        _plant_unseen_np(kp, vp, tables, lens, slots, mp)
+    tdt, jdt = _DT[qdt]
+    kvt, kvj = {"fp32": (tdt, jdt), "int8": (None, None),
+                "bf16": _DT["bf16"]}[kv_dtype]
+    gate = "fp32" if (qdt, kv_dtype) == ("fp32", "fp32") else "bf16"
+    c = None if chunk == "plan" else chunk
+    vscale = 127.0 if kv_dtype == "int8" else 1.0
+    tq, tk, tv = _t(q, tdt), _t(kp, kvt), _t(vp, kvt)
+    if ragged:
+        got = port.paged_split_merge_plain(tq, tk, tv, _t(lens), _t(tables),
+                                           _t(slots), pages_per_step=pp,
+                                           chunk=c)
+        plain = port.ragged_paged_decode_plain(tq, tk, tv, _t(lens),
+                                               _t(slots), _t(tables),
+                                               pages_per_step=pp)
+        want = ragged_paged_decode_raw(_j(q, jdt), _j(kp, kvj), _j(vp, kvj),
+                                       _j(lens), _j(slots), _j(tables),
+                                       pages_per_step=pp)
+    else:
+        got = port.paged_split_merge_plain(tq, tk, tv, _t(lens), _t(tables),
+                                           pages_per_step=pp, chunk=c)
+        plain = port.paged_decode_plain(tq, tk, tv, _t(lens), _t(tables),
+                                        pages_per_step=pp)
+        want = paged_decode_raw(_j(q, jdt), _j(kp, kvj), _j(vp, kvj),
+                                _j(lens), _j(tables), pages_per_step=pp)
+    assert got.dtype == (torch.float32 if tdt is None else tdt)
+    _close(got.float().numpy(), plain.float().numpy(), gate, vscale)
+    _close(got.float().numpy(), np.asarray(want, np.float32), gate, vscale)
+    seen_none = (lens <= 0) | (slots < 0)
+    assert np.all(got.float().numpy()[seen_none] == 0.0)
+
+
 # --------------------------------------------------------------- ragged B3'
 
 def _ragged_rows(rng, slots_lens, pad_rows):

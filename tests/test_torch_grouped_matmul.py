@@ -262,6 +262,55 @@ def test_grouped_matmul_dx_only_when_x_needs_it(x_needs_grad, monkeypatch):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("w_int8", [False, True])
 def test_gmm_route_is_a_rule_on_dtype_and_bank(dtype, w_int8):
-    want = ("int8" if w_int8 else
-            "wgmma" if dtype == torch.bfloat16 else "cuda_cores")
+    bf16 = dtype == torch.bfloat16
+    want = (("int8_wgmma" if bf16 else "int8") if w_int8 else
+            "wgmma" if bf16 else "cuda_cores")
     assert gm.gmm_route(dtype, w_int8) == want
+
+
+# (R, K, N, S) of the Mixtral serving calls: decode (8 slots x top-2 = 16
+# copies at block_rows 8), a unified step (528 copies), a 6 x 300-token
+# prefill (3600 copies); up (K 4096, N 14336) and down (K 14336, N 4096)
+@pytest.mark.parametrize("R,K,N,S,want", [
+    (80, 4096, 14336, 8, (16, 1, False, 13 * 112)),
+    (80, 14336, 4096, 8, (16, 4, False, 13 * 4 * 32)),
+    (592, 4096, 14336, 8, (128, 1, False, 13 * 112)),
+    (592, 14336, 4096, 8, (128, 2, False, 13 * 2 * 32)),
+    (3664, 4096, 14336, 8, (128, 1, True, 37 * 112)),
+    (3664, 14336, 4096, 8, (128, 1, True, 37 * 32)),
+    (80, 4096, 256, 8, (16, 8, False, 13 * 8 * 2)),
+    (360, 64, 64, 8, (64, 1, False, 14)),
+])
+def test_gmm_int8_plan_at_the_serving_shapes(R, K, N, S, want):
+    assert gm.gmm_int8_plan(R, K, N, S) == want
+
+
+@pytest.mark.parametrize("R", [8, 80, 144, 145, 576, 577, 3664, 70000])
+@pytest.mark.parametrize("K", [64, 512, 4096, 14336])
+@pytest.mark.parametrize("N,S", [(128, 1), (4096, 8), (14336, 8),
+                                 (256, 64)])
+def test_gmm_int8_plan_is_a_static_rule(R, K, N, S):
+    """B7 int8's plan from (R, K, N, S) alone: the row tile is 16 while R
+    <= 16 (S + 1), else 64 while R <= 64 (S + 1), else 128; the grid holds
+    R / tile + S row tiles x splits x ceil(N / 128); splits is a power of
+    two up to 8, doubled only while the likely live CTAs (max(S, R / tile)
+    row tiles) fill fewer than two waves of 132 SMs (two CTAs an SM below
+    tile 128) and each split keeps at least 8 K steps of 64; row tiles
+    run innermost when R > 2 tile (S + 1)."""
+    import inspect
+    assert list(inspect.signature(gm.gmm_int8_plan).parameters) == [
+        "R", "K", "N", "S"]
+    tile, splits, rows_inner, grid = gm.gmm_int8_plan(R, K, N, S)
+    assert tile == (16 if R <= 16 * (S + 1) else
+                    64 if R <= 64 * (S + 1) else 128)
+    assert rows_inner == (R > 2 * tile * (S + 1))
+    cols = -(-N // 128)
+    assert grid == (-(-R // tile) + S) * splits * cols
+    assert splits in (1, 2, 4, 8)
+    steps = -(-K // 64)
+    live = max(S, -(-R // tile)) * cols
+    slots = (1 if tile == 128 else 2) * 132
+    if splits > 1:
+        assert steps >= splits * 8 and live * splits // 2 < 2 * slots
+    if splits < 8 and steps >= 2 * splits * 8:
+        assert live * splits >= 2 * slots
