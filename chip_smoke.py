@@ -102,8 +102,23 @@ Phases, each of which raises (and so exits non-zero) on failure:
     then, on the 8B model built anew, one profiled window over a short
     session of each of the chunked and unified paths in which every paged
     decode call runs ``paged_split_kernel`` + ``decode_combine_kernel``.
-    These route checks come last: no later phase needs the profiler;
-13. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
+    These route checks are the last profiled phase;
+13. the serving extras on the same 8B model (the serving phase's weights),
+    after every profiled phase: ``generate`` sampling
+    (temperature 0.8, top-k 50, top-p 0.9) and beam search (4 beams) on
+    two prompts, every decode attention call a B4 launch, each token within
+    the reference's top-k (top num_beams); the chunked and unified engines
+    with an int8 cache (B3/B3' over int8 pools, no host sync in a chunk
+    launch, the reference's K/V through the engine's frozen scales);
+    speculative decoding (speculative_k 3) with the full model and its first
+    4 layers as self-drafts, every verify window, proposal and mirror a B3'
+    launch, the full-depth draft's mean accepted length above 1; the prefix
+    cache's host tier (promoted pages equal to the demoted ones); the KV
+    handoff from a prefill_only engine in bf16 and int8 (the int8 scales
+    unchanged); ``tune_page_size`` at the serving shape.  Tokens of every
+    greedy path pass the teacher-forced check; ms per decode step beside
+    the bf16 engines';
+14. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
     last.
 
 Kernel times are the median of their reps (CUDA events, L2 flushed before
@@ -150,6 +165,10 @@ H, KVH, D = 32, 8, 128
 PAGE, N_PAGES, MAX_PAGES = 16, 1025, 128
 KERNEL_CASES = {"bf16": "bf16", "int8": "bf16", "fp32": "fp32"}  # -> q kind
 PROFILE_CHUNKS = 3            # profiled window: 3 chunks of 8 decode steps
+# profiled windows a check or a device-time reading may take: the profiler
+# here can lose all or a few of a window's device records after a long
+# unprofiled run (PERF.md §7); a lost record is no launch of another kernel
+PROFILE_WINDOWS = 10
 # B1/B2 at the bench.py attention shape: b, s, q heads, kv heads, head dim
 FLASH_SHAPE = (6, 1024, 16, 4, 128)
 # flash kernel error gate, with row_error's per-row measure: o and dq per q
@@ -504,8 +523,17 @@ def _moe_reference(cfg, params, i, hx, forced=None):
     return y.view(n, S, h), ids
 
 
+def _fake_quant(x, q, dq):
+    """x [n, S, kvh, d] through the int8 cache's frozen per-kv-head scales
+    in fp32: quantized (round half away from zero, clamped to +-127), then
+    dequantized."""
+    y = x * q[None, None, :, None]
+    y = (y.sign() * (y.abs() + 0.5).floor()).clamp(-127, 127)
+    return y * dq[None, None, :, None]
+
+
 def _reference_hidden(cfg, params, seqs, dev, seg=None, forced=None,
-                      choices=None):
+                      choices=None, kv_scales=None):
     """Plain fp32 full-sequence forward (independent of the port's code):
     each weight is cast to fp32 (int8 weights dequantized) at its use, so
     the fp32 copies of the model never coexist.  Sequences are
@@ -513,7 +541,9 @@ def _reference_hidden(cfg, params, seqs, dev, seg=None, forced=None,
     position.  ``seg`` ([n, S] segment ids) also keeps each position's
     attention within its segment.  A sparse checkpoint's MoE layers take
     ``_moe_reference`` (with ``forced[i]`` expert ids when given; each
-    layer's chosen ids are appended to ``choices``)."""
+    layer's chosen ids are appended to ``choices``).  ``kv_scales`` (an
+    int8 engine's frozen scales) passes every K/V through them
+    (``_fake_quant``), as the engine's cache holds them."""
     import numpy as np
     import torch
 
@@ -550,6 +580,9 @@ def _reference_hidden(cfg, params, seqs, dev, seg=None, forced=None,
         q = rope((hx @ W("self_attn.q_proj.weight")).view(n, S, H, d))
         k = rope((hx @ W("self_attn.k_proj.weight")).view(n, S, KV, d))
         v = (hx @ W("self_attn.v_proj.weight")).view(n, S, KV, d)
+        if kv_scales is not None:
+            k = _fake_quant(k, kv_scales["kq"][i], kv_scales["kdq"][i])
+            v = _fake_quant(v, kv_scales["vq"][i], kv_scales["vdq"][i])
         k = k.repeat_interleave(H // KV, dim=2)
         v = v.repeat_interleave(H // KV, dim=2)
         att = torch.einsum("bshd,bthd->bhst", q, k) * d ** -0.5
@@ -570,26 +603,29 @@ def _reference_hidden(cfg, params, seqs, dev, seg=None, forced=None,
 
 
 def teacher_forced(cfg, params, prompts, outputs, dev, forced=None,
-                   choices=None):
+                   choices=None, kv_scales=None, top=1):
     """For every emitted token, its fp32 reference logit (teacher-forced on
     prompt + emitted tokens) must be within EPS_STD reference standard
-    deviations of the reference row's max.  Returns the statistics.
-    ``forced``/``choices``: the MoE layers' expert ids (``_reference_hidden``).
-    """
+    deviations of the reference row's max, or with ``top`` > 1 of its
+    top-th largest logit (a token sampled from the top-k, a beam's token:
+    each is among its parent row's top num_beams).  Returns the
+    statistics.  ``forced``/``choices``: the MoE layers' expert ids;
+    ``kv_scales``: an int8 cache's scales (``_reference_hidden``)."""
     import numpy as np
     import torch
 
     seqs = [np.concatenate([p, o[:-1]]) for p, o in zip(prompts, outputs)]
     with torch.no_grad():
         x = _reference_hidden(cfg, params, seqs, dev, forced=forced,
-                              choices=choices)
+                              choices=choices, kv_scales=kv_scales)
         head = _f32(params, "lm_head.weight")
         worst, exact, total = 0.0, 0, 0
         for i, (p, o) in enumerate(zip(prompts, outputs)):
             rows = x[i, len(p) - 1:len(p) - 1 + len(o)] @ head   # [n, V]
             toks = torch.from_numpy(np.asarray(o, np.int64)).to(dev)
-            mx, arg = rows.max(-1)
-            gap = (mx - rows.gather(1, toks[:, None])[:, 0]) / rows.std(-1)
+            arg = rows.argmax(-1)
+            kth = rows.topk(top, dim=-1).values[:, -1]
+            gap = (kth - rows.gather(1, toks[:, None])[:, 0]) / rows.std(-1)
             worst = max(worst, gap.max().item())
             exact += int((arg == toks).sum())
             total += len(o)
@@ -598,19 +634,23 @@ def teacher_forced(cfg, params, prompts, outputs, dev, forced=None,
     if worst > EPS_STD:
         raise AssertionError(
             f"teacher-forced check: an emitted token's reference logit is "
-            f"{worst:.4f} reference std below the max (limit {EPS_STD})")
+            f"{worst:.4f} reference std below the top-{top} logit (limit "
+            f"{EPS_STD})")
     return {"worst_gap_std": worst, "argmax_agree": exact / total,
-            "tokens_checked": total}
+            "tokens_checked": total, "top": top}
 
 
-def serve_chunked(cfg, params, prompts, dev):
+def serve_chunked(cfg, params, prompts, dev, out=None, **engine_kw):
+    """The chunked engine on ``prompts`` (32 new tokens each); ``out``
+    receives the engine's int8 scales (None for a float cache)."""
     import torch
     from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
     from paddle_tpu_torch.ops import decode_attention as da
 
     eng = ContinuousBatchingEngine(cfg, params, max_slots=8, num_pages=1025,
                                    page_size=16, max_seq_len=2048,
-                                   decode_chunk_steps=8, device=dev)
+                                   decode_chunk_steps=8, device=dev,
+                                   **engine_kw)
     for p in prompts:
         eng.add_request(p, max_new_tokens=32)
     launched = {"chunks": 0}
@@ -641,6 +681,9 @@ def serve_chunked(cfg, params, prompts, dev):
     counts = dict(da.LAUNCHES)
     done = sorted(eng.finished, key=lambda f: f.rid)
     eng.shutdown()
+    if out is not None:
+        out["kv_scales"] = eng.kv_scales
+    _check_pools("chunked path", eng, engine_kw)
     L = cfg.num_hidden_layers
     want = launched["chunks"] * eng.chunk * L
     if counts["paged_decode"] != want or counts["paged_decode"] == 0:
@@ -661,14 +704,18 @@ def serve_chunked(cfg, params, prompts, dev):
         else None, steady_steps=len(steady))
 
 
-def serve_unified(cfg, params, prompts, dev):
+def serve_unified(cfg, params, prompts, dev, out=None, **engine_kw):
+    """The unified engine with the prefix cache on ``prompts`` (the last
+    one arrives once the one before it produced its first token); ``out``
+    receives the engine's int8 scales (None for a float cache)."""
     from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
     from paddle_tpu_torch.ops import decode_attention as da
 
     eng = ContinuousBatchingEngine(cfg, params, max_slots=8, num_pages=1025,
                                    page_size=16, max_seq_len=2048,
                                    prefill_token_budget=256,
-                                   enable_prefix_cache=True, device=dev)
+                                   enable_prefix_cache=True, device=dev,
+                                   **engine_kw)
     launched = {"steps": 0}
     unified_step = eng._unified_step
 
@@ -698,6 +745,9 @@ def serve_unified(cfg, params, prompts, dev):
     stats = eng.serving_stats()
     done = sorted(eng.finished, key=lambda f: f.rid)
     eng.shutdown()
+    if out is not None:
+        out["kv_scales"] = eng.kv_scales
+    _check_pools("unified path", eng, engine_kw)
     want = launched["steps"] * cfg.num_hidden_layers
     if counts["ragged_paged_decode"] != want or want == 0:
         raise AssertionError(f"unified path: {counts} ragged launches, "
@@ -719,6 +769,15 @@ def serve_unified(cfg, params, prompts, dev):
         ms_per_decode_step=statistics.median(decode_only) * 1e3
         if decode_only else None, decode_only_steps=len(decode_only),
         prefix_cache=stats["prefix_cache"], warm_request=hit)
+
+
+def _check_pools(what, eng, engine_kw):
+    """An engine asked for an int8 cache holds int8 pools, calibrated."""
+    import torch
+    if engine_kw.get("cache_dtype") == torch.int8 and (
+            eng.kv_scales is None
+            or any(p.dtype != torch.int8 for p in eng.k_pages + eng.v_pages)):
+        raise AssertionError(f"{what}: int8 cache not in place")
 
 
 def serve_generate(cfg, model, prompt, dev, generate=None):
@@ -744,6 +803,344 @@ def serve_generate(cfg, model, prompt, dev, generate=None):
         raise AssertionError("generate: bad output")
     return toks, dict(tokens=32, wall_s=wall, tokens_per_s=32 / wall,
                       launches=counts)
+
+
+# ------------------------------------------------------ serving extras phase
+
+def generate_extras(cfg, model, params, prompts, dev, **kw):
+    """``model.generate`` on the [2, S] ``prompts`` with ``kw`` (sampling
+    or beam search), 32 new tokens: every decode attention call a B4
+    launch (b x num_beams rows for beams), ms per decode step as the
+    difference to a 2-token call over 30 steps, each token within the
+    reference's top-k (sampling: the filter's k; beams: num_beams)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.ops import decode_attention as da
+
+    ids = np.stack(prompts)
+
+    def call(n):
+        _sync()
+        t0 = time.perf_counter()
+        out = model.generate(ids, max_new_tokens=n, **kw)
+        _sync()
+        return out, time.perf_counter() - t0
+
+    call(2)
+    _, short = call(2)
+    da.reset_launches()
+    out, wall = call(32)
+    counts = dict(da.LAUNCHES)
+    want = 31 * cfg.num_hidden_layers
+    if counts["flash_decode"] != want or counts["paged_decode"] \
+            or counts["ragged_paged_decode"]:
+        raise AssertionError(f"generate {kw}: {counts}, expected {want} "
+                             f"flash_decode launches")
+    toks = out[:, ids.shape[1]:].cpu().numpy()
+    if toks.shape != (2, 32):
+        raise AssertionError(f"generate {kw}: bad output {toks.shape}")
+    top = kw.get("num_beams", kw.get("top_k", 1))
+    return dict(
+        kwargs=kw, rows=2 * kw.get("num_beams", 1), launches=counts,
+        wall_s=wall, ms_per_decode_step=(wall - short) / 30 * 1e3,
+        teacher_forced=teacher_forced(cfg, params, list(ids), list(toks),
+                                      dev, top=top))
+
+
+def _counted(eng, name):
+    """Count the calls of engine method ``name``."""
+    calls = {"n": 0}
+    fn = getattr(eng, name)
+
+    def counted(*a, **k):
+        calls["n"] += 1
+        return fn(*a, **k)
+    setattr(eng, name, counted)
+    return calls
+
+
+def _drive_unified(eng, requests):
+    """Run ``requests`` [(prompt, kwargs)] through a unified engine to its
+    end; returns {rid: tokens}, its step walls and tokens per step."""
+    for prompt, kw in requests:
+        eng.add_request(prompt, **kw)
+    steps = []
+    while eng.queue or eng.active.any():
+        t0 = time.perf_counter()
+        produced = eng.step()
+        steps.append((time.perf_counter() - t0,
+                      int(eng.last_report["seq_lens_encoder"].sum()),
+                      produced))
+    _sync()
+    return {f.rid: f.tokens for f in eng.finished}, steps
+
+
+def _decode_ms(steps):
+    """Median wall ms of the steps that prefilled nothing and emitted, and
+    the median tokens such a step emitted."""
+    dec = [(w, p) for w, enc, p in steps if enc == 0 and p > 0]
+    if not dec:
+        return None, None
+    return (statistics.median(w for w, _ in dec) * 1e3,
+            statistics.median(p for _, p in dec))
+
+
+def _check_ragged(what, counts, want):
+    if counts["ragged_paged_decode"] != want or want == 0 or \
+            counts["flash_decode"] or counts["paged_decode"]:
+        raise AssertionError(f"{what}: {counts}, expected {want} ragged "
+                             f"launches and no other")
+
+
+def serve_speculative(cfg, params, prompts, dev, draft_layers):
+    """The unified engine with a self-draft of ``draft_layers`` layers,
+    speculative_k 3, two greedy and two sampled requests of 32 tokens:
+    every target step, proposal and mirror a ragged launch per layer, the
+    greedy tokens teacher-forced."""
+    from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+    from paddle_tpu_torch.models.generation import self_draft_params
+    from paddle_tpu_torch.ops import decode_attention as da
+
+    dcfg, dparams = self_draft_params(cfg, params, draft_layers)
+    eng = ContinuousBatchingEngine(cfg, params, max_slots=8, num_pages=1025,
+                                   page_size=16, max_seq_len=2048,
+                                   prefill_token_budget=256, draft_cfg=dcfg,
+                                   draft_params=dparams, speculative_k=3,
+                                   device=dev)
+    target = _counted(eng, "_unified_step")
+    draft = _counted(eng, "_draft_launch")
+    greedy = [prompts[0], prompts[2]]
+    sampled = [prompts[1], prompts[3]]
+    reqs = [(p, dict(max_new_tokens=32)) for p in greedy] + \
+        [(p, dict(max_new_tokens=32, temperature=0.8, seed=SEED + i))
+         for i, p in enumerate(sampled)]
+    da.reset_launches()
+    t0 = time.perf_counter()
+    out, steps = _drive_unified(eng, reqs)
+    wall = time.perf_counter() - t0
+    counts = dict(da.LAUNCHES)
+    stats = eng.serving_stats()
+    eng.shutdown()
+    want = target["n"] * cfg.num_hidden_layers \
+        + draft["n"] * dcfg.num_hidden_layers
+    _check_ragged(f"speculative (draft {draft_layers})", counts, want)
+    if sorted(len(t) for t in out.values()) != [32] * 4:
+        raise AssertionError("speculative: not every request finished")
+    ms, per_step = _decode_ms(steps)
+    tokens = sum(len(t) for t in out.values())
+    return dict(
+        draft_layers=draft_layers, speculative_k=3, launches=counts,
+        target_steps=target["n"], draft_launches=draft["n"],
+        mean_accepted_len=stats.get("mean_accepted_len"),
+        windows=len(stats["accepted_lengths"]), wall_s=wall,
+        tokens_per_s=tokens / wall, ms_per_decode_step=ms,
+        tokens_per_decode_step=per_step,
+        teacher_forced=teacher_forced(cfg, params, greedy,
+                                      [out[0], out[1]], dev))
+
+
+def serve_host_tier(cfg, params, system, prompts, dev):
+    """The unified engine with a prefix cache of a 4-page host tier over a
+    24-page pool: a 104-token prompt (its 64-token system prefix first)
+    commits 6 pages, a 352-token one demotes all 6 and the tier drops its
+    2 deepest, a second sharer of the system prompt promotes the 4 prefix
+    pages and hits 64 tokens.  Every promoted page is ``torch.equal`` to
+    the page that was demoted; every call a ragged launch; the tokens
+    teacher-forced."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+    from paddle_tpu_torch.ops import decode_attention as da
+
+    eng = ContinuousBatchingEngine(cfg, params, max_slots=8, num_pages=25,
+                                   page_size=16, max_seq_len=2048,
+                                   prefill_token_budget=256,
+                                   enable_prefix_cache=True,
+                                   host_tier_pages=4, device=dev)
+    steps = _counted(eng, "_unified_step")
+    pc = eng.prefix_cache
+    demoted, checks = {}, []
+    demote, promote = pc.demote_fn, pc.promote_fn
+
+    def page_kv(page):
+        return (torch.stack([p[page] for p in eng.k_pages]),
+                torch.stack([p[page] for p in eng.v_pages]))
+
+    def demote_fn(page):
+        snap = page_kv(page)
+        host = demote(page)
+        demoted[id(host)] = snap
+        return host
+
+    def promote_fn(host):
+        page = promote(host)
+        if page is not None:
+            checks.append(all(torch.equal(a, b) for a, b in
+                              zip(page_kv(page), demoted.pop(id(host)))))
+        return page
+
+    pc.demote_fn, pc.promote_fn = demote_fn, promote_fn
+    a = np.concatenate([system, prompts[2][:40]])
+    c = np.concatenate([system, prompts[1][:40]])
+    b = prompts[5][:300]
+    b = np.concatenate([b, prompts[4][:352 - len(b)]])
+    da.reset_launches()
+    outs, stats = [], []
+    for p in (a, b, c):
+        out, _ = _drive_unified(eng, [(p, dict(max_new_tokens=32))])
+        outs.append(out[max(out)])
+        stats.append(dict(pc.stats()))
+    counts = dict(da.LAUNCHES)
+    warm = eng.serving_stats()["prefill"][2]
+    eng.shutdown()
+    _check_ragged("host tier", counts, steps["n"] * cfg.num_hidden_layers)
+    st = stats[-1]
+    if st["demoted_pages"] < 4 or st["promoted_pages"] < 4 \
+            or st["host_hits"] < 1 or warm["cached_tokens"] != 64:
+        raise AssertionError(f"host tier: no demote/promote round trip "
+                             f"{stats} {warm}")
+    if not checks or not all(checks):
+        raise AssertionError(f"host tier: promoted pages differ from the "
+                             f"demoted ones {checks}")
+    return dict(launches=counts, unified_steps=steps["n"],
+                prefix_cache=stats, warm_request=warm,
+                promoted_pages_equal=len(checks),
+                teacher_forced=teacher_forced(cfg, params, [a, b, c], outs,
+                                              dev))
+
+
+def serve_handoff(cfg, params, prompts, dev, cache_dtype):
+    """A prefill_only engine hands a greedy and a sampled request to a
+    decode engine through ``export_handoff``/``adopt_request``: every
+    call of both a ragged launch, an int8 handoff's pages int8 and its
+    scales the same on both sides, the greedy stream teacher-forced."""
+    import numpy as np
+    from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+    from paddle_tpu_torch.ops import decode_attention as da
+
+    kw = dict(max_slots=8, num_pages=1025, page_size=16, max_seq_len=2048,
+              prefill_token_budget=256, cache_dtype=cache_dtype, device=dev)
+    pre = ContinuousBatchingEngine(cfg, params, prefill_only=True, **kw)
+    pre_steps = _counted(pre, "_unified_step")
+    reqs = [(prompts[2], dict(max_new_tokens=32)),
+            (prompts[3], dict(max_new_tokens=32, temperature=0.8,
+                              seed=SEED))]
+    da.reset_launches()
+    for prompt, rkw in reqs:
+        pre.add_request(prompt, **rkw)
+    while len(pre.handoff_ready) < len(reqs):
+        pre.step()
+    payloads = []
+    for slot in sorted(pre.handoff_ready, key=lambda s:
+                       pre.handoff_ready[s]["rid"]):
+        payloads.append(pre.export_handoff(slot))
+        pre.release_handoff(slot)
+    pre_counts = dict(da.LAUNCHES)
+    scales = pre.kv_scales
+    pre.shutdown()
+    del pre
+    _check_ragged("handoff prefill", pre_counts,
+                  pre_steps["n"] * cfg.num_hidden_layers)
+    dec = ContinuousBatchingEngine(cfg, params, **kw)
+    dec_steps = _counted(dec, "_unified_step")
+    da.reset_launches()
+    rids = [dec.adopt_request(tree, meta, 32) for tree, meta in payloads]
+    out, steps = _drive_unified(dec, [])
+    dec_counts = dict(da.LAUNCHES)
+    _check_ragged("handoff decode", dec_counts,
+                  dec_steps["n"] * cfg.num_hidden_layers)
+    meta = payloads[0][1]
+    if scales is not None:
+        if payloads[0][0]["k"].dtype != np.int8 or any(
+                not np.array_equal(meta["kv_scales"][k],
+                                   dec.kv_scales[k].cpu().numpy())
+                or not np.array_equal(meta["kv_scales"][k],
+                                      scales[k].cpu().numpy())
+                for k in scales):
+            raise AssertionError("handoff: int8 pages or scales changed")
+    kv_scales = dec.kv_scales
+    dec.shutdown()
+    if sorted(len(out[r]) for r in rids) != [32, 32] or \
+            payloads[1][1]["rng_state"] is None:
+        raise AssertionError("handoff: not every request finished")
+    ms, _ = _decode_ms(steps)
+    return dict(
+        cache_dtype=meta["cache_dtype"], prefill_launches=pre_counts,
+        decode_launches=dec_counts, prefill_steps=pre_steps["n"],
+        decode_steps=dec_steps["n"], ms_per_decode_step=ms,
+        payload_mb=sum(t[k].nbytes for t, _ in payloads
+                       for k in ("k", "v")) / 1e6,
+        teacher_forced=teacher_forced(cfg, params, [prompts[2]],
+                                      [out[rids[0]]], dev,
+                                      kv_scales=kv_scales))
+
+
+def serving_extras(cfg, model, params, prompts, shared, system, dev):
+    """The serving extras at the serving phase's shape and weights: the
+    sampling and beam-search ``generate`` (B4), the chunked and unified
+    engines with an int8 cache (B3/B3' over int8 pools, the reference
+    through the engine's frozen scales), speculative decoding with the
+    full model and a 4-layer cut as self-drafts, the prefix cache's host
+    tier, the KV handoff in bf16 and int8, and ``tune_page_size``.  The
+    launch counts are set to 0 before each path and read after it."""
+    import torch
+    from paddle_tpu_torch.inference import serving as sv
+
+    rec = {}
+    pair = [prompts[2], prompts[4][:128]]
+    rec["sampling"] = generate_extras(cfg, model, params, pair, dev,
+                                      do_sample=True, temperature=0.8,
+                                      top_k=50, top_p=0.9, seed=SEED)
+    print("serving extras sampling: " + json.dumps(rec["sampling"]),
+          flush=True)
+    rec["beams"] = generate_extras(cfg, model, params, pair, dev,
+                                   num_beams=4)
+    print("serving extras beams: " + json.dumps(rec["beams"]), flush=True)
+
+    got = {}
+    done, rec["chunked_int8"] = serve_chunked(cfg, params, prompts, dev,
+                                              out=got, cache_dtype=torch.int8)
+    rec["chunked_int8"]["teacher_forced"] = teacher_forced(
+        cfg, params, prompts, [f.tokens for f in done], dev,
+        kv_scales=got["kv_scales"])
+    print("serving extras chunked int8: " + json.dumps(rec["chunked_int8"]),
+          flush=True)
+    done, rec["unified_int8"] = serve_unified(cfg, params, shared, dev,
+                                              out=got, cache_dtype=torch.int8)
+    by_rid = {f.rid: f.tokens for f in done}
+    rec["unified_int8"]["teacher_forced"] = teacher_forced(
+        cfg, params, shared, [by_rid[r] for r in sorted(by_rid)], dev,
+        kv_scales=got["kv_scales"])
+    print("serving extras unified int8: " + json.dumps(rec["unified_int8"]),
+          flush=True)
+
+    for layers in (cfg.num_hidden_layers, 4):
+        key = f"speculative_self{layers}"
+        rec[key] = serve_speculative(cfg, params, prompts, dev, layers)
+        print(f"serving extras {key}: " + json.dumps(rec[key]), flush=True)
+    full = rec[f"speculative_self{cfg.num_hidden_layers}"]
+    if not full["mean_accepted_len"] or full["mean_accepted_len"] <= 1:
+        raise AssertionError(f"speculative decoding with the full model as "
+                             f"its draft: mean accepted length "
+                             f"{full['mean_accepted_len']}")
+
+    rec["host_tier"] = serve_host_tier(cfg, params, system, prompts, dev)
+    print("serving extras host tier: " + json.dumps(rec["host_tier"]),
+          flush=True)
+    for name, dt in (("bf16", torch.bfloat16), ("int8", torch.int8)):
+        rec[f"handoff_{name}"] = serve_handoff(cfg, params, prompts, dev, dt)
+        print(f"serving extras handoff {name}: "
+              + json.dumps(rec[f"handoff_{name}"]), flush=True)
+
+    kvh, d = cfg.num_key_value_heads, cfg.head_dim
+    page = sv.tune_page_size(8, kvh, d, 2048, device=dev)
+    key = ("paged_page_size", 8, kvh, d, 2048, str(torch.bfloat16))
+    rec["tune_page_size"] = {"shape": [8, kvh, d, 2048], "page": page,
+                             "ms": {str(p): t for p, t in
+                                    sv.PAGE_SIZE_TIMES[key].items()}}
+    print("serving extras tune_page_size: "
+          + json.dumps(rec["tune_page_size"]), flush=True)
+    return rec
 
 
 def profile_decode(cfg, params, dev, chunks, classes=None):
@@ -820,11 +1217,12 @@ def route_profile(what, run, launches, keys, kernels, absent=()):
     it runs must have run each CUDA kernel whose name contains an entry of
     ``kernels`` (as many launches each) and none of ``absent``.  The
     profiler can drop a window's records, so a window that did not record
-    every launch is profiled again, up to 3.  Returns {kernel: launches}
+    every launch is profiled again, up to PROFILE_WINDOWS.  Returns
+    {kernel: launches}
     with the wrappers' launches in the window and the windows profiled."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for used in range(1, 4):
+    for used in range(1, PROFILE_WINDOWS + 1):
         before = {k: launches[k] for k in keys}
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             run()
@@ -864,27 +1262,17 @@ def short_session(cfg, params, dev, unified):
     eng.shutdown()
 
 
-def paged_routes(dev):
+def paged_routes(cfg, params, dev):
     """Every paged decode call of a short chunked and a short unified
     session of the 8B serving model (built anew from SEED, as the serving
     phase builds it) on the paged split and combine kernels, one profiled
-    window per path.  Run last: no later phase needs the profiler."""
-    import torch
-    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    window per path."""
     from paddle_tpu_torch.ops import decode_attention as da
-    cfg = dataclasses.replace(LlamaConfig.llama3_8b(),
-                              max_position_embeddings=2048)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    params = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
-                              generator=gen).functional_state()
-    out = {path: route_profile(
+    return {path: route_profile(
         f"8B paged route ({path})",
         lambda: short_session(cfg, params, dev, path == "unified"),
         da.LAUNCHES, ("paged_decode", "ragged_paged_decode"),
         DECODE_KERNELS["paged_decode"]) for path in ("chunked", "unified")}
-    del params
-    torch.cuda.empty_cache()
-    return out
 
 
 # ------------------------------------------------------ flash kernel phase
@@ -1181,7 +1569,7 @@ def masked_work(inp, kernel):
     return nbytes, 2 * q.shape[-1] * products * inp["pairs"]
 
 
-def _device_ms(fn, calls, names, attempts=3):
+def _device_ms(fn, calls, names, attempts=PROFILE_WINDOWS):
     """Device milliseconds per launch of each kernel whose name contains
     one of ``names`` (each launches once per call of ``fn``), by
     ``torch.profiler`` over ``calls`` calls: the average over the launches
@@ -1683,7 +2071,7 @@ def long_context_phase(dev):
     if not all(np.isfinite(losses)):
         raise AssertionError(f"long context: losses {losses} not finite")
     # every B6 call of one profiled micro-step runs the split wgmma pair
-    # (the profiler can drop a window's records: up to 3 windows)
+    # (the profiler can drop a window's records: PROFILE_WINDOWS windows)
     step1 = build_train_step(model, opt, compute_dtype=torch.bfloat16)
     b6, b6_windows = until_counted(
         lambda: profiled_calls(lambda: step1.accumulate(
@@ -1716,7 +2104,7 @@ def long_context_phase(dev):
                                 SEED)).load_functional_state(params)
     del model, params
     # every B5 call of a segment-id forward runs the wgmma kernel (the
-    # profiler can drop a window's records: up to 3 windows)
+    # profiler can drop a window's records: up to PROFILE_WINDOWS windows)
     with torch.no_grad():
         b5, b5_windows = until_counted(
             lambda: profiled_calls(lambda: bf16(ids[0],
@@ -1763,7 +2151,7 @@ def profiled_calls(fn, match):
             if e.device_type == DeviceType.CUDA and match in e.key}
 
 
-def until_counted(profile_fn, counted, windows=3):
+def until_counted(profile_fn, counted, windows=PROFILE_WINDOWS):
     """``profile_fn()`` (one profiled window) repeated until ``counted``
     holds for its result, up to ``windows`` windows; returns (the last
     result, the windows profiled), the second recorded beside each check.
@@ -2664,8 +3052,27 @@ def main() -> int:
     record["moe_train"] = moe_train_phase(dev)
     print("moe train: " + json.dumps(record["moe_train"]), flush=True)
     record["mixtral"] = moe_serving_phase(dev)
-    record["paged_routes"] = paged_routes(dev)
+    # the 8B serving model again, from SEED: the paged route checks, then
+    # the serving extras.  The extras run after every profiled phase: a
+    # profiler window taken after a long unprofiled run that followed an
+    # earlier window records few or none of its kernels on this machine
+    # (PERF.md §7)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
+                             generator=gen)
+    params = model.functional_state()
+    record["paged_routes"] = paged_routes(cfg, params, dev)
     print("paged routes: " + json.dumps(record["paged_routes"]), flush=True)
+    extras = record["serving_extras"] = serving_extras(
+        cfg, model, params, prompts, shared, system, dev)
+    print("serving extras ms per decode step (bf16 [int8]): chunked "
+          f"{serving['chunked']['ms_per_decode_step']:.2f} "
+          f"[{extras['chunked_int8']['ms_per_decode_step']:.2f}], unified "
+          f"{serving['unified']['ms_per_decode_step']:.2f} "
+          f"[{extras['unified_int8']['ms_per_decode_step']:.2f}] ({card})",
+          flush=True)
+    del model, params
+    torch.cuda.empty_cache()
     record["wall_s"] = time.perf_counter() - t0
     out_dir = HERE / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -2680,6 +3087,16 @@ def main() -> int:
     main_path = {"flash_decode": ("generate", f"{tpu}:45"),
                  "paged_decode": ("chunked", f"{tpu}:177"),
                  "ragged_paged_decode": ("unified", f"{tpu}:177")}
+    # each decode kernel's launches on every serving path that runs it
+    by_path = {name: {} for name in main_path}
+    for path, r in [(p, serving[p]) for p in ("generate", "chunked",
+                                              "unified")] + list(
+                                                  extras.items()):
+        for key in ("launches", "prefill_launches", "decode_launches"):
+            tag = path if key == "launches" else f"{path}_{key[:-9]}"
+            for name, n in r.get(key, {}).items():
+                if n:
+                    by_path[name][tag] = n
     for r in record["kernels"]:
         path = main_path[r["name"]][0]
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
@@ -2702,6 +3119,7 @@ def main() -> int:
             "name": name, "kernel": "+".join(DECODE_KERNELS[name]),
             "route": "cuda", "source": source, "replaces": replaces,
             "launches": serving[path]["launches"][name],
+            "launches_by_path": by_path[name],
             "max_abs_err": bf16["max_abs_err"], "ms": bf16["kernel_ms"],
             "device_ms": bf16["device_ms"],
             "wrapper_ms": bf16["ms"], "ms_min": bf16["ms_min"],

@@ -1,4 +1,4 @@
-"""Greedy autoregressive generation with a dense KV cache for Llama.
+"""Autoregressive generation with a dense KV cache for Llama.
 
 Port of ``paddle_tpu/models/generation.py``.  Prefill is one causal fp32
 einsum forward over the prompt that also writes each layer's K/V into a
@@ -12,12 +12,20 @@ Norms, rope, SwiGLU and the head are plain PyTorch, as the JAX package
 left them to XLA.  Weight-only int8 dicts (``quantize_params_int8``, the
 ``._scale`` views of ``_Weights``) and sparse checkpoints (``_moe_ffn``,
 expert GEMMs on the grouped-matmul kernel B7, ``ops/grouped_matmul.py``)
-serve through every path.  Sampling and beam search belong to later
-slices of the port and raise.
+serve through every path.  ``generate`` decodes greedily, samples
+(temperature, then top-k, then top-p, ties at either cutoff kept; the
+draws from a ``torch.Generator`` seeded from ``seed`` on the model's
+device) or runs beam search (``num_beams > 1``: the prompt cache tiled to
+b * num_beams rows and reordered by parent each step, finished beams
+frozen, scores ``logp / len**length_penalty``).  Every decode step of
+every mode attends through ``flash_decode`` (B4).  ``self_draft_params``
+cuts a model to its first layers, the serving engine's speculative
+drafter.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional
 
 import numpy as np
@@ -28,7 +36,7 @@ from ..ops.decode_attention import flash_decode
 from ..ops.grouped_matmul import grouped_matmul_raw, sorted_segments
 from .llama import _rope_tables
 
-__all__ = ["generate", "quantize_params_int8"]
+__all__ = ["generate", "quantize_params_int8", "self_draft_params"]
 
 
 def _rms_norm(x, w, eps):
@@ -153,6 +161,24 @@ def quantize_params_int8(params: Dict[str, torch.Tensor],
         out[name + "._scale"] = scale
         del wf
     return out
+
+
+def self_draft_params(cfg, params, num_layers: int):
+    """Layer-truncated self-speculative draft (mirror of
+    ``self_draft_params``): the target's first ``num_layers`` decoder
+    layers with its embeddings, final norm and head, as ``(draft_cfg,
+    draft_params)`` for ``ContinuousBatchingEngine(draft_cfg=...,
+    draft_params=...)``.  The draft shares the target's tensors (no copy);
+    the ``._scale`` siblings of kept int8 layers ride along."""
+    n = int(num_layers)
+    if not 0 < n <= cfg.num_hidden_layers:
+        raise ValueError(
+            f"draft depth {n} outside (0, {cfg.num_hidden_layers}]")
+    dcfg = dataclasses.replace(cfg, num_hidden_layers=n)
+    dparams = {k: v for k, v in params.items()
+               if not (k.startswith("model.layers.")
+                       and int(k.split(".")[2]) >= n)}
+    return dcfg, dparams
 
 
 #: row-block quantum of the serving grouped-matmul launches (segment
@@ -326,26 +352,86 @@ def rope_tables_on(cfg, device):
     return cos.to(device), sin.to(device)
 
 
-@torch.no_grad()
-def _generate_greedy(cfg, params, ids, max_new_tokens: int, eos_id: int):
-    w = _Weights(cfg, params)
+def _sample_filter(logits, temperature: float, top_k: int, top_p: float):
+    """The filtered fp32 logits of ``_sample`` (``generation.py:411-422``):
+    divided by the temperature, then every logit below the top_k-th largest
+    and then every logit below the top-p cutoff (the smallest prefix of the
+    sorted row with mass >= top_p) set to -inf; ties at either cutoff are
+    kept.  logits [b, V]."""
+    logits = logits.float()
+    # a tensor divisor: the division is the JAX one, not a multiply by the
+    # reciprocal of a scalar
+    logits = logits / torch.full((), max(float(temperature), 1e-6),
+                                 dtype=torch.float32, device=logits.device)
+    V = logits.shape[-1]
+    ninf = torch.full((), float("-inf"), device=logits.device)
+    if top_k > 0:
+        kth = torch.sort(logits, dim=-1).values[:, -min(top_k, V)][:, None]
+        logits = torch.where(logits < kth, ninf, logits)
+    if top_p < 1.0:
+        sorted_l = torch.sort(logits, dim=-1, descending=True).values
+        cum = torch.cumsum(torch.softmax(sorted_l, dim=-1), dim=-1)
+        # an index past the row (rounding left cum below top_p) reads the
+        # last entry, as the JAX gather clamps it
+        cut = (cum < top_p).sum(dim=-1, keepdim=True).clamp(max=V - 1)
+        logits = torch.where(logits < sorted_l.gather(1, cut), ninf, logits)
+    return logits
+
+
+def _sample(logits, gen, do_sample: bool, temperature: float, top_k: int,
+            top_p: float):
+    """Next tokens [b] int32 (mirror of ``_sample``): the argmax, or a draw
+    from the softmax of ``_sample_filter``'s logits by the Gumbel-max rule
+    (what ``jax.random.categorical`` does), its noise from ``gen``."""
+    if not do_sample:
+        return logits.float().argmax(dim=-1).to(torch.int32)
+    logits = _sample_filter(logits, temperature, top_k, top_p)
+    noise = torch.empty_like(logits).exponential_(generator=gen)
+    return (logits - noise.log()).argmax(dim=-1).to(torch.int32)
+
+
+def _prefill_cache(w: _Weights, ids, M: int, rows_per_prompt: int = 1):
+    """Prefill ids [b, S] and write each layer's K/V into a fresh dense
+    cache [L, b * rows_per_prompt, kvh, M, d] (each prompt's rows
+    repeated, beam search's tiling).  Returns (last position's logits
+    [b, V], k_cache, v_cache, rope tables)."""
+    cfg = w.cfg
     b, S = ids.shape
-    M = S + max_new_tokens
     L, kvh, d = (cfg.num_hidden_layers, cfg.num_key_value_heads,
                  cfg.head_dim)
     cos_tab, sin_tab = rope_tables_on(cfg, ids.device)
     x, ks, vs = _prefill(w, ids, cos_tab, sin_tab)
-    k_cache = torch.zeros((L, b, kvh, M, d), dtype=x.dtype, device=ids.device)
+    k_cache = torch.zeros((L, b * rows_per_prompt, kvh, M, d), dtype=x.dtype,
+                          device=ids.device)
     v_cache = torch.zeros_like(k_cache)
     for i in range(L):
-        k_cache[i, :, :, :S] = ks[i].transpose(1, 2)
-        v_cache[i, :, :, :S] = vs[i].transpose(1, 2)
-    tok = w.head(x[:, -1]).float().argmax(dim=-1).to(torch.int32)
+        k_cache[i, :, :, :S] = ks[i].transpose(1, 2).repeat_interleave(
+            rows_per_prompt, dim=0)
+        v_cache[i, :, :, :S] = vs[i].transpose(1, 2).repeat_interleave(
+            rows_per_prompt, dim=0)
+    return w.head(x[:, -1]), k_cache, v_cache, cos_tab, sin_tab
+
+
+@torch.no_grad()
+def _generate(cfg, params, ids, max_new_tokens: int, eos_id: int,
+              do_sample: bool = False, temperature: float = 1.0,
+              top_k: int = 0, top_p: float = 1.0, seed: int = 0):
+    """The new tokens [b, max_new_tokens] of greedy or sampled decoding
+    (mirror of ``_generate_jit``): one prefill, then one ``_decode_step``
+    per token.  After an EOS a row keeps emitting ``eos_id``."""
+    w = _Weights(cfg, params)
+    S = ids.shape[1]
+    M = S + max_new_tokens
+    gen = None
+    if do_sample:
+        gen = torch.Generator(device=ids.device).manual_seed(int(seed))
+    logits, k_cache, v_cache, cos_tab, sin_tab = _prefill_cache(w, ids, M)
+    tok = _sample(logits, gen, do_sample, temperature, top_k, top_p)
     done = tok == eos_id
     out = [tok]
     for pos in range(S, M - 1):
         logits = _decode_step(w, cos_tab, sin_tab, tok, pos, k_cache, v_cache)
-        nxt = logits.float().argmax(dim=-1).to(torch.int32)
+        nxt = _sample(logits, gen, do_sample, temperature, top_k, top_p)
         nxt = torch.where(done, torch.full_like(nxt, eos_id), nxt)
         done = done | (nxt == eos_id)
         out.append(nxt)
@@ -353,23 +439,76 @@ def _generate_greedy(cfg, params, ids, max_new_tokens: int, eos_id: int):
     return torch.stack(out, dim=1)
 
 
+def _generate_greedy(cfg, params, ids, max_new_tokens: int, eos_id: int):
+    return _generate(cfg, params, ids, max_new_tokens, eos_id)
+
+
+@torch.no_grad()
+def _beam_search(cfg, params, ids, max_new_tokens: int, num_beams: int,
+                 length_penalty: float, eos_id: int):
+    """Beam search (mirror of ``_beam_search_jit``): one prefill per
+    prompt, its cache tiled to b * num_beams rows, then ``max_new_tokens``
+    - 1 decode steps over all beams, each keeping the top num_beams of
+    beams x vocab (ties to the lower index, as ``lax.top_k``) and
+    reordering every beam's state and cache rows by parent.  A finished
+    beam's row collapses to "EOS again at +0 logp".  Returns each prompt's
+    best beam [b, max_new_tokens] int32 and its score logp /
+    len**length_penalty [b]."""
+    w = _Weights(cfg, params)
+    b, S = ids.shape
+    B = int(num_beams)
+    dev = ids.device
+    logits, k_cache, v_cache, cos_tab, sin_tab = _prefill_cache(
+        w, ids, S + max_new_tokens, B)
+    logp0 = torch.log_softmax(logits.float(), dim=-1)
+    V = logp0.shape[-1]
+    alive, tok = _top_k(logp0, B)                       # [b, B]
+    tok = tok.to(torch.int32)
+    done = tok == eos_id
+    gen_len = torch.ones((b, B), dtype=torch.int32, device=dev)
+    toks_buf = torch.zeros((b, B, max_new_tokens), dtype=torch.int32,
+                           device=dev)
+    toks_buf[:, :, 0] = tok
+    eos_row = torch.full((V,), float("-inf"), device=dev)
+    eos_row[eos_id if eos_id >= 0 else 0] = 0.0
+    base = (torch.arange(b, device=dev) * B)[:, None]
+    for t in range(max_new_tokens - 1):
+        logits = _decode_step(w, cos_tab, sin_tab, tok.reshape(b * B), S + t,
+                              k_cache, v_cache)
+        lp = torch.log_softmax(logits.float(), dim=-1).reshape(b, B, V)
+        lp = torch.where(done[:, :, None], eos_row, lp)
+        top, idx = _top_k((alive[:, :, None] + lp).reshape(b, B * V), B)
+        parent = idx // V
+        ntok = (idx % V).to(torch.int32)
+        toks_buf = toks_buf.gather(
+            1, parent[:, :, None].expand(-1, -1, max_new_tokens))
+        gen_len = gen_len.gather(1, parent)
+        done = done.gather(1, parent)
+        rows = (base + parent).reshape(-1)
+        k_cache.copy_(k_cache[:, rows])
+        v_cache.copy_(v_cache[:, rows])
+        gen_len = gen_len + (~done).to(torch.int32)
+        toks_buf[:, :, t + 1] = ntok
+        done = done | (ntok == eos_id)
+        alive, tok = top, ntok
+    scores = alive / gen_len.float().pow(float(length_penalty))
+    best = scores.argmax(dim=1)
+    sel = torch.arange(b, device=dev)
+    return toks_buf[sel, best], scores[sel, best]
+
+
 def generate(model, input_ids, max_new_tokens: int = 32,
              do_sample: bool = False, temperature: float = 1.0,
              top_k: int = 0, top_p: float = 1.0, seed: int = 0,
              eos_token_id: Optional[int] = None, num_beams: int = 1,
              length_penalty: float = 1.0):
-    """Greedy continuation of ``input_ids`` ([b, S] int) with a KV cache on
-    the model's device; returns int32 [b, S + max_new_tokens] including
-    the prompt (mirror of ``paddle_tpu.models.generation.generate``).
-    After an EOS a sequence keeps emitting ``eos_token_id``.  Sampling
-    (``do_sample``) and beam search (``num_beams > 1``) are later slices
-    and raise."""
-    if do_sample:
-        raise NotImplementedError("sampling (temperature/top-k/top-p) "
-                                  "belongs to a later slice of the port")
-    if num_beams > 1:
-        raise NotImplementedError("beam search belongs to a later slice of "
-                                  "the port")
+    """Continuation of ``input_ids`` ([b, S] int) with a KV cache on the
+    model's device; returns int32 [b, S + max_new_tokens] including the
+    prompt (mirror of ``paddle_tpu.models.generation.generate``).  Greedy
+    by default; ``do_sample`` enables temperature / top-k / top-p (draws
+    seeded by ``seed``); ``num_beams > 1`` selects beam search (each
+    prompt's best beam, scored as logp / len**length_penalty).  After an
+    EOS a sequence keeps emitting ``eos_token_id``."""
     cfg = model.cfg
     device = model.device
     ids = torch.as_tensor(np.asarray(input_ids) if not isinstance(
@@ -386,6 +525,15 @@ def generate(model, input_ids, max_new_tokens: int = 32,
             f"({cfg.max_position_embeddings}); rope phases past the table "
             f"would silently repeat")
     eos = -1 if eos_token_id is None else int(eos_token_id)
-    new = _generate_greedy(cfg, model.functional_state(), ids,
-                           max_new_tokens, eos)
+    params = model.functional_state()
+    if num_beams > 1:
+        if do_sample:
+            raise ValueError("beam search is deterministic: num_beams > 1 "
+                             "is incompatible with do_sample=True")
+        new, _ = _beam_search(cfg, params, ids, max_new_tokens,
+                              int(num_beams), float(length_penalty), eos)
+    else:
+        new = _generate(cfg, params, ids, max_new_tokens, eos,
+                        bool(do_sample), float(temperature), int(top_k),
+                        float(top_p), int(seed))
     return torch.cat([ids, new], dim=1)

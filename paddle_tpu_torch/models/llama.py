@@ -209,7 +209,8 @@ class LlamaForCausalLM(nn.Module):
         return self.rope_cos, self.rope_sin
 
     def generate(self, input_ids, **kwargs):
-        """KV-cached greedy decoding (models/generation.py)."""
+        """KV-cached decoding: greedy, sampling or beam search
+        (models/generation.py)."""
         from .generation import generate
 
         return generate(self, input_ids, **kwargs)

@@ -54,6 +54,9 @@ _PAGED_TARGET_WINDOW = 512
 _SPLIT_THREADS = 128
 _MIN_CHUNK = 16
 _SPLIT_TARGET_CTAS = 2 * 132
+#: the largest page the paged launchers take on the card (a chunk is a
+#: whole number of pages of at most _SPLIT_THREADS tokens)
+MAX_PAGE_ON_CARD = _SPLIT_THREADS
 
 SUPPORTED_HEAD_DIMS = (8, 16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}

@@ -1140,6 +1140,131 @@ def test_dropless_train_step_on_cuda_matches_cpu(dev):
             1e-4 * want.abs().max().item(), k
 
 
+def _debug_llama():
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    cfg = LlamaConfig.debug(vocab=64, hidden=64, layers=2, heads=4,
+                            kv_heads=2, inter=128, max_pos=128)
+    return cfg, LlamaForCausalLM(
+        cfg, device="cpu",
+        generator=torch.Generator().manual_seed(5)).functional_state()
+
+
+# the serving extras on the debug engine: (engine keywords, draft layers,
+# a handoff from a prefill_only engine)
+ENGINE_EXTRAS = {
+    "int8_chunked": (dict(cache_dtype=torch.int8), None, False),
+    "int8_unified": (dict(cache_dtype=torch.int8, prefill_token_budget=8),
+                     None, False),
+    "speculative": (dict(prefill_token_budget=16, speculative_k=2), 1, False),
+    "speculative_int8": (dict(prefill_token_budget=16, speculative_k=3,
+                              cache_dtype=torch.int8), 2, False),
+    "handoff_int8": (dict(prefill_token_budget=16, cache_dtype=torch.int8),
+                     None, True),
+    "host_tier": (dict(prefill_token_budget=16, enable_prefix_cache=True,
+                       host_tier_pages=2, num_pages=9), None, False),
+}
+
+
+def _run_extras(case, device):
+    """Tokens of the debug engine on ``device`` with the extras of
+    ``case``: three greedy requests (and a seeded sampled one on the
+    unified path), the handoff through a prefill_only engine, and the
+    launch counts of the decode kernels."""
+    from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+    from paddle_tpu_torch.models.generation import self_draft_params
+    cfg, params = _debug_llama()
+    params = {k: v.to(device) for k, v in params.items()}
+    kw, layers, handoff = ENGINE_EXTRAS[case]
+    kw = dict(dict(max_slots=3, num_pages=33, page_size=16, max_seq_len=128,
+                   decode_chunk_steps=4), **kw)
+    if layers:
+        kw["draft_cfg"], kw["draft_params"] = self_draft_params(cfg, params,
+                                                                layers)
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(1, 64, n).astype(np.int32) for n in (5, 19, 37)]
+    reqs = [(p, dict(max_new_tokens=9)) for p in prompts]
+    if "prefill_token_budget" in kw:
+        reqs.append((prompts[1], dict(max_new_tokens=9, temperature=0.8,
+                                      seed=3)))
+    if case == "host_tier":
+        # a 90-token prompt demotes the first one's two full pages, which
+        # the third request promotes again
+        long = rng.integers(1, 64, 90).astype(np.int32)
+        reqs = [reqs[2], (long, dict(max_new_tokens=9)), reqs[2]]
+    da.reset_launches()
+    eng = ContinuousBatchingEngine(cfg, params, device=device, **kw)
+    out = {}
+    if handoff:
+        pre = ContinuousBatchingEngine(cfg, params, device=device,
+                                       prefill_only=True, **kw)
+        for prompt, rkw in reqs:
+            pre.add_request(prompt, **rkw)
+            while not pre.handoff_ready:
+                pre.step()
+            slot = next(iter(pre.handoff_ready))
+            tree, meta = pre.export_handoff(slot)
+            pre.release_handoff(slot)
+            rid = eng.adopt_request(tree, meta, rkw["max_new_tokens"])
+            out[rid] = {f.rid: f.tokens for f in eng.run()}[rid].tolist()
+        pre.shutdown()
+    else:
+        for prompt, rkw in reqs:
+            if case == "host_tier":     # one at a time, the pool is small
+                eng.add_request(prompt, **rkw)
+                eng.run()
+            else:
+                eng.add_request(prompt, **rkw)
+        out = {f.rid: f.tokens.tolist() for f in eng.run()}
+    stats = eng.serving_stats()
+    eng.shutdown()
+    return out, dict(da.LAUNCHES), stats
+
+
+@pytest.mark.parametrize("case", list(ENGINE_EXTRAS))
+def test_engine_extras_on_cuda_match_cpu(dev, case):
+    """The debug engine in fp32 on the card, with an int8 cache, spec
+    decode, a handoff or the host tier, emits the tokens of the same
+    engine on the CPU, and every decode attention call of it is a kernel
+    launch."""
+    got, launches, stats = _run_extras(case, dev)
+    want, _, want_stats = _run_extras(case, "cpu")
+    assert got == want
+    chunked = "prefill_token_budget" not in ENGINE_EXTRAS[case][0]
+    key = "paged_decode" if chunked else "ragged_paged_decode"
+    assert launches[key] > 0 and launches["flash_decode"] == 0
+    assert stats.get("accepted_lengths") == want_stats.get("accepted_lengths")
+    if case == "host_tier":
+        pc = stats["prefix_cache"]
+        assert pc == want_stats["prefix_cache"]
+        assert pc["demoted_pages"] > 0 and pc["promoted_pages"] > 0
+
+
+@pytest.mark.parametrize("kw", [dict(do_sample=True, temperature=0.8,
+                                     top_k=20, top_p=0.9, seed=4),
+                                dict(num_beams=3, length_penalty=1.2)])
+def test_sampling_and_beams_on_cuda(dev, kw):
+    """Beam search on the card gives the CPU's beams; sampling on the card
+    is seeded (the same tokens twice) and draws within the top-k of the
+    CPU's logits; both run B4 at b x beams rows."""
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    cfg, params = _debug_llama()
+    cpu = LlamaForCausalLM(cfg, device="cpu").load_functional_state(params)
+    gpu = LlamaForCausalLM(cfg, device=dev).load_functional_state(
+        {k: v.to(dev) for k, v in params.items()})
+    ids = np.random.default_rng(0).integers(1, 64, (2, 11)).astype(np.int32)
+    da.reset_launches()
+    got = gpu.generate(ids, max_new_tokens=10, **kw).cpu()
+    assert da.LAUNCHES["flash_decode"] == 9 * cfg.num_hidden_layers
+    if "num_beams" in kw:
+        assert torch.equal(got, cpu.generate(ids, max_new_tokens=10, **kw))
+        return
+    assert torch.equal(got, gpu.generate(ids, max_new_tokens=10, **kw).cpu())
+    logits = cpu(got[:, :-1])[:, 10:]                  # teacher-forced
+    kth = logits.topk(kw["top_k"], dim=-1).values[..., -1:]
+    picked = logits.gather(-1, got[:, 11:, None].long())
+    assert (picked >= kth - 1e-4).all()
+
+
 def test_sparse_generate_on_cuda_matches_cpu(dev):
     """A toy sparse Llama, fp32 and int8 weight-only, on the card (B7
     float and int8 launches in every layer) emits the CPU's greedy

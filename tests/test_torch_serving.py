@@ -142,11 +142,18 @@ def test_generate_matches_jax(pair, eos):
     np.testing.assert_array_equal(got[:, 9:].numpy(), want)
 
 
-@pytest.mark.parametrize("kw", [{"do_sample": True}, {"num_beams": 2}])
+@pytest.mark.parametrize("kw", [{"do_sample": True, "num_beams": 2},
+                                {"num_beams": 2, "max_new_tokens": 126}])
 def test_generate_later_slices_raise(pair, kw):
-    *_, model, _ = pair
-    with pytest.raises(NotImplementedError):
-        generate(model, np.ones((1, 3), np.int32), max_new_tokens=2, **kw)
+    """Sampling and beam search are ported (tests/test_torch_generation_
+    sampling.py); their guard rails raise as JAX's: beams with sampling,
+    and a prompt + budget past the rope table."""
+    jm, _, _, model, _ = pair
+    kw = {"max_new_tokens": 2, **kw}
+    ids = np.ones((1, 3), np.int32)
+    for gen in (generate, jax_generate):
+        with pytest.raises(ValueError):
+            gen(model if gen is generate else jm, ids, **kw)
 
 
 # ------------------------------------------------------------------ engines
@@ -328,24 +335,42 @@ def test_cancel_releases_pages(pair):
     eng.shutdown()
 
 
-@pytest.mark.parametrize("kw", [
-    {"page_size": "auto"}, {"cache_dtype": torch.int8},
-    {"speculative_k": 2, "prefill_token_budget": 8},
-    {"prefill_only": True, "prefill_token_budget": 8},
-    {"host_tier_pages": 4, "prefill_token_budget": 8,
-     "enable_prefix_cache": True}])
-def test_engine_later_slices_raise(pair, kw):
-    _, _, cfg, _, params = pair
-    with pytest.raises(NotImplementedError, match="later slice"):
-        _port_engine(cfg, params, **kw)
+@pytest.mark.parametrize("kw,match", [
+    ({"speculative_k": 2, "prefill_token_budget": 8}, "draft_params"),
+    ({"draft": 1, "prefill_token_budget": 8}, "speculative_k"),
+    ({"draft": 1, "speculative_k": 2}, "unified"),
+    ({"prefill_only": True, "draft": 1, "speculative_k": 2,
+      "prefill_token_budget": 8}, "prefill_only"),
+    ({"host_tier_pages": 4, "prefill_token_budget": 8, "draft": 1,
+      "speculative_k": 2, "enable_prefix_cache": True}, "host-tier")],
+    ids=[f"kw{i}" for i in range(5)])
+def test_engine_later_slices_raise(pair, kw, match):
+    """The extras are ported (tests/test_torch_serving_extras.py); their
+    guard rails raise as the JAX engine's do (tests/test_serving.py::
+    test_unified_guard_rails, inference/serving.py:692-736): speculation
+    without a draft, a draft without speculation, speculation or
+    prefill_only off the unified engine, prefill_only with speculation,
+    the host tier with a draft."""
+    jm, jstate, cfg, _, params = pair
+    jparams = {k: jnp.asarray(v) for k, v in jstate.items()}
+    kw = dict(kw)
+    layers = kw.pop("draft", None)
+    jkw, pkw = dict(kw), dict(kw)
+    if layers:
+        jkw["draft_params"] = jparams
+        pkw["draft_params"] = params
+    with pytest.raises(ValueError, match=match):
+        JaxEngine(jm.cfg, jparams, **{**dict(max_slots=3, num_pages=33,
+                                             page_size=16, max_seq_len=128),
+                                      **jkw})
+    with pytest.raises(ValueError, match=match):
+        _port_engine(cfg, params, **pkw)
 
 
 def test_engine_later_methods_raise(pair):
     _, _, cfg, _, params = pair
     eng = _port_engine(cfg, params, prefill_token_budget=8)
-    for call in (eng.throttle, eng.analysis_entry, eng.param_layout,
-                 lambda: eng.export_handoff(0),
-                 lambda: eng.adopt_request({}, {}, 4)):
+    for call in (eng.analysis_entry, eng.param_layout):
         with pytest.raises(NotImplementedError, match="later slice"):
             call()
 
@@ -418,8 +443,13 @@ def test_prefix_cache_evicts_lru_chain_first():
 
 
 def test_prefix_cache_host_tier_is_a_later_slice():
-    with pytest.raises(NotImplementedError, match="later slice"):
+    """The host tier is ported; as in JAX, it needs the engine's residency
+    hooks."""
+    with pytest.raises(ValueError, match="demote_fn"):
         PrefixCache(16, PageAllocator(4), host_tier_pages=2)
+    pc = PrefixCache(16, PageAllocator(4), host_tier_pages=2,
+                     demote_fn=lambda page: None, promote_fn=lambda kv: None)
+    assert pc.stats()["host_pages"] == 0
 
 
 # -------------------------------------------------------------- import hygiene
