@@ -118,7 +118,27 @@ Phases, each of which raises (and so exits non-zero) on failure:
     unchanged); ``tune_page_size`` at the serving shape.  Tokens of every
     greedy path pass the teacher-forced check; ms per decode step beside
     the bf16 engines';
-14. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
+14. the optimizer family: five eager steps of each of the 15 optimizers on
+    CUDA parameters in lockstep with the same steps on the CPU, fp32
+    within 1e-5, every update in place;
+15. the attention path for additive masks and dropout at the train cell's
+    attention shape (b 6, s 1024, 16 q heads over 4 kv heads, head dim
+    128) in bf16: an additive-mask call and a dropout call against fp32 on
+    the CPU (the dropout reference takes the card's mask, drawn again from
+    the same seed), no flash launch, the keep rate within 3 sigma;
+16. the memory lattice on the train cell's model (full width and depth;
+    cut: accum 2): one step per ``MEMORY_LATTICE`` point, the loss within
+    2e-2 of the none/device point's, peak allocated bytes, ms per step,
+    B1 once per layer and micro-step (twice under a checkpointed policy)
+    and B2 once, all kernel launches; host residency must lower the peak
+    by 0.8 x 12 B per parameter at none, dots and names;
+17. Llama-3-8B at full width, EIGHT_B_LAYERS deep (a cut forced by the
+    host memory, see EIGHT_B_LAYERS), seq 2048, batch 1, AdamW with the
+    fp32 state in pinned host memory: two full-remat steps and one offload
+    step on the same state; three streamed buckets recomputed on the card
+    bit for bit; peak device bytes, pinned host bytes, ms per step,
+    tokens/s, MFU, and the host link's pinned copy rates;
+18. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
     last.
 
 Kernel times are the median of their reps (CUDA events, L2 flushed before
@@ -132,7 +152,9 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -1845,12 +1867,12 @@ def check_launches(what, counts, plain, **want):
                              f"plain calls {plain}")
 
 
-def train_steps(step, carry, n, *batch, **kw):
-    """``n`` steps of ``step`` on one batch, synchronised after each, from
-    ``carry`` = [params, state], which it empties so that the caller holds
-    no second copy of the model and its optimizer state: (losses, wall
-    seconds per step, params, state, the LAUNCHES and the plain calls of
-    the steps)."""
+def train_steps(step, carry, n, *batch, first=0, lr=TRAIN_LR, **kw):
+    """``n`` steps of ``step`` on one batch (step numbers ``first`` on, at
+    ``lr``), synchronised after each, from ``carry`` = [params, state],
+    which it empties so that the caller holds no second copy of the model
+    and its optimizer state: (losses, wall seconds per step, params,
+    state, the LAUNCHES and the plain calls of the steps)."""
     from paddle_tpu_torch.ops import flash_attention as fa
     params, state = carry
     carry.clear()
@@ -1859,8 +1881,8 @@ def train_steps(step, carry, n, *batch, **kw):
         fa.reset_launches()
         for i in range(n):
             t0 = time.perf_counter()
-            loss, params, state = step(params, state, i, TRAIN_LR, *batch,
-                                       **kw)
+            loss, params, state = step(params, state, first + i, lr,
+                                       *batch, **kw)
             _sync()
             walls.append(time.perf_counter() - t0)
             losses.append(loss.item())
@@ -2916,6 +2938,447 @@ def moe_train_phase(dev):
     return rec
 
 
+# ------------------------------------------------ the training left-outs
+# (the optimizer family, additive masks and dropout, the memory engine)
+
+# eager steps of each optimizer on the card against the same steps on the
+# CPU: fp32 within 1e-5 of the largest magnitude (one fp32 program, kernels
+# that may sum in another order)
+OPT_TOL = 1e-5
+OPT_STEPS = 5
+OPT_SHAPES = {"w": (512, 384), "b": (2048,), "s": (8, 64, 64)}
+OPT_CASES = [
+    ("SGD", dict(weight_decay=0.01), 0.1),
+    ("Momentum", dict(momentum=0.9, use_nesterov=True, weight_decay=0.01),
+     0.05),
+    ("Adam", dict(weight_decay=0.01), 0.01),
+    ("AdamW", dict(weight_decay=0.05), 0.01),
+    ("Adagrad", dict(weight_decay=0.01, initial_accumulator_value=0.1), 0.1),
+    ("RMSProp", dict(momentum=0.5, centered=True, weight_decay=0.01), 0.01),
+    ("Adamax", dict(weight_decay=0.01), 0.01),
+    ("Lamb", dict(lamb_weight_decay=0.01), 0.01),
+    ("LarsMomentum", dict(), 0.1),
+    ("Adadelta", dict(rho=0.9, epsilon=1e-2, weight_decay=0.01), 1.0),
+    ("ASGD", dict(batch_num=3, weight_decay=0.01), 0.1),
+    ("Rprop", dict(learning_rate_range=(1e-4, 1.0)), 0.01),
+    ("NAdam", dict(weight_decay=0.01), 0.01),
+    ("RAdam", dict(weight_decay=0.01), 0.01),
+    ("LBFGS", dict(history_size=3), 0.1),
+]
+# the masked-attention checks at the train cell's attention shape (b, s,
+# q heads, kv heads, d) in bf16, against fp32 on the CPU; the bench.py gate
+MASK_SHAPE = (6, 1024, 16, 4, 128)
+MASK_TOL = 2e-2
+MASK_DROPOUT = 0.1
+# the memory lattice on the train cell's model, two steps per point (the
+# second one timed: the first pays each point's first pinned and device
+# allocations); cut: accum 2 (the cell runs 64)
+LATTICE_ACCUM = 2
+LATTICE_STEPS = 2
+# host residency must lower the peak by 0.8 of the optimizer state (12 B
+# per parameter: master, moment1, moment2)
+HOST_SAVING_SHARE = 0.8
+# Llama-3-8B on one card with the optimizer state in pinned host memory.
+# Cut: 16 of its 32 layers.  The card's machine has a 96 GiB memory limit
+# (MemTotal 101 GiB); the full model's fp32 AdamW state is 12 B x 8.03 G =
+# 96.4 GB (89.7 GiB) and would not fit beside the process, so the depth is
+# halved: 4.54 G parameters, 54.5 GB of pinned state.  Width, vocabulary,
+# sequence and the optimizer are the model's own.
+EIGHT_B_LAYERS = 16
+EIGHT_B_SEQ = 2048
+EIGHT_B_BUCKET_BYTES = 256 << 20     # 64 Mi fp32 elements a stream bucket
+EIGHT_B_LR = 1e-4
+
+
+def _rel_err(got, want):
+    den = want.abs().max().item()
+    return (got - want).abs().max().item() / (den if den > 0 else 1.0)
+
+
+def optimizer_phase(dev):
+    """OPT_STEPS eager steps of every optimizer on CUDA parameters in
+    lockstep with the same optimizer on the CPU, both fed the same
+    gradients each step (seeded CPU draws; for LBFGS the gradients of a
+    quadratic at the CPU run's params).  Every parameter of the card run is
+    updated in place and lies within OPT_TOL of the CPU run's."""
+    import torch
+    from paddle_tpu_torch import optimizer as topt
+
+    tgen = torch.Generator().manual_seed(99)
+    target = {k: torch.randn(s, generator=tgen)
+              for k, s in OPT_SHAPES.items()}
+    out = []
+    for name, kw, lr in OPT_CASES:
+        gen = torch.Generator().manual_seed(SEED)
+        p0 = {k: torch.randn(s, generator=gen) for k, s in OPT_SHAPES.items()}
+        sides = {}
+        for where in ("cpu", dev):
+            ps = {k: torch.nn.Parameter(v.clone().to(where))
+                  for k, v in p0.items()}
+            sides[where] = (ps, getattr(topt, name)(
+                learning_rate=lr, parameters=list(ps.items()), **kw))
+        ptrs = [p.data_ptr() for p in sides[dev][0].values()]
+        for t in range(1, OPT_STEPS + 1):
+            ggen = torch.Generator().manual_seed(1000 + t)
+            cpu_ps = sides["cpu"][0]
+            grads = {k: 2.0 * (cpu_ps[k].detach() - target[k])
+                     if name == "LBFGS" else torch.randn(s, generator=ggen)
+                     for k, s in OPT_SHAPES.items()}
+            for where, (ps, opt) in sides.items():
+                for k, p in ps.items():
+                    p.grad = grads[k].to(where)
+                opt.step()
+                opt.clear_grad()
+        _sync()
+        if [p.data_ptr() for p in sides[dev][0].values()] != ptrs:
+            raise AssertionError(f"optimizers: {name} did not update the "
+                                 f"card's params in place")
+        err = max(_rel_err(sides[dev][0][k].detach().cpu(),
+                           sides["cpu"][0][k].detach()) for k in p0)
+        if not err <= OPT_TOL:
+            raise AssertionError(f"optimizers: {name} on the card vs the "
+                                 f"CPU: {err} > {OPT_TOL}")
+        out.append({"name": name, "err": err, "tol": OPT_TOL})
+    return out
+
+
+def attention_mask_phase(dev):
+    """The plain attention path at the train cell's attention shape in
+    bf16: an additive-mask call and a dropout call on the card, each
+    against fp32 on the CPU (the dropout reference takes the card's mask,
+    drawn again from the same seed and copied to the host).  Neither call
+    may launch a flash kernel or call a plain flash function; the mask's
+    keep rate lies within 3 sigma of 1 - p."""
+    import torch
+    from paddle_tpu_torch.incubate.nn import attention as tattn
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import random as trandom
+    from paddle_tpu_torch.ops.nn_ops import scaled_dot_product_attention
+
+    b, s, h, kvh, d = MASK_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    q = torch.randn(b, s, h, d, device=dev, generator=gen).bfloat16()
+    k = torch.randn(b, s, kvh, d, device=dev, generator=gen).bfloat16()
+    v = torch.randn(b, s, kvh, d, device=dev, generator=gen).bfloat16()
+    # an additive bias with a tenth of the pairs pushed to -1e4
+    add = torch.randn(b, 1, s, s, device=dev, generator=gen)
+    add = add.masked_fill(torch.rand(b, 1, s, s, device=dev, generator=gen)
+                          < 0.1, -1e4)
+    p = MASK_DROPOUT
+    calls = {"additive": lambda: tattn.flash_attention(q, k, v, causal=True,
+                                                       attn_mask=add),
+             "dropout": lambda: tattn.flash_attention(q, k, v, causal=True,
+                                                      dropout=p)}
+    with plain_call_counter() as plain:
+        fa.reset_launches()
+        out = {"additive": calls["additive"]()}
+        trandom.seed(SEED)
+        out["dropout"] = calls["dropout"]()
+        _sync()
+        launches = dict(fa.LAUNCHES)
+    check_launches("attention masks", launches, plain)
+    trandom.seed(SEED)
+    mask = trandom.bernoulli(1 - p, (b, h, s, s), dev).cpu()
+    keep = mask.float().mean().item()
+    sigma = (p * (1 - p) / mask.numel()) ** 0.5
+    if not abs(keep - (1 - p)) <= 3 * sigma:
+        raise AssertionError(f"attention masks: keep rate {keep}, expected "
+                             f"{1 - p} within {3 * sigma}")
+    qc = q.float().cpu()
+    kc, vc = (x.float().cpu().repeat_interleave(h // kvh, dim=2)
+              for x in (k, v))
+    want = {"additive": scaled_dot_product_attention(
+                qc, kc, vc, attn_mask=add.cpu(), is_causal=True),
+            "dropout": scaled_dot_product_attention(
+                qc, kc, vc, dropout_mask=mask, dropout_p=p, is_causal=True)}
+    result = {"shape": MASK_SHAPE, "dtype": "bf16", "dropout": p,
+              "keep_rate": keep, "keep_sigma": sigma, "launches": launches,
+              "tol": MASK_TOL}
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=dev)
+    for name, got in out.items():
+        err = _rel_err(got.float().cpu(), want[name])
+        if not err <= MASK_TOL:
+            raise AssertionError(f"attention masks: {name} call vs fp32 "
+                                 f"CPU: {err} > {MASK_TOL}")
+        ms, lo, hi = timing(calls[name], 10, flush)
+        result[name] = {"err": err, "ms": ms, "ms_min": lo, "ms_max": hi}
+    del flush
+    torch.cuda.empty_cache()
+    return result
+
+
+def memory_lattice_phase(dev):
+    """LATTICE_STEPS steps of the train cell's model (TRAIN_CFG at full
+    width and depth, bf16 params, fp32 AdamW masters from the unrounded
+    init) per ``MEMORY_LATTICE`` point, at accum LATTICE_ACCUM, each from
+    the same params and a fresh state: the first step's loss within
+    TRAIN_LOSS_TOL of the none/device point's, the peak allocated bytes
+    over the steps, ms per step (the last step's), and exact B1/B2 launch
+    counts (B1 once per layer and micro-step, twice under a checkpointed
+    policy; B2 once; no plain call).  Host residency must lower the peak
+    by HOST_SAVING_SHARE of the 12 B per parameter of optimizer state at
+    every remat policy that has both residencies.  Garbage of earlier
+    phases is collected first, so that no point's peak carries it."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         build_train_step, llama_decay_mask)
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import memory as M
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = LlamaConfig(**TRAIN_CFG)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.float32,
+                             generator=gen)
+    p32 = model.functional_state()
+    params0 = {k: v.to(torch.bfloat16) for k, v in p32.items()}
+    n_params = sum(v.numel() for v in params0.values())
+    decay = llama_decay_mask(model)
+    rng = np.random.default_rng(SEED)
+    shape = (LATTICE_ACCUM, TRAIN_BATCH, TRAIN_SEQ)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, shape)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           shape)).to(dev)
+    layers = cfg.num_hidden_layers
+    records = []
+    for mc in M.MEMORY_LATTICE:
+        opt = AdamW(learning_rate=TRAIN_LR, multi_precision=True)
+        params = {k: v.clone() for k, v in params0.items()}
+        if mc.optimizer_residency == "host":
+            state = M.init_offloaded_state(
+                opt, params, decay_mask=decay, master_from=p32,
+                bucket_bytes=mc.stream_bucket_bytes)
+            host_bytes = M.offloaded_bytes(state)
+        else:
+            state = opt.init_flat_state(params, decay_mask=decay,
+                                        master_from=p32)
+            host_bytes = 0
+        step = build_train_step(model, opt, compute_dtype=torch.bfloat16,
+                                accum_steps=LATTICE_ACCUM, memory=mc)
+        _sync()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        carry = [params, state]
+        del params, state
+        losses, walls, params, state, counts, plain = train_steps(
+            step, carry, LATTICE_STEPS, ids, labels)
+        peak = torch.cuda.max_memory_allocated()
+        micro = layers * LATTICE_ACCUM * LATTICE_STEPS
+        check_launches(f"memory lattice {mc.label()}", counts, plain,
+                       flash_attention_fwd=micro * (
+                           2 if mc.resolve_remat()[0] else 1),
+                       flash_attention_bwd=micro)
+        records.append({"label": mc.label(), "config": mc.to_json(),
+                        "loss": losses[0], "losses": losses,
+                        "ms_per_step": walls[-1] * 1e3,
+                        "step_ms": [w * 1e3 for w in walls],
+                        "peak_bytes": peak, "resident_bytes": resident,
+                        "host_state_bytes": host_bytes, "launches": counts})
+        del params, state, step, opt, carry
+        gc.collect()
+        torch.cuda.empty_cache()
+    by = {r["label"]: r for r in records}
+    ref = by["none/device"]["loss"]
+    for r in records:
+        rel = abs(r["loss"] - ref) / abs(ref)
+        if not (np.isfinite(r["loss"]) and rel <= TRAIN_LOSS_TOL):
+            raise AssertionError(f"memory lattice {r['label']}: loss "
+                                 f"{r['loss']} vs none/device {ref}")
+    need = HOST_SAVING_SHARE * 12 * n_params
+    savings = {}
+    for remat in ("none", "dots", "names"):
+        saved = by[f"{remat}/device"]["peak_bytes"] \
+            - by[f"{remat}/host"]["peak_bytes"]
+        savings[remat] = saved
+        if not saved >= need:
+            raise AssertionError(f"memory lattice: host residency saved "
+                                 f"{saved} B of peak at {remat}, expected "
+                                 f">= {need:.0f}")
+    del model, p32, params0
+    torch.cuda.empty_cache()
+    return {"config": TRAIN_CFG, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "accum": LATTICE_ACCUM, "n_params": n_params, "points": records,
+            "host_peak_savings": savings, "required_saving": need}
+
+
+def host_link(dev, gib=2):
+    """The card's link to pinned host memory: GB/s of one ``gib`` GiB copy
+    host to device, device to host, and both at once on two streams (the
+    offloaded update's two copy lanes); and the host's physical memory."""
+    import torch
+
+    n = gib << 30
+    hosts = [torch.empty(n, dtype=torch.uint8, pin_memory=True)
+             for _ in range(2)]
+    cards = [torch.empty(n, dtype=torch.uint8, device=dev) for _ in range(2)]
+    lanes = [torch.cuda.Stream(dev) for _ in range(2)]
+
+    def timed(*copies):
+        _sync()
+        t0 = time.perf_counter()
+        for lane, (dst, src) in zip(lanes, copies):
+            with torch.cuda.stream(lane):
+                dst.copy_(src, non_blocking=True)
+        _sync()
+        return len(copies) * n / (time.perf_counter() - t0) / 1e9
+
+    timed((cards[0], hosts[0]), (hosts[1], cards[1]))     # warm-up
+    out = {"h2d_gb_per_s": timed((cards[0], hosts[0])),
+           "d2h_gb_per_s": timed((hosts[1], cards[1])),
+           "both_gb_per_s": timed((cards[0], hosts[0]),
+                                  (hosts[1], cards[1])),
+           "host_physical_bytes": os.sysconf("SC_PHYS_PAGES")
+           * os.sysconf("SC_PAGE_SIZE")}
+    del hosts, cards
+    return out
+
+
+def _checked_offloaded_update(dev, picks, report):
+    """A stand-in for ``apply_flat_offloaded`` that, before the streamed
+    update, copies the ``picks`` buckets (group, index) of master, moment1
+    and moment2 to the card and computes their AdamW update there from the
+    same packed gradients; after it, the streamed host buckets and the
+    params' slices must equal that recomputation bit for bit."""
+    import torch
+    from paddle_tpu_torch.parallel import memory as M
+
+    real = M.apply_flat_offloaded
+
+    def update(optimizer, params, grads, state, lr, step, decay_mask=None,
+               **kw):
+        groups = {g["name"]: g
+                  for g in optimizer._flat_groups(params, decay_mask)}
+        want = []
+        for gname, i in picks:
+            g, gs = groups[gname], state["__offload__"][gname]
+            i = i % len(gs["moment1"])
+            off = sum(b.numel() for b in gs["moment1"][:i])
+            size = gs["moment1"][i].numel()
+            spans = M._key_spans(g)
+            gbuf = torch.empty(size, dtype=torch.float32, device=dev)
+            new = optimizer._flat_group_update(
+                M._pack(gbuf, grads, spans, off, size),
+                gs["moment1"][i].to(dev), gs["moment2"][i].to(dev),
+                gs["master"][i].to(dev), lr, step, g["decay"])
+            want.append((gname, i, off, size, spans, new))
+        out = real(optimizer, params, grads, state, lr, step,
+                   decay_mask=decay_mask, **kw)
+        _sync()
+        for gname, i, off, size, spans, (master, m1, m2) in want:
+            gs = state["__offload__"][gname]
+            same = all(torch.equal(gs[key][i], val.cpu()) for key, val in
+                       (("master", master), ("moment1", m1),
+                        ("moment2", m2)))
+            same = same and all(
+                torch.equal(params[k].view(-1)[src],
+                            master[dst].to(params[k].dtype))
+                for k, src, dst in M._pieces(spans, off, size))
+            report.append({"group": gname, "bucket": i, "offset": off,
+                           "size": size, "bit_equal": same})
+            if not same:
+                raise AssertionError(f"llama3_8b: streamed bucket {gname}"
+                                     f"[{i}] differs from the on-card "
+                                     f"recomputation")
+        return out
+
+    return update
+
+
+def llama3_8b_phase(dev):
+    """Llama-3-8B at full width, EIGHT_B_LAYERS deep (the host-RAM cut),
+    on one card: bf16 params from SEED, seq EIGHT_B_SEQ, batch 1, AdamW
+    with the fp32 state in pinned host memory (EIGHT_B_BUCKET_BYTES
+    buckets): two steps under MemoryConfig(remat="full",
+    optimizer_residency="host"), then one under remat="offload" on the same
+    state.  Before the second step three buckets (the first and last of the
+    decay group, the no-decay group's) are recomputed on the card and must
+    equal the streamed result bit for bit.  Every B1/B2 call a kernel
+    launch (B1 twice per layer, B2 once), losses finite.  Prints peak
+    device bytes, pinned host bytes, ms per step, tokens/s and MFU (6 N per
+    token over 989 TFLOP/s), and first the host link's copy rates
+    (``host_link``), the yardstick of the step's state stream."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         build_train_step, llama_decay_mask)
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import memory as M
+
+    host_cache_emptied = hasattr(torch._C, "_host_emptyCache")
+    link = host_link(dev)
+    if host_cache_emptied:          # earlier phases' cached pinned blocks
+        torch._C._host_emptyCache()
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(),
+                              num_hidden_layers=EIGHT_B_LAYERS,
+                              max_position_embeddings=EIGHT_B_SEQ)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
+                             generator=gen)
+    params = model.functional_state()
+    n_params = sum(v.numel() for v in params.values())
+    opt = AdamW(learning_rate=EIGHT_B_LR, multi_precision=True)
+    t0 = time.perf_counter()
+    state = M.init_offloaded_state(opt, params,
+                                   decay_mask=llama_decay_mask(model),
+                                   bucket_bytes=EIGHT_B_BUCKET_BYTES)
+    init_s = time.perf_counter() - t0
+    host_bytes = M.offloaded_bytes(state)
+    buckets = sum(len(gs["moment1"]) for gs in state["__offload__"].values())
+    rng = np.random.default_rng(SEED)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                        (1, EIGHT_B_SEQ))).to(dev)
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (1, EIGHT_B_SEQ))).to(dev)
+    layers = cfg.num_hidden_layers
+    runs, checked = [], []
+    torch.cuda.reset_peak_memory_stats()
+    schedule = [M.MemoryConfig(remat="full", optimizer_residency="host",
+                               stream_bucket_bytes=EIGHT_B_BUCKET_BYTES)] * 2 \
+        + [M.MemoryConfig(remat="offload", optimizer_residency="host",
+                          stream_bucket_bytes=EIGHT_B_BUCKET_BYTES)]
+    for i, mc in enumerate(schedule):
+        step = build_train_step(model, opt, compute_dtype=torch.bfloat16,
+                                memory=mc)
+        real = M.apply_flat_offloaded
+        if i == 1:
+            M.apply_flat_offloaded = _checked_offloaded_update(
+                dev, [("decay|bfloat16", 0), ("decay|bfloat16", -1),
+                      ("nodecay|bfloat16", 0)], checked)
+        carry = [params, state]
+        del params, state
+        try:
+            losses, walls, params, state, counts, plain = train_steps(
+                step, carry, 1, ids, labels, first=i, lr=EIGHT_B_LR)
+        finally:
+            M.apply_flat_offloaded = real
+        check_launches(f"llama3_8b step {i} ({mc.label()})", counts, plain,
+                       flash_attention_fwd=2 * layers,
+                       flash_attention_bwd=layers)
+        if not np.isfinite(losses[0]):
+            raise AssertionError(f"llama3_8b: step {i} loss {losses[0]}")
+        tokens_per_s = EIGHT_B_SEQ / walls[0]
+        runs.append({"step": i, "memory": mc.label(), "loss": losses[0],
+                     "ms": walls[0] * 1e3, "tokens_per_s": tokens_per_s,
+                     "mfu": 6 * n_params * tokens_per_s / H100_BF16_PEAK,
+                     "launches": counts})
+    if len(checked) != 3:
+        raise AssertionError(f"llama3_8b: {len(checked)} buckets checked")
+    peak = torch.cuda.max_memory_allocated()
+    del model, params, state, step, opt, carry
+    torch.cuda.empty_cache()
+    if host_cache_emptied:
+        torch._C._host_emptyCache()
+    return {"layers": layers, "layers_of_model": 32, "seq": EIGHT_B_SEQ,
+            "batch": 1, "n_params": n_params, "bucket_bytes":
+            EIGHT_B_BUCKET_BYTES, "buckets": buckets,
+            "pinned_host_bytes": host_bytes, "state_init_s": init_s,
+            "peak_device_bytes": peak, "steps": runs,
+            "checked_buckets": checked, "host_link": link}
+
+
 def main() -> int:
     import torch
 
@@ -3073,6 +3536,40 @@ def main() -> int:
           flush=True)
     del model, params
     torch.cuda.empty_cache()
+
+    # the training left-outs, after every profiled phase, once the earlier
+    # phases' garbage (engines hold their pools in reference cycles) is
+    # collected
+    gc.collect()
+    torch.cuda.empty_cache()
+    record["optimizers"] = optimizer_phase(dev)
+    print("optimizers (5 eager steps, card vs CPU): " + json.dumps(
+        {r["name"]: r["err"] for r in record["optimizers"]}), flush=True)
+    record["attention_masks"] = attention_mask_phase(dev)
+    print("attention masks: " + json.dumps(record["attention_masks"]),
+          flush=True)
+    lattice = record["memory_lattice"] = memory_lattice_phase(dev)
+    for r in lattice["points"]:
+        print(f"memory lattice {r['label']}: loss={r['loss']:.6f} "
+              f"peak_bytes={r['peak_bytes']} resident_bytes="
+              f"{r['resident_bytes']} host_state_bytes="
+              f"{r['host_state_bytes']} step_ms={json.dumps(r['step_ms'])} "
+              f"launches={json.dumps(r['launches'])} ({card})", flush=True)
+    print("memory lattice host-residency peak savings: "
+          + json.dumps(lattice["host_peak_savings"])
+          + f" (required {lattice['required_saving']:.0f})", flush=True)
+    big = record["llama3_8b"] = llama3_8b_phase(dev)
+    for r in big["steps"]:
+        print(f"llama3_8b ({big['layers']} of 32 layers) step {r['step']} "
+              f"{r['memory']}: loss={r['loss']:.4f} ms={r['ms']:.1f} "
+              f"tokens_per_s={r['tokens_per_s']:.1f} mfu={r['mfu']:.4f} "
+              f"({card})", flush=True)
+    print(f"llama3_8b: n_params={big['n_params']} peak_device_bytes="
+          f"{big['peak_device_bytes']} pinned_host_bytes="
+          f"{big['pinned_host_bytes']} ({big['buckets']} buckets of "
+          f"{big['bucket_bytes']} B, state init {big['state_init_s']:.1f} s)"
+          f" checked_buckets={json.dumps(big['checked_buckets'])} "
+          f"host_link={json.dumps(big['host_link'])}", flush=True)
     record["wall_s"] = time.perf_counter() - t0
     out_dir = HERE / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -3143,6 +3640,12 @@ def main() -> int:
             "source": flash_source,
             "replaces": replaces,
             "launches": record["train"]["launches"][name],
+            "launches_by_path": {
+                "train": record["train"]["launches"][name],
+                "memory_lattice": sum(r["launches"][name]
+                                      for r in lattice["points"]),
+                "llama3_8b": sum(r["launches"][name]
+                                 for r in big["steps"])},
             "max_abs_err": bf16["max_abs_err"], "ms": bf16["ms"],
             "ms_min": bf16["ms_min"], "ms_max": bf16["ms_max"],
             "plain_ms": bf16["plain_ms"], "bound_ms": bf16["bound_ms"],

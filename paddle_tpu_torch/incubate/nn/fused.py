@@ -62,6 +62,17 @@ def _rotate_half(x):
     return torch.cat([-x2, x1], dim=-1)
 
 
+def _gather_rows(table, pid):
+    """Rows ``pid`` [b, s] of a rope table as [b, s, 1, d]."""
+    t = table.reshape(table.shape[1], table.shape[3]) if table.dim() == 4 \
+        and table.shape[0] == 1 and table.shape[2] == 1 else table
+    if t.dim() != 2:
+        raise ValueError(f"fused_rotary_position_embedding: with "
+                         f"position_ids, sin/cos must be [max_pos, d] or "
+                         f"[1, max_pos, 1, d] tables, got {tuple(table.shape)}")
+    return t[pid][:, :, None, :]
+
+
 def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
                                     position_ids=None,
                                     use_neox_rotary_style: bool = True):
@@ -70,11 +81,15 @@ def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
     q, k, v that were given.  sin/cos (broadcastable to q) are cast to q's
     dtype first, as the JAX op does, so bf16 q/k stay bf16.  Neox style
     rotates halves; the interleaved (GPT-J) style rotates even/odd pairs
-    with the even entries of sin/cos."""
+    with the even entries of sin/cos.
+
+    With ``position_ids`` [b, s], sin and cos are tables, [max_pos, d] or
+    Paddle's [1, max_pos, 1, d], and each token takes the row of its
+    position, as the reference op gathers them (the JAX op ignores
+    ``position_ids`` and wants sin/cos gathered by its caller)."""
     if position_ids is not None:
-        raise NotImplementedError(
-            "fused_rotary_position_embedding: position_ids are gathered into "
-            "sin/cos by the caller (models/llama.py)")
+        pid = torch.as_tensor(position_ids, device=q.device).long()
+        sin, cos = (_gather_rows(t, pid) for t in (sin, cos))
     sin = sin.to(q.dtype)
     cos = cos.to(q.dtype)
 

@@ -7,7 +7,8 @@ segment-id and FlashMask branches, ``LlamaMLP``, ``LlamaDecoderLayer``,
 ``LlamaModel.forward`` with its mask normalisation, and the head in one
 function over the functional-state names), the loss (``_gold_logit``,
 ``_ce_loss``), ``llama_decay_mask``, ``_accum_fold`` and the single-device
-subset of ``build_train_step`` (unmasked and token-weighted masked).  ``LlamaForCausalLM`` holds
+``build_train_step`` (unmasked and token-weighted masked, with the memory
+engine's remat policies and host-resident optimizer state).  ``LlamaForCausalLM`` holds
 its parameters under exactly the names of the JAX model's
 ``functional_state()`` (``model.layers.0.self_attn.q_proj.weight``,
 ``lm_head.weight``, ...), with Paddle's ``[in, out]`` Linear layout, so a
@@ -31,6 +32,7 @@ from ..incubate.nn.attention import flash_attention
 from ..incubate.nn.fused import (fused_rms_norm,
                                  fused_rotary_position_embedding, swiglu)
 from ..ops.flashmask import flashmask_attention_raw
+from ..parallel import memory as _memory
 
 
 @dataclasses.dataclass
@@ -301,17 +303,23 @@ def llama_forward(cfg: LlamaConfig, params: Dict[str, torch.Tensor],
     ``LlamaMLP`` (SwiGLU), ``LlamaDecoderLayer`` (pre-norm residual
     blocks), ``LlamaModel.forward`` (``normalize_masks``; rope sliced to
     ``[:s]`` or gathered by ``position_ids``) and ``LlamaForCausalLM.forward``
-    (``lm_head``, or the tied embedding).  The JAX model's remat tags
-    (``decoder_attn_out``/``decoder_mlp_out``) belong to the memory engine
-    (ROADMAP A4) and are left out.  ``rope``: the (cos, sin) tables on the
-    ids' device (``LlamaForCausalLM.rope``); made here when not given."""
+    (``lm_head``, or the tied embedding).  ``rope``: the (cos, sin) tables
+    on the ids' device (``LlamaForCausalLM.rope``); made here when not
+    given."""
     seg, sri = normalize_masks(attention_mask, startend_row_indices,
                                input_ids.device)
     return _forward(cfg, params, input_ids, position_ids, rope, seg, sri)
 
 
-def _forward(cfg, params, input_ids, position_ids, rope, seg, sri):
-    """``llama_forward`` on normalised masks (int32 segment ids or bands)."""
+def _forward(cfg, params, input_ids, position_ids, rope, seg, sri,
+             remat: bool = False,
+             remat_policy: Optional[_memory.SavePolicy] = None):
+    """``llama_forward`` on normalised masks (int32 segment ids or bands).
+    With ``remat`` (and grad enabled) each decoder layer runs under a
+    non-reentrant checkpoint that keeps what ``remat_policy`` names (None:
+    nothing, full remat); under a policy that reads the tags, the layer
+    tags its attention-block and MLP-block outputs ``decoder_attn_out`` and
+    ``decoder_mlp_out`` (the JAX layer's ``checkpoint_name`` tags)."""
     b, s = input_ids.shape
     H, KV, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     eps = cfg.rms_norm_eps
@@ -326,8 +334,13 @@ def _forward(cfg, params, input_ids, position_ids, rope, seg, sri):
         cos, sin = cos_t[pid][:, :, None], sin_t[pid][:, :, None]
     embed = params["model.embed_tokens.weight"]
     x = F.embedding(input_ids.long(), embed)
-    for i in range(cfg.num_hidden_layers):
-        def w(name, i=i):
+    tagged = remat and remat_policy is not None and remat_policy.tagged
+
+    def tag(t, name):
+        return _memory.tag_saveable(t, name) if tagged else t
+
+    def layer(x, i):
+        def w(name):
             return params[f"model.layers.{i}.{name}.weight"]
 
         h = fused_rms_norm(x, w("input_layernorm"), eps)
@@ -340,10 +353,18 @@ def _forward(cfg, params, input_ids, position_ids, rope, seg, sri):
         else:
             attn = flash_attention(q, k, v, causal=True, q_segment_ids=seg,
                                    kv_segment_ids=seg)
-        x = x + attn.reshape(b, s, H * d) @ w("self_attn.o_proj")
+        x = x + tag(attn.reshape(b, s, H * d) @ w("self_attn.o_proj"),
+                    "decoder_attn_out")
         h = fused_rms_norm(x, w("post_attention_layernorm"), eps)
-        x = x + swiglu(h @ w("mlp.gate_proj"),
-                       h @ w("mlp.up_proj")) @ w("mlp.down_proj")
+        return x + tag(swiglu(h @ w("mlp.gate_proj"), h @ w("mlp.up_proj"))
+                       @ w("mlp.down_proj"), "decoder_mlp_out")
+
+    checkpointed = remat and torch.is_grad_enabled()
+    for i in range(cfg.num_hidden_layers):
+        if checkpointed:
+            x = _memory.checkpoint_layer(layer, remat_policy, x, i)
+        else:
+            x = layer(x, i)
     h = fused_rms_norm(x, params["model.norm.weight"], eps)
     if cfg.tie_word_embeddings:
         return h @ embed.t()
@@ -395,11 +416,8 @@ def _accum_fold(accum_steps: int, cap: int = 8) -> int:
 _UNPORTED_STEP_OPTIONS = {
     "mesh": "multi-GPU training (ROADMAP A5)",
     "overlap": "the communication-overlap engine (ROADMAP A5)",
-    "memory": "the memory engine (ROADMAP A4)",
     "health": "the fused health probe (ROADMAP A6)",
     "schedule": "the partitioning schedule (ROADMAP A5)",
-    "remat": "activation remat, the memory engine (ROADMAP A4)",
-    "remat_policy": "activation remat, the memory engine (ROADMAP A4)",
 }
 
 
@@ -407,8 +425,11 @@ def build_train_step(model: LlamaForCausalLM, optimizer,
                      compute_dtype: torch.dtype = torch.bfloat16,
                      accum_steps: int = 1,
                      accum_dtype: Optional[torch.dtype] = None,
+                     remat: bool = False,
+                     remat_policy: Optional[_memory.SavePolicy] = None,
+                     memory: Optional[_memory.MemoryConfig] = None,
                      **later) -> Callable:
-    """The single-device subset of ``build_train_step``:
+    """The single-device ``build_train_step``:
 
         step(params, opt_state, step_no, lr, input_ids, labels)
             -> (loss, new_params, new_opt_state)
@@ -430,12 +451,21 @@ def build_train_step(model: LlamaForCausalLM, optimizer,
       normalisation is known only at the end), and the sum is divided by
       the total count, clamped to at least 1 only in total, so an
       all-padding micro-batch weighs 0 (mirror of ``micro_step_masked``);
-    - the update is ``optimizer.apply_flat`` for a flat state
-      (``init_flat_state``) and ``optimizer.apply`` otherwise, at Adam step
-      ``step_no + 1``, with ``llama_decay_mask``.
+    - ``remat=True`` runs each decoder layer under a non-reentrant
+      ``torch.utils.checkpoint``, keeping what ``remat_policy`` (a
+      ``parallel.memory.SavePolicy``) names, or nothing when it is None;
+    - ``memory`` (a ``parallel.memory.MemoryConfig``) owns the remat
+      decision (``resolve_remat``) and replaces both flags;
+    - the update is ``parallel.memory.apply_flat_offloaded`` for a
+      host-resident state (``init_offloaded_state``; it updates the params
+      and the state in place, as the JAX step donates them),
+      ``optimizer.apply_flat`` for a flat state (``init_flat_state``) and
+      ``optimizer.apply`` otherwise, at Adam step ``step_no + 1``, with
+      ``llama_decay_mask``.
 
-    PyTorch runs eagerly: no jit and no donation; the step keeps nothing
-    from one call to the next, and the loss stays on the device.  The one
+    PyTorch runs eagerly: no jit and no donation (but for the offloaded
+    update); the step keeps nothing from one call to the next, and the
+    loss stays on the device.  The one
     host sync is the mask's negative-id check, once per step, outside the
     accumulation.  ``step.accumulate(params, ids, labels,
     attention_mask=None) -> (loss, grads)`` is the gradient half alone.
@@ -448,6 +478,19 @@ def build_train_step(model: LlamaForCausalLM, optimizer,
             raise NotImplementedError(
                 f"build_train_step: {name}= is "
                 f"{_UNPORTED_STEP_OPTIONS[name]}, not ported yet")
+    if not isinstance(remat, bool):
+        raise TypeError(f"build_train_step: remat= takes a bool, got "
+                        f"{type(remat).__name__}")
+    if remat_policy is not None and not isinstance(remat_policy,
+                                                   _memory.SavePolicy):
+        raise TypeError("build_train_step: remat_policy= takes a "
+                        "parallel.memory.SavePolicy or None (full remat)")
+    if memory is not None:
+        if not isinstance(memory, _memory.MemoryConfig):
+            raise TypeError("build_train_step: memory= takes a "
+                            "parallel.memory.MemoryConfig")
+        # the named policy owns the remat decision: resolve once, here
+        remat, remat_policy = memory.resolve_remat()
     cfg, dev, rope = model.cfg, model.device, model.rope
     decay_mask = llama_decay_mask(model)
     if accum_dtype is None:
@@ -463,8 +506,8 @@ def build_train_step(model: LlamaForCausalLM, optimizer,
         cast = {k: leaves[k].to(compute_dtype) if k in leaves else v
                 for k, v in params.items()}
         with torch.enable_grad():
-            loss = _ce_loss(_forward(cfg, cast, ids, None, rope, seg, None),
-                            labels, seg)
+            loss = _ce_loss(_forward(cfg, cast, ids, None, rope, seg, None,
+                                     remat, remat_policy), labels, seg)
             grads = torch.autograd.grad(loss, list(leaves.values()))
         return loss.detach(), dict(zip(leaves, grads))
 
@@ -520,6 +563,10 @@ def build_train_step(model: LlamaForCausalLM, optimizer,
                 {k: a / accum_steps for k, a in acc.items()})
 
     def apply_update(params, grads, opt_state, lr, step_no):
+        if _memory.state_is_offloaded(opt_state):
+            return _memory.apply_flat_offloaded(
+                optimizer, params, grads, opt_state, lr, step_no + 1,
+                decay_mask=decay_mask)
         if optimizer.state_is_flat(opt_state):
             return optimizer.apply_flat(params, grads, opt_state, lr,
                                         step_no + 1, decay_mask=decay_mask)

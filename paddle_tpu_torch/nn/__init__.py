@@ -1,5 +1,5 @@
 """Neural-network functions of the port (mirror of ``paddle_tpu/nn``; the
-attention entries of ``nn.functional`` so far)."""
+attention and dropout entries of ``nn.functional`` so far)."""
 
 from . import functional
 

@@ -1,0 +1,646 @@
+"""Memory engine of the port (mirror of ``paddle_tpu/parallel/memory.py``).
+
+Three levers and a meter, as in the JAX package:
+
+1. **Named remat policies.** ``MemoryConfig(remat=...)`` picks what each
+   decoder layer keeps for its backward under ``torch.utils.checkpoint``
+   (non-reentrant): ``none`` (no checkpoint), ``dots`` (matmul outputs
+   kept), ``names`` (the two tagged block outputs kept, ``SAVEABLE_NAMES``),
+   ``offload`` (those two parked in host memory and brought back in
+   backward) and ``full`` (nothing kept).  A ``SavePolicy`` carries the
+   choice into the checkpoint as its ``context_fn``: a dispatch mode that
+   stores the chosen ops' outputs in the forward and hands them back,
+   instead of running the ops again, in the recomputation.  A tag is an
+   identity op (``tag_saveable``, the counterpart of ``checkpoint_name``)
+   that the decoder layer places on its block outputs.
+2. **Host-resident optimizer state.** The fused AdamW flat groups
+   (``Adam.init_flat_state``) split into size-capped buckets held in pinned
+   host memory (``init_offloaded_state``); ``apply_flat_offloaded`` streams
+   them through the card two buckets at a time, with the numbers of
+   ``Adam.apply_flat``.
+3. **Activation offload.** ``activation_offload`` moves the tagged block
+   outputs to host memory under any policy (``resolve_remat``).
+4. **The meter.** ``measure_step_memory`` reads the card's peak allocated
+   bytes over one call; ``tune_memory_config`` walks ``MEMORY_LATTICE``
+   cheapest first and returns the first point that fits.
+
+The JAX meter compiles and reads XLA's memory analysis; here the step runs
+once on the card, so the meter needs a CUDA device.  The joint memory x
+collective-codec lattice belongs to multi-GPU training and raises.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import dataclasses
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from ..optimizer.optimizer import _pin_lr_f32
+
+# the tags the decoder layer places on its attention-block and MLP-block
+# outputs (models/llama.py): the [b, s, hidden] residual-stream terms
+SAVEABLE_NAMES: Tuple[str, ...] = ("decoder_attn_out", "decoder_mlp_out")
+
+REMAT_POLICIES = ("none", "dots", "names", "offload", "full")
+RESIDENCIES = ("device", "host")
+
+# the port's copies of the two policy tables of paddle_tpu/parallel/
+# roofline.py that MemoryConfig reads: extra forward passes the backward
+# recomputes, and activation bytes kept relative to no remat
+REMAT_RECOMPUTE_FACTOR = {"none": 0.0, "dots": 0.0, "names": 1.0,
+                          "offload": 1.0, "full": 1.0}
+_ACT_KEEP_FACTOR = {"none": 1.0, "dots": 0.5, "names": 0.25,
+                    "offload": 0.25, "full": 0.125}
+
+
+def _unported_a5(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} belongs to multi-GPU training (ROADMAP queue A5), not "
+        f"ported yet")
+
+
+# ------------------------------------------------------------------ tags
+
+@torch.library.custom_op("paddle_tpu_torch::tag_saveable", mutates_args=())
+def _tag_op(x: torch.Tensor, name: str) -> torch.Tensor:
+    return x.clone()
+
+
+@_tag_op.register_fake
+def _tag_fake(x, name):
+    return torch.empty_like(x)
+
+
+def _tag_backward(ctx, grad):
+    return grad, None
+
+
+_tag_op.register_autograd(_tag_backward)
+
+
+def tag_saveable(x: torch.Tensor, name: str) -> torch.Tensor:
+    """``x`` through the identity tag op ``name`` (one of
+    ``SAVEABLE_NAMES``): a ``SavePolicy`` that names it keeps its output.
+    The tag copies x; callers place it only under a policy that reads it."""
+    return _tag_op(x, name)
+
+
+# -------------------------------------------------------------- policies
+
+_DOT_OPS = frozenset({torch.ops.aten.mm.default,
+                      torch.ops.aten.addmm.default,
+                      torch.ops.aten.bmm.default,
+                      torch.ops.aten.baddbmm.default})
+_TAG_OP = torch.ops.paddle_tpu_torch.tag_saveable.default
+
+
+@dataclasses.dataclass(frozen=True)
+class SavePolicy:
+    """What a checkpointed layer keeps for its backward: with ``dots`` every
+    matmul output (``dots_saveable``), the outputs of the tags in ``names``
+    on the card, those in ``offload`` in host memory (pinned when the
+    tensor is on a GPU); everything else is recomputed."""
+
+    dots: bool = False
+    names: Tuple[str, ...] = ()
+    offload: Tuple[str, ...] = ()
+
+    @property
+    def tagged(self) -> bool:
+        """Whether the layer must place its tags."""
+        return bool(self.names or self.offload)
+
+    def where(self, func, args) -> Optional[str]:
+        """"host", "device" or None (recompute) for one op call."""
+        if func is _TAG_OP:
+            if args[1] in self.offload:
+                return "host"
+            return "device" if args[1] in self.names else None
+        return "device" if self.dots and func in _DOT_OPS else None
+
+    def context_fn(self):
+        """The (forward, recomputation) contexts of one checkpoint call."""
+        store: collections.deque = collections.deque()
+        return _Keep(self, store), _Replay(self, store)
+
+
+def _park(out: torch.Tensor, where: str):
+    if where == "device":
+        return out.detach(), None
+    host = torch.empty(out.shape, dtype=out.dtype,
+                       pin_memory=out.is_cuda)
+    host.copy_(out, non_blocking=out.is_cuda)
+    return host, out.device
+
+
+def _unpark(kept):
+    t, device = kept
+    if device is None:
+        return t.detach()
+    return t.to(device, non_blocking=True)
+
+
+class _Keep(TorchDispatchMode):
+    def __init__(self, policy: SavePolicy, store):
+        super().__init__()
+        self.policy, self.store = policy, store
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        where = self.policy.where(func, args)
+        if where is not None:
+            self.store.append(_park(out, where))
+        return out
+
+
+class _Replay(TorchDispatchMode):
+    def __init__(self, policy: SavePolicy, store):
+        super().__init__()
+        self.policy, self.store = policy, store
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if self.policy.where(func, args) is not None:
+            return _unpark(self.store.popleft())
+        return func(*args, **(kwargs or {}))
+
+
+dots_saveable = SavePolicy(dots=True)
+
+
+def named_save_policy() -> SavePolicy:
+    """Keep the two tagged block outputs on the card, recompute the rest."""
+    return SavePolicy(names=SAVEABLE_NAMES)
+
+
+def offload_names_policy() -> SavePolicy:
+    """Park the two tagged block outputs in host memory, recompute the
+    rest."""
+    return SavePolicy(offload=SAVEABLE_NAMES)
+
+
+def save_from_both_policies(a: SavePolicy, b: SavePolicy) -> SavePolicy:
+    """Keep what either policy keeps."""
+    return SavePolicy(dots=a.dots or b.dots, names=a.names + b.names,
+                      offload=a.offload + b.offload)
+
+
+def checkpoint_layer(fn: Callable, policy: Optional[SavePolicy], *args):
+    """``fn(*args)`` under a non-reentrant ``torch.utils.checkpoint``;
+    ``policy`` None is full remat (nothing kept)."""
+    from torch.utils.checkpoint import checkpoint
+
+    if policy is None:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=policy.context_fn)
+
+
+@dataclasses.dataclass(frozen=True)
+class MemoryConfig:
+    """One point on the residency lattice (mirror of ``MemoryConfig``).
+
+    ``remat``: the per-decoder-layer policy, one of ``REMAT_POLICIES``.
+    ``optimizer_residency``: ``"device"`` (the flat AdamW state on the
+    card) or ``"host"`` (bucket-streamed, ``init_offloaded_state``).
+    ``activation_offload``: the tagged block outputs kept in host memory;
+    under ``none`` and ``dots`` the layer is checkpointed with every matmul
+    output kept on the card, so no matmul is recomputed.
+    ``stream_bucket_bytes``: the size cap of the state's stream buckets.
+    ``hbm_budget_bytes`` / ``host_transfer_budget_bytes``: declared budgets
+    a caller may audit the step against."""
+
+    remat: str = "none"
+    optimizer_residency: str = "device"
+    activation_offload: bool = False
+    stream_bucket_bytes: int = 4 << 20
+    hbm_budget_bytes: Optional[int] = None
+    host_transfer_budget_bytes: Optional[int] = None
+
+    def __post_init__(self):
+        if self.remat not in REMAT_POLICIES:
+            raise ValueError(
+                f"MemoryConfig.remat={self.remat!r}; expected one of "
+                f"{REMAT_POLICIES}")
+        if self.optimizer_residency not in RESIDENCIES:
+            raise ValueError(
+                f"MemoryConfig.optimizer_residency="
+                f"{self.optimizer_residency!r}; expected one of "
+                f"{RESIDENCIES}")
+
+    def act_keep_factor(self) -> float:
+        """Activation bytes kept per token-layer relative to no remat,
+        halved by ``activation_offload``."""
+        keep = _ACT_KEEP_FACTOR.get(self.remat, 1.0)
+        if self.activation_offload:
+            keep *= 0.5
+        return keep
+
+    def recompute_fwd_passes(self) -> float:
+        """Extra forward passes the backward recomputes under this policy
+        ("dots" keeps every matmul, so its recompute counts 0)."""
+        return REMAT_RECOMPUTE_FACTOR.get(self.remat, 0.0)
+
+    def resolve_remat(self) -> Tuple[bool, Optional[SavePolicy]]:
+        """(use_checkpoint, policy) of the decoder-layer wrap; policy None
+        with use_checkpoint is full remat."""
+        if self.remat == "none":
+            if not self.activation_offload:
+                return False, None
+            return True, save_from_both_policies(dots_saveable,
+                                                 offload_names_policy())
+        if self.remat == "dots":
+            if self.activation_offload:
+                return True, save_from_both_policies(dots_saveable,
+                                                     offload_names_policy())
+            return True, dots_saveable
+        if self.remat == "names":
+            return True, (offload_names_policy() if self.activation_offload
+                          else named_save_policy())
+        if self.remat == "offload":
+            return True, offload_names_policy()
+        if self.activation_offload:
+            return True, offload_names_policy()
+        return True, None
+
+    def to_json(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    def label(self) -> str:
+        bits = [self.remat, self.optimizer_residency]
+        if self.activation_offload:
+            bits.append("act_offload")
+        return "/".join(bits)
+
+
+# the tuner's walk order, cheapest predicted step time first: host
+# residency of the optimizer state before heavier remat, activation offload
+# before matmul recompute, "full" last
+MEMORY_LATTICE: Tuple[MemoryConfig, ...] = (
+    MemoryConfig(remat="none"),
+    MemoryConfig(remat="none", optimizer_residency="host"),
+    MemoryConfig(remat="none", optimizer_residency="host",
+                 activation_offload=True),
+    MemoryConfig(remat="dots"),
+    MemoryConfig(remat="dots", optimizer_residency="host"),
+    MemoryConfig(remat="dots", optimizer_residency="host",
+                 activation_offload=True),
+    MemoryConfig(remat="names"),
+    MemoryConfig(remat="names", optimizer_residency="host"),
+    MemoryConfig(remat="offload", optimizer_residency="host"),
+    MemoryConfig(remat="full", optimizer_residency="host"),
+)
+
+
+# ---------------------------------------- host-resident optimizer state
+
+def stream_bucket_plan(n_elems: int, itemsize: int, cap: int
+                       ) -> List[Tuple[int, int]]:
+    """(offset, size) slices of a flat group under the size cap, in order;
+    a cap of 0 or less is one bucket."""
+    if n_elems <= 0:
+        return []
+    if cap <= 0:
+        return [(0, n_elems)]
+    per = max(int(cap) // int(itemsize), 1)
+    return [(off, min(per, n_elems - off)) for off in range(0, n_elems, per)]
+
+
+def _host_empty(n: int, for_device: torch.device) -> torch.Tensor:
+    """An fp32 host buffer, pinned when it serves a GPU."""
+    return torch.empty(n, dtype=torch.float32,
+                       pin_memory=for_device.type == "cuda")
+
+
+def offload_flat_state(flat_state: Dict[str, Any],
+                       bucket_bytes: int = 4 << 20) -> Dict[str, Any]:
+    """A flat state (``{'__flat__': {group: {moment1, moment2[, master]}}}``)
+    as ``{'__offload__': {group: {key: (bucket0, bucket1, ...)}}}``: each
+    bucket a contiguous slice of the flat buffer, copied to host memory
+    (pinned for a GPU state)."""
+    if not (isinstance(flat_state, dict)
+            and set(flat_state) == {"__flat__"}):
+        raise ValueError("offload_flat_state expects a state from "
+                         "init_flat_state ({'__flat__': ...})")
+    out: Dict[str, Dict[str, Tuple]] = {}
+    for gname, gs in flat_state["__flat__"].items():
+        og = {}
+        for key, arr in gs.items():
+            buckets = []
+            for off, size in stream_bucket_plan(arr.shape[0],
+                                                arr.element_size(),
+                                                bucket_bytes):
+                b = _host_empty(size, arr.device)
+                b.copy_(arr[off:off + size])
+                buckets.append(b)
+            og[key] = tuple(buckets)
+        out[gname] = og
+    return {"__offload__": out}
+
+
+def _key_spans(g) -> List[Tuple[str, int, int]]:
+    """(key, start, end) of each tensor in its group's flat order."""
+    spans, off = [], 0
+    for k, size in zip(g["keys"], g["sizes"]):
+        spans.append((k, off, off + size))
+        off += size
+    return spans
+
+
+def _pieces(spans, off: int, size: int):
+    """The (key, slice in the key's tensor, slice in the bucket) pieces of
+    the group's flat range [off, off + size)."""
+    end = off + size
+    for k, a, b in spans:
+        lo, hi = max(a, off), min(b, end)
+        if lo < hi:
+            yield k, slice(lo - a, hi - a), slice(lo - off, hi - off)
+
+
+def _pack(out: torch.Tensor, tensors, spans, off: int, size: int):
+    """Write the fp32 flat range [off, off + size) of ``tensors`` (the
+    group's concatenation, each cast to fp32) into out[:size]."""
+    for k, src, dst in _pieces(spans, off, size):
+        out[dst].copy_(tensors[k].reshape(-1)[src])
+    return out[:size]
+
+
+def init_offloaded_state(optimizer, params, decay_mask=None,
+                         master_from=None, bucket_bytes: int = 4 << 20,
+                         flat_layout=None) -> Dict[str, Any]:
+    """``offload_flat_state(optimizer.init_flat_state(...))`` built bucket
+    by bucket, so the whole flat state never sits on the card: zero moments
+    and, for non-fp32 groups under ``multi_precision``, fp32 masters from
+    ``master_from`` (or the params), each bucket packed on the params'
+    device and copied to host memory."""
+    if flat_layout is not None:
+        raise _unported_a5("the shard-major flat_layout")
+    out: Dict[str, Dict[str, Tuple]] = {}
+    for g in optimizer._flat_groups(params, decay_mask):
+        dev = params[g["keys"][0]].device
+        plan = stream_bucket_plan(sum(g["sizes"]), 4, bucket_bytes)
+        og = {"moment1": tuple(_host_empty(s, dev).zero_() for _, s in plan),
+              "moment2": tuple(_host_empty(s, dev).zero_() for _, s in plan)}
+        if optimizer._multi_precision and g["dtype"] != "float32":
+            src = master_from if master_from is not None else params
+            src = {k: src[k].to(dev) for k in g["keys"]}
+            spans = _key_spans(g)
+            stage = torch.empty(max((s for _, s in plan), default=0),
+                                dtype=torch.float32, device=dev)
+            masters = []
+            for off, size in plan:
+                b = _host_empty(size, dev)
+                b.copy_(_pack(stage, src, spans, off, size))
+                masters.append(b)
+            og["master"] = tuple(masters)
+        out[g["name"]] = og
+    return {"__offload__": out}
+
+
+def state_is_offloaded(state) -> bool:
+    return isinstance(state, dict) and set(state) == {"__offload__"}
+
+
+def offloaded_bytes(state) -> int:
+    """Host bytes held by an offloaded state's buckets."""
+    return sum(b.numel() * b.element_size()
+               for gs in state["__offload__"].values()
+               for bs in gs.values() for b in bs)
+
+
+def gather_offloaded_state(state) -> Dict[str, Any]:
+    """Inverse of ``offload_flat_state``: each key's buckets concatenated
+    into the flat form, in host memory (after the card's pending copies
+    into them)."""
+    if not state_is_offloaded(state):
+        raise ValueError("not an offloaded state")
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    flat = {}
+    for gname, gs in state["__offload__"].items():
+        flat[gname] = {k: torch.cat(bs) if bs
+                       else torch.zeros(0, dtype=torch.float32)
+                       for k, bs in gs.items()}
+    return {"__flat__": flat}
+
+
+class _Lanes:
+    """The copy lanes of the offloaded update.  On a GPU: a stream for the
+    host-to-device copies and one for the device-to-host copies beside the
+    compute stream, ordered by events, so bucket i+1 comes in and bucket
+    i-1 goes out while bucket i updates.  On the CPU every lane is None and
+    every copy runs in line."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.main = self.inward = self.outward = None
+        if self.cuda:
+            self.main = torch.cuda.current_stream(device)
+            self.inward = torch.cuda.Stream(device)
+            self.outward = torch.cuda.Stream(device)
+            # the grads, params and the previous call's host buckets are
+            # ready once what the compute stream queued so far is done
+            self.inward.wait_stream(self.main)
+            self.outward.wait_stream(self.main)
+
+    @staticmethod
+    def on(lane):
+        return contextlib.nullcontext() if lane is None \
+            else torch.cuda.stream(lane)
+
+    @staticmethod
+    def event(lane):
+        if lane is None:
+            return None
+        ev = torch.cuda.Event()
+        ev.record(lane)
+        return ev
+
+    @staticmethod
+    def wait(lane, ev) -> None:
+        if ev is not None:
+            lane.wait_event(ev)
+
+    def finish(self) -> None:
+        if self.cuda:
+            self.main.wait_stream(self.outward)
+
+
+def apply_flat_offloaded(optimizer, params, grads, state, lr,
+                         step: int = 0, decay_mask=None,
+                         flat_sharding=None, flat_layout=None):
+    """Fused Adam/AdamW over a host-resident bucketed state, with the
+    numbers of ``optimizer.apply_flat``: each bucket's moments (and master)
+    are copied to the card, updated by the optimizer's own
+    ``_flat_group_update`` over the bucket's slice of the packed fp32
+    gradients (and of the params, for a group without a master), and copied
+    back into the same host buffers; the new params, cast to their dtype,
+    are written into the params' own storage.  So the params and the state
+    are updated in place (the JAX step donates both) and the call returns
+    ``(params, state)``.
+
+    Two buckets are in flight on a GPU (``_Lanes``): bucket i+1's
+    host-to-device copy and bucket i-1's device-to-host copy run on side
+    streams while bucket i updates; the card holds two buckets of staging
+    and one bucket of packed gradients, never a whole flat group.  Host
+    buffers should be pinned (``init_offloaded_state`` pins them) for the
+    copies to overlap."""
+    if not state_is_offloaded(state):
+        raise ValueError("apply_flat_offloaded needs a state from "
+                         "init_offloaded_state / offload_flat_state")
+    if flat_sharding is not None or flat_layout is not None:
+        raise _unported_a5("the shard-major flat_layout")
+    if optimizer._regularizer is not None:
+        raise NotImplementedError(
+            "apply_flat_offloaded: optimizer-level regularizer instances "
+            "ride the per-param apply; pass weight_decay as a float")
+    groups = optimizer._flat_groups(params, decay_mask)
+    names = {g["name"] for g in groups}
+    if names != set(state["__offload__"]):
+        raise ValueError(f"offloaded state's groups "
+                         f"{sorted(state['__offload__'])} do not match the "
+                         f"params' {sorted(names)}")
+    missing = [k for g in groups for k in g["keys"] if grads.get(k) is None]
+    if missing:
+        raise ValueError(f"apply_flat_offloaded: every grouped param needs "
+                         f"a gradient (missing: {missing[:3]}...)")
+    tasks = []
+    for g in groups:
+        gs = state["__offload__"][g["name"]]
+        sizes = [int(b.shape[0]) for b in gs["moment1"]]
+        if sum(sizes) != sum(g["sizes"]):
+            raise ValueError(
+                f"offloaded state for group {g['name']} covers {sum(sizes)} "
+                f"elements but the params flatten to {sum(g['sizes'])}: a "
+                f"state built for another param set")
+        spans, off = _key_spans(g), 0
+        for i, size in enumerate(sizes):
+            tasks.append((g, gs, spans, i, off, size))
+            off += size
+    if not tasks:
+        return dict(params), state
+    dev = params[groups[0]["keys"][0]].device
+    cap = max(t[5] for t in tasks)
+    keys = {k for t in tasks for k in t[1]}
+    lanes = _Lanes(dev)
+    slots = [{k: torch.empty(cap, dtype=torch.float32, device=dev)
+              for k in keys} for _ in range(2)]
+    gbuf = torch.empty(cap, dtype=torch.float32, device=dev)
+    pbuf = None
+    came_in, went_out = [None, None], [None, None]
+
+    def fetch(j):
+        _, gs, _, i, _, size = tasks[j]
+        s = j % 2
+        with lanes.on(lanes.inward):
+            lanes.wait(lanes.inward, went_out[s])
+            for key, bs in gs.items():
+                slots[s][key][:size].copy_(bs[i], non_blocking=lanes.cuda)
+            came_in[s] = lanes.event(lanes.inward)
+
+    lr = _pin_lr_f32(lr)
+    fetch(0)
+    for j, (g, gs, spans, i, off, size) in enumerate(tasks):
+        s = j % 2
+        if j + 1 < len(tasks):
+            fetch(j + 1)
+        lanes.wait(lanes.main, came_in[s])
+        m1, m2 = slots[s]["moment1"][:size], slots[s]["moment2"][:size]
+        if "master" in gs:
+            mst = slots[s]["master"][:size]
+        else:
+            if pbuf is None:
+                pbuf = torch.empty(cap, dtype=torch.float32, device=dev)
+            mst = _pack(pbuf, params, spans, off, size)
+        gsl = _pack(gbuf, grads, spans, off, size)
+        new_master, nm1, nm2 = optimizer._flat_group_update(
+            gsl, m1, m2, mst, lr, step, g["decay"])
+        m1.copy_(nm1)
+        m2.copy_(nm2)
+        if "master" in gs:
+            mst.copy_(new_master)
+        for k, src, dst in _pieces(spans, off, size):
+            params[k].view(-1)[src].copy_(new_master[dst])
+        done = lanes.event(lanes.main)
+        with lanes.on(lanes.outward):
+            lanes.wait(lanes.outward, done)
+            for key, bs in gs.items():
+                bs[i].copy_(slots[s][key][:size], non_blocking=lanes.cuda)
+            went_out[s] = lanes.event(lanes.outward)
+    lanes.finish()
+    return dict(params), state
+
+
+# ------------------------------------------------------- meter and tuner
+
+def measure_step_memory(fn, *args, **kwargs) -> Dict[str, int]:
+    """Run ``fn(*args, **kwargs)`` once on the card and read its memory
+    from the CUDA allocator's statistics: ``argument_bytes`` allocated
+    before the call, ``peak_bytes`` the most allocated during it,
+    ``temp_bytes`` their difference and ``output_bytes`` what the call left
+    allocated beyond its arguments.  Needs a CUDA device."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("measure_step_memory reads the CUDA allocator's "
+                           "peak statistics and needs a CUDA device")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    after = torch.cuda.memory_allocated()
+    del out
+    return {"argument_bytes": before, "peak_bytes": peak,
+            "temp_bytes": peak - before, "output_bytes": after - before}
+
+
+def choose_memory_config(records: Sequence[Dict[str, Any]],
+                         hbm_bytes: int) -> Optional[int]:
+    """Index of the first (cheapest) record whose peak fits the budget,
+    None when none fits."""
+    for i, rec in enumerate(records):
+        if rec["peak_bytes"] <= hbm_bytes:
+            return i
+    return None
+
+
+class JointConfig:
+    """The joint MemoryConfig x collective-codec lattice point: multi-GPU
+    training (ROADMAP queue A5), not ported."""
+
+    def __init__(self, *args, **kwargs):
+        raise _unported_a5("JointConfig (the memory x codec lattice)")
+
+
+def codec_lattice_points():
+    raise _unported_a5("the collective codec lattice")
+
+
+def joint_memory_codec_lattice(*args, **kwargs):
+    raise _unported_a5("the joint memory x codec lattice")
+
+
+def tune_memory_config(step_builder: Callable[[MemoryConfig], Tuple],
+                       hbm_bytes: int, lattice: Optional[Sequence] = None,
+                       *, dcn_wire_bytes: Optional[int] = None,
+                       dcn_bytes_fn: Optional[Callable] = None):
+    """Walk ``lattice`` (``MEMORY_LATTICE``: cheapest predicted step time
+    first), measure each built step's peak on the card
+    (``measure_step_memory``) and return ``(config, records)``: the first
+    point that fits ``hbm_bytes`` (None if none does) and every point's
+    record.  ``step_builder(cfg)`` returns ``(fn, args)``.  The DCN wire
+    budget belongs to multi-slice training and raises."""
+    if dcn_wire_bytes is not None or dcn_bytes_fn is not None:
+        raise _unported_a5("the DCN wire budget")
+    lattice = tuple(MEMORY_LATTICE if lattice is None else lattice)
+    records: List[Dict[str, Any]] = []
+    for cfg in lattice:
+        fn, args = step_builder(cfg)
+        stats = measure_step_memory(fn, *args)
+        records.append({"config": cfg.to_json(), "label": cfg.label(),
+                        **stats, "fits": stats["peak_bytes"] <= hbm_bytes})
+    idx = choose_memory_config(records, hbm_bytes)
+    return (lattice[idx] if idx is not None else None), records

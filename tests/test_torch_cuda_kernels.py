@@ -1451,3 +1451,133 @@ def test_wgmma_kernels_issue_hgmma(dev):
         for n, r in found.items():
             assert r["hgmma"], n
             assert r["spill_stores"] == 0 and r["spill_loads"] == 0, (n, r)
+
+
+# ------------------------------------------ memory engine (training left-outs)
+
+@pytest.mark.parametrize("bucket_bytes", [4 << 20, 4 * 1000 + 12, 0])
+def test_offloaded_update_on_cuda_equals_apply_flat(dev, bucket_bytes):
+    """The streamed update on the card (pinned host buckets, two buckets in
+    flight on side streams) against the device-resident ``apply_flat``,
+    three steps: bf16 params with fp32 masters, an fp32 group without a
+    master, buckets with odd tails; params, masters and moments bit for
+    bit."""
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import memory as M
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    shapes = {"a.w": (311, 97), "b.w": (5003,), "c.norm.weight": (777,),
+              "d.w": (64, 129)}
+    p32 = {k: torch.randn(s, device=dev, generator=g)
+           for k, s in shapes.items()}
+    p = {k: v.to(torch.float32 if "norm" in k else torch.bfloat16)
+         for k, v in p32.items()}
+    mask = {k: "norm" not in k for k in p}
+    opt = AdamW(learning_rate=1e-3, weight_decay=0.05)
+    flat = opt.init_flat_state(p, decay_mask=mask, master_from=p32)
+    off = M.init_offloaded_state(opt, p, decay_mask=mask, master_from=p32,
+                                 bucket_bytes=bucket_bytes)
+    assert all(b.is_pinned() for gs in off["__offload__"].values()
+               for bs in gs.values() for b in bs)
+    ref, cur = dict(p), {k: v.clone() for k, v in p.items()}
+    for step in range(1, 4):
+        grads = {k: torch.randn(v.shape, device=dev, generator=g).to(v.dtype)
+                 for k, v in p.items()}
+        ref, flat = opt.apply_flat(ref, grads, flat, 1e-3, step,
+                                   decay_mask=mask)
+        cur, off = M.apply_flat_offloaded(opt, cur, grads, off, 1e-3, step,
+                                          decay_mask=mask)
+        for k in p:
+            assert torch.equal(cur[k], ref[k]), (k, step)
+    back = M.gather_offloaded_state(off)["__flat__"]
+    for name, gs in flat["__flat__"].items():
+        for key, val in gs.items():
+            assert torch.equal(back[name][key], val.cpu()), (name, key)
+
+
+@pytest.mark.parametrize("label", ["dots/host", "offload/host",
+                                   "none/host/act_offload", "full/host"])
+def test_checkpointed_step_on_cuda_matches_no_remat(dev, label):
+    """One bf16 step of a small Llama (head dim 128, on B1/B2) under a
+    checkpointed policy with the state in pinned host memory, against the
+    same step without remat and with the state on the card: loss and
+    params within the bf16 gate (2e-2 of the largest magnitude); B1 runs
+    twice per layer, B2 once."""
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         build_train_step, llama_decay_mask)
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import memory as M
+
+    cfg = LlamaConfig(vocab_size=512, hidden_size=512, intermediate_size=1024,
+                      num_hidden_layers=2, num_attention_heads=4,
+                      num_key_value_heads=2, max_position_embeddings=256)
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(0))
+    ids = torch.randint(0, 512, (2, 256), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1))
+    mc = next(m for m in M.MEMORY_LATTICE if m.label() == label)
+    out = {}
+    for name, memory in (("plain", M.MemoryConfig()), ("remat", mc)):
+        opt = AdamW(1e-3)
+        params = {k: v.clone() for k, v in model.functional_state().items()}
+        if memory.optimizer_residency == "host":
+            state = M.init_offloaded_state(opt, params,
+                                           decay_mask=llama_decay_mask(model),
+                                           bucket_bytes=1 << 20)
+        else:
+            state = opt.init_flat_state(params,
+                                        decay_mask=llama_decay_mask(model))
+        step = build_train_step(model, opt, memory=memory)
+        fa.reset_launches()
+        loss, params, _ = step(params, state, 0, 1e-3, ids, ids)
+        torch.cuda.synchronize()
+        out[name] = (float(loss), params, dict(fa.LAUNCHES))
+    (lp, pp, cp), (lr_, pr, cr) = out["plain"], out["remat"]
+    layers = cfg.num_hidden_layers
+    assert cp["flash_attention_fwd"] == layers
+    assert cr["flash_attention_fwd"] == 2 * layers
+    assert cp["flash_attention_bwd"] == cr["flash_attention_bwd"] == layers
+    assert abs(lr_ - lp) <= 2e-2 * abs(lp)
+    for k in pp:
+        den = pp[k].float().abs().max().item()
+        assert (pr[k].float() - pp[k].float()).abs().max().item() \
+            <= 2e-2 * den, k
+
+
+def test_tune_memory_config_on_cuda(dev):
+    """The meter and the tuner on the card: each lattice point's measured
+    peak of one step of a small Llama; host residency measures below the
+    device point of its policy; a larger budget never picks a later
+    (costlier) point, and the tightest fitting budget picks its point."""
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         build_train_step, llama_decay_mask)
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import memory as M
+
+    cfg = LlamaConfig(vocab_size=512, hidden_size=512, intermediate_size=1024,
+                      num_hidden_layers=2, num_attention_heads=4,
+                      num_key_value_heads=2, max_position_embeddings=256)
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16)
+    ids = torch.randint(0, 512, (2, 256), device=dev)
+    lattice = [M.MemoryConfig(remat="none"),
+               M.MemoryConfig(remat="none", optimizer_residency="host"),
+               M.MemoryConfig(remat="full", optimizer_residency="host")]
+
+    def builder(mc):
+        opt = AdamW(1e-3)
+        params = {k: v.clone() for k, v in model.functional_state().items()}
+        mask = llama_decay_mask(model)
+        state = (M.init_offloaded_state(opt, params, decay_mask=mask)
+                 if mc.optimizer_residency == "host"
+                 else opt.init_flat_state(params, decay_mask=mask))
+        step = build_train_step(model, opt, memory=mc)
+        return step, (params, state, 0, 1e-3, ids, ids)
+
+    chosen, recs = M.tune_memory_config(builder, 1 << 40, lattice)
+    assert chosen == lattice[0] and all(r["fits"] for r in recs)
+    peaks = [r["peak_bytes"] for r in recs]
+    assert peaks[1] < peaks[0]
+    picks = [M.choose_memory_config(recs, b) for b in sorted(peaks)]
+    assert all(a >= b for a, b in zip(picks, picks[1:]))
+    assert M.choose_memory_config(recs, min(peaks) - 1) is None

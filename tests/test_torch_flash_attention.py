@@ -241,12 +241,25 @@ def test_unported_routes_raise(case, monkeypatch):
 def test_entry_later_slices_raise(kw, monkeypatch):
     """A bool keep-mask and segment ids take the masked kernels (``_Flash``):
     all-kept and one segment equal the unmasked causal attention (fp32
-    1e-5).  Dropout needs an in-kernel generator and still raises."""
+    1e-5).  Dropout takes the plain attention path (no kernel), with the
+    mask the seeded generator draws; tests/test_torch_attention_masks.py
+    holds it against JAX."""
     rng = np.random.default_rng(9)
     q = torch.from_numpy(rng.standard_normal((1, 8, 2, 16)).astype(np.float32))
     if "dropout" in kw:
-        with pytest.raises(NotImplementedError, match="dropout"):
-            port_attention.flash_attention(q, q, q, causal=True, **kw)
+        from paddle_tpu_torch.ops import random as trandom
+        from paddle_tpu_torch.ops.nn_ops import scaled_dot_product_attention
+
+        seen = _route_spy(monkeypatch)
+        trandom.seed(4)
+        got = port_attention.flash_attention(q, q, q, causal=True, **kw)
+        assert seen == []
+        trandom.seed(4)
+        mask = trandom.bernoulli(1 - kw["dropout"], (1, 2, 8, 8), "cpu")
+        want = scaled_dot_product_attention(q, q, q, dropout_mask=mask,
+                                            dropout_p=kw["dropout"],
+                                            is_causal=True)
+        assert torch.equal(got, want)
         return
     want = port_attention.flash_attention(q, q, q, causal=True)
     seen = _route_spy(monkeypatch)

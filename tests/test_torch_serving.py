@@ -486,6 +486,23 @@ def test_import_leaves_jax_and_paddle_tpu_out():
     assert out.stdout.strip() == "[]"
 
 
+def test_import_guard_walks_every_module():
+    """The subprocess guard above imports every module pkgutil finds in
+    the package, the training left-outs' modules among them."""
+    import pkgutil
+
+    import paddle_tpu_torch
+
+    walked = {m.name for m in pkgutil.walk_packages(
+        paddle_tpu_torch.__path__, "paddle_tpu_torch.")}
+    assert {"paddle_tpu_torch.regularizer", "paddle_tpu_torch.optimizer.lr",
+            "paddle_tpu_torch.optimizer.clip",
+            "paddle_tpu_torch.optimizer.optimizer",
+            "paddle_tpu_torch.ops.random", "paddle_tpu_torch.ops.nn_ops",
+            "paddle_tpu_torch.parallel.memory",
+            "paddle_tpu_torch.nn.functional"} <= walked
+
+
 def test_port_sources_import_no_jax_or_paddle_tpu():
     offenders = []
     pkg = REPO / "paddle_tpu_torch"

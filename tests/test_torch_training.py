@@ -406,9 +406,23 @@ def test_flat_state_guards():
 @pytest.mark.parametrize("option", ["mesh", "overlap", "memory", "health",
                                     "schedule", "remat", "remat_policy"])
 def test_train_step_later_options_raise(option):
+    """The multi-GPU and health options raise naming their ROADMAP item;
+    the memory engine's (``memory``, ``remat``, ``remat_policy``) are
+    ported: a value of the wrong type raises TypeError, a valid one builds
+    (tests/test_torch_memory.py holds them against JAX)."""
+    from paddle_tpu_torch.parallel import memory as M
+
     model = LlamaForCausalLM(LlamaConfig.debug(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    valid = {"memory": M.MemoryConfig(remat="full"), "remat": True,
+             "remat_policy": M.named_save_policy()}
+    if option not in valid:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build_train_step(model, AdamW(1e-3), **{option: object()})
+        return
+    with pytest.raises(TypeError, match=option):
         build_train_step(model, AdamW(1e-3), **{option: object()})
+    assert callable(build_train_step(model, AdamW(1e-3),
+                                     **{option: valid[option]}))
 
 
 def test_masked_routes_raise():
@@ -435,10 +449,14 @@ def test_masked_routes_raise():
 
 
 def test_optimizer_later_options_raise():
-    with pytest.raises(NotImplementedError):
-        AdamW(1e-3, lr_ratio=lambda p: 1.0)
-    with pytest.raises(NotImplementedError):
-        AdamW(1e-3, grad_clip=object())
+    """``lr_ratio``, ``grad_clip`` and regularizers are ported
+    (tests/test_torch_optimizer.py holds them against JAX); the
+    shard-major flat layout of multi-GPU training still raises."""
+    from paddle_tpu_torch.optimizer import ClipGradByGlobalNorm
+
+    assert AdamW(1e-3, lr_ratio=lambda p: 1.0)._lr_ratio_fn is not None
+    clip = ClipGradByGlobalNorm(1.0)
+    assert AdamW(1e-3, grad_clip=clip)._grad_clip is clip
     opt = AdamW(1e-3)
     p = _torch_params(_opt_params())
     with pytest.raises(NotImplementedError, match="A5"):
