@@ -1,2 +1,3 @@
-"""Fused LLM ops and the flash-attention entry (mirror of
+"""Fused LLM ops (``fused_rms_norm``, ``fused_rotary_position_embedding``,
+``swiglu``, ``fused_moe``) and the flash-attention entry (mirror of
 ``paddle_tpu/incubate/nn``)."""

@@ -1,4 +1,4 @@
-"""Fused LLM ops of the training slice: RMSNorm, rotary embedding, SwiGLU.
+"""Fused LLM ops: RMSNorm, rotary embedding, SwiGLU and ``fused_moe``.
 
 Port of ``paddle_tpu/incubate/nn/fused.py``.  The JAX package left these to
 XLA's fusion, so here they are plain PyTorch; only the weighted RMSNorm
@@ -10,6 +10,9 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ..distributed.models.moe.moe_layer import (_activation, _promoted,
+                                                _router, top_k_sorted)
 
 
 class _RmsNormWeighted(torch.autograd.Function):
@@ -104,3 +107,38 @@ def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
                            dim=-1).reshape(x.shape)
 
     return tuple(r for r in (apply(q), apply(k), apply(v)) if r is not None)
+
+
+def fused_moe(x, gate_weight, ffn1_weight, ffn2_weight, ffn1_bias=None,
+              ffn2_bias=None, moe_topk: int = 2, norm_topk_prob: bool = True,
+              activation: str = "gelu"):
+    """The inference-path MoE FFN with no token dropping (mirror of
+    ``fused_moe``): every expert runs every token (dense einsums, as JAX
+    leaves them to XLA), and each token combines its top-k experts with
+    their router probabilities, renormalised to sum 1 when
+    ``norm_topk_prob`` (MoELayer combines raw probabilities).  The top-k
+    ties go to the lowest index (``lax.top_k``); the experts' gelu is the
+    tanh form (``jax.nn.gelu``).  x [..., m]; gate_weight [m, E];
+    ffn1_weight [E, m, h] (2h for swiglu); ffn2_weight [E, h, m]."""
+    if activation not in ("gelu", "relu", "swiglu"):
+        raise ValueError(f"fused_moe: unsupported activation {activation!r} "
+                         f"(gelu | relu | swiglu)")
+    orig = x.shape
+    x2 = x.reshape(-1, orig[-1])
+    g, e = x2.shape[0], gate_weight.shape[-1]
+    topv, topi = top_k_sorted(_router(x2, gate_weight), moe_topk)
+    if norm_topk_prob:
+        topv = topv / torch.clamp(topv.sum(dim=-1, keepdim=True), min=1e-12)
+    h = torch.einsum("gm,emh->egh", *_promoted(x2, ffn1_weight))
+    if ffn1_bias is not None:
+        h = h + ffn1_bias[:, None, :]
+    h = _activation(h, activation)
+    eo = torch.einsum("egh,ehm->egm", *_promoted(h, ffn2_weight))
+    if ffn2_bias is not None:
+        eo = eo + ffn2_bias[:, None, :]
+    rows = torch.arange(g, device=x.device)[:, None].expand_as(topi)
+    w_full = torch.zeros((g, e), dtype=torch.float32,
+                         device=x.device).index_put(
+                             (rows, topi), topv, accumulate=True)
+    y = torch.einsum("ge,egm->gm", *_promoted(w_full.to(x.dtype), eo))
+    return y.reshape(orig)

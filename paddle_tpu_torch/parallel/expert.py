@@ -1,26 +1,32 @@
-"""The dropless MoE block and its train step on one device.
+"""The MoE expert block and its train steps on one device.
 
 Port of the single-device part of ``paddle_tpu/parallel/expert.py``:
-``MoEEPConfig``, ``moe_ep_shapes``, ``init_moe_ep_params`` (the same
-``np.random.RandomState`` draws), ``_activation``, ``_moe_loss``,
-``build_moe_ep_dropless_forward`` and ``build_moe_ep_dropless_train_step``.
+``MoEEPConfig`` (``ep_capacity`` on the gates' ``moe_capacity``),
+``moe_ep_shapes``, ``init_moe_ep_params`` (the same
+``np.random.RandomState`` draws), ``_activation``, ``_moe_loss``, the
+capacity half (``build_moe_ep_forward``, ``build_moe_ep_train_step``,
+``build_moe_dense_train_step``) and the dropless half
+(``build_moe_ep_dropless_forward``, ``build_moe_ep_dropless_train_step``).
 
-The JAX body runs per expert-parallel rank inside a ``shard_map``; with an
-expert-parallel degree of 1 its all-to-all exchanges are the identity
-(``make_ep_all_to_all(None)``), each rank window is the whole sorted copy
-list and the stats row is the only row.  The functions here are that body
-with the exchanges removed, step for step: top-k routing on fp32 router
-probabilities (raw, not renormalised), token copies sorted by expert
-(stable), block-aligned ragged segments, the two expert GEMMs on the
-grouped-matmul kernels (``ops/grouped_matmul.py::grouped_matmul``: B7
-forward and dx, B8 dW), ``row_valid`` masking, the per-expert bias gathers,
-the weighted combine and the stats (``aux``, ``dropped`` = 0, ``load``).
+The JAX bodies run per expert-parallel rank inside a ``shard_map``; with an
+expert-parallel degree of 1 their all-to-all exchanges are the identity
+(``make_ep_all_to_all(None)``), each rank window is the whole token set and
+the stats row is the only row.  The functions here are those bodies with
+the exchanges removed, step for step.
+
+- Capacity: routing by ``top_k_masks_with_drops`` at ``ep_capacity`` of
+  the token count, the dispatch, expert and combine einsums (the masked
+  einsum JAX leaves to XLA: ``torch.einsum`` here), the stats (``aux``,
+  ``dropped``, ``load``).
+- Dropless: top-k on the fp32 router probabilities (raw, not
+  renormalised), token copies sorted by expert (stable), block-aligned
+  ragged segments, the two expert GEMMs on the grouped-matmul kernels
+  (``moe_layer.dropless_experts``: B7 forward and dx, B8 dW), the stats
+  with ``dropped`` = 0.
 
 An expert-parallel degree above 1, an ``OverlapConfig`` (and so a codec)
 or a mesh of more than one device raise ``NotImplementedError`` naming
-ROADMAP queue A5 (multi-GPU training).  The capacity path
-(``build_moe_ep_forward``) and ``build_moe_dense_train_step`` are not
-ported yet (queue A3/A5).
+ROADMAP queue A5 (multi-GPU training).
 """
 
 from __future__ import annotations
@@ -33,19 +39,25 @@ import torch
 import torch.nn.functional as F
 
 from ..device import DeviceLike, resolve_device
-from ..ops.grouped_matmul import align_rows, grouped_matmul, sorted_segments
+from ..incubate.distributed.models.moe.gate import (load_balance_aux_loss,
+                                                    moe_capacity,
+                                                    top_k_masks_with_drops)
+from ..incubate.distributed.models.moe.moe_layer import (
+    _activation, _moe_forward_op, _router, _single_device_mesh,
+    dropless_experts, top_k_sorted)
 
 __all__ = ["MoEEPConfig", "moe_ep_shapes", "init_moe_ep_params",
-           "build_moe_ep_dropless_forward",
+           "build_moe_ep_forward", "build_moe_ep_train_step",
+           "build_moe_dense_train_step", "build_moe_ep_dropless_forward",
            "build_moe_ep_dropless_train_step"]
 
 
 @dataclasses.dataclass(frozen=True)
 class MoEEPConfig:
     """One MoE FFN block (mirror of ``MoEEPConfig``).  ``capacity_factor``
-    and ``capacity`` size the capacity path's slots (not ported yet); the
-    dropless path ignores them.  ``aux_weight`` scales the load-balance
-    aux loss."""
+    sizes the capacity path's slots per expert (``ep_capacity``) and
+    ``capacity`` overrides it with an explicit count; the dropless path
+    ignores both.  ``aux_weight`` scales the load-balance aux loss."""
 
     d_model: int
     d_hidden: int
@@ -55,6 +67,12 @@ class MoEEPConfig:
     capacity: Optional[int] = None
     activation: str = "gelu"
     aux_weight: float = 0.01
+
+    def ep_capacity(self, local_tokens: int) -> int:
+        if self.capacity is not None:
+            return int(self.capacity)
+        return moe_capacity(local_tokens, self.top_k, self.num_expert,
+                            self.capacity_factor)
 
 
 def moe_ep_shapes(cfg: MoEEPConfig) -> Dict[str, Tuple[int, ...]]:
@@ -69,10 +87,7 @@ def _single_device(mesh, oc) -> None:
         raise NotImplementedError(
             "an OverlapConfig (hierarchical exchange, codec) belongs to "
             "multi-GPU training, ROADMAP queue A5")
-    if mesh is not None and int(np.prod(getattr(mesh, "shape", (1,)))) > 1:
-        raise NotImplementedError(
-            "expert parallelism over a multi-device mesh belongs to "
-            "multi-GPU training, ROADMAP queue A5")
+    _single_device_mesh(mesh, "the MoE EP block")
 
 
 def init_moe_ep_params(cfg: MoEEPConfig, mesh=None, seed: int = 0,
@@ -94,81 +109,140 @@ def init_moe_ep_params(cfg: MoEEPConfig, mesh=None, seed: int = 0,
     return {k: torch.from_numpy(v).to(dev) for k, v in params.items()}
 
 
-def _activation(h, kind: str):
-    if kind == "gelu":
-        return F.gelu(h, approximate="tanh")     # jax.nn.gelu's default
-    if kind == "relu":
-        return F.relu(h)
-    if kind == "swiglu":
-        a, b = h.chunk(2, dim=-1)
-        return F.silu(a) * b
-    raise ValueError(f"activation {kind!r}")
-
-
-def _moe_loss(y, x2d, tgt, aux, aux_weight: float):
-    """The MSE-against-target objective of the JAX step: the per-token
-    squared error summed, and the weighted aux term."""
+def _moe_loss(y, x2d, tgt, aux, aux_weight: float, shards: int = 1):
+    """The MSE-against-target objective of the JAX steps: the per-token
+    squared error summed (per batch shard, the partials added in shard
+    order when ``shards`` > 1, as the dense reference mimics the EP psum),
+    and the weighted aux term."""
     se = ((x2d + y).float() - tgt).square().sum(dim=-1)
-    return se.sum(), aux_weight * aux
+    total = se.reshape(shards, -1).sum(dim=1).sum() if shards > 1 \
+        else se.sum()
+    return total, aux_weight * aux
+
+
+def _stats(probs, e: int):
+    """(aux, load) of the single stats row: the top-1 fraction per expert
+    (no gradient) and GShard's aux over the mean probabilities."""
+    load = F.one_hot(probs.argmax(dim=-1), e).float().mean(dim=0).detach()
+    return e * (load * probs.mean(dim=0)).sum(), load
+
+
+def _sgd_step(fwd, params, x2d, tgt, lr: float, aux_weight: float,
+              shards: int = 1):
+    """One SGD step of the residual objective over ``fwd(leaves, x2d) ->
+    (y, aux, *stats)``: loss = the summed squared error over the tokens /
+    their count + ``aux_weight * aux``, the gradients taken on leaf copies
+    of ``params`` and the update written into ``params`` IN PLACE (the JAX
+    steps donate them).  Returns (loss, aux, stats)."""
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    y, aux, *stats = fwd(leaves, x2d)
+    total, aux_term = _moe_loss(y, x2d, tgt, aux, aux_weight, shards)
+    loss = total / x2d.shape[0] + aux_term
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    with torch.no_grad():
+        for k, g in zip(leaves, grads):
+            params[k].sub_(lr * g.to(params[k].dtype))
+    return loss.detach(), aux.detach(), stats
+
+
+def build_moe_ep_forward(cfg: MoEEPConfig, mesh=None, oc=None,
+                         batch_axes: Tuple[str, ...] = ("dp", "sharding",
+                                                        "ep"),
+                         local_tokens: Optional[int] = None):
+    """The capacity MoE block, ``fwd(params, x2d) -> (y, aux, dropped,
+    load)`` (mirror of ``build_moe_ep_forward`` at an expert-parallel
+    degree of 1): routing at ``cfg.ep_capacity`` of the token count (or of
+    ``local_tokens``), the ``[E, C, d]`` dispatch einsum, the expert FFN
+    with the weights cast to the tokens' dtype, the combine einsum; the
+    aux loss and ``load`` from the one stats row, ``dropped`` the fp32
+    overflow count."""
+    _single_device(mesh, oc)
+    e = cfg.num_expert
+
+    def fwd(params, x2d):
+        cap = cfg.ep_capacity(local_tokens if local_tokens is not None
+                              else x2d.shape[0])
+        probs = _router(x2d, params["gate_w"])
+        combine, dispatch, dropped = top_k_masks_with_drops(
+            probs, cfg.top_k, cap)
+        send = torch.einsum("gec,gm->ecm", dispatch.to(x2d.dtype), x2d)
+        h = torch.einsum("ecm,emh->ech", send,
+                         params["w_up"].to(send.dtype)) \
+            + params["b_up"].to(send.dtype)[:, None, :]
+        h = _activation(h, cfg.activation)
+        eo = torch.einsum("ech,ehm->ecm", h, params["w_down"].to(h.dtype)) \
+            + params["b_down"].to(h.dtype)[:, None, :]
+        y = torch.einsum("gec,ecm->gm", combine.to(x2d.dtype), eo)
+        aux, load = _stats(probs, e)
+        return y, aux, dropped.detach().float(), load
+
+    return fwd
+
+
+def build_moe_ep_train_step(cfg: MoEEPConfig, mesh=None, oc=None,
+                            batch_axes: Tuple[str, ...] = ("dp", "sharding",
+                                                           "ep"),
+                            lr: float = 1e-2,
+                            local_tokens: Optional[int] = None):
+    """The capacity train step (mirror of ``build_moe_ep_train_step``):
+    ``step(params, x2d, tgt) -> (loss, aux, dropped, load, params)``, the
+    residual block ``y = x + moe(x)`` against an MSE target plus the
+    weighted aux loss, plain SGD at ``lr``, the params updated IN PLACE."""
+    fwd = build_moe_ep_forward(cfg, mesh, oc, batch_axes, local_tokens)
+
+    def step(params, x2d, tgt):
+        loss, aux, (dropped, load) = _sgd_step(fwd, params, x2d, tgt, lr,
+                                               cfg.aux_weight)
+        return loss, aux, dropped, load, params
+
+    return step
+
+
+def build_moe_dense_train_step(cfg: MoEEPConfig, lr: float = 1e-2,
+                               capacity: Optional[int] = None,
+                               shards: int = 1):
+    """The dense reference step (mirror of ``build_moe_dense_train_step``):
+    the same objective over ``MoELayer``'s capacity op with a pinned global
+    capacity (default: every token fits) and the gshard aux loss;
+    ``shards`` sums the squared error per shard first, as the EP psum
+    does.  ``step(params, x2d, tgt) -> (loss, aux, dropped, params)``, the
+    params updated IN PLACE."""
+
+    def fwd(p, x2d):
+        return _moe_forward_op(
+            x2d, p["gate_w"], p["w_up"], p["b_up"], p["w_down"], p["b_down"],
+            topk=cfg.top_k,
+            capacity=capacity if capacity is not None else x2d.shape[0],
+            aux_fn=load_balance_aux_loss, activation=cfg.activation)
+
+    def step(params, x2d, tgt):
+        loss, aux, (dropped,) = _sgd_step(fwd, params, x2d, tgt, lr,
+                                          cfg.aux_weight, shards)
+        return loss, aux, dropped, params
+
+    return step
 
 
 def build_moe_ep_dropless_forward(cfg: MoEEPConfig, mesh=None, oc=None,
                                   block_rows: int = 8):
     """The dropless MoE block, ``fwd(params, x2d) -> (y, aux, dropped,
     load)`` (mirror of ``build_moe_ep_dropless_forward`` at an
-    expert-parallel degree of 1).  ``block_rows`` is the kernels' segment
-    alignment quantum."""
+    expert-parallel degree of 1): the single rank window is the sorted
+    copy list (the dropless worst case, g * top_k rows), run through
+    ``dropless_experts``; ``dropped`` is structurally zero.
+    ``block_rows`` is the kernels' segment alignment quantum."""
     _single_device(mesh, oc)
-    e = cfg.num_expert
     bm = int(block_rows)
 
     def fwd(params, x2d):
-        gate_w = params["gate_w"]
-        w_up, b_up = params["w_up"], params["b_up"]
-        w_down, b_down = params["w_down"], params["b_down"]
-        dev = x2d.device
-        g_local, m = x2d.shape
-        probs = torch.softmax(x2d.float() @ gate_w.float(), dim=-1)
-        # lax.top_k: ties to the lowest index, raw-prob combine weights
-        vals, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
-        top_p, top_ids = vals[:, :cfg.top_k], ids[:, :cfg.top_k]
-
-        # dispatch: the single rank window is the sorted copy list (the
-        # dropless worst case, g * top_k rows); copy q lands at its
-        # expert's segment start + its index within the expert's run
-        order, sorted_ids, counts, seg_st, dest, rpad = sorted_segments(
-            top_ids, e, bm)
-        token_of = order // cfg.top_k
-        wsorted = top_p.reshape(-1)[order]
-        rows_used = align_rows(counts, bm).sum()
-        xr = torch.zeros((rpad, m), dtype=x2d.dtype, device=dev).index_copy(
-            0, dest, x2d[token_of])
-
-        # expert FFN on the grouped-matmul kernels; rexp maps a padded row
-        # to its expert (bias gather), rows past the last segment masked
-        blk_cum = torch.cumsum(align_rows(counts, bm), 0)
-        rexp = torch.searchsorted(blk_cum, torch.arange(rpad, device=dev),
-                                  right=True).clamp(max=e - 1)
-        row_valid = (torch.arange(rpad, device=dev) < rows_used)[:, None]
-        wids = torch.arange(e, dtype=torch.int32, device=dev)
-        h = grouped_matmul(xr, w_up.to(x2d.dtype), seg_st, counts, wids, bm)
-        h = torch.where(row_valid, h + b_up.to(h.dtype)[rexp], 0.0)
-        h = _activation(h, cfg.activation)
-        eo = grouped_matmul(h, w_down.to(h.dtype), seg_st, counts, wids, bm)
-
-        # combine: each copy's expert output + its expert's bias, weighted,
-        # added into token order
-        back = (eo[dest] + b_down.to(eo.dtype)[sorted_ids]).to(x2d.dtype)
-        y = torch.zeros((g_local, m), dtype=x2d.dtype, device=dev).index_add(
-            0, token_of, back * wsorted.to(x2d.dtype)[:, None])
-
-        # stats: dropped is structurally zero
-        top1 = probs.argmax(dim=-1)
-        load = F.one_hot(top1, e).float().mean(dim=0).detach()
-        me = probs.mean(dim=0)
-        aux = e * (load * me).sum()
-        dropped = torch.zeros((), dtype=torch.float32, device=dev)
-        return y, aux, dropped, load
+        probs = _router(x2d, params["gate_w"])
+        top_p, top_ids = top_k_sorted(probs, cfg.top_k)
+        y = dropless_experts(x2d, top_p, top_ids, params["w_up"],
+                             params["b_up"], params["w_down"],
+                             params["b_down"], cfg.activation, bm)
+        aux, load = _stats(probs, cfg.num_expert)
+        return (y, aux, torch.zeros((), dtype=torch.float32,
+                                    device=x2d.device), load)
 
     fwd.block_rows = bm
     return fwd
@@ -177,23 +251,14 @@ def build_moe_ep_dropless_forward(cfg: MoEEPConfig, mesh=None, oc=None,
 def build_moe_ep_dropless_train_step(cfg: MoEEPConfig, mesh=None, oc=None,
                                      lr: float = 1e-2, block_rows: int = 8):
     """The dropless train step (mirror of
-    ``build_moe_ep_dropless_train_step``): ``step(params, x2d, tgt) ->
-    (loss, aux, dropped, load, new_params)``, loss = summed squared error
-    over the tokens + ``aux_weight * aux``, plain SGD at ``lr``.  As the
-    JAX step donates its params, this one updates them IN PLACE and
-    returns the same tensors."""
+    ``build_moe_ep_dropless_train_step``): the capacity step's objective
+    and SGD over the dropless block, ``step(params, x2d, tgt) -> (loss,
+    aux, dropped, load, params)``, the params updated IN PLACE."""
     fwd = build_moe_ep_dropless_forward(cfg, mesh, oc, block_rows)
 
     def step(params, x2d, tgt):
-        leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
-        y, aux, dropped, load = fwd(leaves, x2d)
-        total, aux_term = _moe_loss(y, x2d, tgt, aux, cfg.aux_weight)
-        loss = total / x2d.shape[0] + aux_term
-        names = list(leaves)
-        grads = torch.autograd.grad(loss, [leaves[k] for k in names])
-        with torch.no_grad():
-            for k, g in zip(names, grads):
-                params[k].sub_(lr * g.to(params[k].dtype))
-        return loss.detach(), aux.detach(), dropped, load, params
+        loss, aux, (dropped, load) = _sgd_step(fwd, params, x2d, tgt, lr,
+                                               cfg.aux_weight)
+        return loss, aux, dropped, load, params
 
     return step

@@ -1581,3 +1581,136 @@ def test_tune_memory_config_on_cuda(dev):
     picks = [M.choose_memory_config(recs, b) for b in sorted(peaks)]
     assert all(a >= b for a, b in zip(picks, picks[1:]))
     assert M.choose_memory_config(recs, min(peaks) - 1) is None
+
+
+# ------------------------------------------- the MoE left-outs' new shapes
+
+@pytest.mark.parametrize("kind", ["bf16", "fp32"])
+def test_hb_flash_kernels_at_gpt_moe_shape(dev, kind):
+    """B1 and B2 at GPT-MoE's attention (chip_smoke.GPT_MOE_ATTN_SHAPE: b 8,
+    s 1024, 16 heads over 16 kv heads, so rep 1, head dim 64), causal,
+    against their plain versions with the per-row gate."""
+    q, k, v, do = flash_inputs(kind, dev, chip_smoke.GPT_MOE_ATTN_SHAPE)
+    scale = 64 ** -0.5
+    fa.reset_launches()
+    o, lse = fa.hb_flash_forward(q, k, v, True, scale)
+    wo, wlse = fa.hb_flash_forward_plain(q, k, v, True, scale)
+    grads = fa.hb_flash_backward(q, k, v, wo, wlse, do, True, scale)
+    want = fa.hb_flash_backward_plain(q, k, v, wo, wlse, do, True, scale)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention_fwd"] == 1
+    assert fa.LAUNCHES["flash_attention_bwd"] == 1
+    ferr, _ = flash_errors(kind, {"o": o, "lse": lse},
+                           {"o": wo, "lse": wlse})
+    berr, _ = flash_errors(kind, dict(zip(("dq", "dk", "dv"), grads)),
+                           dict(zip(("dq", "dk", "dv"), want)))
+    print(json.dumps({"case": ["gpt_moe", kind], **ferr, **berr}))
+
+
+# MoELayer(1024, 4096, 8, dropless=True) on 8192 tokens, top-2: 16384
+# copies over 8 experts; (K, N, op) of its six grouped calls
+MOE_LAYER_CALLS = [(1024, 4096, "fwd"), (4096, 1024, "fwd"),
+                   (4096, 1024, "t"), (1024, 4096, "t"),
+                   (1024, 4096, "outer"), (4096, 1024, "outer")]
+
+
+@pytest.mark.parametrize("K,N,op", MOE_LAYER_CALLS)
+def test_grouped_kernels_at_moe_layer_shape(dev, K, N, op):
+    """B7 (forward and dx) and B8 at GPT-MoE's expert shape (d_model 1024,
+    d_hidden 4096, 8 experts, 16384 routed rows split by a seeded uneven
+    mix, block_rows 8), bf16, against their plain versions with the per-row
+    gate; one launch each."""
+    from paddle_tpu_torch.ops import grouped_matmul as gm
+    lens = chip_smoke._multinomial_lens(16384, 8, 0)
+    inp = _gmm_case(dev, K, N, lens, 8, "bf16", op)
+    gm.reset_launches()
+    got = chip_smoke._gmm_call(inp)
+    torch.cuda.synchronize()
+    want = chip_smoke._gmm_call(inp, plain=True)
+    key = {"t": "grouped_matmul_t", "outer": "grouped_outer"}.get(
+        op, "grouped_matmul")
+    assert gm.LAUNCHES[key] == 1 and sum(gm.LAUNCHES.values()) == 1
+    err, _ = row_error(got, want)
+    print(json.dumps({"case": ["moe_layer", K, N, op], "row_error": err}))
+    assert err <= ROW_TOL["bf16"], err
+
+
+@pytest.mark.parametrize("dropless", [False, True])
+def test_moe_layer_on_cuda_matches_cpu(dev, dropless):
+    """MoELayer in fp32 on the card against the same layer on the CPU: the
+    output, l_aux, tokens_dropped and every gradient within 1e-4 of each
+    tensor's largest magnitude; the dropless path 2 B7 forward, 2 B7 dx and
+    2 B8 launches, the capacity path none."""
+    from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
+    from paddle_tpu_torch.ops import grouped_matmul as gm
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((2, 40, 64)).astype(np.float32))
+    gw = torch.from_numpy(rng.standard_normal((64, 4)).astype(np.float32))
+    out = {}
+    for name, device in (("cpu", "cpu"), ("gpu", dev)):
+        layer = MoELayer(64, 128, 4, capacity_factor=1.0, dropless=dropless,
+                         device=device)
+        with torch.no_grad():
+            layer.gate.weight.copy_(gw)
+        xd = x.to(device, copy=True).requires_grad_()
+        gm.reset_launches()
+        y = layer(xd)
+        (y.square().sum() + layer.l_aux).backward()
+        out[name] = ([y.detach().cpu(), xd.grad.cpu()]
+                     + [p.grad.cpu() for p in layer.parameters()],
+                     float(layer.l_aux), float(layer.tokens_dropped),
+                     dict(gm.LAUNCHES))
+    assert set(out["cpu"][3].values()) == {0}
+    want = (dict(grouped_matmul=2, grouped_matmul_int8=0,
+                 grouped_matmul_t=2, grouped_outer=2) if dropless
+            else out["cpu"][3])
+    assert out["gpu"][3] == want
+    assert out["gpu"][2] == out["cpu"][2]
+    assert abs(out["gpu"][1] - out["cpu"][1]) <= 1e-5
+    for got, ref in zip(out["gpu"][0], out["cpu"][0]):
+        assert (got - ref).abs().max().item() <= \
+            1e-4 * ref.abs().max().item()
+
+
+def test_gpt_moe_train_step_on_cuda_matches_cpu(dev):
+    """A small GPT-MoE (head dim 64, so B1/B2 run their kernels) in fp32:
+    one SGD step on the card against the same step on the CPU, CE, aux,
+    drops and every parameter within 1e-4 of each tensor's largest
+    magnitude; one B1 and one B2 launch per layer."""
+    from paddle_tpu_torch.models import (GPTMoEConfig, GPTMoEForCausalLM,
+                                         build_moe_train_step)
+    from paddle_tpu_torch.ops import random as prandom
+    from paddle_tpu_torch.optimizer import SGD
+    cfg = GPTMoEConfig(vocab_size=256, hidden_size=128, num_hidden_layers=2,
+                       num_attention_heads=2, ffn_hidden_size=256,
+                       num_experts=4, max_position_embeddings=128)
+    prandom.seed(1)
+    cpu = GPTMoEForCausalLM(cfg, device="cpu")
+    with torch.no_grad():
+        cpu.blocks[1].mlp.gate.weight.normal_(
+            0.0, 0.1, generator=torch.Generator().manual_seed(2))
+    gpu = GPTMoEForCausalLM(cfg, device=dev)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, 256, (2, 96))
+    lab = rng.integers(0, 256, (2, 96))
+    out = {}
+    for name, model in (("cpu", cpu), ("gpu", gpu)):
+        step = build_moe_train_step(model, SGD(learning_rate=1e-2))
+        fa.reset_launches()
+        ce, aux, params, _ = step(model.functional_state(), {}, 0, 1e-2, ids,
+                                  lab)
+        out[name] = (ce.item(), aux.item(),
+                     float(model.blocks[1].mlp.tokens_dropped),
+                     {k: v.cpu() for k, v in params.items()},
+                     dict(fa.LAUNCHES))
+    assert set(out["cpu"][4].values()) == {0}
+    assert out["gpu"][4] == dict(out["cpu"][4], flash_attention_fwd=2,
+                                 flash_attention_bwd=2)
+    assert abs(out["gpu"][0] - out["cpu"][0]) <= 1e-4 * abs(out["cpu"][0])
+    assert abs(out["gpu"][1] - out["cpu"][1]) <= 1e-4 * abs(out["cpu"][1])
+    assert out["gpu"][2] == out["cpu"][2]
+    for k, want in out["cpu"][3].items():
+        got = out["gpu"][3][k]
+        assert (got - want).abs().max().item() <= \
+            1e-4 * want.abs().max().item(), k
