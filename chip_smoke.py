@@ -157,6 +157,24 @@ Phases, each of which raises (and so exits non-zero) on failure:
 21. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
     last.
 
+The ``mesh_train`` phase runs after phase 9 (the long-context recipe):
+NCCL at world size 1 from a FileStore, the ("dp", "sharding", "mp") mesh
+(1, 1, 1) on cuda, each collective of parallel/compat.py once and one raw
+NCCL collective of each kind on every axis group; then the train cell
+(``TRAIN_CFG`` at full width and depth; cut: accum MESH_ACCUM instead of
+64) through ``apply_llama_sharding`` + ``build_train_step(mesh=...)``
+beside the meshless step (the same step body on the mesh of one rank,
+without a process group) on the same weights and batches (1 + 3 steps),
+one masked step (accum MESH_MASKED_ACCUM) on the masked cell's packed
+documents, and the mesh step again with its flat state in pinned host
+memory.  It raises where a loss differs from the meshless one by more
+than 2e-2 relative, where an attention call was not a kernel launch,
+where the B1/B2 (B5/B6) launch counts, by the wrappers and per
+micro-step by the profiler, differ from the meshless step's, or where
+host residency saves less than 80 % of the 12 B per parameter of the
+device-resident state at the mesh step's peak; it prints ms per step,
+the losses and peak device bytes of each run.
+
 Kernel times are the median of their reps (CUDA events, L2 flushed before
 each rep), with the min and max beside them in the record.  Exits
 non-zero, printing no result, when CUDA is not available or the package is
@@ -2078,6 +2096,284 @@ def masked_train_phase(dev):
     return result
 
 
+# ------------------------------------------------------- the mesh train cell
+
+# the train cell through the mesh step: accum cut from the cell's 64 to 4
+# (and 2 for the masked step) to fit the script's time
+MESH_ACCUM, MESH_MASKED_ACCUM = 4, 2
+
+
+def mesh_world1(dev):
+    """NCCL at world size 1 from a FileStore in a temporary directory and
+    the ("dp", "sharding", "mp") mesh (1, 1, 1) on cuda; each collective of
+    parallel/compat.py once on a CUDA tensor (identity on size-1 axes), and
+    one raw NCCL collective of each kind on every axis group (each must
+    give its input back).  Returns (mesh, checks)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from paddle_tpu_torch.parallel import compat, init_mesh
+
+    store = dist.FileStore(os.path.join(tempfile.mkdtemp(prefix="mesh_"),
+                                        "store"), 1)
+    mesh = init_mesh("cuda", (1, 1, 1), ("dp", "sharding", "mp"),
+                     store=store, rank=0, world_size=1)
+    x = torch.arange(24, dtype=torch.float32, device=dev).reshape(4, 6)
+    ops = {"psum": lambda a: compat.psum(a, "mp", mesh=mesh),
+           "pbroadcast": lambda a: compat.pbroadcast(a, "mp", mesh=mesh),
+           "all_gather": lambda a: compat.all_gather(a, "sharding", axis=1,
+                                                     mesh=mesh),
+           "psum_scatter": lambda a: compat.psum_scatter(a, "sharding",
+                                                         mesh=mesh),
+           "ppermute": lambda a: compat.ppermute(a, "mp", [(0, 0)],
+                                                 mesh=mesh),
+           "all_to_all": lambda a: compat.all_to_all(a, "dp", 0, 1,
+                                                     tiled=True, mesh=mesh)}
+    checks = {}
+    for name, fn in ops.items():
+        checks[name] = bool(torch.equal(fn(x), x))
+    for axis in mesh.axis_names:
+        g = mesh.group(axis)
+        y = x.clone()
+        dist.all_reduce(y, group=g)
+        got = torch.empty(24, device=dev)
+        dist.all_gather_into_tensor(got, x.reshape(-1), group=g)
+        rs = torch.empty(24, device=dev)
+        dist.reduce_scatter_tensor(rs, x.reshape(-1), group=g)
+        a2a = torch.empty(24, device=dev)
+        dist.all_to_all_single(a2a, x.reshape(-1), group=g)
+        checks[f"nccl_{axis}"] = all(
+            bool(torch.equal(t.reshape(4, 6), x)) for t in (y, got, rs, a2a))
+    _sync()
+    if not all(checks.values()):
+        raise AssertionError(f"mesh_train: collectives {checks}")
+    return mesh, checks
+
+
+def mesh_setup(dev, mesh, host=False):
+    """The TRAIN_CFG Llama from SEED placed on ``mesh`` (apply_llama_sharding;
+    at world size 1 each block is the whole tensor): bf16 ShardedTensor
+    params, fp32 masters from the unrounded init in the step's flat layout,
+    on the card or (``host``) in pinned host memory (init_offloaded_state).
+    (cfg, model, schedule, params, optimizer, state)."""
+    import torch
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         apply_llama_sharding,
+                                         llama_decay_mask)
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import PartitionSchedule
+    from paddle_tpu_torch.parallel import memory as M
+
+    cfg = LlamaConfig(**TRAIN_CFG)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.float32,
+                             generator=gen)
+    sched = PartitionSchedule.from_model(model, mesh)
+    apply_llama_sharding(model, mesh, schedule=sched)
+    p32 = model.functional_state()
+    params = {k: v.with_local(v.local.to(torch.bfloat16))
+              for k, v in p32.items()}
+    opt = AdamW(learning_rate=TRAIN_LR, multi_precision=True)
+    layout = sched.flat_update_layout()
+    layout = layout if layout.axes else None
+    mask = llama_decay_mask(model)
+    if host:
+        state = M.init_offloaded_state(opt, params, decay_mask=mask,
+                                       master_from=p32, flat_layout=layout)
+    else:
+        state = opt.init_flat_state(params, decay_mask=mask, master_from=p32,
+                                    flat_layout=layout)
+    del p32
+    return cfg, model, sched, params, opt, state
+
+
+def _mesh_run(what, dev, mesh, ids, labels, seg, host=False):
+    """One path of the mesh_train phase (``mesh`` None: the meshless step):
+    TRAIN_WARMUP + TRAIN_STEPS unmasked steps at MESH_ACCUM, their LAUNCHES
+    and plain calls and peak device bytes; then, but for the host-resident
+    state (``host``: those steps only), one masked step at
+    MESH_MASKED_ACCUM, the accumulation alone (``step.accumulate``) and a
+    profiled micro-step of each (B1/B2, B5/B6 launches)."""
+    import torch
+    from paddle_tpu_torch.models import build_train_step
+
+    if mesh is None:
+        cfg, model, params, opt, state, n_params = train_setup(dev)
+        kw = {}
+    else:
+        cfg, model, sched, params, opt, state = mesh_setup(dev, mesh, host)
+        n_params = sum(v.local.numel() for v in params.values())
+        kw = {"mesh": mesh, "schedule": sched}
+    step = build_train_step(model, opt, compute_dtype=torch.bfloat16,
+                            accum_steps=MESH_ACCUM, **kw)
+    masked = build_train_step(model, opt, compute_dtype=torch.bfloat16,
+                              accum_steps=MESH_MASKED_ACCUM, **kw)
+    step1 = build_train_step(model, opt, compute_dtype=torch.bfloat16, **kw)
+    torch.cuda.reset_peak_memory_stats()
+    steps = TRAIN_WARMUP + TRAIN_STEPS
+    carry = [params, state]
+    del params, state
+    losses, walls, params, state, counts, plain = train_steps(
+        step, carry, steps, ids, labels)
+    peak = torch.cuda.max_memory_allocated()
+    if host:
+        out = dict(losses=losses, step_s=walls, n_params=n_params,
+                   ms_per_step=sum(walls[TRAIN_WARMUP:]) / TRAIN_STEPS * 1e3,
+                   launches=counts, plain_calls=plain,
+                   peak_device_bytes=peak)
+        print(f"mesh_train {what}: " + json.dumps(out), flush=True)
+        del model, params, state, step, masked, step1, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+    carry = [params, state]
+    del params, state
+    m_losses, m_walls, params, state, m_counts, m_plain = train_steps(
+        masked, carry, 1, ids[:MESH_MASKED_ACCUM], labels[:MESH_MASKED_ACCUM],
+        first=steps, attention_mask=seg)
+    layers = cfg.num_hidden_layers
+    # the step's gradient half alone (MESH_ACCUM micro-steps and their
+    # carry, no update), best of two: splits ms per step into the
+    # accumulation and the rest (the update and the step's own code)
+    acc_ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        out = step.accumulate(params, ids, labels)
+        _sync()
+        acc_ms.append((time.perf_counter() - t0) * 1e3)
+        del out
+
+    def full(prof, marks):
+        calls = prof["flash_kernel_calls"]
+        return all(sum(c for n, c in calls.items() if m in n)
+                   == layers * prof["micro_steps"] for m in marks)
+
+    prof, windows = until_counted(
+        lambda: profile_train(step1, params, ids[0], labels[0]),
+        lambda p: full(p, ("hb_fwd", "hb_dkv", "hb_dq")))
+    m_prof, m_windows = until_counted(
+        lambda: profile_train(step1, params, ids[0], labels[0],
+                              attention_mask=seg[0]),
+        lambda p: full(p, ("masked_fwd", "::masked_d")))
+
+    def per_micro(p, marks):
+        return {m: sum(c for n, c in p["flash_kernel_calls"].items()
+                       if m in n) / p["micro_steps"] for m in marks}
+
+    out = dict(
+        losses=losses, step_s=walls, n_params=n_params,
+        ms_per_step=sum(walls[TRAIN_WARMUP:]) / TRAIN_STEPS * 1e3,
+        masked_loss=m_losses[0], masked_step_ms=m_walls[0] * 1e3,
+        launches=counts, plain_calls=plain, masked_launches=m_counts,
+        masked_plain_calls=m_plain, peak_device_bytes=peak,
+        profiled_per_micro_step=per_micro(prof, ("hb_fwd", "hb_dkv",
+                                                 "hb_dq")),
+        masked_profiled_per_micro_step=per_micro(m_prof, ("masked_fwd",
+                                                          "::masked_d")),
+        profile_windows=[windows, m_windows],
+        accumulate_ms=min(acc_ms),
+        device_ms_per_micro_step=prof["device_ms_per_micro_step"],
+        wall_ms_per_micro_step=prof["wall_ms_per_micro_step"])
+    print(f"mesh_train {what}: " + json.dumps(out), flush=True)
+    del model, params, state, step, masked, step1, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_train_phase(dev):
+    """The train cell (bench.py:57-67 at full width and depth) through
+    ``apply_llama_sharding`` + ``build_train_step(mesh=...)`` on a (1, 1, 1)
+    NCCL mesh, beside the meshless step (``mesh=None``: the same step body
+    on the mesh of one rank, no process group) on the same weights and
+    batches, and the mesh step again with its flat state in pinned host
+    memory; cut: accum MESH_ACCUM instead of 64 (MESH_MASKED_ACCUM for the
+    masked step on the masked cell's packed documents).  Raises where a
+    loss differs from the meshless one by more than TRAIN_LOSS_TOL
+    relative, where an attention call was not a kernel launch, where the
+    launch counts (wrappers and profiler) differ from the meshless step's,
+    or where host residency saves less than HOST_SAVING_SHARE of the 12 B
+    per parameter of device-resident state at the mesh step's peak."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    mesh, checks = mesh_world1(dev)
+    try:
+        rng = np.random.default_rng(SEED)
+        shape = (MESH_ACCUM, TRAIN_BATCH, TRAIN_SEQ)
+        ids = torch.from_numpy(rng.integers(0, TRAIN_CFG["vocab_size"],
+                                            shape)).to(dev)
+        labels = torch.from_numpy(rng.integers(0, TRAIN_CFG["vocab_size"],
+                                               shape)).to(dev)
+        seg, _ = packed_documents(np.random.default_rng(SEED + 1),
+                                  MESH_MASKED_ACCUM * TRAIN_BATCH, TRAIN_SEQ,
+                                  DOC_MEDIAN, pad=True)
+        seg = torch.from_numpy(seg.reshape(
+            (MESH_MASKED_ACCUM, TRAIN_BATCH, TRAIN_SEQ))).to(dev)
+        a = _mesh_run("meshless", dev, None, ids, labels, seg)
+        b = _mesh_run("mesh", dev, mesh, ids, labels, seg)
+        h = _mesh_run("mesh host", dev, mesh, ids, labels, seg, host=True)
+    finally:
+        dist.destroy_process_group()
+    ends = (0, len(a["losses"]) - 1)
+    rel = {f"{what}step{i}": abs(r["losses"][i] - a["losses"][i])
+           / abs(a["losses"][i])
+           for what, r in (("", b), ("host_", h)) for i in ends}
+    rel["masked"] = abs(b["masked_loss"] - a["masked_loss"]) \
+        / abs(a["masked_loss"])
+    layers = TRAIN_CFG["num_hidden_layers"]
+    steps = TRAIN_WARMUP + TRAIN_STEPS
+    for r in (a, b, h):
+        check_launches("mesh_train", r["launches"], r["plain_calls"],
+                       flash_attention_fwd=layers * MESH_ACCUM * steps,
+                       flash_attention_bwd=layers * MESH_ACCUM * steps)
+    for r in (a, b):
+        check_launches("mesh_train masked", r["masked_launches"],
+                       r["masked_plain_calls"],
+                       flash_masked_fwd=layers * MESH_MASKED_ACCUM,
+                       flash_masked_bwd_fused=layers * MESH_MASKED_ACCUM)
+    if not all(v <= TRAIN_LOSS_TOL for v in rel.values()):
+        raise AssertionError(f"mesh_train: mesh vs meshless losses {rel} > "
+                             f"{TRAIN_LOSS_TOL}")
+    for key in ("launches", "masked_launches", "profiled_per_micro_step",
+                "masked_profiled_per_micro_step"):
+        if b[key] != a[key]:
+            raise AssertionError(f"mesh_train: {key} mesh {b[key]} vs "
+                                 f"meshless {a[key]}")
+    if h["launches"] != a["launches"]:
+        raise AssertionError(f"mesh_train: launches host {h['launches']} "
+                             f"vs meshless {a['launches']}")
+    if not all(np.isfinite(b["losses"])) or \
+            not b["losses"][-1] < b["losses"][0]:
+        raise AssertionError(f"mesh_train: losses {b['losses']} not finite "
+                             f"and falling")
+    saved = b["peak_device_bytes"] - h["peak_device_bytes"]
+    need = HOST_SAVING_SHARE * 12 * b["n_params"]
+    if not saved >= need:
+        raise AssertionError(f"mesh_train: host residency saved {saved} B "
+                             f"of the mesh step's peak, expected >= "
+                             f"{need:.0f}")
+    return dict(config=TRAIN_CFG, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                accum=MESH_ACCUM, masked_accum=MESH_MASKED_ACCUM,
+                reduced=[f"accum {MESH_ACCUM} instead of 64 (masked step: "
+                         f"accum {MESH_MASKED_ACCUM}), to fit the script's "
+                         f"time"],
+                mesh=[1, 1, 1], collectives=checks, loss_rel=rel,
+                tol=TRAIN_LOSS_TOL,
+                ms_per_step={"meshless": a["ms_per_step"],
+                             "mesh": b["ms_per_step"],
+                             "mesh_host": h["ms_per_step"]},
+                accumulate_ms={"meshless": a["accumulate_ms"],
+                               "mesh": b["accumulate_ms"]},
+                peak_device_bytes={"meshless": a["peak_device_bytes"],
+                                   "mesh": b["peak_device_bytes"],
+                                   "mesh_host": h["peak_device_bytes"]},
+                host_peak_saving=saved, required_saving=need,
+                meshless=a, mesh_step=b, mesh_host=h)
+
+
 def long_context_phase(dev):
     """The Llama 3 8K recipe on the bench.py model: b 1, s LONG_SEQ, accum
     LONG_ACCUM, documents of median LONG_DOC_MEDIAN packed and truncated at
@@ -3304,7 +3600,8 @@ def _checked_offloaded_update(dev, picks, report):
             spans = M._key_spans(g)
             gbuf = torch.empty(size, dtype=torch.float32, device=dev)
             new = optimizer._flat_group_update(
-                M._pack(gbuf, grads, spans, off, size),
+                M._pack(gbuf, lambda k: grads[k].reshape(-1), spans, off,
+                        size),
                 gs["moment1"][i].to(dev), gs["moment2"][i].to(dev),
                 gs["master"][i].to(dev), lr, step, g["decay"])
             want.append((gname, i, off, size, spans, new))
@@ -4051,6 +4348,15 @@ def main() -> int:
           + json.dumps(record["masked_train"]["profile"]), flush=True)
     record["long_context"] = long_context_phase(dev)
     print("long context: " + json.dumps(record["long_context"]), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mt = record["mesh_train"] = mesh_train_phase(dev)
+    print("mesh_train: " + json.dumps(
+        {k: mt[k] for k in ("mesh", "accum", "masked_accum", "reduced",
+                            "collectives", "loss_rel", "ms_per_step",
+                            "accumulate_ms", "peak_device_bytes",
+                            "host_peak_saving", "required_saving")})
+        + f" ({card})", flush=True)
 
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=dev)
     record["grouped_kernels"] = gmm_cases(dev, flush)
@@ -4241,7 +4547,8 @@ def main() -> int:
                                       for r in lattice["points"]),
                 "llama3_8b": sum(r["launches"][name]
                                  for r in big["steps"]),
-                "gpt_moe_train": gpt["launches_total"][name]},
+                "gpt_moe_train": gpt["launches_total"][name],
+                "mesh_train": mt["mesh_step"]["launches"][name]},
             "gpt_moe_shape": next(
                 {k: r[k] for k in ("shape", "err", "max_abs_err", "ms",
                                    "ms_min", "ms_max", "plain_ms",
@@ -4281,6 +4588,9 @@ def main() -> int:
             "source": masked_source,
             "replaces": f"{flash_tpu}:{line}",
             "launches": record[path]["launches"][name],
+            "launches_by_path": {
+                path: record[path]["launches"][name],
+                "mesh_train": mt["mesh_step"]["masked_launches"][name]},
             "max_abs_err": bf16["max_abs_err"][route],
             "ms": bf16["times_ms"][kernel],
             "wrapper_ms": bf16["times_ms"]["wrapper_" + route],

@@ -143,7 +143,7 @@ def _single_device_mesh(mesh, what: str) -> None:
     if mesh is not None and int(np.prod(getattr(mesh, "shape", (1,)))) > 1:
         raise NotImplementedError(
             f"{what}: expert parallelism over a multi-device mesh belongs "
-            f"to multi-GPU training, ROADMAP queue A5")
+            f"to multi-GPU training, ROADMAP queue A5.3")
 
 
 class MoELayer(nn.Module):
@@ -154,7 +154,7 @@ class MoELayer(nn.Module):
     ``ClipGradForMOEByGlobalNorm``; the gate's weight starts at zeros.
     ``l_aux`` holds the last forward's aux loss and ``tokens_dropped`` its
     fp32 count of assignments the capacity refused (0 when dropless).  A
-    mesh of more than one device raises (ROADMAP A5)."""
+    mesh of more than one device raises (ROADMAP A5.3)."""
 
     GATES = {"naive": NaiveGate, "gshard": GShardGate, "switch": SwitchGate}
 

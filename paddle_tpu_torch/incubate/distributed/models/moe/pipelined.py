@@ -6,7 +6,7 @@ mesh (the same numpy draws).
 The pipelined forwards (``pipelined_moe_forward``, ``moe_block_ep``,
 ``pipelined_moe_forward_ep``) run inside a pp x ep x mp program through
 ``pipeline_apply`` and raise ``NotImplementedError`` naming ROADMAP queue
-A5 (multi-GPU training), as does a mesh of more than one device.
+A5.5 (pipelining), as a mesh of more than one device raises naming A5.3.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from .moe_layer import _moe_forward_op, _single_device_mesh
 def _needs_a5(what: str):
     raise NotImplementedError(
         f"{what} runs the MoE stack pipelined over pp with experts over ep "
-        f"(pipeline_apply): multi-GPU training, ROADMAP queue A5")
+        f"(pipeline_apply): multi-GPU training, ROADMAP queue A5.5")
 
 
 def init_pipelined_moe_params(mesh, num_layers: int, num_expert: int,

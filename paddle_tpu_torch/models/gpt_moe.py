@@ -14,7 +14,7 @@ einsum), whose experts use the tanh gelu.
 
 ``build_moe_train_step`` is the single-device step.  A mesh, and the
 hybrid dp x ep x mp plan (``apply_gpt_moe_sharding``, ``_param_specs``),
-raise ``NotImplementedError`` naming ROADMAP queue A5 (multi-GPU
+raise ``NotImplementedError`` naming ROADMAP queue A5.3 (multi-GPU
 training).
 """
 
@@ -161,7 +161,7 @@ class GPTMoEForCausalLM(nn.Module):
 def _needs_a5(what: str):
     raise NotImplementedError(
         f"{what}: the hybrid dp x ep x mp plan belongs to multi-GPU "
-        f"training, ROADMAP queue A5")
+        f"training, ROADMAP queue A5.3")
 
 
 def _param_specs(name: str):
@@ -191,7 +191,7 @@ def build_moe_train_step(model: GPTMoEForCausalLM, optimizer, mesh=None,
     parameters' dtype; the update is ``optimizer.apply(params, grads,
     opt_state, lr, step_no + 1)``.  The step keeps nothing between calls;
     after it each MoE layer's ``l_aux`` and ``tokens_dropped`` hold the
-    step's values.  A mesh raises (ROADMAP A5)."""
+    step's values.  A mesh raises (ROADMAP A5.3)."""
     if mesh is not None:
         _needs_a5("build_moe_train_step(mesh=...)")
     cfg, dev = model.cfg, model.device

@@ -28,13 +28,22 @@ execution modes, as in the JAX package, over one update rule
 float or a regularizer instance; ``grad_clip`` a clip of
 ``optimizer/clip.py``, applied by the eager ``step()`` (the functional
 train step does not clip, as in the JAX package).  The update is plain
-elementwise PyTorch, as the JAX package left it to XLA.  Only the
-row-major flat layout is ported; the shard-major ``flat_layout`` of
-multi-GPU training raises.
+elementwise PyTorch, as the JAX package left it to XLA.
+
+On a mesh (``models/llama.py``'s mesh step) the params and grads are
+``parallel.specs.ShardedTensor`` blocks.  ``init_state`` then keeps each
+moment as a block of its parameter's placement; the flat path takes the
+schedule's ``FlatUpdateLayout`` (``flat_layout=``): a group whose every
+leaf decomposes keeps this rank's block of the shard-major buffers and its
+name carries the layout's signature (``decay|float32|sm[dp2.mp2]``); any
+other group keeps the row-major buffers whole on every rank.  Given plain
+tensors, a layout's groups are the global shard-major buffers, element for
+element the JAX package's.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -55,10 +64,24 @@ def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).rsplit(".", 1)[-1]           # torch.bfloat16 -> bfloat16
 
 
-def _flat_layout_unported():
-    return NotImplementedError(
-        "the shard-major flat_layout belongs to multi-GPU training "
-        "(ROADMAP queue A5), not ported yet")
+def _check_layout(flat_layout):
+    """``flat_layout`` is None or a ``FlatUpdateLayout``; one with no
+    parallel axis has nothing to cut (its order is row-major) and counts as
+    None, as in the JAX package."""
+    if flat_layout is None:
+        return None
+    from ..parallel.schedule import FlatUpdateLayout
+
+    if not isinstance(flat_layout, FlatUpdateLayout):
+        raise TypeError(f"flat_layout= takes a parallel.schedule."
+                        f"FlatUpdateLayout, got {type(flat_layout).__name__}")
+    return flat_layout if flat_layout.axes else None
+
+
+def _sharded(values) -> bool:
+    from ..parallel.specs import ShardedTensor
+
+    return any(isinstance(v, ShardedTensor) for v in values)
 
 
 def _f32(value: torch.Tensor) -> torch.Tensor:
@@ -126,7 +149,16 @@ class Optimizer:
         raise NotImplementedError
 
     def init_state(self, params: Dict[str, torch.Tensor]):
-        return {k: self.init_param_state(v) for k, v in params.items()}
+        """Per-parameter state; a ``ShardedTensor`` parameter gets its state
+        as blocks of the same placement."""
+        out = {}
+        for k, v in params.items():
+            if _sharded([v]):
+                out[k] = {n: v.with_local(t) for n, t in
+                          self.init_param_state(v.local).items()}
+            else:
+                out[k] = self.init_param_state(v)
+        return out
 
     def apply(self, params, grads, state, lr, step: int = 0,
               decay_mask: Optional[Dict[str, bool]] = None,
@@ -333,14 +365,17 @@ class Adam(Optimizer):
 
     def _flat_groups(self, params, decay_mask=None, flat_layout=None
                      ) -> List[Dict[str, Any]]:
-        """Mirror of ``_flat_groups`` (row-major only): float params grouped
-        by (decay?, dtype), keys sorted, so init and every apply agree."""
-        if flat_layout is not None:
-            raise _flat_layout_unported()
+        """Mirror of ``_flat_groups``: float params grouped by (decay?,
+        dtype), keys sorted, so init and every apply agree.  Under a
+        ``flat_layout`` a group whose every leaf has a shard-major plan gains
+        ``layout``/``plans`` and the layout's signature in its name; a group
+        with any other leaf stays row-major.  Shapes are global (a
+        ``ShardedTensor``'s ``shape``)."""
+        flat_layout = _check_layout(flat_layout)
         by_group: Dict[Any, List[str]] = {}
         for k in sorted(params):
             v = params[k]
-            if not torch.is_floating_point(v):
+            if not v.is_floating_point():
                 continue
             decay = True if decay_mask is None else bool(
                 decay_mask.get(k, True))
@@ -348,31 +383,108 @@ class Adam(Optimizer):
         out = []
         for (decay, dt), keys in sorted(by_group.items()):
             shapes = [tuple(params[k].shape) for k in keys]
-            out.append({"name": ("decay" if decay else "nodecay") + "|" + dt,
-                        "keys": keys, "shapes": shapes,
-                        "sizes": [params[k].numel() for k in keys],
-                        "dtype": dt, "decay": decay})
+            g = {"name": ("decay" if decay else "nodecay") + "|" + dt,
+                 "keys": keys, "shapes": shapes,
+                 "sizes": [math.prod(sh) for sh in shapes],
+                 "dtype": dt, "decay": decay}
+            if flat_layout is not None:
+                plans = {k: flat_layout.leaf_plan(k, sh)
+                         for k, sh in zip(keys, shapes)}
+                if keys and all(p is not None for p in plans.values()):
+                    g["name"] += "|" + flat_layout.signature
+                    g["layout"] = flat_layout
+                    g["plans"] = plans
+            out.append(g)
         return out
+
+    def _match_flat_groups(self, params, state, decay_mask, flat_layout):
+        """Mirror of ``_match_flat_groups``: the groups whose names are the
+        state's, under the layout's naming or the row-major one; anything
+        else raises, so a state of another wire format never reaches the
+        update."""
+        candidates = [flat_layout] if flat_layout is not None else []
+        candidates.append(None)
+        want = set(state["__flat__"])
+        tried = []
+        for lo in candidates:
+            groups = self._flat_groups(params, decay_mask, lo)
+            names = {g["name"] for g in groups}
+            if names == want:
+                return groups
+            tried.append(sorted(names))
+        raise ValueError(
+            f"flat state's groups {sorted(want)} match neither the "
+            f"schedule-derived shard-major naming nor the legacy row-major "
+            f"naming {tried}: the state was built under a different flat "
+            f"layout (mesh/schedule changed?); rebuild it with "
+            f"init_flat_state(params, ..., flat_layout=...) for this step's "
+            f"schedule")
 
     @staticmethod
     def _concat_f32(tensors) -> torch.Tensor:
         return torch.cat([t.float().reshape(-1) for t in tensors])
 
+    @staticmethod
+    def _group_flat(g, values, sharded: bool) -> torch.Tensor:
+        """The group's fp32 flat buffer of ``values``: this rank's block of
+        the shard-major form, or the whole row-major concatenation."""
+        lo = g.get("layout")
+        if lo is not None:
+            if sharded:
+                return lo.pack_local(g["plans"], g["keys"], values)
+            return lo.pack_group(g["plans"], g["keys"], values)
+        if sharded:
+            return Adam._concat_f32([values[k].full() for k in g["keys"]])
+        return Adam._concat_f32([values[k] for k in g["keys"]])
+
+    @staticmethod
+    def _group_leaves(g, flat, params, sharded: bool) -> Dict[str, Any]:
+        """The params cut back out of a group's new fp32 master, in their
+        dtype: at-rest blocks on a mesh, whole tensors otherwise."""
+        from ..parallel.specs import _block_slices
+
+        lo = g.get("layout")
+        if lo is not None and sharded:
+            blocks = lo.unpack_local(g["plans"], g["keys"], flat, params)
+            return {k: params[k].with_local(blocks[k].to(params[k].dtype))
+                    for k in g["keys"]}
+        if lo is not None:
+            leaves = lo.unpack_group(g["plans"], g["keys"], flat)
+            return {k: leaves[k].to(params[k].dtype) for k in g["keys"]}
+        out, off = {}, 0
+        for k, shape, size in zip(g["keys"], g["shapes"], g["sizes"]):
+            leaf = flat[off:off + size].reshape(shape).to(params[k].dtype)
+            if sharded:
+                p = params[k]
+                leaf = p.with_local(leaf[_block_slices(p.spec, p.shape,
+                                                       p.mesh)].contiguous())
+            out[k] = leaf
+            off += size
+        return out
+
     def init_flat_state(self, params, decay_mask=None, master_from=None,
                         flat_layout=None):
         """Mirror of ``init_flat_state``: ``{'__flat__': {group: {moment1,
         moment2[, master]}}}``.  ``master_from`` seeds the fp32 masters from
-        unrounded values (bf16 params at rest, exact fp32 masters)."""
+        unrounded values (bf16 params at rest, exact fp32 masters);
+        ``flat_layout`` builds the groups in its shard-major format (this
+        rank's block of each buffer when the params are ``ShardedTensor``
+        blocks)."""
+        sharded = _sharded(params.values())
         st = {}
         for g in self._flat_groups(params, decay_mask, flat_layout):
-            dev = params[g["keys"][0]].device
-            n = sum(g["sizes"])
+            first = params[g["keys"][0]]
+            dev = first.device
+            if sharded and "layout" in g:
+                n = sum(g["plans"][k].local for k in g["keys"])
+            else:
+                n = sum(g["sizes"])
             gs = {"moment1": torch.zeros(n, dtype=torch.float32, device=dev),
                   "moment2": torch.zeros(n, dtype=torch.float32, device=dev)}
             if self._multi_precision and g["dtype"] != "float32":
                 src = master_from if master_from is not None else params
-                gs["master"] = self._concat_f32(
-                    [src[k].to(dev) for k in g["keys"]])
+                gs["master"] = self._group_flat(
+                    g, {k: src[k] for k in g["keys"]}, sharded).to(dev)
             st[g["name"]] = gs
         return {"__flat__": st}
 
@@ -389,39 +501,41 @@ class Adam(Optimizer):
     def apply_flat(self, params, grads, state, lr, step: int = 0,
                    decay_mask: Optional[Dict[str, bool]] = None,
                    flat_sharding=None, flat_layout=None):
-        """Mirror of ``apply_flat`` (row-major): one elementwise pass per
-        group over its flat fp32 buffers; returns (new_params, new_state)
-        with the new params cut back out of the new master, in their
-        dtype.  A group without a master (fp32 params) builds it from the
-        params each step."""
+        """Mirror of ``apply_flat``: one elementwise pass per group over its
+        flat fp32 buffers; returns (new_params, new_state) with the new
+        params cut back out of the new master, in their dtype.  A group
+        without a master (fp32 params) builds it from the params each step.
+        ``flat_layout`` selects the groups whose state was built in its
+        shard-major format (by their names; a row-major state still
+        matches).  With ``ShardedTensor`` params and grads each rank updates
+        its block: the grads are reduce-scattered into it over the axes
+        they are partial over, and the new params are all-gathered back to
+        their at-rest blocks.  ``flat_sharding`` is accepted for the JAX
+        signature and unused: placement here is the layout's."""
         if not self.state_is_flat(state):
             raise ValueError("apply_flat needs a state from "
                              "init_flat_state (got per-param state)")
-        if flat_sharding is not None or flat_layout is not None:
-            raise _flat_layout_unported()
         if self._regularizer is not None:
             raise NotImplementedError(
                 "apply_flat: optimizer-level regularizer instances ride "
                 "the per-param apply; pass weight_decay as a float")
         lr = _pin_lr_f32(lr)
-        groups = self._flat_groups(params, decay_mask)
-        names = {g["name"] for g in groups}
-        if names != set(state["__flat__"]):
-            raise ValueError(f"flat state's groups {sorted(state['__flat__'])}"
-                             f" do not match the params' {sorted(names)}")
+        groups = self._match_flat_groups(params, state, decay_mask,
+                                         _check_layout(flat_layout))
         missing = [k for g in groups for k in g["keys"]
                    if grads.get(k) is None]
         if missing:
             raise ValueError(f"apply_flat: every grouped param needs a "
                              f"gradient (missing: {missing[:3]}...)")
+        sharded = _sharded(params.values())
         new_params = dict(params)
         new_flat = {}
         for g in groups:
             gs = state["__flat__"][g["name"]]
-            gflat = self._concat_f32([grads[k] for k in g["keys"]])
+            gflat = self._group_flat(g, grads, sharded)
             master = gs.get("master")
             if master is None:
-                master = self._concat_f32([params[k] for k in g["keys"]])
+                master = self._group_flat(g, params, sharded)
             new_master, m1, m2 = self._flat_group_update(
                 gflat, gs["moment1"], gs["moment2"], master, lr, step,
                 g["decay"])
@@ -429,14 +543,9 @@ class Adam(Optimizer):
             if "master" in gs:
                 ngs["master"] = new_master
             new_flat[g["name"]] = ngs
-            dtype = params[g["keys"][0]].dtype
-            off = 0
-            for k, shape, size in zip(g["keys"], g["shapes"], g["sizes"]):
-                new_params[k] = new_master[off:off + size].reshape(
-                    shape).to(dtype)
-                off += size
+            new_params.update(self._group_leaves(g, new_master, params,
+                                                 sharded))
         return new_params, {"__flat__": new_flat}
-
 
 
 class AdamW(Adam):

@@ -26,7 +26,7 @@ the exchanges removed, step for step.
 
 An expert-parallel degree above 1, an ``OverlapConfig`` (and so a codec)
 or a mesh of more than one device raise ``NotImplementedError`` naming
-ROADMAP queue A5 (multi-GPU training).
+ROADMAP queue A5.3 (expert parallelism; the overlap config A5.2).
 """
 
 from __future__ import annotations
@@ -86,7 +86,7 @@ def _single_device(mesh, oc) -> None:
     if oc is not None:
         raise NotImplementedError(
             "an OverlapConfig (hierarchical exchange, codec) belongs to "
-            "multi-GPU training, ROADMAP queue A5")
+            "multi-GPU training, ROADMAP queue A5.2")
     _single_device_mesh(mesh, "the MoE EP block")
 
 

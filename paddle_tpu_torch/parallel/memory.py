@@ -25,8 +25,10 @@ Three levers and a meter, as in the JAX package:
    cheapest first and returns the first point that fits.
 
 The JAX meter compiles and reads XLA's memory analysis; here the step runs
-once on the card, so the meter needs a CUDA device.  The joint memory x
-collective-codec lattice belongs to multi-GPU training and raises.
+once on the card, so the meter needs a CUDA device.  On a mesh each rank
+keeps its own block of the shard-major flat state (``flat_layout=``) in
+pinned host memory, streamed the same way.  The joint memory x
+collective-codec lattice belongs to ROADMAP A5.2 and raises.
 """
 
 from __future__ import annotations
@@ -59,8 +61,8 @@ _ACT_KEEP_FACTOR = {"none": 1.0, "dots": 0.5, "names": 0.25,
 
 def _unported_a5(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} belongs to multi-GPU training (ROADMAP queue A5), not "
-        f"ported yet")
+        f"{what} belongs to the overlap engine and the collective codecs "
+        f"(ROADMAP queue A5.2), not ported yet")
 
 
 # ------------------------------------------------------------------ tags
@@ -360,42 +362,92 @@ def _pieces(spans, off: int, size: int):
             yield k, slice(lo - a, hi - a), slice(lo - off, hi - off)
 
 
-def _pack(out: torch.Tensor, tensors, spans, off: int, size: int):
-    """Write the fp32 flat range [off, off + size) of ``tensors`` (the
-    group's concatenation, each cast to fp32) into out[:size]."""
+def _pack(out: torch.Tensor, row_of, spans, off: int, size: int):
+    """Write the fp32 flat range [off, off + size) of the group's
+    concatenation of rows (``row_of(key)``, each cast to fp32) into
+    out[:size]."""
     for k, src, dst in _pieces(spans, off, size):
-        out[dst].copy_(tensors[k].reshape(-1)[src])
+        out[dst].copy_(row_of(k)[src])
     return out[:size]
+
+
+def _group_rows(g, values):
+    """(key, 1-D row) of each leaf of a flat group, made one at a time,
+    whose concatenation is the group's flat buffer (in the values' dtype):
+    this rank's shard-major row of an at-rest block, a row-major leaf
+    (all-gathered from its blocks on a mesh), or the leaf itself (a view)."""
+    from .specs import ShardedTensor
+
+    lo = g.get("layout")
+    for k in g["keys"]:
+        v = values[k]
+        if lo is not None:
+            yield k, lo.local_row(g["plans"][k], v)
+        elif isinstance(v, ShardedTensor):
+            yield k, v.full().reshape(-1)
+        else:
+            yield k, v.reshape(-1)
+
+
+def _rank_groups(groups, params):
+    """``groups`` with the sizes of this rank's flat buffers: a shard-major
+    group's leaves are this rank's rows (``leaf_plan``'s ``local``).  The
+    host-resident shard-major state is per rank, so it takes
+    ``ShardedTensor`` params."""
+    from ..optimizer.optimizer import _sharded
+
+    sharded = _sharded(params.values())
+    out = []
+    for g in groups:
+        if "layout" in g:
+            if not sharded:
+                raise ValueError(
+                    f"group {g['name']}: the host-resident shard-major state "
+                    f"holds this rank's block; pass the params as "
+                    f"ShardedTensor blocks (apply_llama_sharding)")
+            g = dict(g, sizes=[g["plans"][k].local for k in g["keys"]])
+        out.append(g)
+    return out
 
 
 def init_offloaded_state(optimizer, params, decay_mask=None,
                          master_from=None, bucket_bytes: int = 4 << 20,
                          flat_layout=None) -> Dict[str, Any]:
     """``offload_flat_state(optimizer.init_flat_state(...))`` built bucket
-    by bucket, so the whole flat state never sits on the card: zero moments
-    and, for non-fp32 groups under ``multi_precision``, fp32 masters from
-    ``master_from`` (or the params), each bucket packed on the params'
-    device and copied to host memory."""
-    if flat_layout is not None:
-        raise _unported_a5("the shard-major flat_layout")
+    by bucket, so the flat state never sits on the card: zero moments in
+    host memory and, for non-fp32 groups under ``multi_precision``, fp32
+    masters from ``master_from`` (or the params), each bucket packed on
+    the card from the leaves' rows (``_group_rows``, one leaf at a time)
+    and copied to host memory.  With a ``flat_layout`` and
+    ``ShardedTensor`` params the state is this rank's block of the
+    shard-major one, as the JAX package builds it."""
     out: Dict[str, Dict[str, Tuple]] = {}
-    for g in optimizer._flat_groups(params, decay_mask):
+    groups = _rank_groups(optimizer._flat_groups(params, decay_mask,
+                                                 flat_layout), params)
+    for g in groups:
         dev = params[g["keys"][0]].device
         plan = stream_bucket_plan(sum(g["sizes"]), 4, bucket_bytes)
         og = {"moment1": tuple(_host_empty(s, dev).zero_() for _, s in plan),
               "moment2": tuple(_host_empty(s, dev).zero_() for _, s in plan)}
         if optimizer._multi_precision and g["dtype"] != "float32":
             src = master_from if master_from is not None else params
-            src = {k: src[k].to(dev) for k in g["keys"]}
-            spans = _key_spans(g)
+            masters = tuple(_host_empty(s, dev) for _, s in plan)
+            # each bucket is packed in fp32 on the card, then copied out
             stage = torch.empty(max((s for _, s in plan), default=0),
                                 dtype=torch.float32, device=dev)
-            masters = []
-            for off, size in plan:
-                b = _host_empty(size, dev)
-                b.copy_(_pack(stage, src, spans, off, size))
-                masters.append(b)
-            og["master"] = tuple(masters)
+            i, off = 0, 0
+            for _, row in _group_rows(g, src):
+                end, pos = off + row.numel(), off
+                while pos < end:
+                    b0, size = plan[i]
+                    hi = min(b0 + size, end)
+                    stage[pos - b0:hi - b0].copy_(row[pos - off:hi - off])
+                    pos = hi
+                    if hi == b0 + size:
+                        masters[i].copy_(stage[:size])
+                        i += 1
+                off = end
+            og["master"] = masters
         out[g["name"]] = og
     return {"__offload__": out}
 
@@ -487,26 +539,90 @@ def apply_flat_offloaded(optimizer, params, grads, state, lr,
     streams while bucket i updates; the card holds two buckets of staging
     and one bucket of packed gradients, never a whole flat group.  Host
     buffers should be pinned (``init_offloaded_state`` pins them) for the
-    copies to overlap."""
+    copies to overlap.  With ``ShardedTensor`` params (a mesh rank) the
+    stream runs over this rank's rows of the leaves (``_LeafRows``), made
+    as the buckets reach them and written back to the at-rest blocks as
+    the buckets pass them."""
+    from ..optimizer.optimizer import _check_layout
+
     if not state_is_offloaded(state):
         raise ValueError("apply_flat_offloaded needs a state from "
                          "init_offloaded_state / offload_flat_state")
-    if flat_sharding is not None or flat_layout is not None:
-        raise _unported_a5("the shard-major flat_layout")
     if optimizer._regularizer is not None:
         raise NotImplementedError(
             "apply_flat_offloaded: optimizer-level regularizer instances "
             "ride the per-param apply; pass weight_decay as a float")
-    groups = optimizer._flat_groups(params, decay_mask)
-    names = {g["name"] for g in groups}
-    if names != set(state["__offload__"]):
-        raise ValueError(f"offloaded state's groups "
-                         f"{sorted(state['__offload__'])} do not match the "
-                         f"params' {sorted(names)}")
+    groups = optimizer._match_flat_groups(
+        params, {"__flat__": state["__offload__"]}, decay_mask,
+        _check_layout(flat_layout))
     missing = [k for g in groups for k in g["keys"] if grads.get(k) is None]
     if missing:
         raise ValueError(f"apply_flat_offloaded: every grouped param needs "
                          f"a gradient (missing: {missing[:3]}...)")
+    groups = _rank_groups(groups, params)
+    _stream_update(optimizer, groups, _LeafRows(groups, params, grads),
+                   state, lr, step)
+    return dict(params), state
+
+
+class _LeafRows:
+    """The leaves' rows for the bucket stream (``_group_rows``): each made
+    when a bucket first reads it.  Once the stream has passed the end of a
+    leaf's span (``release``), a mesh rank writes its param row back into
+    the at-rest block (``unpack_row`` for a shard-major row, the rank's
+    block of a row-major leaf) and drops both rows: the card holds the
+    rows of the leaves under the buckets in flight, never all of the
+    rank's.  A plain leaf's rows are views of the tensors, updated in
+    place."""
+
+    def __init__(self, groups, params, grads):
+        self.params, self.grads = params, grads
+        self.group = {k: g for g in groups for k in g["keys"]}
+        self.rows_p: Dict[str, torch.Tensor] = {}
+        self.rows_g: Dict[str, torch.Tensor] = {}
+
+    def _row(self, values, k) -> torch.Tensor:
+        g = self.group[k]
+        _, row = next(_group_rows(dict(g, keys=[k]), values))
+        return row
+
+    def param(self, k) -> torch.Tensor:
+        if k not in self.rows_p:
+            self.rows_p[k] = (self._row(self.params, k).clone()
+                              if self._sharded(k)
+                              else self.params[k].view(-1))
+        return self.rows_p[k]
+
+    def grad(self, k) -> torch.Tensor:
+        if k not in self.rows_g:
+            self.rows_g[k] = self._row(self.grads, k)
+        return self.rows_g[k]
+
+    def _sharded(self, k) -> bool:
+        from .specs import ShardedTensor
+
+        return isinstance(self.params[k], ShardedTensor)
+
+    def release(self, k) -> None:
+        from .specs import _block_slices
+
+        row = self.rows_p.pop(k, None)
+        self.rows_g.pop(k, None)
+        if row is None or not self._sharded(k):
+            return
+        p, g = self.params[k], self.group[k]
+        if "layout" in g:
+            block = g["layout"].unpack_row(g["plans"][k], row, p)
+        else:
+            block = row.reshape(p.shape)[_block_slices(p.spec, p.shape,
+                                                       p.mesh)]
+        p.local.copy_(block)
+
+
+def _stream_update(optimizer, groups, rows: _LeafRows, state, lr, step):
+    """The bucket stream of ``apply_flat_offloaded`` over ``groups`` whose
+    leaves' rows (``rows``) concatenate to the state's buffers; updates
+    the params (through ``rows``) and ``state`` in place."""
     tasks = []
     for g in groups:
         gs = state["__offload__"][g["name"]]
@@ -521,8 +637,8 @@ def apply_flat_offloaded(optimizer, params, grads, state, lr,
             tasks.append((g, gs, spans, i, off, size))
             off += size
     if not tasks:
-        return dict(params), state
-    dev = params[groups[0]["keys"][0]].device
+        return
+    dev = rows.params[groups[0]["keys"][0]].device
     cap = max(t[5] for t in tasks)
     keys = {k for t in tasks for k in t[1]}
     lanes = _Lanes(dev)
@@ -554,8 +670,8 @@ def apply_flat_offloaded(optimizer, params, grads, state, lr,
         else:
             if pbuf is None:
                 pbuf = torch.empty(cap, dtype=torch.float32, device=dev)
-            mst = _pack(pbuf, params, spans, off, size)
-        gsl = _pack(gbuf, grads, spans, off, size)
+            mst = _pack(pbuf, rows.param, spans, off, size)
+        gsl = _pack(gbuf, rows.grad, spans, off, size)
         new_master, nm1, nm2 = optimizer._flat_group_update(
             gsl, m1, m2, mst, lr, step, g["decay"])
         m1.copy_(nm1)
@@ -563,7 +679,10 @@ def apply_flat_offloaded(optimizer, params, grads, state, lr,
         if "master" in gs:
             mst.copy_(new_master)
         for k, src, dst in _pieces(spans, off, size):
-            params[k].view(-1)[src].copy_(new_master[dst])
+            rows.param(k)[src].copy_(new_master[dst])
+        for k, _, end in spans:
+            if off < end <= off + size:     # the stream is past this leaf
+                rows.release(k)
         done = lanes.event(lanes.main)
         with lanes.on(lanes.outward):
             lanes.wait(lanes.outward, done)
@@ -571,7 +690,6 @@ def apply_flat_offloaded(optimizer, params, grads, state, lr,
                 bs[i].copy_(slots[s][key][:size], non_blocking=lanes.cuda)
             went_out[s] = lanes.event(lanes.outward)
     lanes.finish()
-    return dict(params), state
 
 
 # ------------------------------------------------------- meter and tuner
@@ -609,7 +727,7 @@ def choose_memory_config(records: Sequence[Dict[str, Any]],
 
 class JointConfig:
     """The joint MemoryConfig x collective-codec lattice point: multi-GPU
-    training (ROADMAP queue A5), not ported."""
+    training (ROADMAP queue A5.2), not ported."""
 
     def __init__(self, *args, **kwargs):
         raise _unported_a5("JointConfig (the memory x codec lattice)")

@@ -1714,3 +1714,76 @@ def test_gpt_moe_train_step_on_cuda_matches_cpu(dev):
         got = out["gpu"][3][k]
         assert (got - want).abs().max().item() <= \
             1e-4 * want.abs().max().item(), k
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["causal", "segments"])
+def test_mesh_step_at_world_size_1_launches_as_meshless(dev, tmp_path,
+                                                        masked):
+    """The mesh train step on a (1, 1, 1) NCCL mesh (one process, the
+    FileStore rendezvous) launches the same attention kernels as the
+    meshless step (B1/B2, or B5/B6 under segment ids), none of their plain
+    versions, and gives its loss and each parameter's change over one fp32
+    AdamW step to 1e-5 relative (plus two fp32 ulps of the tensor's
+    largest value, the rounding of the new parameter): both are the one
+    step body, whose collectives are no-ops at world size 1, on the same
+    fp32 numbers."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         apply_llama_sharding,
+                                         build_train_step, gather_params,
+                                         llama_decay_mask)
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import init_mesh
+
+    cfg = LlamaConfig.debug(vocab=128, hidden=128, layers=2, heads=4,
+                            kv_heads=2, inter=256, max_pos=256)
+    rng = np.random.default_rng(5)
+    ids = torch.from_numpy(rng.integers(0, 128, (2, 2, 96))).to(dev)
+    lab = torch.from_numpy(rng.integers(0, 128, (2, 2, 96))).to(dev)
+    seg = None
+    if masked:
+        seg = torch.ones(2, 2, 96, dtype=torch.int32, device=dev)
+        seg[:, :, 40:] = 2
+        seg[:, 1, 90:] = 0
+    mesh = init_mesh("cuda", (1, 1, 1), store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        out = {}
+        for name in ("meshless", "mesh"):
+            model = LlamaForCausalLM(cfg, device=dev,
+                                     generator=torch.Generator(
+                                         device=dev).manual_seed(3))
+            kw = {}
+            if name == "mesh":
+                apply_llama_sharding(model, mesh)
+                kw["mesh"] = mesh
+            opt = AdamW(1e-3)
+            step = build_train_step(model, opt, compute_dtype=torch.float32,
+                                    accum_steps=2, **kw)
+            params = model.functional_state()
+            before = {k: v.clone() for k, v in gather_params(params).items()}
+            state = opt.init_flat_state(params, llama_decay_mask(model))
+            fa.reset_launches()
+            with chip_smoke.plain_call_counter() as plain:
+                loss, params, _ = step(params, state, 0, 1e-3, ids, lab,
+                                       attention_mask=seg)
+            torch.cuda.synchronize()
+            out[name] = (loss.item(),
+                         {k: (v - before[k], before[k].abs().max().item())
+                          for k, v in gather_params(params).items()},
+                         dict(fa.LAUNCHES), dict(plain))
+    finally:
+        dist.destroy_process_group()
+    (l0, p0, n0, c0), (l1, p1, n1, c1) = out["meshless"], out["mesh"]
+    assert n1 == n0 and not any(c0.values()) and not any(c1.values())
+    fwd = "flash_masked_fwd" if masked else "flash_attention_fwd"
+    assert n0[fwd] == 4 and sum(n for k, n in n0.items()
+                                if "bwd" in k) >= 4, n0
+    assert abs(l1 - l0) <= 1e-5 * abs(l0)
+    ulp = torch.finfo(torch.float32).eps
+    for k, (want, top) in p0.items():
+        # Adam's first step moves every element by about lr
+        assert want.abs().max().item() > 0.5e-3, k
+        assert (p1[k][0] - want).abs().max().item() <= \
+            1e-5 * want.abs().max().item() + 2 * ulp * top, k

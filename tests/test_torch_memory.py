@@ -247,7 +247,8 @@ def test_offloaded_update_guards():
     with pytest.raises(ValueError, match="groups"):
         M.apply_flat_offloaded(opt, p, g, off, LR, 1,
                                decay_mask={"a.w": False})
-    with pytest.raises(NotImplementedError, match="A5"):
+    # the shard-major layout is ported: anything else is refused
+    with pytest.raises(TypeError, match="FlatUpdateLayout"):
         M.apply_flat_offloaded(opt, p, g, off, LR, 1, flat_layout=object())
 
 

@@ -500,6 +500,9 @@ def test_import_guard_walks_every_module():
             "paddle_tpu_torch.optimizer.optimizer",
             "paddle_tpu_torch.ops.random", "paddle_tpu_torch.ops.nn_ops",
             "paddle_tpu_torch.parallel.memory",
+            "paddle_tpu_torch.parallel.specs",
+            "paddle_tpu_torch.parallel.schedule",
+            "paddle_tpu_torch.parallel.compat",
             "paddle_tpu_torch.nn.functional"} <= walked
 
 

@@ -406,13 +406,26 @@ def test_flat_state_guards():
 @pytest.mark.parametrize("option", ["mesh", "overlap", "memory", "health",
                                     "schedule", "remat", "remat_policy"])
 def test_train_step_later_options_raise(option):
-    """The multi-GPU and health options raise naming their ROADMAP item;
-    the memory engine's (``memory``, ``remat``, ``remat_policy``) are
+    """The overlap engine and health options raise naming their ROADMAP
+    item; the memory engine's (``memory``, ``remat``, ``remat_policy``) are
     ported: a value of the wrong type raises TypeError, a valid one builds
-    (tests/test_torch_memory.py holds them against JAX)."""
+    (tests/test_torch_memory.py holds them against JAX).  ``mesh`` and
+    ``schedule`` are ported too: a value of the wrong type raises
+    TypeError, and a mesh without process groups is refused (the mesh step
+    runs on a live mesh, tests/test_torch_mesh_train.py)."""
     from paddle_tpu_torch.parallel import memory as M
+    from paddle_tpu_torch.parallel import Mesh, PartitionSchedule
 
     model = LlamaForCausalLM(LlamaConfig.debug(), device="cpu")
+    if option in ("mesh", "schedule"):
+        with pytest.raises(TypeError, match=option):
+            build_train_step(model, AdamW(1e-3), **{option: object()})
+        mesh = Mesh((1, 2, 2), ("dp", "sharding", "mp"))
+        value = mesh if option == "mesh" else \
+            PartitionSchedule.from_model(model, mesh)
+        with pytest.raises(ValueError, match="live mesh"):
+            build_train_step(model, AdamW(1e-3), **{option: value})
+        return
     valid = {"memory": M.MemoryConfig(remat="full"), "remat": True,
              "remat_policy": M.named_save_policy()}
     if option not in valid:
@@ -450,8 +463,10 @@ def test_masked_routes_raise():
 
 def test_optimizer_later_options_raise():
     """``lr_ratio``, ``grad_clip`` and regularizers are ported
-    (tests/test_torch_optimizer.py holds them against JAX); the
-    shard-major flat layout of multi-GPU training still raises."""
+    (tests/test_torch_optimizer.py holds them against JAX); so is the
+    shard-major flat layout of multi-GPU training (tests/
+    test_torch_mesh_specs.py and test_torch_mesh_train.py): anything but a
+    ``FlatUpdateLayout`` is refused."""
     from paddle_tpu_torch.optimizer import ClipGradByGlobalNorm
 
     assert AdamW(1e-3, lr_ratio=lambda p: 1.0)._lr_ratio_fn is not None
@@ -459,8 +474,8 @@ def test_optimizer_later_options_raise():
     assert AdamW(1e-3, grad_clip=clip)._grad_clip is clip
     opt = AdamW(1e-3)
     p = _torch_params(_opt_params())
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(TypeError, match="FlatUpdateLayout"):
         opt.init_flat_state(p, flat_layout=object())
     st = opt.init_flat_state(p)
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(TypeError, match="FlatUpdateLayout"):
         opt.apply_flat(p, p, st, 1e-3, 1, flat_layout=object())
