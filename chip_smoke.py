@@ -175,6 +175,24 @@ host residency saves less than 80 % of the 12 B per parameter of the
 device-resident state at the mesh step's peak; it prints ms per step,
 the losses and peak device bytes of each run.
 
+The ``overlap_train`` phase follows on a new (1, 1, 1) NCCL mesh: the same
+cell through ``build_train_step(mesh, overlap=OverlapConfig())`` beside
+the same step with ``overlap=None`` (the mesh_train path of each, then
+OVERLAP_TURNS timed steps of the two in turns, then one step of each under
+``MemoryConfig(remat="full")``).  It raises where a loss differs from the
+mesh step's by more than 2e-2 relative, where an attention call was not a
+kernel launch, where the launch counts (wrappers and profiler) differ from
+the mesh step's, or where a plain version was called; it prints whether
+the losses are equal bit for bit, ms per step and peak bytes.  At world
+size 1 every collective is a no-op: it measures no hidden communication.
+The ``codec`` phase then encodes a CODEC_SHAPE fp32 payload on the card
+under int8 (stochastic and round-to-nearest, the latter checksummed) and
+fp8: the packed bytes must equal the CPU encode's bit for bit, each block
+decode within its profile's bound, one flipped byte must poison exactly
+its row and make ``verify_rows_host`` raise; encode and decode ms beside
+a bytes bound.  The codec is not a TPU kernel and is not in the kernels
+line.
+
 Kernel times are the median of their reps (CUDA events, L2 flushed before
 each rep), with the min and max beside them in the record.  Exits
 non-zero, printing no result, when CUDA is not available or the package is
@@ -2188,8 +2206,9 @@ def mesh_setup(dev, mesh, host=False):
     return cfg, model, sched, params, opt, state
 
 
-def _mesh_run(what, dev, mesh, ids, labels, seg, host=False):
-    """One path of the mesh_train phase (``mesh`` None: the meshless step):
+def _mesh_run(what, dev, mesh, ids, labels, seg, host=False, overlap=None):
+    """One path of the mesh_train phase (``mesh`` None: the meshless step;
+    ``overlap``: the overlap_train phase's OverlapConfig):
     TRAIN_WARMUP + TRAIN_STEPS unmasked steps at MESH_ACCUM, their LAUNCHES
     and plain calls and peak device bytes; then, but for the host-resident
     state (``host``: those steps only), one masked step at
@@ -2204,7 +2223,7 @@ def _mesh_run(what, dev, mesh, ids, labels, seg, host=False):
     else:
         cfg, model, sched, params, opt, state = mesh_setup(dev, mesh, host)
         n_params = sum(v.local.numel() for v in params.values())
-        kw = {"mesh": mesh, "schedule": sched}
+        kw = {"mesh": mesh, "schedule": sched, "overlap": overlap}
     step = build_train_step(model, opt, compute_dtype=torch.bfloat16,
                             accum_steps=MESH_ACCUM, **kw)
     masked = build_train_step(model, opt, compute_dtype=torch.bfloat16,
@@ -2372,6 +2391,364 @@ def mesh_train_phase(dev):
                                    "mesh_host": h["peak_device_bytes"]},
                 host_peak_saving=saved, required_saving=need,
                 meshless=a, mesh_step=b, mesh_host=h)
+
+
+# ------------------------------------------------------- overlap_train phase
+
+OVERLAP_TURNS = 3
+
+
+def _overlap_turns(dev, mesh, ids, labels, overlap, rounds=OVERLAP_TURNS):
+    """The mesh step and the overlap step, each on its own copy of the same
+    weights, one step each in turn: a warm-up round, then ``rounds``
+    timed ones.  ({path: [ms per step]}, {path: [losses]})."""
+    import torch
+    from paddle_tpu_torch.models import build_train_step
+
+    runs = {}
+    for name, oc in (("mesh", None), ("overlap", overlap)):
+        cfg, model, sched, params, opt, state = mesh_setup(dev, mesh)
+        runs[name] = [build_train_step(model, opt,
+                                       compute_dtype=torch.bfloat16,
+                                       accum_steps=MESH_ACCUM, mesh=mesh,
+                                       schedule=sched, overlap=oc),
+                      params, state]
+        del model, params, state
+    ms = {n: [] for n in runs}
+    losses = {n: [] for n in runs}
+    for i in range(rounds + 1):
+        for name, r in runs.items():
+            t0 = time.perf_counter()
+            loss, r[1], r[2] = r[0](r[1], r[2], i, TRAIN_LR, ids, labels)
+            _sync()
+            if i:
+                ms[name].append((time.perf_counter() - t0) * 1e3)
+            losses[name].append(loss.item())
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ms, losses
+
+
+def _overlap_remat(dev, mesh, ids, labels, overlap):
+    """One step of the mesh step and of the overlap step under
+    MemoryConfig(remat="full") (the overlap layer's gathers inside the
+    checkpoint): loss, ms, launches, plain calls and peak bytes of each."""
+    import torch
+    from paddle_tpu_torch.models import build_train_step
+    from paddle_tpu_torch.parallel.memory import MemoryConfig
+
+    out = {}
+    for name, oc in (("mesh", None), ("overlap", overlap)):
+        cfg, model, sched, params, opt, state = mesh_setup(dev, mesh)
+        step = build_train_step(model, opt, compute_dtype=torch.bfloat16,
+                                accum_steps=MESH_ACCUM, mesh=mesh,
+                                schedule=sched, overlap=oc,
+                                memory=MemoryConfig(remat="full"))
+        torch.cuda.reset_peak_memory_stats()
+        carry = [params, state]
+        del params, state
+        losses, walls, params, state, counts, plain = train_steps(
+            step, carry, 1, ids, labels)
+        out[name] = dict(loss=losses[0], ms=walls[0] * 1e3,
+                         launches=counts, plain_calls=plain,
+                         peak_device_bytes=torch.cuda.max_memory_allocated())
+        del model, params, state, step, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+BUCKET_LEG_SHAPES = {"a.weight": (1024, 2048), "b.weight": (2048, 1024)}
+BUCKET_LEG_LAYERS = 3
+BUCKET_LEG_TOL = 1e-5
+
+
+def overlap_bucket_leg(dev, mesh):
+    """The overlap engine's bucket path on CUDA tensors, which the train
+    cell at world size 1 does not reach (``sharding`` of size 1 cuts no
+    leaf, so the stack plans no bucket).  A hand-made layout puts the two
+    BUCKET_LEG_SHAPES leaves of each of BUCKET_LEG_LAYERS layers in one
+    bucket (cut along dim 0, at sh 1); ``_pack_bucket`` ->
+    ``gathered_layer_scan`` (``BucketTransport.attach``,
+    ``_unpack_bucket_full``) -> backward -> ``StackGrads.wait_all`` ->
+    ``_unpack_bucket_grads`` give each leaf's gradient, held with the
+    input's to BUCKET_LEG_TOL relative of plain autograd on the leaves.
+    Run prefetched and under remat, with the engine's transport (axis
+    None: no collective) and with one whose gathers and reductions are
+    asynchronous collectives (NCCL on the card) over the one-rank
+    ``sharding`` group, waited through the engine's ``Pending`` and
+    ``StackGrads``."""
+    import torch
+    import torch.distributed as dist
+    from paddle_tpu_torch.parallel import overlap as ov
+    from paddle_tpu_torch.parallel.compat import Pending, _quiet
+
+    group = mesh.group("sharding")
+
+    class NcclTransport(ov.BucketTransport):
+        def _issue(self, fn, t, async_op):
+            t = t.detach().contiguous()
+            buf = torch.empty_like(t)
+            p = Pending(_quiet(fn, buf, t, group=group, async_op=True), buf)
+            return p if async_op else p.wait()
+
+        def gather(self, local, async_op=False):
+            return self._issue(dist.all_gather_into_tensor, local, async_op)
+
+        def reduce(self, g, async_op=False):
+            return self._issue(dist.reduce_scatter_tensor, g, async_op)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    shapes = BUCKET_LEG_SHAPES
+    bucket = sorted(shapes)
+    layout = {s: ov._LeafPlace(s, shp, 0, None) for s, shp in shapes.items()}
+    L = BUCKET_LEG_LAYERS
+    leaves = {s: [(torch.randn(shp, generator=gen, device=dev)
+                   / shp[0] ** 0.5).requires_grad_() for _ in range(L)]
+              for s, shp in shapes.items()}
+    x0 = torch.randn(4, 256, shapes["a.weight"][0], generator=gen,
+                     device=dev).requires_grad_()
+
+    def layer_fn(lp, x):
+        return x + torch.tanh(x @ lp["a.weight"]) @ lp["b.weight"]
+
+    flat = [leaves[s][i] for i in range(L) for s in bucket]
+    x = x0
+    for i in range(L):
+        x = layer_fn({s: leaves[s][i] for s in bucket}, x)
+    want = torch.autograd.grad(x.square().mean(), flat + [x0])
+    out = {}
+    for name, transport in (("engine", ov.make_bucket_gather(None,
+                                                             mesh=mesh)),
+                            ("nccl_async", NcclTransport(None, mesh=mesh))):
+        for remat in (False, True):
+            sink = ov.StackGrads()
+            packed = ov._pack_bucket(leaves, bucket, shapes, torch.float32)
+            y = ov.gathered_layer_scan(
+                layer_fn, [packed], [[] for _ in range(L)], x0, [bucket], [],
+                layout, 1, 1, [transport], None, ov.OverlapConfig(),
+                remat=remat, anchors=[[tuple(leaves[s][i] for s in bucket)
+                                       for i in range(L)]], sink=sink)
+            auto = torch.autograd.grad(y.square().mean(), flat + [x0],
+                                       allow_unused=True)
+            if any(g is not None for g in auto[:-1]):
+                raise AssertionError("overlap bucket leg: a bucketed leaf "
+                                     "got a gradient outside its bucket")
+            done = sink.wait_all()
+            if sorted(done) != [(0, i) for i in range(L)]:
+                raise AssertionError(f"overlap bucket leg: reductions "
+                                     f"{sorted(done)}")
+            cut = ov._unpack_bucket_grads([done[(0, i)] for i in range(L)],
+                                          bucket, shapes, leaves)
+            got = [cut[s][i] for i in range(L) for s in bucket] + [auto[-1]]
+            err = max(((g - w).abs().max() / w.abs().max()).item()
+                      for g, w in zip(got, want))
+            out[f"{name}{'_remat' if remat else ''}"] = dict(
+                max_rel_err=err,
+                bitwise=all(torch.equal(g, w) for g, w in zip(got, want)))
+    print("overlap bucket leg: " + json.dumps(out), flush=True)
+    bad = {k: v for k, v in out.items() if not v["max_rel_err"]
+           <= BUCKET_LEG_TOL}
+    if bad:
+        raise AssertionError(f"overlap bucket leg: gradients off plain "
+                             f"autograd: {bad}")
+    return dict(shapes=shapes, layers=L, tol=BUCKET_LEG_TOL, runs=out)
+
+
+def overlap_train_phase(dev):
+    """The train cell (bench.py:57-67 at full width and depth, accum
+    MESH_ACCUM as mesh_train) through ``build_train_step(mesh,
+    overlap=OverlapConfig())`` on the (1, 1, 1) NCCL mesh, beside the same
+    step with ``overlap=None`` on the same weights and batches: the mesh_train
+    path of each (steps, a masked step at MESH_MASKED_ACCUM, the
+    accumulation alone, profiled micro-steps), the two in turns for their ms
+    a step, and one step of each under MemoryConfig(remat="full").  At
+    world size 1 every collective is a no-op and ``sharding`` cuts nothing,
+    so the overlap stack runs its layer code and its per-layer packing of
+    the grad-sync leaves, not its bucket transport, which
+    ``overlap_bucket_leg`` drives on its own; nothing here measures hidden
+    communication.  Raises where a loss differs from the mesh step's
+    by more than TRAIN_LOSS_TOL relative, where an attention call was not a
+    kernel launch, where the launch counts (wrappers and profiler) differ
+    from the mesh step's, or where a plain version was called."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from paddle_tpu_torch.parallel.overlap import OverlapConfig
+
+    oc = OverlapConfig()
+    mesh, checks = mesh_world1(dev)
+    try:
+        rng = np.random.default_rng(SEED)
+        shape = (MESH_ACCUM, TRAIN_BATCH, TRAIN_SEQ)
+        ids = torch.from_numpy(rng.integers(0, TRAIN_CFG["vocab_size"],
+                                            shape)).to(dev)
+        labels = torch.from_numpy(rng.integers(0, TRAIN_CFG["vocab_size"],
+                                               shape)).to(dev)
+        seg, _ = packed_documents(np.random.default_rng(SEED + 1),
+                                  MESH_MASKED_ACCUM * TRAIN_BATCH, TRAIN_SEQ,
+                                  DOC_MEDIAN, pad=True)
+        seg = torch.from_numpy(seg.reshape(
+            (MESH_MASKED_ACCUM, TRAIN_BATCH, TRAIN_SEQ))).to(dev)
+        a = _mesh_run("overlap_train mesh", dev, mesh, ids, labels, seg)
+        b = _mesh_run("overlap_train overlap", dev, mesh, ids, labels, seg,
+                      overlap=oc)
+        turns_ms, turns_losses = _overlap_turns(dev, mesh, ids, labels, oc)
+        remat = _overlap_remat(dev, mesh, ids, labels, oc)
+        bucket_leg = overlap_bucket_leg(dev, mesh)
+    finally:
+        dist.destroy_process_group()
+    layers = TRAIN_CFG["num_hidden_layers"]
+    steps = TRAIN_WARMUP + TRAIN_STEPS
+    for r in (a, b):
+        check_launches("overlap_train", r["launches"], r["plain_calls"],
+                       flash_attention_fwd=layers * MESH_ACCUM * steps,
+                       flash_attention_bwd=layers * MESH_ACCUM * steps)
+        check_launches("overlap_train masked", r["masked_launches"],
+                       r["masked_plain_calls"],
+                       flash_masked_fwd=layers * MESH_MASKED_ACCUM,
+                       flash_masked_bwd_fused=layers * MESH_MASKED_ACCUM)
+    for r in remat.values():
+        # full remat: each layer's forward runs again in the backward
+        check_launches("overlap_train remat", r["launches"],
+                       r["plain_calls"],
+                       flash_attention_fwd=2 * layers * MESH_ACCUM,
+                       flash_attention_bwd=layers * MESH_ACCUM)
+    for key in ("launches", "masked_launches", "profiled_per_micro_step",
+                "masked_profiled_per_micro_step"):
+        if b[key] != a[key]:
+            raise AssertionError(f"overlap_train: {key} overlap {b[key]} "
+                                 f"vs mesh {a[key]}")
+    pairs = [(f"step{i}", b["losses"][i], a["losses"][i])
+             for i in range(len(a["losses"]))]
+    pairs.append(("masked", b["masked_loss"], a["masked_loss"]))
+    pairs += [(f"turn{i}", x, y) for i, (x, y) in enumerate(
+        zip(turns_losses["overlap"], turns_losses["mesh"]))]
+    pairs.append(("remat", remat["overlap"]["loss"],
+                  remat["mesh"]["loss"]))
+    pairs.append(("remat_vs_step0", remat["overlap"]["loss"],
+                  a["losses"][0]))
+    rel = {k: abs(x - y) / abs(y) for k, x, y in pairs}
+    bitwise = {k: x == y for k, x, y in pairs}
+    if not all(v <= TRAIN_LOSS_TOL for v in rel.values()):
+        raise AssertionError(f"overlap_train: overlap vs mesh losses {rel} "
+                             f"> {TRAIN_LOSS_TOL}")
+    if not all(np.isfinite(b["losses"])) or \
+            not b["losses"][-1] < b["losses"][0]:
+        raise AssertionError(f"overlap_train: losses {b['losses']} not "
+                             f"finite and falling")
+    med = {k: statistics.median(v) for k, v in turns_ms.items()}
+    return dict(config=TRAIN_CFG, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                accum=MESH_ACCUM, masked_accum=MESH_MASKED_ACCUM,
+                reduced=[f"accum {MESH_ACCUM} instead of 64 (masked step: "
+                         f"accum {MESH_MASKED_ACCUM}), as mesh_train"],
+                mesh=[1, 1, 1], overlap=dataclasses.asdict(oc),
+                collectives=checks, loss_rel=rel, losses_bitwise=bitwise,
+                tol=TRAIN_LOSS_TOL, turns_ms=turns_ms,
+                ms_per_step=med,
+                overlap_minus_mesh_ms=med["overlap"] - med["mesh"],
+                run_ms_per_step={"mesh": a["ms_per_step"],
+                                 "overlap": b["ms_per_step"]},
+                accumulate_ms={"mesh": a["accumulate_ms"],
+                               "overlap": b["accumulate_ms"]},
+                peak_device_bytes={"mesh": a["peak_device_bytes"],
+                                   "overlap": b["peak_device_bytes"],
+                                   "mesh_remat": remat["mesh"][
+                                       "peak_device_bytes"],
+                                   "overlap_remat": remat["overlap"][
+                                       "peak_device_bytes"]},
+                remat=remat, bucket_leg=bucket_leg, mesh_step=a,
+                overlap_step=b)
+
+
+# --------------------------------------------------------------- codec phase
+
+# one train-cell layer's seven projection weights in 8 rows
+CODEC_SHAPE = (8, 5537792)
+CODEC_PROFILES = (("int8_sr", "int8", True, False),
+                  ("int8", "int8", False, True),
+                  ("fp8", "fp8", False, False))
+CODEC_TOL = {"int8_sr": 1.0 / 127, "int8": 0.5 / 127, "fp8": 1.0 / 16}
+CODEC_REPS = 20
+
+
+def codec_phase(dev, flush):
+    """parallel/codec.py on the card: a CODEC_SHAPE fp32 payload drawn from
+    SEED on the card (a wide dynamic range across blocks), encoded there
+    under int8 with stochastic rounding, int8 round-to-nearest (with the
+    row checksum) and fp8.  Raises unless the packed bytes equal the CPU
+    encode of the same input bit for bit, unless each block decodes within
+    its profile's bound of its absmax, and unless one flipped byte poisons
+    exactly its row to NaN in decode_rows and raises ChecksumError in
+    verify_rows_host.  Times encode and decode (CUDA events, median, min,
+    max) beside a bytes bound: fp32 read and the packed row written, and
+    back."""
+    import torch
+    from paddle_tpu_torch.parallel import codec as C
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows, n = CODEC_SHAPE
+    x = torch.randn(CODEC_SHAPE, generator=gen, device=dev) * torch.exp(
+        2 * torch.randn(CODEC_SHAPE, generator=gen, device=dev))
+    x_cpu = x.cpu()
+    out = []
+    for name, profile, sr, cs in CODEC_PROFILES:
+        codec = C.CollectiveCodec(checksum=cs)
+        packed = C.encode_rows(x, codec, profile, stochastic=sr)
+        cpu = C.encode_rows(x_cpu, codec, profile, stochastic=sr)
+        same = bool(torch.equal(packed.cpu(), cpu))
+        y = C.decode_rows(packed, n, codec, profile)
+        nb = C.num_blocks(n, codec.block)
+        amax = x.reshape(rows, nb, codec.block).abs().amax(-1)
+        err = (y - x).abs().reshape(rows, nb, codec.block).amax(-1)
+        worst = float((err / amax.clamp_min(1e-30)).max())
+        within = bool((err <= amax * CODEC_TOL[name] * 1.02 + 1e-12).all())
+        poisoned = None
+        if cs:
+            C.verify_rows_host(packed)
+            bad = packed.clone()
+            bad[3, 12345] ^= 0x10
+            dec = C.decode_rows(bad, n, codec, profile)
+            nan_rows = torch.isnan(dec).any(dim=1).cpu().tolist()
+            try:
+                C.verify_rows_host(bad)
+                raised = False
+            except C.ChecksumError:
+                raised = True
+            poisoned = bool(torch.isnan(dec[3]).all()) and \
+                nan_rows == [r == 3 for r in range(rows)] and raised
+            del bad, dec
+        enc = timing(lambda: C.encode_rows(x, codec, profile,
+                                           stochastic=sr), CODEC_REPS, flush)
+        dec_t = timing(lambda: C.decode_rows(packed, n, codec, profile),
+                       CODEC_REPS, flush)
+        nbytes = x.numel() * 4 + packed.numel()
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        r = dict(name=name, profile=profile, stochastic=sr, checksum=cs,
+                 shape=list(CODEC_SHAPE), packed_width=packed.shape[1],
+                 wire_ratio=C.wire_ratio(n, codec.block),
+                 bytes_equal_cpu=same, within_block_bound=within,
+                 worst_block_err=worst, tol=CODEC_TOL[name],
+                 checksum_poisons_row=poisoned,
+                 encode_ms=enc[0], encode_min=enc[1], encode_max=enc[2],
+                 decode_ms=dec_t[0], decode_min=dec_t[1],
+                 decode_max=dec_t[2], bound_ms=b_ms, bound_by="bytes")
+        print(f"codec {name} {list(CODEC_SHAPE)}: bytes_equal_cpu={same} "
+              f"worst_block_err={worst:.3g} (tol {CODEC_TOL[name]:.3g}) "
+              f"poisoned={poisoned} encode_ms={enc[0]:.4f} [{enc[1]:.4f}, "
+              f"{enc[2]:.4f}] decode_ms={dec_t[0]:.4f} [{dec_t[1]:.4f}, "
+              f"{dec_t[2]:.4f}] bound_ms={b_ms:.4f} (bytes)", flush=True)
+        out.append(r)
+        del packed, cpu, y
+    del x, x_cpu
+    torch.cuda.empty_cache()
+    failed = [r["name"] for r in out
+              if not (r["bytes_equal_cpu"] and r["within_block_bound"]
+                      and r["checksum_poisons_row"] is not False)]
+    if failed:
+        raise AssertionError(f"codec phase: {failed} failed: {out}")
+    return out
 
 
 def long_context_phase(dev):
@@ -4358,7 +4735,24 @@ def main() -> int:
                             "host_peak_saving", "required_saving")})
         + f" ({card})", flush=True)
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    ot = record["overlap_train"] = overlap_train_phase(dev)
+    print("overlap_train: " + json.dumps(
+        {k: ot[k] for k in ("mesh", "accum", "masked_accum", "reduced",
+                            "loss_rel", "losses_bitwise", "ms_per_step",
+                            "turns_ms", "overlap_minus_mesh_ms",
+                            "run_ms_per_step", "accumulate_ms",
+                            "peak_device_bytes")})
+        + f" ({card})", flush=True)
+    print("overlap_train remat: " + json.dumps(
+        {k: {f: v[f] for f in ("loss", "ms", "peak_device_bytes")}
+         for k, v in ot["remat"].items()}) + f" ({card})", flush=True)
+
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=dev)
+    record["codec"] = codec_phase(dev, flush)
+    print(f"codec: {len(record['codec'])} profiles checked ({card})",
+          flush=True)
     record["grouped_kernels"] = gmm_cases(dev, flush)
     del flush
     torch.cuda.empty_cache()
@@ -4548,7 +4942,10 @@ def main() -> int:
                 "llama3_8b": sum(r["launches"][name]
                                  for r in big["steps"]),
                 "gpt_moe_train": gpt["launches_total"][name],
-                "mesh_train": mt["mesh_step"]["launches"][name]},
+                "mesh_train": mt["mesh_step"]["launches"][name],
+                "overlap_train": ot["overlap_step"]["launches"][name],
+                "overlap_train_remat": ot["remat"]["overlap"]["launches"][
+                    name]},
             "gpt_moe_shape": next(
                 {k: r[k] for k in ("shape", "err", "max_abs_err", "ms",
                                    "ms_min", "ms_max", "plain_ms",
@@ -4590,7 +4987,9 @@ def main() -> int:
             "launches": record[path]["launches"][name],
             "launches_by_path": {
                 path: record[path]["launches"][name],
-                "mesh_train": mt["mesh_step"]["masked_launches"][name]},
+                "mesh_train": mt["mesh_step"]["masked_launches"][name],
+                "overlap_train": ot["overlap_step"]["masked_launches"][
+                    name]},
             "max_abs_err": bf16["max_abs_err"][route],
             "ms": bf16["times_ms"][kernel],
             "wrapper_ms": bf16["times_ms"]["wrapper_" + route],

@@ -13,10 +13,12 @@ mesh of any sizes (data-parallel x ZeRO-3 x Megatron tensor-parallel on
 ``torch.distributed``, ``_MeshPlan``) or, with ``mesh=None``, on the mesh
 of one rank, which needs no process group (unmasked and token-weighted
 masked, with the memory engine's remat policies and host-resident
-optimizer state).  ``LlamaForCausalLM`` holds
-its parameters under exactly the names of the JAX model's
-``functional_state()`` (``model.layers.0.self_attn.q_proj.weight``,
-``lm_head.weight``, ...), with Paddle's ``[in, out]`` Linear layout, so a
+optimizer state); with ``overlap=`` the decoder stack runs through the
+communication-overlap engine (``_build_overlap_forward``).
+``LlamaForCausalLM`` holds its parameters under exactly the names of the
+JAX model's ``functional_state()``
+(``model.layers.0.self_attn.q_proj.weight``, ``lm_head.weight``, ...),
+with Paddle's ``[in, out]`` Linear layout, so a
 JAX state dict crosses through numpy with no renaming or transpose
 (``params_from_jax``).
 """
@@ -409,9 +411,69 @@ def llama_forward(cfg: LlamaConfig, params: Dict[str, torch.Tensor],
     return _forward(cfg, params, input_ids, position_ids, rope, seg, sri)
 
 
+def decoder_layer_forward(x, cos, sin, cfg, weight: Callable, mm: Callable,
+                          row: Callable, *, seg=None, sri=None, mesh=None,
+                          attn_tp: bool = False, mlp_tp: bool = False,
+                          gather: Optional[Tuple[str, ...]] = None,
+                          tag: Optional[Callable] = None) -> torch.Tensor:
+    """One decoder layer: the one body of ``_forward``'s layer loop and of
+    the overlap engine's ``parallel.overlap.decoder_layer_tp``.  RMSNorm,
+    q/k/v with the rotary embedding (``cos``/``sin`` broadcastable to [b,
+    s, h, d]), causal flash attention (B1/B2 on the card; B5/B6 under the
+    segment ids ``seg``; FlashMask under the bands ``sri``) and o_proj,
+    then RMSNorm and the SwiGLU MLP, each block added to the residual.
+
+    The caller places the weights and the reductions (``name`` is the
+    suffix within the layer, as ``"self_attn.q_proj.weight"``):
+    ``weight(name)`` is a norm's weight, ``mm(h, name)`` the product with
+    an input projection, ``row(y, name, tp)`` the product with an output
+    projection, reduced over ``mp`` when ``tp``.  ``attn_tp``/``mlp_tp``:
+    the block is tensor-parallel over ``mp`` (its input passes
+    ``pbroadcast``).  ``gather``: None when attention runs on this rank's
+    heads; else every rank runs all heads, the projections named in it
+    (``"q"``, ``"k"``, ``"v"``) are all-gathered over ``mp``, and the rank
+    keeps its columns for o_proj.  ``tag(t, name)`` places the memory
+    engine's saveable tags."""
+    from ..parallel import compat
+
+    b, s, _ = x.shape
+    d, eps = cfg.head_dim, cfg.rms_norm_eps
+    tag = tag if tag is not None else (lambda t, name: t)
+    h = fused_rms_norm(x, weight("input_layernorm.weight"), eps)
+    if attn_tp:
+        h = compat.pbroadcast(h, "mp", mesh=mesh)
+    qkv = []
+    for r in ("q", "k", "v"):
+        t = mm(h, f"self_attn.{r}_proj.weight")
+        if gather is not None and r in gather:
+            t = compat.all_gather(t, "mp", axis=2, mesh=mesh)
+        qkv.append(t.reshape(b, s, -1, d))
+    q, k, v = qkv
+    q, k = fused_rotary_position_embedding(q, k, sin=sin, cos=cos)
+    if sri is not None:
+        attn = flashmask_attention_raw(q, k, v, sri, causal=True)
+    else:
+        attn = flash_attention(q, k, v, causal=True, q_segment_ids=seg,
+                               kv_segment_ids=seg)
+    attn = attn.reshape(b, s, -1)
+    if gather is not None:
+        cols = attn.shape[2] // int(mesh.shape["mp"])
+        attn = attn.narrow(2, mesh.axis_index("mp") * cols, cols)
+    out = row(attn, "self_attn.o_proj.weight", attn_tp)
+    x = x + tag(out, "decoder_attn_out")
+    h = fused_rms_norm(x, weight("post_attention_layernorm.weight"), eps)
+    if mlp_tp:
+        h = compat.pbroadcast(h, "mp", mesh=mesh)
+    out = row(swiglu(mm(h, "mlp.gate_proj.weight"),
+                     mm(h, "mlp.up_proj.weight")),
+              "mlp.down_proj.weight", mlp_tp)
+    return x + tag(out, "decoder_mlp_out")
+
+
 def _forward(cfg, params, input_ids, position_ids, rope, seg, sri,
              plan=None, remat: bool = False,
-             remat_policy: Optional[_memory.SavePolicy] = None):
+             remat_policy: Optional[_memory.SavePolicy] = None,
+             stack: Optional[Callable] = None):
     """``llama_forward`` on normalised masks (int32 segment ids or bands):
     the one forward body, of ``llama_forward`` and of the train step.
     ``plan`` None: the params are whole tensors and the logits are [b, s,
@@ -425,17 +487,18 @@ def _forward(cfg, params, input_ids, position_ids, rope, seg, sri,
     non-reentrant checkpoint that keeps what ``remat_policy`` names (None:
     nothing, full remat); under a policy that reads the tags, the layer
     tags its attention-block and MLP-block outputs ``decoder_attn_out`` and
-    ``decoder_mlp_out`` (the JAX layer's ``checkpoint_name`` tags)."""
+    ``decoder_mlp_out`` (the JAX layer's ``checkpoint_name`` tags).
+    ``stack(x, cos, sin, seg)`` (the overlap engine's decoder stack, which
+    takes segment ids and no bands) runs the decoder layers instead of the
+    loop here; each layer of either is ``decoder_layer_forward``."""
     from ..parallel import compat
 
     plan = plan if plan is not None else _ONE_DEVICE
     mesh = plan.mesh
-    b, s = input_ids.shape
-    H, d = cfg.num_attention_heads, cfg.head_dim
-    eps = cfg.rms_norm_eps
+    s = input_ids.shape[1]
     if rope is None:
         rope = tuple(t.to(input_ids.device) for t in _rope_tables(
-            d, cfg.max_position_embeddings, cfg.rope_theta))
+            cfg.head_dim, cfg.max_position_embeddings, cfg.rope_theta))
     cos_t, sin_t = rope
     if position_ids is None:
         cos, sin = cos_t[:s][None, :, None], sin_t[:s][None, :, None]
@@ -467,50 +530,28 @@ def _forward(cfg, params, input_ids, position_ids, rope, seg, sri,
     def layer(x, i):
         pre = f"model.layers.{i}."
 
-        def w(name):
-            return params[pre + name + ".weight"]
+        def row(y, name, tp):
+            out = mm(y, pre + name)
+            return compat.psum(out, "mp", mesh=mesh) if tp else out
 
-        h = fused_rms_norm(x, w("input_layernorm"), eps)
-        if plan.attn_tp:
-            h = compat.pbroadcast(h, "mp", mesh=mesh)
-        qkv = []
-        for r in ("q", "k", "v"):
-            t = mm(h, pre + f"self_attn.{r}_proj.weight")
-            if plan.gather_heads and plan.split[f"self_attn.{r}_proj"]:
-                t = compat.all_gather(t, "mp", axis=2, mesh=mesh)
-            qkv.append(t.reshape(b, s, -1, d))
-        q, k, v = qkv
-        q, k = fused_rotary_position_embedding(q, k, sin=sin, cos=cos)
+        return decoder_layer_forward(
+            x, cos, sin, cfg, lambda n: params[pre + n],
+            lambda h, n: mm(h, pre + n), row, seg=seg, sri=sri, mesh=mesh,
+            attn_tp=plan.attn_tp, mlp_tp=plan.mlp_tp, gather=plan.gather,
+            tag=tag)
+
+    if stack is not None:
         if sri is not None:
-            attn = flashmask_attention_raw(q, k, v, sri, causal=True)
-        else:
-            attn = flash_attention(q, k, v, causal=True, q_segment_ids=seg,
-                                   kv_segment_ids=seg)
-        attn = attn.reshape(b, s, -1)
-        if plan.gather_heads:
-            cols = H * d // plan.mp
-            attn = attn.narrow(2, mesh.axis_index("mp") * cols, cols)
-        out = mm(attn, pre + "self_attn.o_proj.weight")
-        if plan.attn_tp:
-            out = compat.psum(out, "mp", mesh=mesh)
-        x = x + tag(out, "decoder_attn_out")
-        h = fused_rms_norm(x, w("post_attention_layernorm"), eps)
-        if plan.mlp_tp:
-            h = compat.pbroadcast(h, "mp", mesh=mesh)
-        out = mm(swiglu(mm(h, pre + "mlp.gate_proj.weight"),
-                        mm(h, pre + "mlp.up_proj.weight")),
-                 pre + "mlp.down_proj.weight")
-        if plan.mlp_tp:
-            out = compat.psum(out, "mp", mesh=mesh)
-        return x + tag(out, "decoder_mlp_out")
-
-    checkpointed = remat and torch.is_grad_enabled()
-    for i in range(cfg.num_hidden_layers):
-        if checkpointed:
-            x = _memory.checkpoint_layer(layer, remat_policy, x, i)
-        else:
-            x = layer(x, i)
-    h = fused_rms_norm(x, params["model.norm.weight"], eps)
+            raise ValueError("the overlap stack takes segment ids, not "
+                             "FlashMask bands")
+        x = stack(x, cos, sin, seg)
+    else:
+        for i in range(cfg.num_hidden_layers):
+            if remat and torch.is_grad_enabled():
+                x = _memory.checkpoint_layer(layer, remat_policy, x, i)
+            else:
+                x = layer(x, i)
+    h = fused_rms_norm(x, params["model.norm.weight"], cfg.rms_norm_eps)
     if plan.head_split:
         h = compat.pbroadcast(h, "mp", mesh=mesh)
     if cfg.tie_word_embeddings:
@@ -673,8 +714,8 @@ class _OneDevice:
     """The plan of whole tensors on one device (``llama_forward``): no
     collective anywhere."""
 
-    mesh, mp = None, 1
-    attn_tp = mlp_tp = gather_heads = vocab_split = head_split = False
+    mesh, mp, gather = None, 1, None
+    attn_tp = mlp_tp = vocab_split = head_split = False
 
     @staticmethod
     def leaf(name: str) -> _Leaf:
@@ -694,7 +735,7 @@ class _MeshPlan:
       ``pbroadcast``, the output is ``psum``-ed);
     - attention runs on this rank's heads when q, k and v split over ``mp``
       on whole heads (``heads % mp == 0`` and ``kv_heads % mp == 0``);
-      otherwise (``gather_heads``) q/k/v are all-gathered over ``mp``, every
+      otherwise (``gather``) q/k/v are all-gathered over ``mp``, every
       rank runs all heads and keeps its columns for ``o_proj``;
     - the embedding and the head are vocab-parallel when the vocab splits
       over ``mp``;
@@ -751,7 +792,9 @@ class _MeshPlan:
             raise ValueError("gate/up must split over mp with down_proj")
         self.local_heads = self.attn_tp and all(self.split[r] for r in qkv) \
             and H % self.mp == 0 and KV % self.mp == 0
-        self.gather_heads = self.attn_tp and not self.local_heads
+        # q/k/v all-gathered over mp where attention cannot run locally
+        self.gather = None if not self.attn_tp or self.local_heads else \
+            tuple(p for p in "qkv" if self.split[f"self_attn.{p}_proj"])
         mp_partial = {r for r in qkv if self.attn_tp and not self.split[r]}
         self.vocab_split = dims("model.embed_tokens.weight")[1] == 0
         if cfg.tie_word_embeddings:
@@ -806,9 +849,49 @@ def _local(t):
 
 # options of the JAX build_train_step that belong to later work
 _UNPORTED_STEP_OPTIONS = {
-    "overlap": "the communication-overlap engine (ROADMAP A5.2)",
     "health": "the fused health probe (ROADMAP A6)",
 }
+
+_LAYER_PREFIX = "model.layers."
+
+
+def _build_overlap_forward(model: LlamaForCausalLM, schedule, overlap,
+                           plan: _MeshPlan, compute_dtype, remat: bool,
+                           remat_policy):
+    """The overlap engine's decoder stack for the mesh step (mirror of
+    ``_build_overlap_forward``): ``parallel/overlap.py``'s
+    ``build_overlap_stack`` on the schedule's layer shapes and pre-filter
+    plan specs.  The embedding, the final norm, the head and the loss stay
+    on ``_forward``'s mesh code.  The layers' at-rest blocks must be the
+    engine's layout (they are, under the same plan: JAX uses one at-rest
+    layout for both steps)."""
+    from ..parallel.overlap import OverlapConfig, build_overlap_stack
+    from ..parallel.schedule import canonical_key
+
+    if not isinstance(overlap, OverlapConfig):
+        raise TypeError("build_train_step: overlap= takes a "
+                        "parallel.overlap.OverlapConfig")
+    mesh = schedule.mesh
+    shapes = schedule.layer_shapes()
+    stack = build_overlap_stack(model.cfg, mesh, shapes,
+                                schedule.plan_spec_for, overlap,
+                                batch_axes=plan.data_axes, remat=remat,
+                                remat_policy=remat_policy,
+                                compute_dtype=compute_dtype)
+    sizes = dict(mesh.shape)
+    for sfx, pl in stack.layout.items():
+        ts = schedule.table[canonical_key(_LAYER_PREFIX + "0." + sfx)]
+        dims = {a: next((i for i, axes in enumerate(ts.dim_axes)
+                         if a in axes and sizes.get(a, 1) > 1), None)
+                for a in ("sharding", "mp")}
+        if (dims["sharding"], dims["mp"]) != (pl.sh_dim, pl.mp_dim):
+            raise ValueError(f"{sfx}: at rest {ts.describe()}, but the "
+                             f"overlap layout cuts sharding dim {pl.sh_dim} "
+                             f"and mp dim {pl.mp_dim}")
+    L = model.cfg.num_hidden_layers
+    keys = {sfx: [f"{_LAYER_PREFIX}{i}.{sfx}" for i in range(L)]
+            for sfx in shapes}
+    return stack, keys
 
 
 def build_train_step(model: LlamaForCausalLM, optimizer, mesh=None,
@@ -819,7 +902,7 @@ def build_train_step(model: LlamaForCausalLM, optimizer, mesh=None,
                      remat: bool = False,
                      remat_policy: Optional[_memory.SavePolicy] = None,
                      memory: Optional[_memory.MemoryConfig] = None,
-                     schedule=None, **later) -> Callable:
+                     schedule=None, overlap=None, **later) -> Callable:
     """``build_train_step``, on one device or on a mesh:
 
         step(params, opt_state, step_no, lr, input_ids, labels)
@@ -868,6 +951,14 @@ def build_train_step(model: LlamaForCausalLM, optimizer, mesh=None,
       all-gathered out), on whole row-major groups, or per tensor on
       completed gradient blocks.  On a mesh of one rank the layout is
       None, as in the JAX step;
+    - ``overlap`` (a ``parallel.overlap.OverlapConfig``; needs ``mesh``)
+      runs the decoder stack through the communication-overlap engine
+      (``_build_overlap_forward``): the layers' ZeRO-3 weights gathered in
+      flat buckets one layer ahead, their gradients reduce-scattered per
+      bucket in flight and unpacked after the backward, the row-parallel
+      projections on the collective-matmul ring, two-stage collectives
+      with the inter-slice codec where the sharding axis spans slices.
+      The same losses and gradients as ``overlap=None``;
     - ``mesh=None`` (and no ``schedule``) is the mesh of one rank, which
       needs no process group: plain tensors in, plain tensors out, and the
       update of one device on them.
@@ -913,6 +1004,8 @@ def build_train_step(model: LlamaForCausalLM, optimizer, mesh=None,
         accum_dtype = (torch.bfloat16 if compute_dtype == torch.bfloat16
                        else torch.float32)
     cfg, dev, rope = model.cfg, model.device, model.rope
+    if overlap is not None and mesh is None:
+        raise ValueError("overlap=OverlapConfig(...) needs a mesh")
     if mesh is None and schedule is not None:
         mesh = schedule.mesh
     plain = mesh is None
@@ -933,6 +1026,12 @@ def build_train_step(model: LlamaForCausalLM, optimizer, mesh=None,
     if schedule.mesh is not mesh:
         raise ValueError("the schedule was built over another mesh")
     plan = _MeshPlan(cfg, schedule, data_axes)
+    stack = None
+    if overlap is not None:
+        stack, stack_keys = _build_overlap_forward(
+            model, schedule, overlap, plan, compute_dtype, remat,
+            remat_policy)
+        in_stack = {k for ks in stack_keys.values() for k in ks}
     decay_mask = llama_decay_mask(model)
     flat_layout = schedule.flat_update_layout()
     if not flat_layout.axes:
@@ -945,10 +1044,22 @@ def build_train_step(model: LlamaForCausalLM, optimizer, mesh=None,
     def grad_fn(params, ids, labels, seg, denom):
         leaves = {k: v.local.detach().requires_grad_()
                   for k, v in params.items() if v.is_floating_point()}
-        cast = {k: leaves[k].to(compute_dtype) for k in leaves}
+        run_stack, sink = None, None
+        if stack is not None:
+            from ..parallel.overlap import StackGrads
+
+            # the stack packs its layers' blocks itself, cast on the way
+            sink = StackGrads()
+            layer_leaves = {sfx: [leaves[k] for k in ks]
+                            for sfx, ks in stack_keys.items()}
+
+            def run_stack(x, cos, sin, s):
+                return stack(layer_leaves, x, cos, sin, s, sink=sink)
+        cast = {k: leaves[k].to(compute_dtype) for k in leaves
+                if stack is None or k not in in_stack}
         with torch.enable_grad():
             lv = _forward(cfg, cast, ids, None, rope, seg, None, plan, remat,
-                          remat_policy)
+                          remat_policy, stack=run_stack)
             if plan.head_split:
                 tok = _vocab_parallel_nll(lv, labels, mesh)
             else:
@@ -957,8 +1068,22 @@ def build_train_step(model: LlamaForCausalLM, optimizer, mesh=None,
             if seg is not None:
                 tok = tok * (seg > 0).float()
             loss = tok.sum() / denom
-            grads = torch.autograd.grad(loss, list(leaves.values()))
-        return loss.detach(), dict(zip(leaves, grads))
+            grads = torch.autograd.grad(loss, list(leaves.values()),
+                                        allow_unused=stack is not None)
+        grads = dict(zip(leaves, grads))
+        if stack is not None:
+            # every bucket reduction is waited here, before anything reads
+            # a gradient; the gathered leaves had none from autograd
+            for sfx, gs in stack.grads(sink, layer_leaves).items():
+                for k, g in zip(stack_keys[sfx], gs):
+                    if grads[k] is not None:
+                        raise RuntimeError(f"{k}: a bucketed leaf got a "
+                                           f"gradient outside its bucket")
+                    grads[k] = g
+            missing = [k for k, g in grads.items() if g is None]
+            if missing:
+                raise RuntimeError(f"no gradient for {missing[:3]}")
+        return loss.detach(), grads
 
     def batch_block(x, axes, dim):
         """This rank's block of the batch dim ``dim`` over ``axes``."""
@@ -1034,7 +1159,10 @@ def build_train_step(model: LlamaForCausalLM, optimizer, mesh=None,
             loss = loss / accum_steps
             g = {k: v / accum_steps for k, v in g.items()}
         loss = psum_batch(loss, plan.data_axes)
-        grads = {k: params[k].with_local(v, plan.leaf(k).partial)
+        # the overlap stack's layer gradients come back reduced
+        grads = {k: params[k].with_local(
+                     v, () if stack is not None and k in in_stack
+                     else plan.leaf(k).partial)
                  for k, v in g.items()}
         return loss, grads
 
@@ -1111,4 +1239,5 @@ def build_train_step(model: LlamaForCausalLM, optimizer, mesh=None,
     step.accumulate = accumulate
     step.schedule = schedule
     step.flat_layout = flat_layout
+    step.stack = stack
     return step

@@ -1,15 +1,23 @@
 """Parallel training blocks of the port (mirror of ``paddle_tpu/parallel``):
 the named mesh and placement vocabulary (``specs.py``), the collectives
 over one mesh axis (``compat.py``), the partitioning schedule with the
-shard-major flat-update layout (``schedule.py``), the memory engine
+shard-major flat-update layout, the stack schedule and the joint tuner
+(``schedule.py``), the communication-overlap engine (``overlap.py``), the
+inter-slice collective codec (``codec.py``), the memory engine
 (``memory.py``) and the single-device MoE block with its capacity and
 dropless train steps (``expert.py``)."""
 
+from .codec import CollectiveCodec
 from .compat import all_gather, all_to_all, pbroadcast, ppermute, psum, \
     psum_scatter
-from .schedule import (TACTICS, FlatUpdateLayout, PartitionSchedule,
-                       Tactic, canonical_key, hybrid_leaf_spec,
-                       tactics_for_mesh)
+from .memory import (JointConfig, MemoryConfig, joint_memory_codec_lattice,
+                     tune_memory_config)
+from .overlap import OverlapConfig
+from .schedule import (TACTICS, FlatUpdateLayout, JointScheduleConfig,
+                       PartitionPoint, PartitionSchedule, StackSchedule,
+                       Tactic, canonical_key, choose_joint_config,
+                       hybrid_leaf_spec, joint_schedule_lattice,
+                       tactics_for_mesh, tune_schedule_config)
 from .specs import (EXPERT_AXIS, REPLICATED, Mesh, NamedSharding, P,
                     ShardedTensor, SpecLayout, TensorSpec, activation_spec,
                     axis_dim_picks, batch_entry, batch_partition_spec,
@@ -20,9 +28,14 @@ from .specs import (EXPERT_AXIS, REPLICATED, Mesh, NamedSharding, P,
                     microbatched, pick_batch_axes, spec_to_dim_axes,
                     tensor_spec_from_array, token_batch_spec)
 
-__all__ = ["EXPERT_AXIS", "FlatUpdateLayout", "Mesh", "NamedSharding", "P",
-           "PartitionSchedule", "REPLICATED", "ShardedTensor", "SpecLayout",
-           "TACTICS", "Tactic", "TensorSpec", "activation_spec",
+__all__ = ["CollectiveCodec", "EXPERT_AXIS", "FlatUpdateLayout",
+           "JointConfig", "JointScheduleConfig", "MemoryConfig", "Mesh",
+           "NamedSharding", "OverlapConfig", "joint_memory_codec_lattice",
+           "tune_memory_config",
+           "P", "PartitionPoint", "PartitionSchedule", "REPLICATED",
+           "ShardedTensor", "SpecLayout", "StackSchedule", "TACTICS",
+           "Tactic", "TensorSpec", "activation_spec", "choose_joint_config",
+           "joint_schedule_lattice", "tune_schedule_config",
            "all_gather", "all_to_all", "axis_dim_picks", "batch_entry",
            "batch_partition_spec", "canonical_key", "expert_leaf_spec",
            "filter_divisible_spec", "filter_spec_to_mesh",

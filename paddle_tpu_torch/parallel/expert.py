@@ -24,9 +24,10 @@ the exchanges removed, step for step.
   (``moe_layer.dropless_experts``: B7 forward and dx, B8 dW), the stats
   with ``dropped`` = 0.
 
-An expert-parallel degree above 1, an ``OverlapConfig`` (and so a codec)
-or a mesh of more than one device raise ``NotImplementedError`` naming
-ROADMAP queue A5.3 (expert parallelism; the overlap config A5.2).
+An expert-parallel degree above 1 or a mesh of more than one device raise
+``NotImplementedError`` naming ROADMAP queue A5.3 (expert parallelism).
+An ``OverlapConfig`` is accepted: at degree 1 the ``ep`` axis resolves no
+hierarchy, so its codec is inert, as in the JAX block.
 """
 
 from __future__ import annotations
@@ -83,11 +84,16 @@ def moe_ep_shapes(cfg: MoEEPConfig) -> Dict[str, Tuple[int, ...]]:
 
 
 def _single_device(mesh, oc) -> None:
-    if oc is not None:
-        raise NotImplementedError(
-            "an OverlapConfig (hierarchical exchange, codec) belongs to "
-            "multi-GPU training, ROADMAP queue A5.2")
+    """Degree 1 only (an EP mesh of more ranks raises, ROADMAP A5.3).  An
+    ``OverlapConfig`` is accepted: at degree 1 the ``ep`` axis resolves no
+    hierarchy, so its codec is inert, as in the JAX block; an EP exchange
+    it would make hierarchical belongs to A5.3."""
     _single_device_mesh(mesh, "the MoE EP block")
+    if oc is not None:
+        from .overlap import OverlapConfig
+
+        if not isinstance(oc, OverlapConfig):
+            raise TypeError("oc= takes a parallel.overlap.OverlapConfig")
 
 
 def init_moe_ep_params(cfg: MoEEPConfig, mesh=None, seed: int = 0,

@@ -27,8 +27,11 @@ Three levers and a meter, as in the JAX package:
 The JAX meter compiles and reads XLA's memory analysis; here the step runs
 once on the card, so the meter needs a CUDA device.  On a mesh each rank
 keeps its own block of the shard-major flat state (``flat_layout=``) in
-pinned host memory, streamed the same way.  The joint memory x
-collective-codec lattice belongs to ROADMAP A5.2 and raises.
+pinned host memory, streamed the same way.  ``JointConfig`` and
+``joint_memory_codec_lattice`` walk memory residency and the overlap
+engine's inter-slice codec together, and ``tune_memory_config`` takes a
+second budget, the post-codec inter-slice bytes, measured by a function
+the caller gives.
 """
 
 from __future__ import annotations
@@ -57,12 +60,6 @@ REMAT_RECOMPUTE_FACTOR = {"none": 0.0, "dots": 0.0, "names": 1.0,
                           "offload": 1.0, "full": 1.0}
 _ACT_KEEP_FACTOR = {"none": 1.0, "dots": 0.5, "names": 0.25,
                     "offload": 0.25, "full": 0.125}
-
-
-def _unported_a5(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} belongs to the overlap engine and the collective codecs "
-        f"(ROADMAP queue A5.2), not ported yet")
 
 
 # ------------------------------------------------------------------ tags
@@ -725,40 +722,81 @@ def choose_memory_config(records: Sequence[Dict[str, Any]],
     return None
 
 
+@dataclasses.dataclass(frozen=True)
 class JointConfig:
-    """The joint MemoryConfig x collective-codec lattice point: multi-GPU
-    training (ROADMAP queue A5.2), not ported."""
+    """One point of the joint MemoryConfig x OverlapConfig(codec) lattice
+    (mirror of ``JointConfig``): the tuner walks memory residency and the
+    inter-slice codec together.  ``overlap`` is an ``OverlapConfig``, kept
+    opaque here."""
 
-    def __init__(self, *args, **kwargs):
-        raise _unported_a5("JointConfig (the memory x codec lattice)")
+    memory: MemoryConfig
+    overlap: Optional[Any] = None
+
+    def label(self) -> str:
+        lab = self.memory.label()
+        codec = getattr(self.overlap, "codec", None)
+        lab += "/" + (codec.label() if codec is not None else "codec-off")
+        return lab
+
+    def to_json(self) -> Dict[str, Any]:
+        codec = getattr(self.overlap, "codec", None)
+        return {"memory": self.memory.to_json(),
+                "codec": codec.to_json() if codec is not None else None}
 
 
-def codec_lattice_points():
-    raise _unported_a5("the collective codec lattice")
+def codec_lattice_points() -> Tuple:
+    """The codec knob's walk order, increasing error: off, int8 stochastic
+    gradients, then fp8 both ways."""
+    from .codec import CollectiveCodec
+
+    return (None,
+            CollectiveCodec(),
+            CollectiveCodec(grad_profile="fp8", weight_profile="fp8",
+                            stochastic=False))
 
 
-def joint_memory_codec_lattice(*args, **kwargs):
-    raise _unported_a5("the joint memory x codec lattice")
+def joint_memory_codec_lattice(overlap,
+                               memory_lattice: Optional[Sequence] = None,
+                               codec_points: Optional[Sequence] = None
+                               ) -> Tuple[JointConfig, ...]:
+    """MemoryConfig x codec over a base ``OverlapConfig``: per memory point
+    (cheapest first) the codec points in increasing-error order."""
+    mem = tuple(MEMORY_LATTICE if memory_lattice is None
+                else memory_lattice)
+    pts = tuple(codec_lattice_points() if codec_points is None
+                else codec_points)
+    return tuple(JointConfig(m, dataclasses.replace(overlap, codec=c))
+                 for m in mem for c in pts)
 
 
-def tune_memory_config(step_builder: Callable[[MemoryConfig], Tuple],
+def tune_memory_config(step_builder: Callable[[Any], Tuple],
                        hbm_bytes: int, lattice: Optional[Sequence] = None,
                        *, dcn_wire_bytes: Optional[int] = None,
                        dcn_bytes_fn: Optional[Callable] = None):
     """Walk ``lattice`` (``MEMORY_LATTICE``: cheapest predicted step time
-    first), measure each built step's peak on the card
-    (``measure_step_memory``) and return ``(config, records)``: the first
-    point that fits ``hbm_bytes`` (None if none does) and every point's
-    record.  ``step_builder(cfg)`` returns ``(fn, args)``.  The DCN wire
-    budget belongs to multi-slice training and raises."""
-    if dcn_wire_bytes is not None or dcn_bytes_fn is not None:
-        raise _unported_a5("the DCN wire budget")
+    first; ``MemoryConfig`` or ``JointConfig`` points), measure each built
+    step's peak on the card (``measure_step_memory``) and return
+    ``(config, records)``: the first point that fits (None if none does)
+    and every point's record.  ``step_builder(cfg)`` returns ``(fn,
+    args)``.  ``dcn_wire_bytes`` adds the second budget: each point's
+    post-codec inter-slice bytes, measured by ``dcn_bytes_fn(cfg, fn,
+    args)``, must fit too."""
+    if dcn_wire_bytes is not None and dcn_bytes_fn is None:
+        raise ValueError(
+            "tune_memory_config: dcn_wire_bytes declared but no "
+            "dcn_bytes_fn to measure it - a budget with no measurement "
+            "would silently pass every point")
     lattice = tuple(MEMORY_LATTICE if lattice is None else lattice)
     records: List[Dict[str, Any]] = []
     for cfg in lattice:
         fn, args = step_builder(cfg)
         stats = measure_step_memory(fn, *args)
-        records.append({"config": cfg.to_json(), "label": cfg.label(),
-                        **stats, "fits": stats["peak_bytes"] <= hbm_bytes})
-    idx = choose_memory_config(records, hbm_bytes)
+        rec = {"config": cfg.to_json(), "label": cfg.label(), **stats,
+               "fits": stats["peak_bytes"] <= hbm_bytes}
+        if dcn_wire_bytes is not None:
+            dcn = int(dcn_bytes_fn(cfg, fn, args))
+            rec["dcn_wire_bytes"] = dcn
+            rec["fits"] = bool(rec["fits"] and dcn <= dcn_wire_bytes)
+        records.append(rec)
+    idx = next((i for i, rec in enumerate(records) if rec["fits"]), None)
     return (lattice[idx] if idx is not None else None), records

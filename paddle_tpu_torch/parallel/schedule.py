@@ -22,10 +22,21 @@ Port of ``paddle_tpu/parallel/schedule.py``:
   over the other axes it is replicated on, and the updated row goes back
   by all-gathers over those axes.
 
-What waits for later parts of ROADMAP A5 raises ``NotImplementedError``:
-the overlap engine's ``stack_plan`` and ``StackSchedule`` (A5.2), EP's
-``from_moe_ep`` (A5.3) and the joint partition x memory x overlap tuner
-(A5.2, it searches over ``OverlapConfig`` and the collective codecs).
+- ``StackSchedule`` is the overlap engine's derived schedule of one
+  decoder stack (``stack_plan``: the leaf placements, the gather buckets,
+  the grad-sync leaves, the prefetch window, the ring order and the
+  two-stage structure with its codec), from the single copy in
+  ``overlap.stack_layout_plan``;
+- ``PartitionPoint``, ``JointScheduleConfig``, ``joint_schedule_lattice``,
+  ``choose_joint_config`` and ``tune_schedule_config`` are the joint
+  partition x memory x overlap tuner, the memory tuner's cheapest-first
+  walk one axis richer.
+
+What waits for later parts of ROADMAP A5 and for A7 raises
+``NotImplementedError``: EP's ``from_moe_ep`` (A5.3); the DCN wire
+measurement of a traced step (``measure_dcn_wire_bytes``, the Graph
+Doctor's COMM004 pricing) and the roofline-predicted walk
+(``tune_schedule_config(predict=True)``), both A7.
 """
 
 from __future__ import annotations
@@ -41,7 +52,8 @@ import torch
 from . import compat
 from .specs import (Mesh, NamedSharding, P, ShardedTensor,
                     SpecLayout, TensorSpec, _entry_axes,
-                    filter_divisible_spec, layout_mesh_axes,
+                    filter_divisible_spec, filter_spec_to_mesh,
+                    layout_mesh_axes,
                     mesh_axis_sizes, spec_to_dim_axes)
 
 
@@ -349,16 +361,37 @@ class FlatUpdateLayout:
 
 
 # ---------------------------------------------------------------------------
-# the overlap engine's derivation (A5.2)
+# the stack-schedule derivation (what the overlap engine consumes)
 # ---------------------------------------------------------------------------
 
 
+@dataclasses.dataclass
 class StackSchedule:
-    """The overlap engine's derived stack schedule: ROADMAP A5.2."""
+    """The overlap engine's derived schedule of one decoder stack (mirror of
+    ``StackSchedule``): leaf placements, gather buckets, grad-sync leaves,
+    the prefetch window (layers of gather-ahead), the collective matmul's
+    ring order and the resolved two-stage structure with its codec."""
 
-    def __init__(self, *args, **kwargs):
-        raise _unported("StackSchedule (the overlap engine's input)",
-                        "A5.2")
+    layout: Dict[str, Any]             # suffix -> overlap._LeafPlace
+    buckets: List[List[str]]
+    sync_suffixes: List[str]
+    prefetch_window: int
+    ring_order: Tuple[Tuple[int, int], ...]
+    hier: Optional[Any] = None
+    codec: Optional[Any] = None
+
+    def describe(self) -> Dict[str, Any]:
+        return {
+            "buckets": [list(b) for b in self.buckets],
+            "sync_suffixes": list(self.sync_suffixes),
+            "prefetch_window": self.prefetch_window,
+            "ring_order": [list(p) for p in self.ring_order],
+            "hierarchical": None if self.hier is None else {
+                "num_slices": self.hier.num_slices,
+                "per_slice": self.hier.per_slice},
+            "codec": (self.codec.to_json()
+                      if self.codec is not None else None),
+        }
 
 
 # ---------------------------------------------------------------------------
@@ -472,6 +505,11 @@ class PartitionSchedule:
 
     # -- the placements ------------------------------------------------------
 
+    def plan_spec_for(self, name: str) -> P:
+        """The plan's spec before the divisibility rule (the overlap
+        engine's per-axis pick rule applies its own)."""
+        return filter_spec_to_mesh(self.plan_for(name), self.mesh)
+
     def spec_for(self, name: str, shape: Sequence[int]) -> P:
         """At-rest spec of one leaf: the plan under the at-rest rule."""
         return filter_divisible_spec(self.plan_for(name),
@@ -498,10 +536,39 @@ class PartitionSchedule:
 
     # -- the other stacks ----------------------------------------------------
 
-    def stack_plan(self, *args, **kwargs):
-        """The overlap engine's stack schedule: ROADMAP A5.2."""
-        raise _unported("PartitionSchedule.stack_plan (the overlap "
-                        "engine)", "A5.2")
+    def layer_shapes(self) -> Dict[str, Tuple[int, ...]]:
+        """Per-layer leaf shapes by intra-layer suffix, from the table."""
+        out = {}
+        for name, ts in self.table.items():
+            if name.startswith(_LAYER_PREFIX + "*."):
+                out[name[len(_LAYER_PREFIX) + 2:]] = ts.shape
+        return out
+
+    def stack_plan(self, oc=None, compute_dtype=torch.bfloat16,
+                   shapes: Optional[Dict[str, Tuple[int, ...]]] = None
+                   ) -> StackSchedule:
+        """The overlap engine's whole schedule, from
+        ``overlap.stack_layout_plan`` (one copy), with the ring order, the
+        prefetch window and the two-stage structure and codec (plan math:
+        no process group is made)."""
+        from . import overlap as _ov
+
+        oc = oc if oc is not None else _ov.OverlapConfig()
+        shapes = shapes if shapes is not None else self.layer_shapes()
+        layout, buckets, sync = _ov.stack_layout_plan(
+            shapes, self.mesh, self.plan_spec_for, oc,
+            compute_dtype=compute_dtype)
+        sizes = mesh_axis_sizes(self.mesh)
+        sh = sizes.get("sharding", 1)
+        hier = oc.resolve_hier(self.mesh, "sharding" if sh > 1 else None)
+        mp = sizes.get("mp", 1)
+        ring = tuple((i, (i + 1) % mp) for i in range(mp)) if mp > 1 \
+            else ()
+        return StackSchedule(
+            layout=layout, buckets=buckets, sync_suffixes=sync,
+            prefetch_window=1 if oc.prefetch else 0,
+            ring_order=ring, hier=hier,
+            codec=oc.codec if hier is not None else None)
 
     def hybrid_spec(self, name: str, shape: Sequence[int]) -> P:
         """At-rest spec of one hybrid-state leaf."""
@@ -530,32 +597,155 @@ class PartitionSchedule:
 
 
 # ---------------------------------------------------------------------------
-# the joint partition x memory x overlap tuner (A5.2)
+# the joint partition x memory x overlap tuner
 # ---------------------------------------------------------------------------
 
 
-def _joint(name: str):
-    def unported(*args, **kwargs):
-        raise _unported(f"{name} (the joint partition x memory x overlap "
-                        f"tuner)", "A5.2")
-    unported.__name__ = name
-    return unported
-
-
+@dataclasses.dataclass(frozen=True)
 class PartitionPoint:
-    def __init__(self, *args, **kwargs):
-        raise _unported("PartitionPoint (the joint tuner)", "A5.2")
+    """One partitioning point of the joint lattice (mirror of
+    ``PartitionPoint``): mesh axis degrees, outer to inner, and the slice
+    map when the point spans slices (which arms the two-stage schedule)."""
+
+    name: str
+    axes: Tuple[Tuple[str, int], ...]
+    slice_map: Optional[Tuple[int, ...]] = None
+    #: the axis the slice map describes
+    dcn_axis: str = "sharding"
+
+    def mesh(self, devices=None) -> Mesh:
+        """The point's mesh, abstract (plan math; ``init_mesh`` makes a live
+        one of the same shape).  ``devices``: how many ranks there are, or
+        a sequence of them, at least the point's count."""
+        total = math.prod(n for _, n in self.axes)
+        if devices is not None:
+            have = devices if isinstance(devices, int) else len(devices)
+            if have < total:
+                raise ValueError(f"{self.name}: wants {total} devices, "
+                                 f"have {have}")
+        return Mesh([n for _, n in self.axes],
+                    tuple(a for a, _ in self.axes))
+
+    def dcn_axes(self) -> Dict[str, List[int]]:
+        """{axis: slice map} of the slice-spanning axis; empty when the
+        point is one slice."""
+        if self.slice_map is None:
+            return {}
+        return {self.dcn_axis: list(self.slice_map)}
+
+    def label(self) -> str:
+        body = "x".join(f"{a}{n}" for a, n in self.axes if n > 1)
+        return f"{self.name}({body})" + \
+            ("[2slice]" if self.slice_map else "")
+
+    def to_json(self) -> Dict[str, Any]:
+        return {"name": self.name, "axes": [[a, n] for a, n in self.axes],
+                "slice_map": (list(self.slice_map)
+                              if self.slice_map else None)}
 
 
+@dataclasses.dataclass(frozen=True)
 class JointScheduleConfig:
-    def __init__(self, *args, **kwargs):
-        raise _unported("JointScheduleConfig (the joint tuner)", "A5.2")
+    """One point of the joint lattice: partitioning x memory residency x
+    overlap/codec (its label/json match ``memory.JointConfig``)."""
+
+    partition: PartitionPoint
+    memory: Any                        # parallel.memory.MemoryConfig
+    overlap: Optional[Any] = None      # parallel.overlap.OverlapConfig
+
+    def label(self) -> str:
+        lab = self.partition.label() + "/" + self.memory.label()
+        codec = getattr(self.overlap, "codec", None)
+        lab += "/" + (codec.label() if codec is not None else "codec-off")
+        return lab
+
+    def to_json(self) -> Dict[str, Any]:
+        codec = getattr(self.overlap, "codec", None)
+        return {"partition": self.partition.to_json(),
+                "memory": self.memory.to_json(),
+                "codec": codec.to_json() if codec is not None else None}
 
 
-joint_schedule_lattice = _joint("joint_schedule_lattice")
-choose_joint_config = _joint("choose_joint_config")
-measure_dcn_wire_bytes = _joint("measure_dcn_wire_bytes")
-tune_schedule_config = _joint("tune_schedule_config")
+def joint_schedule_lattice(points: Sequence[PartitionPoint],
+                           memory_lattice: Optional[Sequence] = None,
+                           codec_points: Optional[Sequence] = None,
+                           base_overlap=None
+                           ) -> Tuple[JointScheduleConfig, ...]:
+    """Partitioning x MemoryConfig x codec in increasing predicted cost:
+    the points as the caller lists them (cheapest first), per point the
+    memory lattice, then the codec points; a codec only under a point that
+    spans slices (quantize across slices only)."""
+    from .memory import MEMORY_LATTICE, codec_lattice_points
+    from .overlap import OverlapConfig
+
+    mem = tuple(MEMORY_LATTICE if memory_lattice is None
+                else memory_lattice)
+    cps = tuple(codec_lattice_points() if codec_points is None
+                else codec_points)
+    base = base_overlap if base_overlap is not None else OverlapConfig()
+    out = []
+    for pt in points:
+        for m in mem:
+            for c in cps:
+                if c is not None and pt.slice_map is None:
+                    continue
+                oc = dataclasses.replace(
+                    base, codec=c,
+                    hierarchical="on" if pt.slice_map else "off",
+                    slice_map=pt.slice_map)
+                out.append(JointScheduleConfig(pt, m, oc))
+    return tuple(out)
+
+
+def choose_joint_config(records: Sequence[Dict[str, Any]],
+                        hbm_bytes: Optional[int] = None,
+                        dcn_wire_bytes: Optional[int] = None
+                        ) -> Optional[int]:
+    """Index of the first (cheapest) record within every declared budget
+    (peak bytes, post-codec DCN wire bytes), or None."""
+    for i, rec in enumerate(records):
+        if hbm_bytes is not None and rec["peak_bytes"] > hbm_bytes:
+            continue
+        if dcn_wire_bytes is not None \
+                and rec.get("dcn_wire_bytes", 0) > dcn_wire_bytes:
+            continue
+        return i
+    return None
+
+
+def measure_dcn_wire_bytes(cfg: JointScheduleConfig, fn, args) -> int:
+    """Post-codec DCN bytes of one built step: the Graph Doctor's COMM004
+    pricing of a traced program, ROADMAP A7."""
+    raise _unported("measure_dcn_wire_bytes (the Graph Doctor's COMM004 "
+                    "pricing of a traced step)", "A7")
+
+
+def tune_schedule_config(step_builder: Callable[[JointScheduleConfig],
+                                                Tuple],
+                         hbm_bytes: int,
+                         lattice: Sequence[JointScheduleConfig], *,
+                         dcn_wire_bytes: Optional[int] = None,
+                         predict: bool = False,
+                         estimator: Optional[Callable] = None,
+                         top_k: int = 1):
+    """The joint search: ``memory.tune_memory_config``'s walk (cheapest
+    first, each built step's peak measured on the card, first fit wins)
+    over the partition x memory x overlap lattice; returns ``(chosen,
+    records)``.  A DCN wire budget (measured by ``measure_dcn_wire_bytes``)
+    and ``predict=True`` (the roofline estimator's ranking) belong to
+    ROADMAP A7 and raise."""
+    from .memory import tune_memory_config
+
+    if predict:
+        raise _unported("tune_schedule_config(predict=True) (the roofline "
+                        "estimator's ranking)", "A7")
+    if dcn_wire_bytes is not None:
+        raise _unported("tune_schedule_config(dcn_wire_bytes=...) (the "
+                        "Graph Doctor's COMM004 pricing of a traced step)",
+                        "A7")
+    return tune_memory_config(step_builder, hbm_bytes,
+                              lattice=tuple(lattice))
+
 
 __all__ = ["FlatUpdateLayout", "JointScheduleConfig", "PartitionPoint",
            "PartitionSchedule", "StackSchedule", "TACTICS", "Tactic",

@@ -14,7 +14,9 @@ spells out here:
   ...))`` places device r.  Built directly (``Mesh(shape, names)``) it is
   abstract: plan math only, no process group; but a mesh of one rank is
   rank 0 and needs no group, since every collective over a size-1 axis is
-  a no-op (the one-device train step runs on such a mesh);
+  a no-op (the one-device train step runs on such a mesh).  The process
+  groups of an axis's ``axis_index_groups`` (the two-stage collectives'
+  stages) are made once per group list by ``create_index_groups``;
 - ``ShardedTensor`` is a leaf at rest: this rank's block (``local``), the
   global shape, the spec it is placed under and the axes over which the
   ranks hold addends rather than copies (``partial``, a gradient's state
@@ -152,6 +154,8 @@ class Mesh:
         self.devices = np.arange(math.prod(sizes)).reshape(sizes)
         self.device_mesh = device_mesh
         self.device_type = device_type
+        # (axis, group list) -> (process group, this rank's group's ranks)
+        self._index_groups: Dict[Any, Tuple[Any, Tuple[int, ...]]] = {}
         # one rank: rank 0, every collective a no-op, no group needed
         self._rank = 0 if self.size == 1 else None
         if device_mesh is not None:
@@ -196,6 +200,54 @@ class Mesh:
                              f"process group for {axis!r}; build a live one "
                              f"with init_mesh")
         return self.device_mesh.get_group(mesh_dim=axis)
+
+    def _check_groups(self, axis: str, groups) -> Tuple[Tuple[int, ...], ...]:
+        n = int(self.shape[axis])
+        groups = tuple(tuple(int(p) for p in g) for g in groups)
+        flat = sorted(p for g in groups for p in g)
+        if flat != list(range(n)) or len({len(g) for g in groups}) != 1:
+            raise ValueError(f"axis_index_groups {groups} is not a partition "
+                             f"of the {n} positions of {axis!r} into groups "
+                             f"of one size")
+        return groups
+
+    def create_index_groups(self, axis: str, groups) -> None:
+        """Make the process groups of ``groups`` (a partition of ``axis``'s
+        positions, ``lax``'s ``axis_index_groups``) on every line of the
+        axis, once per group list.  ``dist.new_group`` is collective over
+        the world, so every rank calls this with the same lists in one
+        order, outside any branch a rank may skip; the collectives then
+        find the groups here (``index_group``) and never make one."""
+        groups = self._check_groups(axis, groups)
+        key = (axis, groups)
+        if key in self._index_groups or self.size == 1:
+            return
+        import torch.distributed as dist
+
+        me = self.rank
+        pos = self.axis_names.index(axis)
+        lines = np.moveaxis(self.devices, pos, -1).reshape(
+            -1, self.devices.shape[pos])
+        mine = None
+        for line in lines:
+            for g in groups:
+                ranks = [int(line[p]) for p in g]
+                pg = dist.new_group(ranks) if len(ranks) > 1 else None
+                if me in ranks:
+                    mine = (pg, tuple(ranks))
+        self._index_groups[key] = mine
+
+    def index_group(self, axis: str, groups):
+        """(process group, ranks) of this rank's group of ``groups`` on
+        ``axis``, the ranks in the group's listed order; the group list
+        must have been made by ``create_index_groups``."""
+        key = (axis, tuple(tuple(int(p) for p in g) for g in groups))
+        if key not in self._index_groups:
+            raise ValueError(
+                f"axis_index_groups {key[1]} of {axis!r} were never made: "
+                f"call mesh.create_index_groups({axis!r}, groups) on every "
+                f"rank first (it is collective over the world)")
+        return self._index_groups[key]
 
     def peer(self, axis: str, index: int) -> int:
         """Global rank of the rank at coordinate ``index`` on ``axis`` whose

@@ -417,13 +417,35 @@ def test_hb_flash_forward_without_keys(dev):
     assert torch.equal(o, wo) and torch.equal(lse, wlse)
 
 
+def _changes_close(got, want, before, lr, steps=1):
+    """``steps`` AdamW steps' parameter changes (new minus old) on the card
+    against the CPU's, ``{name: tensor}`` each: each tensor's largest change
+    exceeds 0.5 lr (Adam moves every element by about lr a step: a skipped
+    update fails), and all but a 1e-3 share of each tensor's elements (at
+    least 2 may differ) and of the model's agree to 1e-4 of their tensor's
+    largest change, the rest within 2 lr a step (kernel and plain version
+    round fp32 sums apart, which can flip the sign of a near-zero gradient
+    and with it that element's whole step; a wrong sign across a tensor
+    fails)."""
+    bad = total = 0
+    for k, w in want.items():
+        d_got, d_want = got[k] - before[k], w - before[k]
+        top = d_want.abs().max().item()
+        assert top > 0.5 * lr, k
+        diff = (d_got - d_want).abs()
+        assert diff.max().item() <= 2 * lr * steps * (1 + 1e-3), k
+        bad_k = int((diff > 1e-4 * top).sum())
+        assert bad_k <= max(2, 1e-3 * diff.numel()), (k, bad_k, diff.numel())
+        bad += bad_k
+        total += diff.numel()
+    assert bad < 1e-3 * total, (bad, total)
+
+
 def test_flash_autograd_and_train_step_on_cuda_match_cpu(dev):
     """The port's fp32 train step on the card (kernels, CUDA-core path) vs
     the same step on the CPU (plain versions): every attention call of the
-    step is a launch; loss and params after one AdamW step agree to 1e-4
-    of each tensor's largest magnitude (fp32 sums in other orders; Adam's
-    first step can turn a near-zero gradient's sign, moving that weight
-    2 lr, so params get 2 lr of absolute slack)."""
+    step is a launch; the losses agree to 1e-4 and each parameter's change
+    over one AdamW step as ``_changes_close`` holds it."""
     from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
                                          build_train_step, llama_decay_mask)
     from paddle_tpu_torch.optimizer import AdamW
@@ -434,6 +456,7 @@ def test_flash_autograd_and_train_step_on_cuda_match_cpu(dev):
                            generator=torch.Generator().manual_seed(3))
     gpu = LlamaForCausalLM(cfg, device=dev)
     gpu.load_functional_state(cpu.functional_state())
+    before = {k: v.clone() for k, v in cpu.functional_state().items()}
     rng = np.random.default_rng(0)
     ids = rng.integers(0, 128, (2, 2, 96))
     lab = rng.integers(0, 128, (2, 2, 96))
@@ -452,10 +475,7 @@ def test_flash_autograd_and_train_step_on_cuda_match_cpu(dev):
     assert out["gpu"][2] == dict(out["cpu"][2], flash_attention_fwd=4,
                                  flash_attention_bwd=4)
     assert abs(out["gpu"][0] - out["cpu"][0]) <= 1e-4 * abs(out["cpu"][0])
-    for k, want in out["cpu"][1].items():
-        got = out["gpu"][1][k]
-        assert (got - want).abs().max().item() <= \
-            1e-4 * want.abs().max().item() + 2e-3, k
+    _changes_close(out["gpu"][1], out["cpu"][1], before, 1e-3)
 
 
 # faults planted into copies of csrc/flash_attention.cu: (text, replacement)
@@ -779,7 +799,7 @@ def test_masked_train_step_on_cuda_matches_cpu(dev):
     """The port's fp32 masked train step (packed documents with a padding
     tail, and one all-padding micro-batch) on the card vs the same step on
     the CPU: every attention call is a masked launch (B5 + fused B6); loss
-    and params after one AdamW step agree as in
+    and each parameter's change over one AdamW step agree as in
     test_flash_autograd_and_train_step_on_cuda_match_cpu."""
     from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
                                          build_train_step, llama_decay_mask)
@@ -792,6 +812,7 @@ def test_masked_train_step_on_cuda_matches_cpu(dev):
                            generator=torch.Generator().manual_seed(4))
     gpu = LlamaForCausalLM(cfg, device=dev)
     gpu.load_functional_state(cpu.functional_state())
+    before = {k: v.clone() for k, v in cpu.functional_state().items()}
     rng = np.random.default_rng(1)
     ids = rng.integers(0, 128, (3, 2, 96))
     lab = rng.integers(0, 128, (3, 2, 96))
@@ -814,10 +835,7 @@ def test_masked_train_step_on_cuda_matches_cpu(dev):
     assert out["gpu"][2] == dict(out["cpu"][2], flash_masked_fwd=6,
                                  flash_masked_bwd_fused=6)
     assert abs(out["gpu"][0] - out["cpu"][0]) <= 1e-4 * abs(out["cpu"][0])
-    for k, want in out["cpu"][1].items():
-        got = out["gpu"][1][k]
-        assert (got - want).abs().max().item() <= \
-            1e-4 * want.abs().max().item() + 2e-3, k
+    _changes_close(out["gpu"][1], out["cpu"][1], before, 1e-3)
 
 
 # faults planted into copies of csrc/masked_flash_attention.cu
@@ -1787,3 +1805,213 @@ def test_mesh_step_at_world_size_1_launches_as_meshless(dev, tmp_path,
         assert want.abs().max().item() > 0.5e-3, k
         assert (p1[k][0] - want).abs().max().item() <= \
             1e-5 * want.abs().max().item() + 2 * ulp * top, k
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["causal", "segments"])
+def test_overlap_step_at_world_size_1_launches_as_mesh_step(dev, tmp_path,
+                                                            masked):
+    """The overlap train step (``overlap=OverlapConfig()``) on a (1, 1, 1)
+    NCCL mesh launches the mesh step's attention kernels (B1/B2, or B5/B6
+    under segment ids) and none of their plain versions, and gives its loss
+    and each parameter's change over one fp32 AdamW step to 1e-5 relative
+    (plus two fp32 ulps of the tensor's largest value) of the mesh step's:
+    at world size 1 the overlap layer runs the mesh layer's arithmetic.
+    Against the same overlap step on the CPU (one-rank mesh, plain
+    versions) the changes agree as ``_changes_close`` holds them."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         apply_llama_sharding,
+                                         build_train_step, gather_params,
+                                         llama_decay_mask)
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import Mesh, OverlapConfig, init_mesh
+
+    cfg = LlamaConfig.debug(vocab=128, hidden=128, layers=2, heads=4,
+                            kv_heads=2, inter=256, max_pos=256)
+    rng = np.random.default_rng(6)
+    ids = torch.from_numpy(rng.integers(0, 128, (2, 2, 96)))
+    lab = torch.from_numpy(rng.integers(0, 128, (2, 2, 96)))
+    seg = None
+    if masked:
+        seg = torch.ones(2, 2, 96, dtype=torch.int32)
+        seg[:, :, 40:] = 2
+        seg[:, 1, 90:] = 0
+    init = LlamaForCausalLM(cfg, device="cpu",
+                            generator=torch.Generator().manual_seed(3))
+    state0 = init.functional_state()
+    mesh = init_mesh("cuda", (1, 1, 1), store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    cpu_mesh = Mesh((1, 1, 1), ("dp", "sharding", "mp"), device_type="cpu")
+    try:
+        out = {}
+        for name, where, m, oc in (("mesh", dev, mesh, None),
+                                   ("overlap", dev, mesh, OverlapConfig()),
+                                   ("cpu", "cpu", cpu_mesh,
+                                    OverlapConfig())):
+            model = LlamaForCausalLM(cfg, device=where)
+            model.load_functional_state({k: v.to(where)
+                                         for k, v in state0.items()})
+            apply_llama_sharding(model, m)
+            opt = AdamW(1e-3)
+            step = build_train_step(model, opt, mesh=m,
+                                    compute_dtype=torch.float32,
+                                    accum_steps=2, overlap=oc)
+            params = model.functional_state()
+            state = opt.init_flat_state(params, llama_decay_mask(model))
+            fa.reset_launches()
+            with chip_smoke.plain_call_counter() as plain:
+                loss, params, _ = step(
+                    params, state, 0, 1e-3, ids.to(where), lab.to(where),
+                    attention_mask=None if seg is None else seg.to(where))
+            if where != "cpu":
+                torch.cuda.synchronize()
+            out[name] = (loss.item(),
+                         {k: v.cpu() for k, v in gather_params(params).items()},
+                         dict(fa.LAUNCHES), dict(plain))
+    finally:
+        dist.destroy_process_group()
+    (l0, p0, n0, c0), (l1, p1, n1, c1) = out["mesh"], out["overlap"]
+    assert n1 == n0 and not any(c0.values()) and not any(c1.values())
+    fwd = "flash_masked_fwd" if masked else "flash_attention_fwd"
+    assert n0[fwd] == 4 and sum(n for k, n in n0.items()
+                                if "bwd" in k) >= 4, n0
+    assert set(out["cpu"][2].values()) == {0}
+    assert abs(l1 - l0) <= 1e-5 * abs(l0)
+    assert abs(l1 - out["cpu"][0]) <= 1e-4 * abs(out["cpu"][0])
+    ulp = torch.finfo(torch.float32).eps
+    for k, before in state0.items():
+        want, got = p0[k] - before, p1[k] - before
+        top = before.abs().max().item()
+        assert want.abs().max().item() > 0.5e-3, k
+        assert (got - want).abs().max().item() <= \
+            1e-5 * want.abs().max().item() + 2 * ulp * top, k
+    _changes_close(p1, out["cpu"][1], state0, 1e-3)
+
+
+def test_overlap_bucket_path_on_cuda(dev, tmp_path):
+    """The overlap engine's bucket path (pack, attach, unpack, the sink's
+    in-flight reductions, the gradient cut) on CUDA tensors, which the
+    world-size-1 train step never plans: ``chip_smoke.overlap_bucket_leg``
+    on a (1, 1, 1) NCCL mesh, prefetched and under remat, with the
+    engine's transport and with asynchronous NCCL collectives; each
+    gradient within ``BUCKET_LEG_TOL`` of plain autograd."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.parallel import init_mesh
+
+    mesh = init_mesh("cuda", (1, 1, 1), store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        out = chip_smoke.overlap_bucket_leg(dev, mesh)
+    finally:
+        dist.destroy_process_group()
+    assert len(out["runs"]) == 4
+    assert all(r["max_rel_err"] <= chip_smoke.BUCKET_LEG_TOL
+               for r in out["runs"].values()), out
+
+
+# mesh shape and OverlapConfig kwargs of each case of the NCCL gang
+NCCL_GANG_CASES = {
+    "all_levers": ((1, 2, 2), dict(collective_matmul_min_out_elems=1)),
+    "two_stage": ((1, 4, 1), dict(hierarchical="on",
+                                  slice_map=(0, 0, 1, 1))),
+}
+NCCL_GANG_STEPS = 3
+
+
+def _nccl_gang_rank(rank, world, root, device):
+    """One rank of ``test_overlap_step_on_four_cards``: each case's mesh
+    step and overlap step, NCCL_GANG_STEPS fp32 AdamW steps each from the
+    same seeded weights and batch; rank 0 saves the losses, the gathered
+    params after the first and the last step and the stack's buckets."""
+    import os
+
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         apply_llama_sharding,
+                                         build_train_step, gather_params)
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import OverlapConfig, init_mesh
+
+    torch.set_num_threads(1)
+    store = dist.FileStore(os.path.join(root, "store"), world)
+    cfg = LlamaConfig.debug(vocab=128, hidden=128, layers=2, heads=4,
+                            kv_heads=2, inter=256, max_pos=256)
+    init = LlamaForCausalLM(cfg, device="cpu",
+                            generator=torch.Generator().manual_seed(3)
+                            ).functional_state()
+    rng = np.random.default_rng(7)
+    ids = torch.from_numpy(rng.integers(0, 128, (8, 96)))
+    lab = torch.from_numpy(rng.integers(0, 128, (8, 96)))
+    out, meshes = {}, {}
+    try:
+        for name, (shape, okw) in NCCL_GANG_CASES.items():
+            if shape not in meshes:
+                meshes[shape] = init_mesh(device, shape, store=store,
+                                          rank=rank, world_size=world)
+            mesh = meshes[shape]
+            for path, oc in (("mesh", None),
+                             ("overlap", OverlapConfig(**okw))):
+                model = LlamaForCausalLM(cfg, device=device)
+                model.load_functional_state({k: v.to(device)
+                                             for k, v in init.items()})
+                apply_llama_sharding(model, mesh)
+                opt = AdamW(1e-3)
+                step = build_train_step(model, opt, mesh=mesh,
+                                        compute_dtype=torch.float32,
+                                        overlap=oc)
+                params = model.functional_state()
+                state = opt.init_state(params)
+                losses, p = [], []
+                for i in range(NCCL_GANG_STEPS):
+                    loss, params, state = step(params, state, i, 1e-3,
+                                               ids.to(device),
+                                               lab.to(device))
+                    losses.append(loss.item())
+                    if i in (0, NCCL_GANG_STEPS - 1):
+                        p.append({k: v.cpu() for k, v in
+                                  gather_params(params).items()})
+                out[f"{name}.{path}"] = dict(
+                    losses=losses, params=p,
+                    buckets=step.stack.buckets if oc is not None else None)
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        torch.save(dict(out, init=init), os.path.join(root, "out.pt"))
+
+
+def test_overlap_step_on_four_cards(tmp_path):
+    """The overlap step on four cards over NCCL, where its bucket gathers
+    and in-flight reduce-scatters are real asynchronous NCCL collectives:
+    on (1, 2, 2) with every lever (the ring at any size) and on (1, 4, 1)
+    two-stage (slice_map (0, 0, 1, 1)), against the mesh step
+    (``overlap=None``) on the same gang: losses to 1e-5 relative, each
+    parameter's change over the first step as ``_changes_close`` holds
+    it, and the params after the last step within 1e-5 + 1e-5 relative
+    but for a 1e-3 share of each tensor (Adam turns the summation orders'
+    rounding of near-zero gradients into larger moves in later steps).
+    Needs four GPUs."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four NVIDIA GPUs")
+    _build.build()                      # once, before the ranks load it
+    torch.multiprocessing.spawn(_nccl_gang_rank,
+                                args=(4, str(tmp_path), "cuda"), nprocs=4,
+                                join=True)
+    out = torch.load(tmp_path / "out.pt")
+    init = out.pop("init")
+    for name in NCCL_GANG_CASES:
+        ref, got = out[f"{name}.mesh"], out[f"{name}.overlap"]
+        assert got["buckets"], name        # the bucket path ran
+        print(json.dumps({"case": name, "mesh": ref["losses"],
+                          "overlap": got["losses"],
+                          "buckets": got["buckets"]}))
+        np.testing.assert_allclose(got["losses"], ref["losses"], rtol=1e-5)
+        assert got["losses"][-1] < got["losses"][0]
+        _changes_close(got["params"][0], ref["params"][0], init, 1e-3)
+        for k, w in ref["params"][1].items():
+            diff = (got["params"][1][k] - w).abs()
+            assert diff.max().item() <= 2e-3 * NCCL_GANG_STEPS + 1e-6, k
+            assert (diff > 1e-5 + 1e-5 * w.abs()).float().mean().item() \
+                < 1e-3, k

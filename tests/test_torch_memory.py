@@ -325,7 +325,9 @@ def test_memory_config_matches_jax():
 def test_meter_tuner_and_joint_lattice():
     """The meter reads the CUDA allocator and raises without a card (so
     does the tuner, through it); choose_memory_config equals JAX's; the
-    joint memory x codec lattice raises naming A5."""
+    joint memory x codec lattice is ported (A5.2): its points equal JAX's
+    (tests/test_torch_codec.py walks it), and a DCN wire budget without
+    its measuring function raises, as in JAX."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             M.measure_step_memory(lambda: None)
@@ -335,13 +337,18 @@ def test_meter_tuner_and_joint_lattice():
     for budget in (100, 300, 650, 800, 1000):
         assert M.choose_memory_config(recs, budget) == \
             JM.choose_memory_config(recs, budget)
-    for call in (lambda: M.JointConfig(M.MemoryConfig()),
-                 M.codec_lattice_points,
-                 lambda: M.joint_memory_codec_lattice(None),
-                 lambda: M.tune_memory_config(lambda c: None, 1,
-                                              dcn_wire_bytes=1)):
-        with pytest.raises(NotImplementedError, match="A5"):
-            call()
+    from paddle_tpu.parallel.overlap import OverlapConfig as JOC
+    from paddle_tpu_torch.parallel.overlap import OverlapConfig
+
+    assert M.JointConfig(M.MemoryConfig()).label() == \
+        JM.JointConfig(JM.MemoryConfig()).label()
+    assert [c and c.to_json() for c in M.codec_lattice_points()] == \
+        [c and c.to_json() for c in JM.codec_lattice_points()]
+    assert [c.label() for c in M.joint_memory_codec_lattice(
+        OverlapConfig())] == [c.label() for c in
+                              JM.joint_memory_codec_lattice(JOC())]
+    with pytest.raises(ValueError, match="dcn_bytes_fn"):
+        M.tune_memory_config(lambda c: None, 1, dcn_wire_bytes=1)
 
 
 def _count_plain(monkeypatch, names):

@@ -286,5 +286,14 @@ def test_dropless_step_refuses_expert_parallel_and_overlap():
 
     with pytest.raises(NotImplementedError, match="A5"):
         pexp.build_moe_ep_dropless_train_step(cfg, TwoDevices())
-    with pytest.raises(NotImplementedError, match="A5"):
+    # since A5.2 an OverlapConfig is accepted at degree 1 (its codec inert,
+    # as in JAX); anything else is refused
+    from paddle_tpu_torch.parallel.overlap import OverlapConfig
+
+    with pytest.raises(TypeError, match="OverlapConfig"):
         pexp.build_moe_ep_dropless_forward(cfg, oc=object())
+    with pytest.raises(NotImplementedError, match="A5.3"):
+        pexp.build_moe_ep_dropless_forward(cfg, TwoDevices(),
+                                           oc=OverlapConfig())
+    assert callable(pexp.build_moe_ep_dropless_forward(cfg,
+                                                       oc=OverlapConfig()))

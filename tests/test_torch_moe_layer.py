@@ -765,6 +765,12 @@ def _two_devices():
     return types.SimpleNamespace(shape=(2,))
 
 
+def _overlap_config():
+    from paddle_tpu_torch.parallel.overlap import OverlapConfig
+
+    return OverlapConfig()
+
+
 @pytest.mark.parametrize("call", [
     lambda: pmoe.MoELayer(8, 16, 4, mesh=_two_devices(), device="cpu"),
     lambda: ppipe.init_pipelined_moe_params(_two_devices(), 2, 4, 8, 16,
@@ -774,7 +780,11 @@ def _two_devices():
     lambda: ppipe.pipelined_moe_forward_ep({}, None, None),
     lambda: pexp.build_moe_ep_forward(pexp.MoEEPConfig(**_CFG),
                                       _two_devices()),
-    lambda: pexp.build_moe_ep_forward(pexp.MoEEPConfig(**_CFG), oc=object()),
+    # an OverlapConfig is accepted at degree 1 since A5.2; over a mesh of
+    # more ranks the EP exchange it would configure is A5.3's
+    lambda: pexp.build_moe_ep_forward(pexp.MoEEPConfig(**_CFG),
+                                      _two_devices(),
+                                      oc=_overlap_config()),
     lambda: pexp.build_moe_ep_train_step(pexp.MoEEPConfig(**_CFG),
                                          _two_devices()),
     lambda: pexp.build_moe_ep_dropless_forward(pexp.MoEEPConfig(**_CFG),

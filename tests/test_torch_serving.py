@@ -503,15 +503,20 @@ def test_import_guard_walks_every_module():
             "paddle_tpu_torch.parallel.specs",
             "paddle_tpu_torch.parallel.schedule",
             "paddle_tpu_torch.parallel.compat",
+            "paddle_tpu_torch.parallel.codec",
+            "paddle_tpu_torch.parallel.overlap",
+            "paddle_tpu_torch.distributed.topology",
             "paddle_tpu_torch.nn.functional"} <= walked
 
 
 def test_port_sources_import_no_jax_or_paddle_tpu():
-    offenders = []
+    offenders, scanned = [], set()
     pkg = REPO / "paddle_tpu_torch"
     for path in sorted(pkg.rglob("*.py")) + [REPO / "chip_smoke.py"]:
         if "_build" in path.relative_to(REPO).parts:  # build output, not source
             continue
+        scanned.add(path.relative_to(pkg).as_posix()
+                    if pkg in path.parents else path.name)
         tree = ast.parse(path.read_text())
         for node in ast.walk(tree):
             names = []
@@ -524,3 +529,5 @@ def test_port_sources_import_no_jax_or_paddle_tpu():
                 if root in ("jax", "jaxlib", "paddle_tpu"):
                     offenders.append(f"{path.name}: {n}")
     assert offenders == []
+    assert {"distributed/topology.py", "parallel/codec.py",
+            "parallel/overlap.py", "chip_smoke.py"} <= scanned

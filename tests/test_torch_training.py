@@ -406,17 +406,30 @@ def test_flat_state_guards():
 @pytest.mark.parametrize("option", ["mesh", "overlap", "memory", "health",
                                     "schedule", "remat", "remat_policy"])
 def test_train_step_later_options_raise(option):
-    """The overlap engine and health options raise naming their ROADMAP
-    item; the memory engine's (``memory``, ``remat``, ``remat_policy``) are
-    ported: a value of the wrong type raises TypeError, a valid one builds
+    """The health option raises naming its ROADMAP item; the memory
+    engine's (``memory``, ``remat``, ``remat_policy``) are ported: a value
+    of the wrong type raises TypeError, a valid one builds
     (tests/test_torch_memory.py holds them against JAX).  ``mesh`` and
     ``schedule`` are ported too: a value of the wrong type raises
     TypeError, and a mesh without process groups is refused (the mesh step
-    runs on a live mesh, tests/test_torch_mesh_train.py)."""
+    runs on a live mesh, tests/test_torch_mesh_train.py).  ``overlap`` is
+    ported (tests/test_torch_overlap.py): without a mesh it raises
+    ValueError, as in JAX; on a live mesh a value of the wrong type raises
+    TypeError and an OverlapConfig builds."""
     from paddle_tpu_torch.parallel import memory as M
-    from paddle_tpu_torch.parallel import Mesh, PartitionSchedule
+    from paddle_tpu_torch.parallel import Mesh, OverlapConfig, \
+        PartitionSchedule
 
     model = LlamaForCausalLM(LlamaConfig.debug(), device="cpu")
+    if option == "overlap":
+        with pytest.raises(ValueError, match="needs a mesh"):
+            build_train_step(model, AdamW(1e-3), overlap=OverlapConfig())
+        one = Mesh((1, 1, 1), ("dp", "sharding", "mp"), device_type="cpu")
+        with pytest.raises(TypeError, match="overlap"):
+            build_train_step(model, AdamW(1e-3), mesh=one, overlap=object())
+        assert callable(build_train_step(model, AdamW(1e-3), mesh=one,
+                                         overlap=OverlapConfig()))
+        return
     if option in ("mesh", "schedule"):
         with pytest.raises(TypeError, match=option):
             build_train_step(model, AdamW(1e-3), **{option: object()})
