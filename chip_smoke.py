@@ -154,7 +154,16 @@ Phases, each of which raises (and so exits non-zero) on failure:
     tokens against the capacity path at capacity = tokens;
 20. the capacity EP step (degree 1) beside the dropless one at the MoE
     train cell's shape: ms per step, the dropped share, peak bytes;
-21. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
+21. ``moe_ep``: NCCL at world size 1 from a FileStore; the dropless and
+    the capacity EP steps at the MoE train cell on the ("dp", "sharding",
+    "ep") mesh (1, 1, 1) beside ``mesh=None``, and GPT-MoE at
+    ``GPTMoEConfig()`` through ``apply_gpt_moe_sharding`` +
+    ``build_moe_train_step(mesh=...)`` on ("dp", "ep", "mp") = (1, 1, 1)
+    beside ``mesh=None``, 1 + 3 steps each: losses equal bit for bit, the
+    dropless step 2 B7 forward, 1 B7 dx and 2 B8 launches a step, the
+    capacity step none, GPT-MoE 8 B1 and 8 B2, no plain call; ms per step
+    and peak bytes of both;
+22. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
     last.
 
 The ``mesh_train`` phase runs after phase 9 (the long-context recipe):
@@ -198,6 +207,18 @@ each rep), with the min and max beside them in the record.  Exits
 non-zero, printing no result, when CUDA is not available or the package is
 not beside the script.  Writes the full record to
 chiprun_out/chip_smoke.json.
+
+To compare two checkouts on one card (say, the parent commit unpacked by
+``git archive`` into a gitignored directory):
+
+    python3 chip_smoke.py --turns OTHER_ROOT --phases moe_train,gpt_moe_train
+
+runs the named phases (``TURN_PHASES``) of OTHER_ROOT, of this checkout,
+of this checkout and of OTHER_ROOT, each turn in a fresh process that
+builds and imports that checkout's own package and chip_smoke.py.  Each
+phase prints one ``TURN`` line (the checkout, the phase's summary, its
+wall seconds and the device's peak bytes over it, allocator counters
+reset before it); the records go to chiprun_out/turns.json.
 """
 
 from __future__ import annotations
@@ -4610,6 +4631,185 @@ def moe_capacity_phase(dev):
     return out
 
 
+# the moe_ep phase (ROADMAP A5.3): each EP step on the (1, 1, 1) NCCL mesh
+# beside mesh=None at the MoE train cell, and GPT-MoE on ("dp", "ep", "mp")
+MOE_EP_WARMUP, MOE_EP_STEPS = 1, 3
+
+
+def moe_ep_world1(dev, axes):
+    """NCCL at world size 1 from a FileStore in a temporary directory and a
+    (1, 1, 1) cuda mesh named ``axes`` (the default process group is
+    started once and kept for the phase's second mesh)."""
+    import tempfile
+
+    import torch.distributed as dist
+    from paddle_tpu_torch.parallel import init_mesh
+
+    store = None
+    if not dist.is_initialized():
+        store = dist.FileStore(os.path.join(
+            tempfile.mkdtemp(prefix="moe_ep_"), "store"), 1)
+    return init_mesh("cuda", (1, 1, 1), axes, store=store, rank=0,
+                     world_size=1)
+
+
+def _ep_runs(name, build, mesh, params0, x2d, tgt, want):
+    """``build(mesh)``'s step for MOE_EP_WARMUP + MOE_EP_STEPS steps from a
+    copy of ``params0``: losses, ms per step, the grouped launches of every
+    step (each must be ``want``, with no plain call) and the peak."""
+    import torch
+    from paddle_tpu_torch.ops import grouped_matmul as gm
+
+    step = build(mesh)
+    params = {k: v.clone() for k, v in params0.items()}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    for _ in range(MOE_EP_WARMUP + MOE_EP_STEPS):
+        with moe_counter() as plain:
+            t0 = time.perf_counter()
+            loss, _, drop, _, params = step(params, x2d, tgt)
+            _sync()
+            walls.append(time.perf_counter() - t0)
+        if dict(gm.LAUNCHES) != want or plain["grouped_matmul_plain"] \
+                or plain["grouped_outer_plain"]:
+            raise AssertionError(f"moe_ep {name}: launches {gm.LAUNCHES} "
+                                 f"(expected {want}), calls {plain}")
+        losses.append(loss.item())
+    return {"losses": losses, "step_ms": [w * 1e3 for w in walls],
+            "ms_per_step": statistics.median(walls[MOE_EP_WARMUP:]) * 1e3,
+            "launches_per_step": want,
+            "peak_device_bytes": torch.cuda.max_memory_allocated()}
+
+
+def _gpt_moe_ep_runs(dev, mesh):
+    """GPT-MoE at ``GPTMoEConfig()`` (gpt_moe_train's weights, gates and
+    batch from SEED, AdamW at GPT_MOE_LR, bf16 compute) through
+    ``build_moe_train_step`` with ``mesh=None``, then placed on ``mesh`` by
+    ``apply_gpt_moe_sharding`` and stepped with ``mesh=``: GPT_MOE_WARMUP +
+    GPT_MOE_STEPS steps each, every step GPT-MoE's layers' B1 and B2
+    launches and no plain call; ce per step, ms per step, peak bytes."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import (GPTMoEConfig, GPTMoEForCausalLM,
+                                         apply_gpt_moe_sharding,
+                                         build_moe_train_step)
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import random as prandom
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = GPTMoEConfig()
+    layers = cfg.num_hidden_layers
+    prandom.seed(SEED)
+    model = GPTMoEForCausalLM(cfg, device=dev)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    with torch.no_grad():
+        for blk in model.blocks:
+            if blk.use_moe:
+                blk.mlp.gate.weight.normal_(0.0, cfg.hidden_size ** -0.5,
+                                            generator=g)
+    rng = np.random.default_rng(SEED)
+    shape = (GPT_MOE_BATCH, GPT_MOE_SEQ)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, shape)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab_size, shape)).to(dev)
+    out = {}
+    for path in ("meshless", "mesh"):
+        if path == "mesh":
+            apply_gpt_moe_sharding(model, mesh)
+        params = model.functional_state()
+        if path == "meshless":
+            params = {k: v.clone() for k, v in params.items()}
+        opt = AdamW(learning_rate=GPT_MOE_LR)
+        state = opt.init_state(params)
+        step = build_moe_train_step(model, opt, mesh=None if path ==
+                                    "meshless" else mesh,
+                                    compute_dtype=torch.bfloat16)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ces, walls = [], []
+        with plain_call_counter() as plain:
+            for i in range(GPT_MOE_WARMUP + GPT_MOE_STEPS):
+                fa.reset_launches()
+                t0 = time.perf_counter()
+                ce, _, params, state = step(params, state, i, GPT_MOE_LR,
+                                            ids, labels)
+                _sync()
+                walls.append(time.perf_counter() - t0)
+                check_launches(f"moe_ep gpt_moe {path} step {i}",
+                               dict(fa.LAUNCHES), plain,
+                               flash_attention_fwd=layers,
+                               flash_attention_bwd=layers)
+                ces.append(ce.item())
+        out[path] = {"ce": ces, "step_ms": [w * 1e3 for w in walls],
+                     "ms_per_step": statistics.median(
+                         walls[GPT_MOE_WARMUP:]) * 1e3,
+                     "launches_per_step": {"flash_attention_fwd": layers,
+                                           "flash_attention_bwd": layers},
+                     "peak_device_bytes": torch.cuda.max_memory_allocated()}
+        del params, state, step, opt
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_ep_phase(dev):
+    """Expert parallelism's paths at world size 1 (NCCL, FileStore): the
+    dropless and the capacity EP steps (MOE_TRAIN_CFG, the cell's inputs
+    from SEED, lr MOE_TRAIN_LR, nothing cut) on the ("dp", "sharding",
+    "ep") = (1, 1, 1) mesh beside ``mesh=None``, and GPT-MoE at full width
+    and depth on ("dp", "ep", "mp") = (1, 1, 1) beside ``mesh=None``.  One
+    step body each: the losses must be equal bit for bit on every step;
+    the dropless step 2 B7 forward, 1 B7 dx and 2 B8 launches a step, the
+    capacity step none, GPT-MoE 8 B1 and 8 B2 a step, no plain call
+    anywhere.  At world size 1 every exchange and gather is the identity:
+    the collectives' cost is not measured here."""
+    import torch
+    import torch.distributed as dist
+    from paddle_tpu_torch.ops import grouped_matmul as gm
+    from paddle_tpu_torch.parallel.expert import (
+        MoEEPConfig, build_moe_ep_dropless_train_step,
+        build_moe_ep_train_step)
+
+    cfg = MoEEPConfig(**MOE_TRAIN_CFG)
+    dropless = dict(grouped_matmul=2, grouped_matmul_int8=0,
+                    grouped_matmul_t=1, grouped_outer=2)
+    out = {"config": MOE_TRAIN_CFG, "tokens": MOE_TRAIN_TOKENS,
+           "lr": MOE_TRAIN_LR, "mesh": [1, 1, 1]}
+    try:
+        mesh = moe_ep_world1(dev, ("dp", "sharding", "ep"))
+        params0, x2d, tgt = moe_train_inputs(cfg, dev)
+        for name, build, want in (
+                ("dropless", lambda m: build_moe_ep_dropless_train_step(
+                    cfg, m, lr=MOE_TRAIN_LR, block_rows=8), dropless),
+                ("capacity", lambda m: build_moe_ep_train_step(
+                    cfg, m, lr=MOE_TRAIN_LR),
+                 dict.fromkeys(gm.LAUNCHES, 0))):
+            runs = {path: _ep_runs(f"{name} {path}", build, m, params0, x2d,
+                                   tgt, want)
+                    for path, m in (("meshless", None), ("mesh", mesh))}
+            if runs["mesh"]["losses"] != runs["meshless"]["losses"]:
+                raise AssertionError(f"moe_ep {name}: mesh losses "
+                                     f"{runs['mesh']['losses']} != meshless "
+                                     f"{runs['meshless']['losses']}")
+            runs["mesh_minus_meshless_ms"] = (runs["mesh"]["ms_per_step"]
+                                              - runs["meshless"]
+                                              ["ms_per_step"])
+            out[name] = runs
+        del params0, x2d, tgt
+        torch.cuda.empty_cache()
+        gpt = out["gpt_moe"] = _gpt_moe_ep_runs(
+            dev, moe_ep_world1(dev, ("dp", "ep", "mp")))
+        if gpt["mesh"]["ce"] != gpt["meshless"]["ce"]:
+            raise AssertionError(f"moe_ep gpt_moe: mesh ce {gpt['mesh']['ce']}"
+                                 f" != meshless {gpt['meshless']['ce']}")
+        gpt["mesh_minus_meshless_ms"] = (gpt["mesh"]["ms_per_step"]
+                                         - gpt["meshless"]["ms_per_step"])
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4865,6 +5065,19 @@ def main() -> int:
         {k: v for k, v in layer.items() if k != "calls"}), flush=True)
     cap = record["moe_capacity"] = moe_capacity_phase(dev)
     print("moe_capacity: " + json.dumps(cap) + f" ({card})", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ep = record["moe_ep"] = moe_ep_phase(dev)
+    for name in ("dropless", "capacity", "gpt_moe"):
+        r = ep[name]
+        key = "ce" if name == "gpt_moe" else "losses"
+        print(f"moe_ep {name}: " + json.dumps(
+            {path: {k: r[path][k] for k in (key, "ms_per_step",
+                                            "launches_per_step",
+                                            "peak_device_bytes")}
+             for path in ("meshless", "mesh")})
+            + f" mesh_minus_meshless_ms={r['mesh_minus_meshless_ms']:.3f}"
+            f" ({card})", flush=True)
     record["wall_s"] = time.perf_counter() - t0
     out_dir = HERE / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -4942,6 +5155,9 @@ def main() -> int:
                 "llama3_8b": sum(r["launches"][name]
                                  for r in big["steps"]),
                 "gpt_moe_train": gpt["launches_total"][name],
+                "moe_ep_gpt_moe_mesh": ep["gpt_moe"]["mesh"][
+                    "launches_per_step"][name] * len(
+                        ep["gpt_moe"]["mesh"]["ce"]),
                 "mesh_train": mt["mesh_step"]["launches"][name],
                 "overlap_train": ot["overlap_step"]["launches"][name],
                 "overlap_train_remat": ot["remat"]["overlap"]["launches"][
@@ -5048,7 +5264,10 @@ def main() -> int:
                     "grouped_outer": ("grouped_outer",)}[name]
             kernels[-1]["launches_by_path"] = {
                 "moe_train": launches,
-                "moe_layer": sum(layer["launches"][k] for k in keys)}
+                "moe_layer": sum(layer["launches"][k] for k in keys),
+                "moe_ep_dropless_mesh": sum(
+                    ep["dropless"]["mesh"]["launches_per_step"][k]
+                    for k in keys) * len(ep["dropless"]["mesh"]["losses"])}
             kernels[-1]["moe_layer_calls"] = [
                 {k: c[k] for k in ("name", "shape", "err", "max_abs_err",
                                    "ms", "ms_min", "ms_max", "plain_ms",
@@ -5070,5 +5289,98 @@ def main() -> int:
     return 0
 
 
+# phase name -> its call on a chip_smoke module, for --turns
+TURN_PHASES = {
+    "moe_train": lambda cs, dev, flush: cs.moe_train_phase(dev),
+    "moe_capacity": lambda cs, dev, flush: cs.moe_capacity_phase(dev),
+    "gpt_moe_train": lambda cs, dev, flush: cs.gpt_moe_train_phase(
+        dev, flush),
+}
+
+
+def _summary(rec):
+    """A phase record without its long parts (profiles, kernel rows)."""
+    if isinstance(rec, dict):
+        return {k: _summary(v) for k, v in rec.items()
+                if k not in ("profile", "kernels", "steps")}
+    return rec
+
+
+def phase_worker(root: str, phases) -> int:
+    """Run ``phases`` of the checkout at ``root`` in this process, on its
+    own package and chip_smoke.py; one ``TURN`` JSON line per phase."""
+    import importlib.util
+
+    import torch
+
+    sys.path.insert(0, root)
+    spec = importlib.util.spec_from_file_location(
+        "turn_chip_smoke", os.path.join(root, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    from paddle_tpu_torch.ops import _build
+
+    _build.build()
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=dev)
+    for name in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rec = TURN_PHASES[name](cs, dev, flush)
+        print("TURN " + json.dumps({
+            "root": root, "phase": name, "s": time.perf_counter() - t0,
+            "peak_device_bytes": torch.cuda.max_memory_allocated(),
+            "record": _summary(rec)}), flush=True)
+    return 0
+
+
+def turns_main(argv) -> int:
+    """``--turns OTHER_ROOT --phases a,b``: the phases of OTHER_ROOT, this
+    checkout, this checkout, OTHER_ROOT, each turn a fresh process."""
+    import argparse
+
+    ap = argparse.ArgumentParser(prog="chip_smoke.py")
+    ap.add_argument("--turns", help="the other checkout's root")
+    ap.add_argument("--phase-worker", help=argparse.SUPPRESS)
+    ap.add_argument("--phases", required=True)
+    args = ap.parse_args(argv)
+    phases = args.phases.split(",")
+    unknown = [p for p in phases if p not in TURN_PHASES]
+    if unknown:
+        ap.error(f"unknown phases {unknown}; known: {list(TURN_PHASES)}")
+    if args.phase_worker:
+        return phase_worker(args.phase_worker, phases)
+    if not args.turns:
+        ap.error("--turns OTHER_ROOT is required")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    other = str(Path(args.turns).resolve())
+    turns = []
+    for root in (other, str(HERE), str(HERE), other):
+        out = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--phase-worker",
+             root, "--phases", args.phases], capture_output=True, text=True,
+            cwd=root, timeout=900)
+        sys.stderr.write(out.stderr[-4000:])
+        if out.returncode:
+            print(f"turn in {root} failed ({out.returncode})", flush=True)
+            return 1
+        for line in out.stdout.splitlines():
+            if line.startswith("TURN "):
+                print(line, flush=True)
+                turns.append(json.loads(line[5:]))
+    record = HERE / "chiprun_out" / "turns.json"
+    record.parent.mkdir(exist_ok=True)
+    record.write_text(json.dumps({"card": card, "turns": turns}, indent=1))
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(turns_main(sys.argv[1:]) if len(sys.argv) > 1 else main())

@@ -6,7 +6,8 @@ mesh (the same numpy draws).
 The pipelined forwards (``pipelined_moe_forward``, ``moe_block_ep``,
 ``pipelined_moe_forward_ep``) run inside a pp x ep x mp program through
 ``pipeline_apply`` and raise ``NotImplementedError`` naming ROADMAP queue
-A5.5 (pipelining), as a mesh of more than one device raises naming A5.3.
+A5.5 (pipelining), as does ``init_pipelined_moe_params`` over a mesh of
+more than one device (its pp x ep x mp placement is the pipelined stack's).
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import numpy as np
 import torch
 
 from .....device import DeviceLike, resolve_device
-from .moe_layer import _moe_forward_op, _single_device_mesh
+from .moe_layer import _moe_forward_op
 
 
 def _needs_a5(what: str):
@@ -33,7 +34,10 @@ def init_pipelined_moe_params(mesh, num_layers: int, num_expert: int,
     """Layer-major [L, E, ...] expert stacks from
     ``np.random.RandomState(seed)``, drawn as the JAX function draws them,
     on ``device``; ``mesh`` must be None (or one device)."""
-    _single_device_mesh(mesh, "init_pipelined_moe_params")
+    shape = getattr(mesh, "shape", ())
+    sizes = shape.values() if isinstance(shape, dict) else shape
+    if mesh is not None and int(np.prod(tuple(sizes))) > 1:
+        _needs_a5("init_pipelined_moe_params over a mesh")
     dev = resolve_device(device)
     rng = np.random.RandomState(seed)
     params = {

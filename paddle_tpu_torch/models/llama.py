@@ -258,7 +258,9 @@ def params_from_jax(state: Dict[str, np.ndarray], device: DeviceLike,
     bit-exactly through an int16 view.  With ``mesh`` (or ``schedule``) the
     arrays are the global values and each comes back as this rank's
     ``ShardedTensor`` block under the schedule (``LLAMA_SHARDING_PLAN`` by
-    default)."""
+    default; another model's state passes its own: GPT-MoE the placed
+    model's ``schedule``, the MoE EP block
+    ``PartitionSchedule.from_moe_ep``)."""
     dev = resolve_device(device)
     out = {}
     for k, a in state.items():

@@ -12,6 +12,12 @@ backward is the transposed collective, as JAX transposes them:
 - ``ppermute`` transposes into the inverse permutation;
 - ``all_to_all`` transposes into the one with split and concat swapped.
 
+``gather_blocks`` is the port's all-gather of a value every rank then
+uses whole (the MoE router's probabilities, the EP block's stats rows,
+GPT-MoE's embedding hidden blocks): its cotangent is complete on every
+rank, so its backward keeps this rank's block of it, where
+``all_gather``'s reduce-scatters a partial one.
+
 ``psum``, ``psum_scatter``, ``all_gather`` and ``all_to_all`` (and their
 raw forms) take ``axis_index_groups``, a partition of the axis's positions:
 each group reduces or gathers within itself, as ``lax.psum(...,
@@ -265,6 +271,21 @@ class _AllGather(torch.autograd.Function):
                 None, None, None, None)
 
 
+class _GatherBlock(torch.autograd.Function):
+    """All-gather of a block whose gathered value every rank uses whole:
+    the backward keeps this rank's block of the (complete) cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim, mesh):
+        ctx.meta = (dim, mesh.axis_index(axis) * x.shape[dim], x.shape[dim])
+        return all_gather_raw(x, axis, dim, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, start, n = ctx.meta
+        return g.narrow(dim, start, n), None, None, None
+
+
 class _PsumScatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis, dim, mesh, groups):
@@ -397,6 +418,19 @@ def all_gather(x: torch.Tensor, axis_name: str, *, axis: int = 0,
                             _norm_groups(axis_index_groups))
 
 
-__all__ = ["Pending", "all_gather", "all_to_all", "pbroadcast", "ppermute",
-           "psum", "psum_scatter", "all_gather_raw", "all_reduce_raw",
-           "reduce_scatter_raw"]
+def gather_blocks(x: torch.Tensor, axes: Sequence[str], *, dim: int = 0,
+                  mesh) -> torch.Tensor:
+    """Every rank's block of ``dim`` along ``axes``, in block order
+    (row-major over ``axes``, the first axis major), on every rank: one
+    all-gather per axis, the innermost first.  The result is a replicated
+    value (every rank uses all of it), so each rank's backward keeps its
+    own block of the cotangent."""
+    for a in reversed(tuple(axes)):
+        if _size(mesh, a) > 1:
+            x = _GatherBlock.apply(x, a, dim % x.dim(), mesh)
+    return x
+
+
+__all__ = ["Pending", "all_gather", "all_to_all", "gather_blocks",
+           "pbroadcast", "ppermute", "psum", "psum_scatter",
+           "all_gather_raw", "all_reduce_raw", "reduce_scatter_raw"]

@@ -32,8 +32,9 @@ Port of ``paddle_tpu/parallel/schedule.py``:
   partition x memory x overlap tuner, the memory tuner's cheapest-first
   walk one axis richer.
 
-What waits for later parts of ROADMAP A5 and for A7 raises
-``NotImplementedError``: EP's ``from_moe_ep`` (A5.3); the DCN wire
+``from_moe_ep`` is the MoE EP block's schedule (``parallel/expert.py``'s
+plan, the ``ep`` or ``ep_dropless`` tactic).  What waits for A7 raises
+``NotImplementedError``: the DCN wire
 measurement of a traced step (``measure_dcn_wire_bytes``, the Graph
 Doctor's COMM004 pricing) and the roofline-predicted walk
 (``tune_schedule_config(predict=True)``), both A7.
@@ -489,10 +490,24 @@ class PartitionSchedule:
         return cls(mesh, plan_for, layout)
 
     @classmethod
-    def from_moe_ep(cls, *args, **kwargs) -> "PartitionSchedule":
-        """The EP constructor: ROADMAP A5.3."""
-        raise _unported("PartitionSchedule.from_moe_ep (expert "
-                        "parallelism)", "A5.3")
+    def from_moe_ep(cls, cfg, mesh: Mesh, dtype: str = "float32",
+                    tactics: Optional[Sequence[str]] = None,
+                    dropless: bool = False) -> "PartitionSchedule":
+        """The MoE EP block's schedule (mirror of ``from_moe_ep``): the
+        block's declared plan (``expert.moe_ep_layout``'s: expert leaves
+        lead with ``ep``, the gate replicates) under the at-rest rule.
+        ``cfg`` is a ``MoEEPConfig``.  ``dropless=True`` names the
+        ``ep_dropless`` tactic on the ``ep`` axis instead of ``ep``: the
+        table is the same (the dropless block changes the token transport,
+        not the placement)."""
+        from .expert import moe_ep_shapes, moe_ep_spec_for
+        from .specs import EXPERT_AXIS
+
+        if tactics is None and dropless:
+            tactics = ["ep_dropless" if t.axis == EXPERT_AXIS else t.name
+                       for t in tactics_for_mesh(mesh)]
+        return cls.from_plan(mesh, moe_ep_shapes(cfg), moe_ep_spec_for,
+                             dtype=dtype, tactics=tactics)
 
     # -- introspection -------------------------------------------------------
 

@@ -249,6 +249,17 @@ class Mesh:
                 f"rank first (it is collective over the world)")
         return self._index_groups[key]
 
+    def block_index(self, axes: Sequence[str],
+                    coords: Optional[Dict[str, int]] = None) -> int:
+        """This rank's block index over ``axes`` (row-major, the first axis
+        major: a batch split over them), ``coords`` replacing some of its
+        coordinates."""
+        idx = 0
+        for a in axes:
+            c = (coords or {}).get(a, self.axis_index(a))
+            idx = idx * int(self.shape[a]) + c
+        return idx
+
     def peer(self, axis: str, index: int) -> int:
         """Global rank of the rank at coordinate ``index`` on ``axis`` whose
         other coordinates are this rank's."""

@@ -2015,3 +2015,238 @@ def test_overlap_step_on_four_cards(tmp_path):
             assert diff.max().item() <= 2e-3 * NCCL_GANG_STEPS + 1e-6, k
             assert (diff > 1e-5 + 1e-5 * w.abs()).float().mean().item() \
                 < 1e-3, k
+
+
+# -------------------------------------------- expert parallelism (A5.3)
+
+# the EP legs' MoE block on the card: bf16 tokens at widths whose B7/B8
+# launches take the wgmma route
+EP_CARD_CFG = dict(d_model=256, d_hidden=512, num_expert=8, top_k=2)
+EP_CARD_TOKENS = 1024
+# a GPT-MoE whose head dim (64) the flash kernels take (the debug config's
+# 8 is no kernel shape)
+GPT_MOE_CARD_CFG = dict(vocab_size=256, hidden_size=128, num_hidden_layers=2,
+                        num_attention_heads=2, ffn_hidden_size=256,
+                        num_experts=4, max_position_embeddings=128)
+
+
+def _ep_inputs(cfg, tokens, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(tokens, cfg.d_model, generator=g)
+    t = torch.randn(tokens, cfg.d_model, generator=g)
+    return x.to(device, torch.bfloat16), t.to(device)
+
+
+def _gpt_moe_card_model(device):
+    """GPT_MOE_CARD_CFG drawn on the CPU from seed 1 (gates N(0, 0.1^2)),
+    then moved to ``device``."""
+    from paddle_tpu_torch.models import GPTMoEConfig, GPTMoEForCausalLM
+    from paddle_tpu_torch.ops import random as prandom
+
+    cfg = GPTMoEConfig(**GPT_MOE_CARD_CFG)
+    prandom.seed(1)
+    cpu = GPTMoEForCausalLM(cfg, device="cpu")
+    with torch.no_grad():
+        for blk in cpu.blocks:
+            if blk.use_moe:
+                blk.mlp.gate.weight.normal_(
+                    0.0, 0.1, generator=torch.Generator().manual_seed(2))
+    model = GPTMoEForCausalLM(cfg, device=device)
+    model.load_state_dict(cpu.state_dict())
+    return model
+
+
+def _gpt_moe_steps(model, mesh, steps, ids, lab, lr=1e-3):
+    from paddle_tpu_torch.models import build_moe_train_step
+    from paddle_tpu_torch.optimizer import AdamW
+
+    opt = AdamW(learning_rate=lr)
+    params = model.functional_state()
+    if mesh is None:
+        params = {k: v.clone() for k, v in params.items()}
+    state = opt.init_state(params)
+    step = build_moe_train_step(model, opt, mesh=mesh)
+    ces = []
+    for i in range(steps):
+        ce, _, params, state = step(params, state, i, lr, ids, lab)
+        ces.append(ce.item())
+    return ces
+
+
+@pytest.mark.parametrize("path", ["dropless", "capacity", "gpt_moe"])
+def test_moe_ep_at_world_size_1_matches_meshless(dev, tmp_path, path):
+    """Expert parallelism's steps on a (1, 1, 1) NCCL mesh (one process, the
+    FileStore rendezvous) against ``mesh=None``, the one step body of each:
+    the dropless and capacity EP steps (EP_CARD_CFG, bf16 tokens, 2 SGD
+    steps) and GPT-MoE (GPT_MOE_CARD_CFG, fp32, 2 AdamW steps) give equal
+    losses bit for bit; the dropless step launches 2 B7 forward, 1 B7 dx
+    and 2 B8 a step, the capacity step no grouped kernel, GPT-MoE one B1
+    and one B2 per layer a step; no plain version anywhere."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.models import apply_gpt_moe_sharding
+    from paddle_tpu_torch.ops import grouped_matmul as gm
+    from paddle_tpu_torch.parallel import expert as pexp
+    from paddle_tpu_torch.parallel import init_mesh
+
+    axes = ("dp", "ep", "mp") if path == "gpt_moe" else ("dp", "sharding",
+                                                         "ep")
+    mesh = init_mesh("cuda", (1, 1, 1), axes, store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        out = {}
+        for name, m in (("meshless", None), ("mesh", mesh)):
+            if path == "gpt_moe":
+                model = _gpt_moe_card_model(dev)
+                if m is not None:
+                    apply_gpt_moe_sharding(model, m)
+                rng = np.random.default_rng(0)
+                ids = torch.from_numpy(rng.integers(0, 256, (2, 96))).to(dev)
+                lab = torch.from_numpy(rng.integers(0, 256, (2, 96))).to(dev)
+                fa.reset_launches()
+                with chip_smoke.plain_call_counter() as plain:
+                    losses = _gpt_moe_steps(model, m, 2, ids, lab)
+                out[name] = (losses, dict(fa.LAUNCHES), dict(plain))
+                continue
+            cfg = pexp.MoEEPConfig(**EP_CARD_CFG)
+            build = (pexp.build_moe_ep_dropless_train_step
+                     if path == "dropless" else pexp.build_moe_ep_train_step)
+            step = build(cfg, m, lr=1e-2)
+            params = pexp.init_moe_ep_params(cfg, seed=3, device=dev)
+            x, t = _ep_inputs(cfg, EP_CARD_TOKENS, dev)
+            losses = []
+            with chip_smoke.moe_counter() as plain:
+                for _ in range(2):
+                    losses.append(step(params, x, t)[0].item())
+                launches = dict(gm.LAUNCHES)
+            out[name] = (losses, launches, dict(plain))
+    finally:
+        dist.destroy_process_group()
+    (l0, n0, c0), (l1, n1, c1) = out["meshless"], out["mesh"]
+    assert l1 == l0, (l1, l0)
+    assert n1 == n0 and not any(c0.values()) and not any(c1.values())
+    if path == "gpt_moe":
+        assert n0["flash_attention_fwd"] == n0["flash_attention_bwd"] == 4
+    elif path == "dropless":
+        assert n0 == dict(grouped_matmul=4, grouped_matmul_int8=0,
+                          grouped_matmul_t=2, grouped_outer=4), n0
+    else:
+        assert set(n0.values()) == {0}, n0
+
+
+def _card_names():
+    import subprocess
+
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()
+
+
+# the four-card dropless step: d_model 1024, d_hidden 4096, 8 experts,
+# 4096 bf16 tokens (B7/B8 on their wgmma route)
+EP_FOUR_CFG = dict(d_model=1024, d_hidden=4096, num_expert=8, top_k=2)
+EP_FOUR_TOKENS = 4096
+EP_FOUR_STEPS = 3
+
+
+def _moe_ep_gang_rank(rank, world, root, device):
+    """One rank of ``test_moe_ep_on_four_cards``: the flat and two-stage
+    exchanges on an ``x`` axis of four, the dropless EP step on (1, 1, 4)
+    and GPT-MoE on (1, 2, 2); rank 0 also runs the degree-1 steps
+    (``mesh=None``) on its card and saves everything."""
+    import os
+
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.distributed.topology import hierarchical_axis
+    from paddle_tpu_torch.models import apply_gpt_moe_sharding
+    from paddle_tpu_torch.ops import grouped_matmul as gm
+    from paddle_tpu_torch.parallel import compat, init_mesh
+    from paddle_tpu_torch.parallel import expert as pexp
+    from paddle_tpu_torch.parallel.overlap import register_hier
+
+    torch.set_num_threads(1)
+    store = dist.FileStore(os.path.join(root, "store"), world)
+    out = {}
+    try:
+        mesh = init_mesh(device, (4,), ("x",), store=store, rank=rank,
+                         world_size=world)
+        hier = hierarchical_axis(mesh, "x", (0, 0, 1, 1))
+        register_hier(mesh, "x", hier)
+        g = torch.Generator().manual_seed(10 + rank)
+        x = torch.randn(64, 96, generator=g).to(device)
+        flat = compat._all_to_all_raw(x, "x", 0, 0, mesh, True)
+        ex = pexp.make_ep_all_to_all("x", hier, mesh=mesh)
+        two = ex(x)
+        ok = torch.tensor([float(torch.equal(two, flat)
+                                 and torch.equal(ex(two), x))],
+                          device=device)
+        dist.all_reduce(ok, op=dist.ReduceOp.MIN)
+        out["exchange_equal"] = bool(ok.item())
+
+        cfg = pexp.MoEEPConfig(**EP_FOUR_CFG)
+        x2d, tgt = _ep_inputs(cfg, EP_FOUR_TOKENS, device, seed=5)
+        mesh = init_mesh(device, (1, 1, 4), ("dp", "sharding", "ep"),
+                         store=store, rank=rank, world_size=world)
+        for name, m in (("ep", mesh), ("one_card", None)):
+            if name == "one_card" and rank != 0:
+                continue
+            step = pexp.build_moe_ep_dropless_train_step(cfg, m, lr=3e-3)
+            params = pexp.init_moe_ep_params(cfg, m, seed=4, device=device)
+            losses, launches = [], []
+            for _ in range(EP_FOUR_STEPS):
+                gm.reset_launches()
+                loss, _, dropped, _, params = step(params, x2d, tgt)
+                losses.append(loss.item())
+                launches.append(dict(gm.LAUNCHES))
+                assert float(dropped) == 0.0
+            out[f"dropless.{name}"] = dict(losses=losses, launches=launches)
+            del params, step
+
+        mesh = init_mesh(device, (1, 2, 2), ("dp", "ep", "mp"), store=store,
+                         rank=rank, world_size=world)
+        rng = np.random.default_rng(0)
+        ids = torch.from_numpy(rng.integers(0, 256, (2, 96))).to(device)
+        lab = torch.from_numpy(rng.integers(0, 256, (2, 96))).to(device)
+        model = _gpt_moe_card_model(device)
+        if rank == 0:
+            out["gpt_moe.one_card"] = _gpt_moe_steps(model, None, 3, ids,
+                                                     lab)
+        apply_gpt_moe_sharding(model, mesh)
+        out["gpt_moe.mesh"] = _gpt_moe_steps(model, mesh, 3, ids, lab)
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        torch.save(out, os.path.join(root, "out.pt"))
+
+
+def test_moe_ep_on_four_cards(tmp_path):
+    """Expert parallelism over NCCL on four cards: the two-stage exchange
+    (slice map (0, 0, 1, 1), codec off) equal to the flat one bit for bit
+    on CUDA tensors, and an involution; the dropless EP step on (dp,
+    sharding, ep) = (1, 1, 4) (EP_FOUR_CFG, 4096 bf16 tokens, 3 SGD steps
+    at 3e-3), rank 0's B7/B8 launches 2 forward, 1 dx and 2 dW a step,
+    its losses within 2e-2 of the one-card degree-1 step on the same
+    global batch; GPT-MoE (GPT_MOE_CARD_CFG, fp32, 3 AdamW steps) on (dp,
+    ep, mp) = (1, 2, 2) within 1e-5 of ``mesh=None``.  Prints each card's
+    name and power limit.  Needs four GPUs."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four NVIDIA GPUs")
+    for line in _card_names():
+        print(line)
+    _build.build()                      # once, before the ranks load it
+    torch.multiprocessing.spawn(_moe_ep_gang_rank,
+                                args=(4, str(tmp_path), "cuda"), nprocs=4,
+                                join=True)
+    out = torch.load(tmp_path / "out.pt")
+    print(json.dumps(out))
+    assert out["exchange_equal"]
+    ep, one = out["dropless.ep"], out["dropless.one_card"]
+    want = dict(grouped_matmul=2, grouped_matmul_int8=0, grouped_matmul_t=1,
+                grouped_outer=2)
+    assert all(n == want for n in ep["launches"]), ep["launches"]
+    np.testing.assert_allclose(ep["losses"], one["losses"], rtol=2e-2)
+    assert ep["losses"][-1] < ep["losses"][0]
+    np.testing.assert_allclose(out["gpt_moe.mesh"], out["gpt_moe.one_card"],
+                               rtol=1e-5)

@@ -293,12 +293,20 @@ def test_nn_layers_match_jax():
         pnn.Linear(2, 2, weight_attr=object(), device="cpu")
 
 
+# since the dp x ep x mp plan is ported, a mesh must be a
+# parallel.specs.Mesh, and the plan answers JAX's specs
 @pytest.mark.parametrize("call", [
     lambda m: build_moe_train_step(m, SGD(), mesh=object()),
     lambda m: apply_gpt_moe_sharding(m, object()),
     lambda m: pgpt._param_specs("blocks.1.mlp.w_up"),
 ], ids=["step_mesh", "apply_sharding", "param_specs"])
 def test_mesh_pieces_raise_citing_a5(call):
+    from paddle_tpu.models.gpt_moe import _param_specs as jax_specs
+
     model = GPTMoEForCausalLM(GPTMoEConfig.debug(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A5"):
-        call(model)
+    try:
+        got = call(model)
+    except TypeError as e:
+        assert "parallel.specs.Mesh" in str(e)
+        return
+    assert tuple(got) == tuple(jax_specs("blocks.1.mlp.w_up"))

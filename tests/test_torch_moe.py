@@ -279,21 +279,26 @@ def test_dropless_train_step_matches_jax():
 
 
 def test_dropless_step_refuses_expert_parallel_and_overlap():
+    """Since expert parallelism is ported the EP builders take a live
+    ``parallel.specs.Mesh`` of any degree: anything else, or an abstract
+    mesh of several ranks, is refused, with or without an OverlapConfig;
+    an OverlapConfig is accepted (its codec inert without a hierarchy, as
+    in JAX), anything else in its place refused."""
+    from paddle_tpu_torch.parallel.overlap import OverlapConfig
+    from paddle_tpu_torch.parallel.specs import Mesh
+
     cfg = pexp.MoEEPConfig(d_model=16, d_hidden=32, num_expert=4)
 
     class TwoDevices:
         shape = (1, 1, 2)
 
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(TypeError, match="parallel.specs.Mesh"):
         pexp.build_moe_ep_dropless_train_step(cfg, TwoDevices())
-    # since A5.2 an OverlapConfig is accepted at degree 1 (its codec inert,
-    # as in JAX); anything else is refused
-    from paddle_tpu_torch.parallel.overlap import OverlapConfig
-
     with pytest.raises(TypeError, match="OverlapConfig"):
         pexp.build_moe_ep_dropless_forward(cfg, oc=object())
-    with pytest.raises(NotImplementedError, match="A5.3"):
-        pexp.build_moe_ep_dropless_forward(cfg, TwoDevices(),
-                                           oc=OverlapConfig())
+    with pytest.raises(ValueError, match="live mesh"):
+        pexp.build_moe_ep_dropless_forward(
+            cfg, Mesh((1, 1, 2), ("dp", "sharding", "ep")),
+            oc=OverlapConfig())
     assert callable(pexp.build_moe_ep_dropless_forward(cfg,
                                                        oc=OverlapConfig()))
