@@ -163,7 +163,20 @@ Phases, each of which raises (and so exits non-zero) on failure:
     dropless step 2 B7 forward, 1 B7 dx and 2 B8 launches a step, the
     capacity step none, GPT-MoE 8 B1 and 8 B2, no plain call; ms per step
     and peak bytes of both;
-22. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
+22. ``hybrid_train``: NCCL at world size 1 from a new FileStore; the
+    hybrid step (``init_hybrid_state`` + ``build_hybrid_train_step``) on
+    the (pp, dp, sharding, sep, mp) mesh (1, 1, 1, 1, 1) at the train
+    cell's full width and depth (the 6 rows of one micro-step, fp32
+    weights, bf16 compute, AdamW) under gpipe (2 micro-batches) and 1F1B
+    (3), beside ``build_train_step(mesh=None)`` on the same weights and
+    rows, 1 + 3 steps each: losses within 2e-2 of the meshless step's,
+    the B1/B2 launches of ``hybrid_predicted_launches`` by the wrappers
+    and, per micro-batch, by the profiler, no plain call; then ring and
+    Ulysses attention at sep 1 on the long-context shape (b 1, s 8192,
+    16/4 heads, d 128, bf16) against ``flash_attention(causal=True)``:
+    the ring one B5 and one B6 call within 2e-2, Ulysses bit for bit; ms
+    per step, peak bytes and ms per attention call;
+23. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
     last.
 
 The ``mesh_train`` phase runs after phase 9 (the long-context recipe):
@@ -4810,6 +4823,237 @@ def moe_ep_phase(dev):
     return out
 
 
+# ------------------------------------------------------- hybrid_train phase
+
+# (schedule, num_microbatches) of the hybrid step runs on the train cell's
+# 6 rows: gpipe over 2 micro-batches of 3 rows, 1F1B over 3 of 2
+HYBRID_RUNS = (("gpipe", 2), ("1F1B", 3))
+# the long-context attention shape (b, s, q heads, kv heads, head dim), bf16
+SEQ_SHAPE = (1, 8192, 16, 4, 128)
+SEQ_TOL = 2e-2
+SEQ_REPS = 5
+
+
+def hybrid_predicted_launches(schedule, m, layers):
+    """B1/B2 launches (``flash_attention_fwd``/``_bwd``) a step of the
+    hybrid step at world size 1 (pp 1): gpipe runs m ticks, each every
+    layer's forward and, in the backward, its backward once; the 1F1B
+    executor runs each micro-batch's forward (FWD, no autograd) and
+    recomputes it in its BWD before the backward: 2 m forwards a layer."""
+    fwd = layers * m * (1 if schedule == "gpipe" else 2)
+    return {"flash_attention_fwd": fwd, "flash_attention_bwd": layers * m}
+
+
+def _hybrid_steps(what, step, grads_fn, params, state, ids, labels, want, m):
+    """TRAIN_WARMUP + TRAIN_STEPS steps of ``step`` from (params, state):
+    each step exactly ``want`` flash launches and no plain call; losses, ms
+    per step, peak bytes, and the B1/B2 kernels per micro-batch of one
+    profiled ``grads_fn`` call (best of PROFILE_WINDOWS windows)."""
+    import torch
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    with plain_call_counter() as plain:
+        for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+            fa.reset_launches()
+            t0 = time.perf_counter()
+            loss, params, state = step(params, state, i, TRAIN_LR, ids,
+                                       labels)
+            _sync()
+            walls.append(time.perf_counter() - t0)
+            check_launches(f"hybrid_train {what} step {i}",
+                           dict(fa.LAUNCHES), plain, **want)
+            losses.append(loss.item())
+    peak = torch.cuda.max_memory_allocated()
+    marks = {"hb_fwd": want["flash_attention_fwd"],
+             "hb_dkv": want["flash_attention_bwd"],
+             "hb_dq": want["flash_attention_bwd"]}
+
+    def counted(calls):
+        return all(sum(c for n, c in calls.items() if mk in n) == n_want
+                   for mk, n_want in marks.items())
+
+    calls, windows = until_counted(
+        lambda: profiled_calls(lambda: grads_fn(params), "hb_"), counted)
+    if not counted(calls):
+        raise AssertionError(f"hybrid_train {what}: profiled kernels {calls}"
+                             f", expected {marks} a step")
+    out = {"losses": losses, "step_ms": [w * 1e3 for w in walls],
+           "ms_per_step": statistics.median(walls[TRAIN_WARMUP:]) * 1e3,
+           "launches_per_step": want, "num_microbatches": m,
+           "profiled_per_micro_batch": {
+               mk: sum(c for n, c in calls.items() if mk in n) / m
+               for mk in marks},
+           "profile_windows": windows, "peak_device_bytes": peak}
+    print(f"hybrid_train {what}: " + json.dumps(
+        {k: out[k] for k in ("losses", "ms_per_step", "launches_per_step",
+                             "profiled_per_micro_batch",
+                             "peak_device_bytes")}), flush=True)
+    return out
+
+
+def sequence_attention_leg(dev, mesh, flush):
+    """Ring and Ulysses attention at world size 1 on the long-context shape
+    (SEQ_SHAPE, bf16, causal) against ``flash_attention(causal=True)`` on
+    the same inputs and cotangent: the ring is one diagonal hop (one B5
+    and one B6 call; B6 at 8K is the dq + dk/dv pair), output and grads
+    within SEQ_TOL of the flash call's; Ulysses' exchanges are the identity
+    and it must equal the flash call bit for bit (whose route at this shape
+    ``flash_attention``'s HB predicate picks).  ms per forward + backward
+    call (CUDA events, L2 flushed)."""
+    import torch
+    from paddle_tpu_torch.incubate.nn.attention import flash_attention
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.parallel import (ring_flash_attention,
+                                           ulysses_attention)
+
+    b, s, h, kvh, d = SEQ_SHAPE
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def draw(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(
+            torch.bfloat16)
+
+    q, k, v, w = draw(b, s, h, d), draw(b, s, kvh, d), draw(b, s, kvh, d), \
+        draw(b, s, h, d)
+
+    def run(fn):
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        o = fn(*ins)
+        return [o.detach()] + list(torch.autograd.grad(o, ins, w))
+
+    calls = {"flash": lambda a, c, e: flash_attention(a, c, e, causal=True),
+             "ring": lambda a, c, e: ring_flash_attention(a, c, e, mesh=mesh),
+             "ulysses": lambda a, c, e: ulysses_attention(a, c, e,
+                                                          mesh=mesh)}
+    hb = fa.hb_bwd_blocks(h // kvh, s, s, d) is not None
+    bwd = (("flash_masked_bwd_fused",)
+           if fa.flash_bwd_route(s, s, d) == "fused"
+           else ("flash_masked_bwd_dq", "flash_masked_bwd_dkv"))
+    masked = dict.fromkeys(("flash_masked_fwd",) + bwd, 1)
+    want_launches = {"flash": ({"flash_attention_fwd": 1,
+                                "flash_attention_bwd": 1} if hb else masked),
+                     "ring": masked}
+    want_launches["ulysses"] = want_launches["flash"]
+    out = {"shape": list(SEQ_SHAPE), "tol": SEQ_TOL}
+    ref = None
+    for name, fn in calls.items():
+        fa.reset_launches()
+        with plain_call_counter() as plain:
+            got = run(fn)
+            counts = dict(fa.LAUNCHES)
+        check_launches(f"hybrid_train {name} at {SEQ_SHAPE}", counts, plain,
+                       **want_launches[name])
+        ms = timing(lambda: run(fn), SEQ_REPS, flush)
+        rec = {"launches": {n: c for n, c in counts.items() if c},
+               "ms": ms[0], "ms_min": ms[1], "ms_max": ms[2]}
+        if ref is None:
+            ref = got
+        else:
+            errs = {key: ((x.float() - y.float()).abs().max()
+                          / y.float().abs().max()).item()
+                    for key, x, y in zip(("o", "dq", "dk", "dv"), got, ref)}
+            rec["rel_err"] = errs
+            rec["bitwise"] = all(torch.equal(x, y) for x, y in zip(got, ref))
+            if not all(e <= SEQ_TOL for e in errs.values()):
+                raise AssertionError(f"hybrid_train {name}: {errs} > "
+                                     f"{SEQ_TOL}")
+            if name == "ulysses" and not rec["bitwise"]:
+                raise AssertionError("hybrid_train: Ulysses at sep 1 is not "
+                                     f"flash_attention bit for bit: {errs}")
+        out[name] = rec
+        print(f"hybrid_train {name} {list(SEQ_SHAPE)}: " + json.dumps(rec),
+              flush=True)
+    return out
+
+
+def hybrid_train_phase(dev, flush):
+    """The hybrid step (``init_hybrid_state`` + ``build_hybrid_train_step``)
+    on the (pp, dp, sharding, sep, mp) = (1, 1, 1, 1, 1) NCCL mesh at world
+    size 1 (a new FileStore world), at the train cell's full width and
+    depth (TRAIN_CFG, the 6 rows of 1024 tokens from SEED, fp32 weights,
+    bf16 compute, per-tensor AdamW at TRAIN_LR), once per HYBRID_RUNS
+    schedule, beside ``build_train_step(mesh=None)`` on the same weights
+    and rows: 1 + 3 steps each.  Raises where a loss is more than
+    TRAIN_LOSS_TOL relative from the meshless step's, where a step's B1/B2
+    launches (by the wrappers, and by the profiler over one gradient pass)
+    differ from ``hybrid_predicted_launches``, or where a plain version is
+    called; then ``sequence_attention_leg``.  At world size 1 every
+    exchange is the identity: no collective is timed here."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         build_hybrid_train_step,
+                                         build_train_step, hybrid_mesh,
+                                         init_hybrid_state)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    rng = np.random.default_rng(SEED)
+    shape = (TRAIN_BATCH, TRAIN_SEQ)
+    ids = torch.from_numpy(rng.integers(0, TRAIN_CFG["vocab_size"],
+                                        shape)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, TRAIN_CFG["vocab_size"],
+                                           shape)).to(dev)
+    store = dist.FileStore(os.path.join(tempfile.mkdtemp(prefix="hybrid_"),
+                                        "store"), 1)
+    mesh = hybrid_mesh("cuda", store=store, rank=0, world_size=1)
+    out = {"config": TRAIN_CFG, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "mesh": [1, 1, 1, 1, 1], "runs": dict(HYBRID_RUNS),
+           "reduced": ["no accumulation: the 6 rows of one micro-step of "
+                       "the train cell, split into the runs' micro-batches"]}
+    try:
+        cfg = LlamaConfig(**TRAIN_CFG)
+        layers = cfg.num_hidden_layers
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        model = LlamaForCausalLM(cfg, device=dev, dtype=torch.float32,
+                                 generator=gen)
+        opt = AdamW(learning_rate=TRAIN_LR)
+        params = {k: v.clone() for k, v in model.functional_state().items()}
+        step = build_train_step(model, opt, compute_dtype=torch.bfloat16)
+        out["meshless"] = _hybrid_steps(
+            "meshless", step,
+            lambda p: step.accumulate(p, ids, labels), params,
+            opt.init_state(params), ids, labels,
+            hybrid_predicted_launches("gpipe", 1, layers), 1)
+        del params, step
+        for sched, m in HYBRID_RUNS:
+            hs = init_hybrid_state(model, mesh)
+            step = build_hybrid_train_step(cfg, opt, mesh,
+                                           num_microbatches=m,
+                                           compute_dtype=torch.bfloat16,
+                                           schedule=sched)
+            out[sched] = _hybrid_steps(
+                sched, step, lambda p, st=step: st.gradients(p, ids, labels),
+                hs, opt.init_state(hs), ids, labels,
+                hybrid_predicted_launches(sched, m, layers), m)
+            del hs, step
+            gc.collect()
+        del model
+        torch.cuda.empty_cache()
+        out["sequence_attention"] = sequence_attention_leg(dev, mesh, flush)
+    finally:
+        dist.destroy_process_group()
+    base = out["meshless"]["losses"]
+    rel = {f"{sched}.step{i}": abs(out[sched]["losses"][i] - base[i])
+           / abs(base[i]) for sched, _ in HYBRID_RUNS
+           for i in range(len(base))}
+    out["loss_rel"], out["tol"] = rel, TRAIN_LOSS_TOL
+    if not all(x <= TRAIN_LOSS_TOL for x in rel.values()):
+        raise AssertionError(f"hybrid_train: losses vs meshless {rel} > "
+                             f"{TRAIN_LOSS_TOL}")
+    for sched, _ in HYBRID_RUNS:
+        ls = out[sched]["losses"]
+        if not all(np.isfinite(ls)) or not ls[-1] < ls[0]:
+            raise AssertionError(f"hybrid_train {sched}: losses {ls} not "
+                                 f"finite and falling")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5078,6 +5322,18 @@ def main() -> int:
              for path in ("meshless", "mesh")})
             + f" mesh_minus_meshless_ms={r['mesh_minus_meshless_ms']:.3f}"
             f" ({card})", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=dev)
+    hy = record["hybrid_train"] = hybrid_train_phase(dev, flush)
+    del flush
+    torch.cuda.empty_cache()
+    print("hybrid_train: " + json.dumps(
+        {k: hy[k] for k in ("mesh", "runs", "loss_rel", "reduced")}
+        | {path: {k: hy[path][k] for k in ("ms_per_step",
+                                            "peak_device_bytes")}
+           for path in ("meshless",) + tuple(dict(HYBRID_RUNS))})
+        + f" ({card})", flush=True)
     record["wall_s"] = time.perf_counter() - t0
     out_dir = HERE / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -5161,7 +5417,10 @@ def main() -> int:
                 "mesh_train": mt["mesh_step"]["launches"][name],
                 "overlap_train": ot["overlap_step"]["launches"][name],
                 "overlap_train_remat": ot["remat"]["overlap"]["launches"][
-                    name]},
+                    name],
+                **{f"hybrid_train_{sched}": hy[sched]["launches_per_step"][
+                    name] * len(hy[sched]["losses"])
+                   for sched, _ in HYBRID_RUNS}},
             "gpt_moe_shape": next(
                 {k: r[k] for k in ("shape", "err", "max_abs_err", "ms",
                                    "ms_min", "ms_max", "plain_ms",
@@ -5205,7 +5464,9 @@ def main() -> int:
                 path: record[path]["launches"][name],
                 "mesh_train": mt["mesh_step"]["masked_launches"][name],
                 "overlap_train": ot["overlap_step"]["masked_launches"][
-                    name]},
+                    name],
+                "hybrid_train_ring": hy["sequence_attention"]["ring"][
+                    "launches"].get(name, 0)},
             "max_abs_err": bf16["max_abs_err"][route],
             "ms": bf16["times_ms"][kernel],
             "wrapper_ms": bf16["times_ms"]["wrapper_" + route],

@@ -260,7 +260,10 @@ def params_from_jax(state: Dict[str, np.ndarray], device: DeviceLike,
     ``ShardedTensor`` block under the schedule (``LLAMA_SHARDING_PLAN`` by
     default; another model's state passes its own: GPT-MoE the placed
     model's ``schedule``, the MoE EP block
-    ``PartitionSchedule.from_moe_ep``)."""
+    ``PartitionSchedule.from_moe_ep``).  A stacked hybrid state
+    (``llama_hybrid.stack_llama_state``'s ``model.layers.X`` leaves, JAX's
+    ``init_hybrid_state`` tree) on a hybrid mesh is placed by
+    ``llama_hybrid.hybrid_param_spec``."""
     dev = resolve_device(device)
     out = {}
     for k, a in state.items():
@@ -270,6 +273,12 @@ def params_from_jax(state: Dict[str, np.ndarray], device: DeviceLike,
         out[k] = t.to(dtype=dtype if cast else t.dtype)
     if mesh is None and schedule is None:
         return {k: t.to(dev) for k, t in out.items()}
+    if schedule is None:
+        from .llama_hybrid import _is_stacked, shard_hybrid_state
+
+        if any(_is_stacked(k) for k in out):
+            return shard_hybrid_state({k: t.to(dev) for k, t in out.items()},
+                                      mesh)
     schedule = _schedule_for(out, mesh, schedule)
     return {k: schedule.named_sharding(k, tuple(t.shape)).shard(t.to(dev))
             for k, t in out.items()}
@@ -417,7 +426,8 @@ def decoder_layer_forward(x, cos, sin, cfg, weight: Callable, mm: Callable,
                           row: Callable, *, seg=None, sri=None, mesh=None,
                           attn_tp: bool = False, mlp_tp: bool = False,
                           gather: Optional[Tuple[str, ...]] = None,
-                          tag: Optional[Callable] = None) -> torch.Tensor:
+                          tag: Optional[Callable] = None,
+                          attn_fn: Optional[Callable] = None) -> torch.Tensor:
     """One decoder layer: the one body of ``_forward``'s layer loop and of
     the overlap engine's ``parallel.overlap.decoder_layer_tp``.  RMSNorm,
     q/k/v with the rotary embedding (``cos``/``sin`` broadcastable to [b,
@@ -435,7 +445,9 @@ def decoder_layer_forward(x, cos, sin, cfg, weight: Callable, mm: Callable,
     heads; else every rank runs all heads, the projections named in it
     (``"q"``, ``"k"``, ``"v"``) are all-gathered over ``mp``, and the rank
     keeps its columns for o_proj.  ``tag(t, name)`` places the memory
-    engine's saveable tags."""
+    engine's saveable tags.  ``attn_fn(q, k, v)`` replaces the attention
+    call (the hybrid step's ring or Ulysses attention over ``sep``); None
+    keeps the flash call above."""
     from ..parallel import compat
 
     b, s, _ = x.shape
@@ -452,7 +464,9 @@ def decoder_layer_forward(x, cos, sin, cfg, weight: Callable, mm: Callable,
         qkv.append(t.reshape(b, s, -1, d))
     q, k, v = qkv
     q, k = fused_rotary_position_embedding(q, k, sin=sin, cos=cos)
-    if sri is not None:
+    if attn_fn is not None:
+        attn = attn_fn(q, k, v)
+    elif sri is not None:
         attn = flashmask_attention_raw(q, k, v, sri, causal=True)
     else:
         attn = flash_attention(q, k, v, causal=True, q_segment_ids=seg,

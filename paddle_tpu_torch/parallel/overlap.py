@@ -744,14 +744,17 @@ def tp_row_matmul(y: torch.Tensor, w_local: torch.Tensor,
 def decoder_layer_tp(lp: Dict[str, torch.Tensor], x: torch.Tensor, cos,
                      sin, cfg, mp_axis: Optional[str], oc: OverlapConfig,
                      segment_ids=None, *, mesh,
-                     tag: Optional[Callable] = None) -> torch.Tensor:
+                     tag: Optional[Callable] = None,
+                     attn_fn: Optional[Callable] = None) -> torch.Tensor:
     """One decoder layer on sharding-gathered, mp-local weights ``lp``
     (suffix -> tensor; mirror of ``decoder_layer_tp``): the mesh step's
     layer body (``models.llama.decoder_layer_forward``) with q/k/v/gate/up
     column-parallel on the local heads and columns and o_proj/down_proj
     row-parallel through ``tp_row_matmul``.  ``mp_axis`` is ``"mp"`` or
     None (no tensor parallelism); ``tag(t, name)`` places the memory
-    engine's saveable tags."""
+    engine's saveable tags; ``attn_fn(q, k, v)`` overrides the attention
+    call on the local heads (the hybrid step passes ring or Ulysses
+    attention over ``sep``), None keeps causal flash."""
     from ..models.llama import decoder_layer_forward
 
     if mp_axis not in (None, "mp"):
@@ -772,7 +775,7 @@ def decoder_layer_tp(lp: Dict[str, torch.Tensor], x: torch.Tensor, cos,
     return decoder_layer_forward(x, cos, sin, cfg, lp.__getitem__,
                                  lambda h, name: h @ lp[name], row,
                                  seg=segment_ids, mesh=mesh, attn_tp=tp,
-                                 mlp_tp=tp, tag=tag)
+                                 mlp_tp=tp, tag=tag, attn_fn=attn_fn)
 
 
 # ---------------------------------------------------------------------------

@@ -759,7 +759,7 @@ def test_dropless_step_lr_1e2_at_width_4096_grows_as_jax():
     np.testing.assert_allclose(losses, jlosses, rtol=1e-5)
 
 
-# --------------------------------------------------- what waits for A5.5
+# ------------------------------------------- the multi-GPU pieces' guards
 
 def _two_devices():
     return types.SimpleNamespace(shape=(2,))
@@ -771,21 +771,21 @@ def _overlap_config():
     return OverlapConfig()
 
 
-# since expert parallelism is ported, a mesh must be a live
-# parallel.specs.Mesh (an object that is not one is refused by type); the
-# pipelined forwards still cite their item, A5.5
+# since expert parallelism and the pipelined MoE blocks are ported, a mesh
+# must be a live parallel.specs.Mesh (an object that is not one is refused
+# by type); the pipelined forwards run in tests/test_torch_pipeline.py
 @pytest.mark.parametrize("call,exc,match", [
     (lambda: pmoe.MoELayer(8, 16, 4, mesh=_two_devices(), device="cpu"),
      TypeError, "parallel.specs.Mesh"),
     (lambda: ppipe.init_pipelined_moe_params(_two_devices(), 2, 4, 8, 16,
                                              device="cpu"),
-     NotImplementedError, "ROADMAP queue A5.5"),
+     TypeError, "parallel.specs.Mesh"),
     (lambda: ppipe.pipelined_moe_forward({}, None, None),
-     NotImplementedError, "ROADMAP queue A5.5"),
+     TypeError, "parallel.specs.Mesh"),
     (lambda: ppipe.moe_block_ep({}, None),
-     NotImplementedError, "ROADMAP queue A5.5"),
+     TypeError, "parallel.specs.Mesh"),
     (lambda: ppipe.pipelined_moe_forward_ep({}, None, None),
-     NotImplementedError, "ROADMAP queue A5.5"),
+     TypeError, "parallel.specs.Mesh"),
     (lambda: pexp.build_moe_ep_forward(pexp.MoEEPConfig(**_CFG),
                                        _two_devices()),
      TypeError, "parallel.specs.Mesh"),
