@@ -5054,6 +5054,270 @@ def hybrid_train_phase(dev, flush):
     return out
 
 
+# the resilient_train phase: the train cell (TRAIN_CFG, batch 6 x 1024)
+# at accum 2 through resilient_train_loop on one card, health armed; a NaN
+# enters step 1 through the rope table (a float input of the step, never
+# the stored params), a kill before step 5 restores the step-3
+# checkpoint, a preemption before step 7 drains and reshards live
+RESIL_ACCUM = 2
+RESIL_STEPS = 8
+RESIL_CKPT_EVERY = 3
+RESIL_NAN_STEP = 1
+RESIL_FAULTS = (("kill", 5), ("preempt", 7))
+RESIL_CKPT_FREE_BYTES = 27 << 30     # keep=2 plus one save in flight
+
+
+@contextlib.contextmanager
+def nan_rope(model):
+    """One step's float input made non-finite: the model's rope cos table
+    at position 0 (the train step reads it in place), restored after."""
+    saved = model.rope_cos[0, 0].clone()
+    model.rope_cos[0, 0] = float("nan")
+    try:
+        yield
+    finally:
+        model.rope_cos[0, 0] = saved
+
+
+def _fingerprint(tree):
+    """A bitwise fingerprint of every tensor of a state: the int64 sum of
+    its bytes read as int16 (bf16) or int32 (fp32), on the device."""
+    import torch
+    out = []
+    for t in _tensors(tree):
+        v = t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+        out.append(v.sum(dtype=torch.int64))
+    return torch.stack(out).cpu().tolist()
+
+
+@contextlib.contextmanager
+def _step_peak(out, key, on):
+    """With ``on``: ``out[key]`` = the device bytes the block allocated at
+    its peak above what was allocated when it started (a step's transient
+    over its resident state)."""
+    import torch
+    if not on:
+        yield
+        return
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    yield
+    torch.cuda.synchronize()
+    out[key] = torch.cuda.max_memory_allocated() - before
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _tensors(tree[k])
+    elif hasattr(tree, "element_size"):
+        yield tree
+
+
+def resilient_train_phase(dev):
+    """``resilient_train_loop`` on one H100 (LocalCluster semantics, the
+    harness's scripted FakeCluster) over the train cell's width and depth
+    at accum RESIL_ACCUM, with ``health=HealthConfig()``; checks the NaN
+    step a bit-exact no-op, the kill restored from the crc-verified step-3
+    checkpoint, the replayed losses and the final params bit-equal to an
+    uninterrupted run of the same steps (step RESIL_NAN_STEP skipped), and
+    B1/B2 launched RESIL_ACCUM x layers times a step execution with no
+    plain call."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(HERE / "tests"))
+    from torch_fault_injection import FakeCluster, FaultEvent
+    from paddle_tpu_torch.distributed import health as th
+    from paddle_tpu_torch.distributed.resilience import (ResilienceConfig,
+                                                         resilient_train_loop)
+    from paddle_tpu_torch.models import build_train_step
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.parallel.specs import Mesh
+
+    cfg, model, params, opt, state, n_params = train_setup(dev)
+    layers = cfg.num_hidden_layers
+    ckpt_bytes = sum(t.numel() * t.element_size()
+                     for t in _tensors({"p": params, "s": state}))
+    root = tempfile.mkdtemp(prefix="resilient_train_")
+    free = shutil.disk_usage(root).free
+    if free < RESIL_CKPT_FREE_BYTES:
+        raise AssertionError(f"resilient_train: {free} bytes free under "
+                             f"{root}, need {RESIL_CKPT_FREE_BYTES}")
+
+    def batch(step):
+        rng = np.random.default_rng(SEED + 1000 + step)
+        shape = (RESIL_ACCUM, TRAIN_BATCH, TRAIN_SEQ)
+        ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, shape))
+        lab = torch.from_numpy(rng.integers(0, cfg.vocab_size, shape))
+        return ids.to(dev), lab.to(dev), step == RESIL_NAN_STEP
+
+    # the uninterrupted reference: the same steps, the NaN batch skipped
+    plain = build_train_step(model, opt, compute_dtype=torch.bfloat16,
+                             accum_steps=RESIL_ACCUM)
+    rp = {k: v.clone() for k, v in params.items()}
+    rs = {"__flat__": {g: {n: t.clone() for n, t in gs.items()}
+                       for g, gs in state["__flat__"].items()}}
+    ref_losses, t_ref, peak = {}, 0, {}
+    for step in range(RESIL_STEPS):
+        if step == RESIL_NAN_STEP:
+            continue
+        ids, lab, _ = batch(step)
+        with _step_peak(peak, "plain", step == 0):
+            loss, rp, rs = plain(rp, rs, t_ref, TRAIN_LR, ids, lab)
+            ref_losses[step] = loss.item()
+        t_ref += 1
+    del rs
+    torch.cuda.empty_cache()
+
+    health = th.HealthConfig()
+    probe_ms = []
+    real_probe = th.make_probe
+
+    def timed_probe(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_probe(*a, **kw)
+        probe_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    th.make_probe = timed_probe
+    noop_checks = []
+
+    def step_builder(mesh, specs):
+        step = build_train_step(model, opt, compute_dtype=torch.bfloat16,
+                                accum_steps=RESIL_ACCUM, health=health)
+
+        def step_fn(st, b, health_gates=None, lr_scale=1.0):
+            ids, lab, poison = b
+            before = _fingerprint(st) if poison else None
+            with nan_rope(model) if poison else contextlib.nullcontext(), \
+                    _step_peak(peak, "probed", "probed" not in peak):
+                loss, p, s, probe = step(st["params"], st["opt"], st["t"],
+                                         TRAIN_LR * lr_scale, ids, lab,
+                                         health_gates=health_gates)
+                loss.item()
+            new = {"params": p, "opt": s,
+                   "t": st["t"] + (1 if probe["ok"] else 0)}
+            if poison:
+                noop_checks.append(dict(
+                    ok=probe["ok"], same_objects=p is st["params"]
+                    and s is st["opt"], t=new["t"] == st["t"],
+                    bits_equal=_fingerprint(new) == before))
+            return loss, new, probe
+
+        return step_fn
+
+    init = {"params": params, "opt": state, "t": 0}
+    del params, state
+    cluster = FakeCluster(faults=[FaultEvent(step=s, kind=k)
+                                  for k, s in RESIL_FAULTS])
+    conf = ResilienceConfig(checkpoint_dir=root,
+                            checkpoint_every=RESIL_CKPT_EVERY, keep=2,
+                            health=health)
+    events, executions, saves = [], [], []
+
+    def on_event(kind, info):
+        if kind == "step":
+            executions.append((info["step"], info["loss"], info["s"]))
+        elif kind == "save":
+            saves.append(info)
+        else:
+            events.append(info["event"].__dict__)
+
+    mgr_restores = []
+    from paddle_tpu_torch.distributed.checkpoint import manager as cm
+    real_restore = cm.CheckpointManager.restore_latest
+
+    def timed_restore(self, *a, **kw):
+        out = real_restore(self, *a, **kw)
+        mgr_restores.append(dict(step=out[1], degraded=out[2],
+                                 s=self.last_restore_s))
+        return out
+
+    cm.CheckpointManager.restore_latest = timed_restore
+    try:
+        with plain_call_counter() as plain_calls:
+            fa.reset_launches()
+            t0 = time.perf_counter()
+            res = resilient_train_loop(
+                mesh_builder=lambda devs: (Mesh((1, 1, 1),
+                                                ("dp", "sharding", "mp"),
+                                                device_type=dev.type), None),
+                init_fn=lambda mesh, specs: init, step_builder=step_builder,
+                data_fn=batch, num_steps=RESIL_STEPS, config=conf,
+                cluster=cluster, on_event=on_event)
+            wall = time.perf_counter() - t0
+            counts = dict(fa.LAUNCHES)
+    finally:
+        th.make_probe = real_probe
+        cm.CheckpointManager.restore_latest = real_restore
+    del init
+
+    first, replays = {}, {}
+    for step, loss, _ in executions:
+        (replays if step in first else first)[step] = loss
+    n_exec = len(executions)
+    want = layers * RESIL_ACCUM * n_exec
+    check_launches("resilient_train", counts, dict(plain_calls),
+                   flash_attention_fwd=want, flash_attention_bwd=want)
+    kinds = [(e["fault"], e["resume_step"], e["steps_replayed"],
+              e["checkpointed"], e["reshard_bytes"], e["degraded_steps"])
+             for e in events]
+    if kinds != [("WorkerLost", 3, 2, False, 0, []),
+                 ("Preemption", 7, 0, True, 0, [])]:
+        raise AssertionError(f"resilient_train: recoveries {events}")
+    rep = res.health
+    if rep["stage_counts"]["skip"] != 1 or [
+            (q["data_offset"], q["rule"]) for q in rep["quarantined"]] != [
+            (RESIL_NAN_STEP, "nonfinite")]:
+        raise AssertionError(f"resilient_train: health report {rep}")
+    if noop_checks != [dict(ok=False, same_objects=True, t=True,
+                            bits_equal=True)]:
+        raise AssertionError(f"resilient_train: the NaN step {noop_checks}")
+    replay_equal = all(first[s] == v for s, v in replays.items())
+    final_equal = all(torch.equal(res.state["params"][k], rp[k])
+                      for k in rp)
+    loss_equal = all(res.losses[s] == ref_losses[s] for s in ref_losses)
+    if sorted(replays) != [3, 4] or not replay_equal or not final_equal \
+            or not loss_equal or res.final_step != RESIL_STEPS:
+        raise AssertionError(
+            f"resilient_train: replays {replays} vs first {first}, final "
+            f"params equal {final_equal}, losses equal {loss_equal}")
+    gb = ckpt_bytes / 1e9
+    save_rows = [dict(step=x["step"], s=x["s"], **x["timings"])
+                 for x in saves]
+    for r in save_rows:
+        r["gb_per_s"] = gb / r["s"]
+        r["d2h_gb_per_s"] = gb / r["d2h_s"]
+        r["crc_gb_per_s"] = gb / r["crc_s"]
+        r["write_gb_per_s"] = gb / r["write_s"]
+    restores = [dict(r, gb_per_s=gb / r["s"]) for r in mgr_restores
+                if r["step"] > 0]
+    del rp, res
+    shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(config=TRAIN_CFG, accum=RESIL_ACCUM, steps=RESIL_STEPS,
+                checkpoint_every=RESIL_CKPT_EVERY, n_params=n_params,
+                reduced=f"accum {RESIL_ACCUM} of {TRAIN_ACCUM}",
+                checkpoint_bytes=ckpt_bytes, disk_free_bytes=free,
+                recoveries=events, health=rep["stage_counts"],
+                executions=[[s, l, t] for s, l, t in executions],
+                replayed_losses_bitwise=replay_equal,
+                final_params_bitwise=final_equal,
+                losses_bitwise=loss_equal, saves=save_rows,
+                restores=restores, probe_ms=probe_ms,
+                step_peak_bytes_plain=peak["plain"],
+                step_peak_bytes_probed=peak["probed"],
+                launches=counts, plain_calls=dict(plain_calls),
+                launches_per_execution={k: v // n_exec
+                                        for k, v in counts.items()},
+                wall_s=wall)
+
+
 def main() -> int:
     import torch
 
@@ -5334,6 +5598,19 @@ def main() -> int:
                                             "peak_device_bytes")}
            for path in ("meshless",) + tuple(dict(HYBRID_RUNS))})
         + f" ({card})", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rt = record["resilient_train"] = resilient_train_phase(dev)
+    print("resilient_train: " + json.dumps(
+        {k: rt[k] for k in ("accum", "steps", "reduced", "checkpoint_bytes",
+                            "disk_free_bytes", "recoveries", "health",
+                            "replayed_losses_bitwise",
+                            "final_params_bitwise", "losses_bitwise",
+                            "saves", "restores", "probe_ms",
+                            "step_peak_bytes_plain",
+                            "step_peak_bytes_probed",
+                            "launches_per_execution", "wall_s")})
+        + f" ({card})", flush=True)
     record["wall_s"] = time.perf_counter() - t0
     out_dir = HERE / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -5420,7 +5697,8 @@ def main() -> int:
                     name],
                 **{f"hybrid_train_{sched}": hy[sched]["launches_per_step"][
                     name] * len(hy[sched]["losses"])
-                   for sched, _ in HYBRID_RUNS}},
+                   for sched, _ in HYBRID_RUNS},
+                "resilient_train": rt["launches"][name]},
             "gpt_moe_shape": next(
                 {k: r[k] for k in ("shape", "err", "max_abs_err", "ms",
                                    "ms_min", "ms_max", "plain_ms",
@@ -5556,6 +5834,7 @@ TURN_PHASES = {
     "moe_capacity": lambda cs, dev, flush: cs.moe_capacity_phase(dev),
     "gpt_moe_train": lambda cs, dev, flush: cs.gpt_moe_train_phase(
         dev, flush),
+    "resilient_train": lambda cs, dev, flush: cs.resilient_train_phase(dev),
 }
 
 

@@ -863,11 +863,6 @@ def _local(t):
 
 # ---------------------------------------------------------------- train step
 
-# options of the JAX build_train_step that belong to later work
-_UNPORTED_STEP_OPTIONS = {
-    "health": "the fused health probe (ROADMAP A6)",
-}
-
 _LAYER_PREFIX = "model.layers."
 
 
@@ -918,7 +913,7 @@ def build_train_step(model: LlamaForCausalLM, optimizer, mesh=None,
                      remat: bool = False,
                      remat_policy: Optional[_memory.SavePolicy] = None,
                      memory: Optional[_memory.MemoryConfig] = None,
-                     schedule=None, overlap=None, **later) -> Callable:
+                     schedule=None, overlap=None, health=None) -> Callable:
     """``build_train_step``, on one device or on a mesh:
 
         step(params, opt_state, step_no, lr, input_ids, labels)
@@ -977,27 +972,31 @@ def build_train_step(model: LlamaForCausalLM, optimizer, mesh=None,
       The same losses and gradients as ``overlap=None``;
     - ``mesh=None`` (and no ``schedule``) is the mesh of one rank, which
       needs no process group: plain tensors in, plain tensors out, and the
-      update of one device on them.
+      update of one device on them;
+    - ``health`` (a ``distributed.health.HealthConfig``) fuses the health
+      probe and guard (``health.probe_and_guard``): the step takes
+      ``health_gates`` (fp32[3] cutoffs, None: all open) and returns
+      ``(loss, new_params, new_opt_state, probe)``; a fired gate returns
+      the params and optimizer state it was given, bit-identical (the
+      update's new tensors are dropped: no copy of the state is made).
+      The probe's one host transfer is its scalars.  A host-resident
+      state updates in place, which no guard can undo: it is refused
+      with ``health``.
 
     PyTorch runs eagerly: no jit and no donation (but for the offloaded
     update); the step keeps nothing from one call to the next, and the
     loss stays on the device.  The one
     host sync is the mask's negative-id check, once per step, outside the
     accumulation.  ``step.accumulate(params, ids, labels,
-    attention_mask=None) -> (loss, grads)`` is the gradient half alone.
-    The options in ``_UNPORTED_STEP_OPTIONS`` raise
-    ``NotImplementedError``."""
+    attention_mask=None) -> (loss, grads)`` is the gradient half alone."""
+    from ..distributed.health import HealthConfig
     from ..parallel.compat import all_reduce_raw
     from ..parallel.schedule import PartitionSchedule
     from ..parallel.specs import Mesh, ShardedTensor, pick_batch_axes
 
-    for name, value in later.items():
-        if name not in _UNPORTED_STEP_OPTIONS:
-            raise TypeError(f"build_train_step: unknown option {name!r}")
-        if value not in (None, False):
-            raise NotImplementedError(
-                f"build_train_step: {name}= is "
-                f"{_UNPORTED_STEP_OPTIONS[name]}, not ported yet")
+    if health is not None and not isinstance(health, HealthConfig):
+        raise TypeError("build_train_step: health= takes a "
+                        "distributed.health.HealthConfig or None")
     if not isinstance(remat, bool):
         raise TypeError(f"build_train_step: remat= takes a bool, got "
                         f"{type(remat).__name__}")
@@ -1238,7 +1237,7 @@ def build_train_step(model: LlamaForCausalLM, optimizer, mesh=None,
         return loss, grads
 
     def step(params, opt_state, step_no, lr, input_ids, labels,
-             attention_mask=None):
+             attention_mask=None, health_gates=None):
         ids, lab = as_ids(input_ids), as_ids(labels)
         want = 3 if accum_steps > 1 else 2
         if ids.dim() != want or lab.shape != ids.shape \
@@ -1246,11 +1245,22 @@ def build_train_step(model: LlamaForCausalLM, optimizer, mesh=None,
             raise ValueError(f"input_ids {tuple(ids.shape)} / labels "
                              f"{tuple(lab.shape)}: expected "
                              f"{'[accum_steps, b, s]' if want == 3 else '[b, s]'}")
-        params = placed(params)
-        loss, grads = gradients(params, ids, lab, attention_mask)
-        new_params, new_state = apply_update(params, grads, opt_state,
+        if health is not None and _memory.state_is_offloaded(opt_state):
+            raise NotImplementedError(
+                "build_train_step(health=...): a host-resident state is "
+                "updated in place, which the guard cannot undo")
+        at_rest = placed(params)
+        loss, grads = gradients(at_rest, ids, lab, attention_mask)
+        new_params, new_state = apply_update(at_rest, grads, opt_state,
                                              float(lr), int(step_no))
-        return (loss,) + as_given(params, new_params, new_state)
+        new_params, new_state = as_given(at_rest, new_params, new_state)
+        if health is None:
+            return loss, new_params, new_state
+        from ..distributed.health import probe_and_guard
+
+        return probe_and_guard(loss, grads, at_rest, opt_state, new_params,
+                               new_state, health_gates, health,
+                               given=params)
 
     step.accumulate = accumulate
     step.schedule = schedule

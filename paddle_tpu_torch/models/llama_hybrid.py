@@ -50,7 +50,8 @@ compute in bf16, and every collective then moves fp32, as gloo's
 collectives do for bf16 in ``compat.py`` (JAX's mode of that name works
 around an XLA:CPU abort and refuses mp and sharding; the port has no such
 abort and takes any mesh).  On a CUDA mesh the argument is ignored.
-``health=`` is the fused health probe of ROADMAP A6 and raises.
+``health=`` (a ``distributed.health.HealthConfig``) fuses the health
+probe and guard into the step, as ``build_train_step(health=)`` does.
 """
 
 from __future__ import annotations
@@ -223,17 +224,22 @@ def build_hybrid_train_step(cfg: LlamaConfig, optimizer, mesh,
     splits over), S by the sep degree.  ``remat``: a bool, a named policy
     (``none | dots | names | offload | full``) or a
     ``parallel.memory.MemoryConfig``.  ``overlap``: the overlap engine's
-    ``OverlapConfig`` (None: the defaults).  ``step.gradients(params,
-    input_ids, labels) -> (loss, grads)`` is the gradient half alone."""
+    ``OverlapConfig`` (None: the defaults).  ``health``: a
+    ``HealthConfig`` fuses the health probe and guard; the step then takes
+    ``health_gates`` and returns ``(loss, new_params, new_opt_state,
+    probe)``, a fired gate giving back the params and state it was given.
+    ``step.gradients(params, input_ids, labels) -> (loss, grads)`` is the
+    gradient half alone."""
     from ..parallel import overlap as _ov
     from ..parallel.memory import MemoryConfig, checkpoint_layer, \
         tag_saveable
     from ..parallel.specs import Mesh, ShardedTensor, pick_batch_axes
 
-    if health is not None:
-        raise NotImplementedError(
-            "build_hybrid_train_step: health= is the fused health probe "
-            "(ROADMAP A6), not ported yet")
+    from ..distributed.health import HealthConfig, probe_and_guard
+
+    if health is not None and not isinstance(health, HealthConfig):
+        raise TypeError("build_hybrid_train_step: health= takes a "
+                        "distributed.health.HealthConfig or None")
     if not isinstance(mesh, Mesh):
         raise TypeError("build_hybrid_train_step: mesh= takes a "
                         "parallel.specs.Mesh (hybrid_mesh)")
@@ -555,7 +561,8 @@ def build_hybrid_train_step(cfg: LlamaConfig, optimizer, mesh,
             return gpipe_gradients(params, ids, lab)
         return sched_gradients(params, ids, lab)
 
-    def step(params, opt_state, step_no, lr, input_ids, labels):
+    def step(params, opt_state, step_no, lr, input_ids, labels,
+             health_gates=None):
         loss, grads = gradients(params, input_ids, labels)
         names = list(params)
         new_p, new_s = optimizer.apply(
@@ -570,9 +577,14 @@ def build_hybrid_train_step(cfg: LlamaConfig, optimizer, mesh,
             p = params[k]
             return p.with_local(t) if isinstance(p, ShardedTensor) else t
 
-        return (loss, {k: wrap(k, t) for k, t in new_p.items()},
-                {k: {n: wrap(k, t) for n, t in st.items()}
-                 for k, st in new_s.items()})
+        new_params = {k: wrap(k, t) for k, t in new_p.items()}
+        new_state = {k: {n: wrap(k, t) for n, t in st.items()}
+                     for k, st in new_s.items()}
+        if health is None:
+            return loss, new_params, new_state
+        return probe_and_guard(
+            loss, {k: wrap(k, grads[k]) for k in names}, params, opt_state,
+            new_params, new_state, health_gates, health)
 
     step.gradients = gradients
     return step

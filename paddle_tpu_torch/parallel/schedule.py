@@ -543,6 +543,24 @@ class PartitionSchedule:
 
         return batch_partition_spec(self.mesh, data_axes)
 
+    def reshard_specs(self) -> Dict[str, P]:
+        """Per-canonical-name at-rest specs in the reshard planner's form
+        (dotted path -> P)."""
+        return {name: ts.partition_spec()
+                for name, ts in self.table.items()}
+
+    def reshard_spec(self, path: str, leaf=None) -> P:
+        """The planner's ``(path, leaf) -> P`` rule: the table's entry
+        first, then the plan rule (the planner's ``fit_spec`` degrades
+        either to a valid placement on any mesh)."""
+        ts = self.table.entries.get(canonical_key(path))
+        if ts is not None:
+            return ts.partition_spec()
+        shape = tuple(getattr(leaf, "shape", ()) or ())
+        if shape:
+            return self.spec_for(path, shape)
+        return self.plan_for(path)
+
     def flat_update_layout(self, axes: Optional[Sequence[str]] = None
                            ) -> FlatUpdateLayout:
         """The shard-major flat-update wire format of this schedule."""

@@ -339,7 +339,8 @@ def test_one_rank_hybrid_step_is_the_meshless_step():
 
 
 def test_hybrid_options_raise():
-    """``health=`` names ROADMAP A6; a mesh without the five axes, a tied
+    """``health=`` takes a HealthConfig (tests/test_torch_health.py holds
+    the probed step); a mesh without the five axes, a tied
     head on the schedule executor, an unknown ``cpu_bf16`` mode and
     virtual chunks on gpipe raise as JAX's do."""
     from paddle_tpu_torch.models import (LlamaConfig,
@@ -349,7 +350,7 @@ def test_hybrid_options_raise():
 
     cfg = LlamaConfig.debug(**CFG2)
     mesh = hybrid_mesh("cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+    with pytest.raises(TypeError, match="health"):
         build_hybrid_train_step(cfg, None, mesh, health=object())
     with pytest.raises(ValueError, match="must carry axis"):
         build_hybrid_train_step(cfg, None, Mesh((1, 1, 1),
@@ -391,4 +392,23 @@ def test_no_stale_a5_pointers():
                     hits.append(f"{path}:{node.lineno}")
             if isinstance(node, ast.Name) and node.id == "_needs_a5":
                 hits.append(f"{path}:{node.lineno} uses _needs_a5")
+    assert not hits, hits
+
+
+def test_no_stale_a6_pointers():
+    """Since the training half of ROADMAP A6 (A6.1) is in, no port message
+    (a raise, a docstring, a comment) names A6 but the serving half's:
+    ``decode_jit(out_sharding=)`` and the fleet (A6.2)."""
+    root = Path(__file__).resolve().parent.parent / "paddle_tpu_torch"
+    hits = []
+    for path in sorted(p for p in root.rglob("*.py")
+                       if "_build" not in p.relative_to(root).parts):
+        lines = path.read_text().splitlines()
+        for i, line in enumerate(lines):
+            if not re.search(r"\bA6\b(?!\.1)", line):
+                continue
+            near = " ".join(lines[max(0, i - 3):i + 1])
+            if "out_sharding" in near or "fleet" in near:
+                continue
+            hits.append(f"{path.name}:{i + 1}: {line.strip()}")
     assert not hits, hits

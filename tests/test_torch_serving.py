@@ -506,6 +506,15 @@ def test_import_guard_walks_every_module():
             "paddle_tpu_torch.parallel.codec",
             "paddle_tpu_torch.parallel.overlap",
             "paddle_tpu_torch.distributed.topology",
+            "paddle_tpu_torch.distributed.watchdog",
+            "paddle_tpu_torch.distributed.store",
+            "paddle_tpu_torch.distributed.health",
+            "paddle_tpu_torch.distributed.resilience",
+            "paddle_tpu_torch.distributed.fleet.elastic",
+            "paddle_tpu_torch.distributed.checkpoint.save_state_dict",
+            "paddle_tpu_torch.distributed.checkpoint.load_state_dict",
+            "paddle_tpu_torch.distributed.checkpoint.manager",
+            "paddle_tpu_torch.parallel.reshard",
             "paddle_tpu_torch.nn.functional"} <= walked
 
 
@@ -530,4 +539,11 @@ def test_port_sources_import_no_jax_or_paddle_tpu():
                     offenders.append(f"{path.name}: {n}")
     assert offenders == []
     assert {"distributed/topology.py", "parallel/codec.py",
-            "parallel/overlap.py", "chip_smoke.py"} <= scanned
+            "parallel/overlap.py", "chip_smoke.py",
+            "distributed/watchdog.py", "distributed/store.py",
+            "distributed/health.py", "distributed/resilience.py",
+            "distributed/fleet/elastic.py",
+            "distributed/checkpoint/save_state_dict.py",
+            "distributed/checkpoint/load_state_dict.py",
+            "distributed/checkpoint/manager.py",
+            "parallel/reshard.py"} <= scanned

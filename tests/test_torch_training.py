@@ -406,7 +406,9 @@ def test_flat_state_guards():
 @pytest.mark.parametrize("option", ["mesh", "overlap", "memory", "health",
                                     "schedule", "remat", "remat_policy"])
 def test_train_step_later_options_raise(option):
-    """The health option raises naming its ROADMAP item; the memory
+    """The health option is ported (tests/test_torch_health.py holds it
+    against JAX): a value of the wrong type raises TypeError and a
+    HealthConfig builds.  The memory
     engine's (``memory``, ``remat``, ``remat_policy``) are ported: a value
     of the wrong type raises TypeError, a valid one builds
     (tests/test_torch_memory.py holds them against JAX).  ``mesh`` and
@@ -439,12 +441,10 @@ def test_train_step_later_options_raise(option):
         with pytest.raises(ValueError, match="live mesh"):
             build_train_step(model, AdamW(1e-3), **{option: value})
         return
+    from paddle_tpu_torch.distributed.health import HealthConfig
+
     valid = {"memory": M.MemoryConfig(remat="full"), "remat": True,
-             "remat_policy": M.named_save_policy()}
-    if option not in valid:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_train_step(model, AdamW(1e-3), **{option: object()})
-        return
+             "remat_policy": M.named_save_policy(), "health": HealthConfig()}
     with pytest.raises(TypeError, match=option):
         build_train_step(model, AdamW(1e-3), **{option: object()})
     assert callable(build_train_step(model, AdamW(1e-3),
