@@ -215,6 +215,30 @@ its row and make ``verify_rows_host`` raise; encode and decode ms beside
 a bytes bound.  The codec is not a TPU kernel and is not in the kernels
 line.
 
+The ``serving_fleet`` phase follows the serving extras: the 8B weights
+moved to the host (a checkpoint's form) feed ``inference/fleet.py``'s
+replica sets on the unified cell's engine geometry.  A fleet of 2
+replicas serves FLEET_REQUESTS requests (32-300 prompt tokens, every other
+one behind a 64-token system prompt, 32 new tokens) unfaulted, then with
+a kill, a hang (FLEET_HANG_STALL_S against FLEET_STEP_TIMEOUT_S) and a
+drain as the preemption notice; one spawn delivers int8-coded weights; a
+prefill + decode fleet with an int8 cache and the host tier serves
+DISAGG_REQUESTS requests through a decode-replica kill, then the first
+DISAGG_REPEAT of them again, with a prefill pool small enough that prompt
+pages demote to the host tier and the repeats promote them.  It raises
+where a request is lost or a token repeated, where an attention call was
+not a B3' launch or a plain version was called, where a topology was
+planned twice, where the device does not return within one replica's
+pools of its level after a reap, where the coded spawn staged other bytes
+than the packed ones or a leaf differs from the CPU decode of its packed
+bytes, where an int8 handoff's pages or scales differ between the two
+ends, where no page was demoted or no host-tier page hit, or where a
+stream fails teacher forcing; it prints each spawn's seconds and GB/s,
+the recoveries, the p50/p99 of each request's gaps between its tokens
+(and, apart, a tick's wall time over the tokens it produced) with and
+without faults, whether each migrated stream equals the unfaulted run's,
+the handoffs' bytes, the host tier's counters and peak device bytes.
+
 Kernel times are the median of their reps (CUDA events, L2 flushed before
 each rep), with the min and max beside them in the record.  Exits
 non-zero, printing no result, when CUDA is not available or the package is
@@ -1928,14 +1952,16 @@ def train_setup(dev, **overrides):
 
 
 @contextlib.contextmanager
-def plain_call_counter():
-    """Count the calls of the flash kernels' plain versions while the block
-    runs; a training path on the card must make none."""
-    from paddle_tpu_torch.ops import flash_attention as fa
-    names = ("hb_flash_forward_plain", "hb_flash_backward_plain",
-             "flash_forward_plain", "flash_backward_plain")
+def plain_call_counter(module=None, names=(
+        "hb_flash_forward_plain", "hb_flash_backward_plain",
+        "flash_forward_plain", "flash_backward_plain")):
+    """Count the calls of ``module``'s plain versions ``names`` (the flash
+    kernels' by default) while the block runs; a path on the card must
+    make none."""
+    if module is None:
+        from paddle_tpu_torch.ops import flash_attention as module
     calls = dict.fromkeys(names, 0)
-    saved = {n: getattr(fa, n) for n in names}
+    saved = {n: getattr(module, n) for n in names}
 
     def counted(n):
         def call(*a, **kw):
@@ -1944,12 +1970,12 @@ def plain_call_counter():
         return call
 
     for n in names:
-        setattr(fa, n, counted(n))
+        setattr(module, n, counted(n))
     try:
         yield calls
     finally:
         for n in names:
-            setattr(fa, n, saved[n])
+            setattr(module, n, saved[n])
 
 
 def check_launches(what, counts, plain, **want):
@@ -5318,6 +5344,589 @@ def resilient_train_phase(dev):
                 wall_s=wall)
 
 
+# --------------------------------------------------------- serving fleet phase
+
+FLEET_ENGINE = dict(max_slots=8, num_pages=1025, page_size=16,
+                    max_seq_len=2048, prefill_token_budget=256,
+                    enable_prefix_cache=True)
+FLEET_REQUESTS = 16
+FLEET_NEW_TOKENS = 32
+FLEET_ADMISSION_CAP = 2048       # outstanding tokens a replica
+FLEET_STEP_TIMEOUT_S = 1.0       # an 8B unified step is tens of ms
+FLEET_HANG_STALL_S = 4.0
+FLEET_KILL = (0, 6)              # (replica, its step): mid-decode
+FLEET_HANG = (1, 14)
+DISAGG_REQUESTS = 8
+DISAGG_HOST_TIER_PAGES = 64
+# the prefill replica's pool: the 8 prompts' 63 pages overflow its 24, so
+# cold prompt pages demote to the host tier (the kill's replays promote
+# some); the first DISAGG_REPEAT prompts come back after the first round
+# (a returning conversation) and promote theirs
+DISAGG_PREFILL_PAGES = 24
+DISAGG_REPEAT = 4
+DISAGG_KILL = (1, 8)             # the decode replica, mid-decode
+
+
+def fleet_prompts(cfg):
+    """FLEET_REQUESTS prompts of 32-300 tokens, every other one behind a
+    shared 64-token system prompt."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 18)
+    system = rng.integers(1, cfg.vocab_size, (64,)).astype(np.int32)
+    out = []
+    for i in range(FLEET_REQUESTS):
+        if i % 2:
+            body = rng.integers(1, cfg.vocab_size,
+                                (int(rng.integers(16, 237)),))
+            out.append(np.concatenate([system, body.astype(np.int32)]))
+        else:
+            out.append(rng.integers(1, cfg.vocab_size,
+                                    (int(rng.integers(32, 301)),))
+                       .astype(np.int32))
+    return out
+
+
+def host_weights(params):
+    """The serving cell's weights moved to the host: a checkpoint's form,
+    the source a fleet delivers from."""
+    return {k: v.detach().cpu() for k, v in params.items()}
+
+
+# the decode kernels' plain versions
+DECODE_PLAIN = ("flash_decode_plain", "split_merge_plain", "paged_decode_plain",
+                "paged_split_merge_plain", "ragged_paged_decode_plain")
+
+
+def _lat_ms(samples):
+    import numpy as np
+    if not samples:
+        return {"p50": None, "p99": None}
+    a = np.asarray(samples) * 1e3
+    return {"p50": float(np.percentile(a, 50)),
+            "p99": float(np.percentile(a, 99))}
+
+
+class _TokenGaps:
+    """Steps a router and times its requests' tokens: each request's gaps
+    between consecutive committed tokens (the host clock at the end of the
+    tick that committed them; tokens committed together are 0 s apart),
+    which is the inter-token latency a client sees, and the tick's wall
+    time over the tokens it produced, the fleet's amortised cost of a
+    token."""
+
+    def __init__(self, router):
+        self.router = router
+        self.gaps, self.amortised = [], []
+        self._n, self._t = {}, {}
+
+    def step(self) -> int:
+        t1 = time.perf_counter()
+        produced = self.router.step()
+        now = time.perf_counter()
+        if produced:
+            self.amortised.extend([(now - t1) / produced] * produced)
+        for rid, q in self.router.requests.items():
+            n, old = len(q.emitted), self._n.get(rid, 0)
+            if n > old:
+                if rid in self._t:
+                    self.gaps.append(now - self._t[rid])
+                self.gaps.extend([0.0] * (n - old - 1))
+                self._n[rid], self._t[rid] = n, now
+        return produced
+
+    def record(self) -> dict:
+        return {"inter_token_ms": _lat_ms(self.gaps),
+                "ms_per_token_amortised": _lat_ms(self.amortised)}
+
+
+def _pool_bytes(cfg, engine_kw, itemsize=2):
+    return (2 * cfg.num_hidden_layers * engine_kw["num_pages"]
+            * cfg.num_key_value_heads * engine_kw["page_size"]
+            * cfg.head_dim * itemsize)
+
+
+def _spawns(rs):
+    """Each delivery's seconds, staged GB and GB/s."""
+    return [{"s": d["s"], "staged_gb": d["staged_bytes"] / 1e9,
+             "gb_per_s": d["staged_bytes"] / d["s"] / 1e9,
+             "coded": d["coded"]} for d in rs.delivery_log]
+
+
+def _fleet_run(cfg, host, dev, prompts, faults):
+    """One unified fleet of 2 replicas over ``prompts``: scripted faults
+    (a kill, a hang, then a drain as the preemption notice) when
+    ``faults``.  Checks no request lost or repeated, every attention call a
+    B3' launch with no plain call, one plan per topology and, after every
+    reap, the device back within one replica's pools of its level before
+    the fault."""
+    import torch
+    sys.path.insert(0, str(HERE / "tests"))
+    from torch_fault_injection import FakeReplica, ReplicaFaultEvent
+    from paddle_tpu_torch.inference.fleet import (REMOVED, FleetConfig,
+                                                  FleetRouter, ReplicaSet,
+                                                  RouterConfig)
+    from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+    from paddle_tpu_torch.ops import decode_attention as da
+
+    steps = {"n": 0}
+
+    def engine_factory(p):
+        eng = ContinuousBatchingEngine(cfg, p, device=dev, **FLEET_ENGINE)
+        unified_step = eng._unified_step
+
+        def counted(*a):
+            steps["n"] += 1
+            return unified_step(*a)
+
+        eng._unified_step = counted
+        return eng
+
+    scripts = {}
+    if faults:
+        scripts = {FLEET_KILL[0]: [ReplicaFaultEvent(step=FLEET_KILL[1],
+                                                     kind="kill")],
+                   FLEET_HANG[0]: [ReplicaFaultEvent(
+                       step=FLEET_HANG[1], kind="hang",
+                       stall_s=FLEET_HANG_STALL_S)]}
+
+    def replica_factory(rid, factory, step_timeout_s=0.0):
+        return FakeReplica(rid, factory, step_timeout_s=step_timeout_s,
+                           script=scripts.get(rid, ()))
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    da.reset_launches()
+    with plain_call_counter(da, DECODE_PLAIN) as plain:
+        t0 = time.perf_counter()
+        rs = ReplicaSet(host, engine_factory,
+                        FleetConfig(target_replicas=2,
+                                    step_timeout_s=FLEET_STEP_TIMEOUT_S),
+                        replica_factory=replica_factory, device=dev)
+        router = FleetRouter(rs, RouterConfig(
+            admission_token_cap=FLEET_ADMISSION_CAP))
+        level = torch.cuda.memory_allocated()
+        rids = [router.submit(p, max_new_tokens=FLEET_NEW_TOKENS)
+                for p in prompts]
+        clock, mem, drain = _TokenGaps(router), [], None
+        seen = 0
+        while router.pending():
+            clock.step()
+            recs = router.telemetry["recoveries"]
+            done = [ev for ev in recs if ev.replacement_id is not None]
+            for ev in done[seen:]:
+                mem.append({"fault": ev.fault, "tick": router._tick,
+                            "allocated": torch.cuda.memory_allocated()})
+            seen = len(done)
+            if faults and drain is None and seen == 2:
+                # the preemption notice: drain the busiest replica; its
+                # in-flight requests complete there, then it is removed
+                victim = max(rs.serving(), key=lambda r: (
+                    len(router._assigned.get(r.id, {})), -r.id))
+                drain = {"replica": victim.id, "tick": router._tick,
+                         "in_flight": len(router._assigned.get(victim.id,
+                                                               {})),
+                         "rep": victim}
+                router.drain(victim.id)
+            if drain is not None and "removed_tick" not in drain \
+                    and drain["rep"].state == REMOVED:
+                drain["removed_tick"] = router._tick
+                mem.append({"fault": "drain", "tick": router._tick,
+                            "allocated": torch.cuda.memory_allocated()})
+        _sync()
+        wall = time.perf_counter() - t0
+    counts = dict(da.LAUNCHES)
+    out = router.results()
+    reqs = [router.requests[r] for r in rids]
+    if sorted(out) != sorted(rids):
+        raise AssertionError(f"fleet: requests lost {set(rids) - set(out)}")
+    if any(len(out[r]) != FLEET_NEW_TOKENS for r in rids) or any(
+            len(q.emitted) != FLEET_NEW_TOKENS for q in reqs):
+        raise AssertionError("fleet: a token was lost or emitted twice")
+    want = steps["n"] * cfg.num_hidden_layers
+    if counts["ragged_paged_decode"] != want or want == 0 or \
+            counts["flash_decode"] or counts["paged_decode"] or \
+            any(plain.values()):
+        raise AssertionError(f"fleet: launches {counts} (expected {want} "
+                             f"ragged and no other), plain calls {plain}")
+    if rs.telemetry["plans_built"] != 1:
+        raise AssertionError(f"fleet: {rs.telemetry['plans_built']} plans "
+                             f"for one topology")
+    pools = _pool_bytes(cfg, FLEET_ENGINE)
+    for m in mem:
+        m["minus_level"] = m["allocated"] - level
+        if abs(m["minus_level"]) > pools:
+            raise AssertionError(
+                f"fleet: after the {m['fault']} reap the device holds "
+                f"{m['minus_level']} B beyond the 2-replica level (more "
+                f"than one replica's pools, {pools} B): a dead replica's "
+                f"memory was kept")
+    recoveries = [{k: getattr(ev, k) for k in (
+        "replica_id", "fault", "died_at_tick", "migrated_requests",
+        "replacement_id", "recovery_ticks", "wall_s")}
+        for ev in router.telemetry["recoveries"]]
+    if faults and sorted(r["fault"] for r in recoveries) != \
+            ["ReplicaHung", "ReplicaKilled"]:
+        raise AssertionError(f"fleet: recoveries {recoveries}")
+    if faults and (drain is None or "removed_tick" not in drain):
+        raise AssertionError(f"fleet: the drained replica was not removed "
+                             f"({drain})")
+    if drain is not None:
+        drain.pop("rep")
+    rec = dict(
+        replicas=2, requests=len(rids), new_tokens=FLEET_NEW_TOKENS,
+        ticks=router._tick, wall_s=wall, launches=counts,
+        unified_steps=steps["n"], **clock.record(),
+        spawns=_spawns(rs), set_telemetry=dict(rs.telemetry),
+        router={k: router.telemetry[k] for k in (
+            "submitted", "completed", "migrations", "retries")},
+        recoveries=recoveries, drain=drain, reap_memory=mem,
+        level_bytes=level - base, pools_bytes=pools,
+        migrated=[r for r, q in zip(rids, reqs) if q.migrations])
+    tokens = [out[r] for r in rids]
+    live = rs.serving()[0].engine.params
+    return rec, tokens, live, (router, rs)
+
+
+def _first_diff(a, b):
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def _coded_spawn(cfg, host, dev):
+    """One spawn with the int8 weight codec: the bytes staged to the card
+    must equal the plan's packed wire bytes, and every delivered leaf the
+    CPU decode of the packed bytes that crossed, bit for bit."""
+    import torch
+    from paddle_tpu_torch.inference.fleet import FleetConfig, ReplicaSet
+    from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+    from paddle_tpu_torch.parallel import reshard
+    from paddle_tpu_torch.parallel.codec import CollectiveCodec, decode_rows
+
+    codec = CollectiveCodec(weight_profile="int8")
+    rs = ReplicaSet(host, lambda p: ContinuousBatchingEngine(
+        cfg, p, device=dev, **FLEET_ENGINE),
+        FleetConfig(target_replicas=1, delivery_codec=codec), device=dev)
+    wire = {}
+    execute = reshard.execute_encoded
+
+    def capture(packed, path, chunk):
+        wire[(path, chunk)] = packed
+        return packed
+
+    reshard.execute_encoded = lambda plan, tree, c, **kw: execute(
+        plan, tree, c, corrupt=capture, **kw)
+    try:
+        rep = rs.spawn()
+    finally:
+        reshard.execute_encoded = execute
+    plan = rs.delivery_plan()
+    wb = reshard.plan_wire_bytes(plan, codec)
+    staged = plan.telemetry["last_staged_bytes"]
+    if staged != wb["wire_bytes"] or staged != sum(
+            p.nbytes for p in wire.values()):
+        raise AssertionError(f"coded spawn: {staged} bytes staged, "
+                             f"{wb['wire_bytes']} packed")
+    t0 = time.perf_counter()
+    got = rep.engine.params
+    mismatched = []
+    for lp in plan.leaf_plans:
+        if not lp.moved:
+            raise AssertionError(f"coded spawn: {lp.path} was not delivered "
+                                 f"(a source already on the card)")
+        leaf = got[lp.path]
+        axis = lp.chunk_axis or 0
+        spans = lp.chunks if lp.chunk_axis is not None \
+            else [(0, leaf.shape[0])]
+        for ci, (a, b) in enumerate(spans):
+            card = leaf.narrow(axis, a, b - a).cpu()
+            cpu = decode_rows(torch.from_numpy(wire[(lp.path, ci)]),
+                              card.numel(), codec, "int8",
+                              out_dtype=card.dtype).reshape(card.shape)
+            if not torch.equal(card, cpu):
+                mismatched.append(f"{lp.path}[{ci}]")
+    check_s = time.perf_counter() - t0
+    if mismatched:
+        raise AssertionError(f"coded spawn: card decode differs from the "
+                             f"CPU decode at {mismatched[:8]}")
+    spawn = _spawns(rs)[0]
+    rs.remove(rep)
+    del rep, got, wire
+    return dict(profile="int8", block=codec.block,
+                raw_bytes=wb["raw_bytes"], wire_bytes=wb["wire_bytes"],
+                staged_bytes=staged, ratio=wb["ratio"], spawn=spawn,
+                leaves=len(plan.leaf_plans),
+                chunks=sum(len(lp.chunks) for lp in plan.leaf_plans),
+                check_s=check_s)
+
+
+def _disagg_run(cfg, host, dev, prompts):
+    """One prefill and one decode replica, int8 KV, the host tier on, one
+    kill of the decode replica mid-decode, then the first DISAGG_REPEAT
+    prompts again: no request lost or repeated, every int8 handoff's pages
+    and scales the same at both ends, prompt pages demoted to the host
+    tier and promoted back by the repeats, the streams teacher-forced
+    through the fleet's frozen scales."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(HERE / "tests"))
+    from torch_fault_injection import FakeReplica, ReplicaFaultEvent
+    from paddle_tpu_torch.inference.disagg import (DisaggRouter,
+                                                   KVHandoffPlanner)
+    from paddle_tpu_torch.inference.fleet import (FleetConfig, ReplicaSet,
+                                                  RouterConfig)
+    from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+    from paddle_tpu_torch.ops import decode_attention as da
+
+    steps = {"n": 0}
+    exported, landed = {}, []     # id(meta) -> export; adoptions
+    kw = dict(FLEET_ENGINE, cache_dtype=torch.int8)
+
+    def count(eng):
+        unified_step = eng._unified_step
+
+        def counted(*a):
+            steps["n"] += 1
+            return unified_step(*a)
+
+        eng._unified_step = counted
+        return eng
+
+    def prefill_factory(p):
+        eng = count(ContinuousBatchingEngine(
+            cfg, p, prefill_only=True, device=dev,
+            host_tier_pages=DISAGG_HOST_TIER_PAGES,
+            **dict(kw, num_pages=DISAGG_PREFILL_PAGES)))
+        export = eng.export_handoff
+
+        def keep(slot):
+            tree, meta = export(slot)
+            exported[id(meta)] = (tree, meta)
+            return tree, meta
+
+        eng.export_handoff = keep
+        return eng
+
+    def decode_factory(p):
+        eng = count(ContinuousBatchingEngine(cfg, p, device=dev, **kw))
+        adopt = eng.adopt_request
+
+        def spy(tree, meta, max_new_tokens, rid=None):
+            new = adopt(tree, meta, max_new_tokens, rid)
+            if new is not None:
+                landed.append((
+                    id(meta), {k: v.cpu() for k, v in tree.items()},
+                    {k: v.cpu().numpy() for k, v in eng.kv_scales.items()}))
+            return new
+
+        eng.adopt_request = spy
+        return eng
+
+    def replica_factory(rid, factory, step_timeout_s=0.0):
+        script = ([ReplicaFaultEvent(step=DISAGG_KILL[1], kind="kill")]
+                  if rid == DISAGG_KILL[0] else ())
+        return FakeReplica(rid, factory, step_timeout_s=step_timeout_s,
+                           script=script)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    da.reset_launches()
+    with plain_call_counter(da, DECODE_PLAIN) as plain:
+        t0 = time.perf_counter()
+        rs = ReplicaSet(
+            host, decode_factory,
+            FleetConfig(pool_targets={"prefill": 1, "decode": 1},
+                        step_timeout_s=FLEET_STEP_TIMEOUT_S),
+            engine_factories={"prefill": prefill_factory,
+                              "decode": decode_factory},
+            replica_factory=replica_factory, device=dev)
+        router = DisaggRouter(
+            rs, RouterConfig(admission_token_cap=FLEET_ADMISSION_CAP),
+            planner=KVHandoffPlanner(device=dev))
+        clock = _TokenGaps(router)
+        rids = [router.submit(p, max_new_tokens=FLEET_NEW_TOKENS)
+                for p in prompts]
+        while router.pending():
+            clock.step()
+        first = rs.serving("prefill")[0].engine.prefix_cache.stats()
+        repeats = [router.submit(p, max_new_tokens=FLEET_NEW_TOKENS)
+                   for p in prompts[:DISAGG_REPEAT]]
+        while router.pending():
+            clock.step()
+        _sync()
+        wall = time.perf_counter() - t0
+    counts = dict(da.LAUNCHES)
+    out = router.results()
+    if sorted(out) != sorted(rids + repeats) or any(
+            len(out[r]) != FLEET_NEW_TOKENS for r in rids + repeats):
+        raise AssertionError("disagg: a request was lost or a token "
+                             "emitted twice")
+    want = steps["n"] * cfg.num_hidden_layers
+    if counts["ragged_paged_decode"] != want or want == 0 or \
+            counts["flash_decode"] or counts["paged_decode"] or \
+            any(plain.values()):
+        raise AssertionError(f"disagg: launches {counts} (expected {want} "
+                             f"ragged and no other), plain calls {plain}")
+    if len(landed) != router.telemetry["handoffs"] or not landed:
+        raise AssertionError(f"disagg: {len(landed)} adoptions for "
+                             f"{router.telemetry['handoffs']} handoffs")
+    # each adoption's pages equal the export it came from (the meta the
+    # router passed on is the export's own), its engine's scales the
+    # prefill side's, bit for bit
+    for key, tree, scales in landed:
+        t, m = exported[key]
+        if tree["k"].dtype != torch.int8 or not all(
+                np.array_equal(tree[x].numpy(), t[x]) for x in ("k", "v")) \
+                or any(not np.array_equal(scales[s], m["kv_scales"][s])
+                       for s in scales):
+            raise AssertionError("disagg: an int8 handoff's pages or "
+                                 "scales differ between the two ends")
+    recoveries = [{k: getattr(ev, k) for k in (
+        "replica_id", "fault", "died_at_tick", "migrated_requests",
+        "replacement_id", "recovery_ticks", "wall_s")}
+        for ev in router.telemetry["recoveries"]]
+    if [r["fault"] for r in recoveries] != ["ReplicaKilled"]:
+        raise AssertionError(f"disagg: recoveries {recoveries}")
+    pre = rs.serving("prefill")[0].engine
+    cache = pre.prefix_cache.stats()
+    if not first["demoted_pages"] or \
+            cache["host_hits"] <= first["host_hits"]:
+        raise AssertionError(f"disagg: the repeats hit no host-tier page "
+                             f"(after the first round {first}, at the "
+                             f"end {cache})")
+    scales = {k: torch.from_numpy(v).to(dev)
+              for k, v in router._fleet_kv_scales.items()}
+    live = rs.serving("decode")[0].engine.params
+    tf = teacher_forced(cfg, live, list(prompts) + list(
+        prompts[:DISAGG_REPEAT]), [out[r] for r in rids + repeats], dev,
+        kv_scales=scales)
+    rec = dict(
+        pools={"prefill": 1, "decode": 1}, cache_dtype="int8",
+        host_tier_pages=DISAGG_HOST_TIER_PAGES,
+        prefill_pages=DISAGG_PREFILL_PAGES, requests=len(rids),
+        repeats=len(repeats),
+        repeats_equal=[out[a].tolist() == out[b].tolist()
+                       for a, b in zip(rids, repeats)],
+        ticks=router._tick, wall_s=wall, launches=counts,
+        unified_steps=steps["n"], **clock.record(),
+        spawns=_spawns(rs), handoffs=router.telemetry["handoffs"],
+        handoffs_mid_decode=router.telemetry["handoffs_mid_decode"],
+        handoff_bytes={k: router.planner.telemetry[k]
+                       for k in ("bytes_raw", "bytes_wire", "plans_built")},
+        handoff_bf16_bytes=2 * router.planner.telemetry["bytes_raw"],
+        recoveries=recoveries, prefix_cache_first_round=first,
+        prefix_cache=cache, teacher_forced=tf)
+    del router, rs, live, pre, exported, landed
+    return rec
+
+
+def serving_fleet_phase(dev, host=None):
+    """The serving fleet at the serving cell (Llama-3-8B, full width and
+    depth, seeded bf16 weights on the host): a unified fleet of 2 replicas
+    without and with faults (kill, hang, drain), one coded spawn, a
+    disaggregated int8 fleet with a decode-replica kill."""
+    import torch
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(),
+                              max_position_embeddings=2048)
+    if host is None:
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
+                                 generator=gen)
+        host = host_weights(model.functional_state())
+        del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    source_bytes = sum(v.nbytes for v in host.values())
+    prompts = fleet_prompts(cfg)
+
+    def done(what):
+        print(f"serving_fleet: {what} at {time.perf_counter() - t0:.1f} s",
+              file=sys.stderr, flush=True)
+
+    done("host weights")
+    clean, clean_tokens, live, held = _fleet_run(cfg, host, dev, prompts,
+                                                 False)
+    del live, held
+    done("unfaulted fleet")
+    faulted, tokens, live, held = _fleet_run(cfg, host, dev, prompts, True)
+    done("faulted fleet")
+    faulted["teacher_forced"] = teacher_forced(cfg, live, prompts, tokens,
+                                               dev)
+    del live, held
+    done("teacher forcing")
+    rids = list(range(len(prompts)))
+    faulted["migrated_equal"] = {
+        r: {"equal": tokens[r].tolist() == clean_tokens[r].tolist(),
+            "first_diff": _first_diff(tokens[r].tolist(),
+                                      clean_tokens[r].tolist())}
+        for r in faulted["migrated"] if r in rids}
+    gc.collect()
+    torch.cuda.empty_cache()
+    coded = _coded_spawn(cfg, host, dev)
+    done("coded spawn")
+    gc.collect()
+    torch.cuda.empty_cache()
+    disagg = _disagg_run(cfg, host, dev, prompts[:DISAGG_REQUESTS])
+    done("disaggregated fleet")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(
+        config="llama3_8b", max_position_embeddings=2048,
+        source_bytes=source_bytes, engine=FLEET_ENGINE,
+        step_timeout_s=FLEET_STEP_TIMEOUT_S, hang_stall_s=FLEET_HANG_STALL_S,
+        unfaulted=clean, faulted=faulted, coded=coded, disagg=disagg,
+        launches_by_path={
+            "serving_fleet": clean["launches"]["ragged_paged_decode"]
+            + faulted["launches"]["ragged_paged_decode"],
+            "serving_disagg": disagg["launches"]["ragged_paged_decode"]},
+        peak_device_bytes=torch.cuda.max_memory_allocated(),
+        device_bytes_before=before, wall_s=time.perf_counter() - t0)
+
+
+def print_serving_fleet(rec, card):
+    """The serving_fleet phase's lines, each with the card's string."""
+    for name in ("unfaulted", "faulted"):
+        r = rec[name]
+        print(f"serving_fleet {name}: " + json.dumps(
+            {k: r[k] for k in ("replicas", "requests", "ticks", "wall_s",
+                               "unified_steps", "inter_token_ms",
+                               "ms_per_token_amortised", "spawns",
+                               "recoveries", "drain", "reap_memory",
+                               "set_telemetry", "router")}
+            | ({"teacher_forced": r["teacher_forced"],
+                "migrated_equal": r["migrated_equal"]}
+               if name == "faulted" else {}))
+            + f" ({card})", flush=True)
+    c = rec["coded"]
+    print("serving_fleet coded spawn: " + json.dumps(
+        {k: c[k] for k in ("profile", "block", "raw_bytes", "wire_bytes",
+                           "staged_bytes", "ratio", "spawn", "check_s")})
+        + f" ({card})", flush=True)
+    d = rec["disagg"]
+    print("serving_fleet disagg: " + json.dumps(
+        {k: d[k] for k in ("pools", "cache_dtype", "prefill_pages",
+                           "requests", "repeats", "repeats_equal", "ticks",
+                           "wall_s", "inter_token_ms",
+                           "ms_per_token_amortised", "spawns", "handoffs",
+                           "handoffs_mid_decode", "handoff_bytes",
+                           "handoff_bf16_bytes", "recoveries",
+                           "prefix_cache_first_round", "prefix_cache",
+                           "teacher_forced")})
+        + f" ({card})", flush=True)
+    print(f"serving_fleet: peak_device_bytes={rec['peak_device_bytes']} "
+          f"source_bytes={rec['source_bytes']} launches_by_path="
+          f"{json.dumps(rec['launches_by_path'])} wall_s="
+          f"{rec['wall_s']:.1f} ({card})", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -5499,8 +6108,13 @@ def main() -> int:
           f"{serving['unified']['ms_per_decode_step']:.2f} "
           f"[{extras['unified_int8']['ms_per_decode_step']:.2f}] ({card})",
           flush=True)
+    host = host_weights(params)
     del model, params
+    gc.collect()
     torch.cuda.empty_cache()
+    fleet = record["serving_fleet"] = serving_fleet_phase(dev, host)
+    del host
+    print_serving_fleet(fleet, card)
 
     # the training left-outs, after every profiled phase, once the earlier
     # phases' garbage (engines hold their pools in reference cycles) is
@@ -5635,6 +6249,7 @@ def main() -> int:
             for name, n in r.get(key, {}).items():
                 if n:
                     by_path[name][tag] = n
+    by_path["ragged_paged_decode"].update(fleet["launches_by_path"])
     for r in record["kernels"]:
         path = main_path[r["name"]][0]
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
@@ -5835,6 +6450,7 @@ TURN_PHASES = {
     "gpt_moe_train": lambda cs, dev, flush: cs.gpt_moe_train_phase(
         dev, flush),
     "resilient_train": lambda cs, dev, flush: cs.resilient_train_phase(dev),
+    "serving_fleet": lambda cs, dev, flush: cs.serving_fleet_phase(dev),
 }
 
 

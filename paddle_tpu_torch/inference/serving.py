@@ -1269,7 +1269,9 @@ class ContinuousBatchingEngine:
         pg = torch.tensor(pages[:npg], dtype=torch.long, device=self.device)
         for pools, block in zip((self.k_pages, self.v_pages),
                                 (kv["k"], kv["v"])):
-            x = _to_torch(block).to(self.device)
+            # a handoff delivered to this device arrives as its tensors
+            x = (block if isinstance(block, torch.Tensor)
+                 else _to_torch(block)).to(self.device)
             for i, pool in enumerate(pools):
                 pool[pg] = x[i].to(pool.dtype)
         self.active[slot] = True

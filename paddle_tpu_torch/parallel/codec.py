@@ -31,7 +31,8 @@ a tensor (on CUDA a Python-scalar divisor becomes a product with its
 reciprocal, one bf16 scale in 173 056 off at qmax 448).  The JAX package leaves the codec to
 XLA, so this is plain PyTorch on whatever device the row lies on (a fused
 kernel is later work); ``encode_rows_host`` runs the same arithmetic on
-the CPU, without ``ml_dtypes``, and ``decode_jit`` is a plain closure.
+the CPU, without ``ml_dtypes``, and ``decode_jit`` is a plain closure that
+moves the packed bytes to its placement before it decodes.
 """
 
 from __future__ import annotations
@@ -276,9 +277,12 @@ def encode_rows(x: torch.Tensor, codec: CollectiveCodec, profile: str,
     block = codec.block
     nb = num_blocks(n, block)
     qmax = _qmax(profile)
-    xp = torch.zeros((rows, nb * block), dtype=torch.float32,
-                     device=x.device)
-    xp[:, :n] = x
+    if n == nb * block:
+        xp = x.to(torch.float32)             # nothing to pad, nor to write
+    else:
+        xp = torch.zeros((rows, nb * block), dtype=torch.float32,
+                         device=x.device)
+        xp[:, :n] = x
     xb = xp.reshape(rows, nb, block)
     scale_b, scale_f = _block_scales(xb, qmax)
     r = xb / scale_f[..., None]
@@ -340,33 +344,92 @@ def decode_rows(packed: torch.Tensor, n: int, codec: CollectiveCodec,
 # ---------------------------------------------------------------------------
 
 
+# the host encode's working set: blocks of this many elements at a time
+# stay in cache through the encode's passes
+_HOST_PART = 1 << 20
+
+
 def encode_rows_host(x, codec: CollectiveCodec, profile: str) -> np.ndarray:
     """``encode_rows`` with round to nearest on the host: numpy or a tensor
     in, numpy int8 out, computed by torch on the CPU (so no ``ml_dtypes``
-    is needed for the bf16 and fp8 casts).  The receiver decodes with the
-    same ``decode_rows`` as the collectives."""
+    is needed for the bf16 and fp8 casts).  Rows that are whole blocks go
+    through ``encode_rows`` ``_HOST_PART`` elements at a time, one block a
+    row (a few passes over data in cache instead of a dozen over the row:
+    the weight delivery encodes a whole model); blocks are encoded on
+    their own, so the bytes are those of one ``encode_rows`` over the row.
+    The receiver decodes with the same ``decode_rows`` as the
+    collectives."""
     if profile == "fp8" and FP8_DTYPE is None:
         profile = "int8"
     if isinstance(x, torch.Tensor):
-        t = x.detach().to("cpu", torch.float32)
+        t = x.detach().to("cpu")
     else:
-        t = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))
-    return encode_rows(t, codec, profile).numpy()
+        t = torch.from_numpy(np.ascontiguousarray(x))
+    rows, n = t.shape
+    block = codec.block
+    if n % block:
+        return encode_rows(t.to(torch.float32), codec, profile).numpy()
+    bare = dataclasses.replace(codec, checksum=False)
+    flat = t.contiguous().reshape(-1)
+    payload = torch.empty(flat.numel(), dtype=torch.int8)
+    scales = torch.empty((flat.numel() // block, 2), dtype=torch.int8)
+    step = max(block, _HOST_PART // block * block)
+    for a in range(0, flat.numel(), step):
+        part = encode_rows(flat[a:a + step].view(-1, block), bare, profile)
+        payload[a:a + step] = part[:, :block].reshape(-1)
+        scales[a // block:(a + step) // block] = part[:, block:]
+    packed = torch.cat([payload.view(rows, n), scales.view(rows, -1)],
+                       dim=-1)
+    if codec.checksum:
+        packed = torch.cat([packed, _u32_bytes(_checksum_rows(packed))],
+                           dim=-1)
+    return packed.numpy()
+
+
+def _placement_device(out_sharding) -> torch.device:
+    """The device a decoded leaf goes to: ``out_sharding`` is a
+    ``torch.device`` (or its name) or a one-rank ``(Mesh, PartitionSpec)``
+    pair, whose block is the leaf, on the mesh's device (the current card
+    for a ``cuda`` mesh, raising without one)."""
+    if isinstance(out_sharding, (torch.device, str)):
+        dev = torch.device(out_sharding)
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"decode placement {dev}: CUDA is not "
+                               f"available")
+        return dev
+    mesh, _ = out_sharding
+    if mesh.size != 1:
+        raise ValueError(f"decode placement on a mesh of {mesh.size} ranks: "
+                         f"the delivery decodes one rank's leaf (place "
+                         f"blocks with the reshard plan)")
+    if mesh.device_type == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device for the decoded leaf: place it with "
+            "out_sharding='cpu' or a mesh of device_type 'cpu'")
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 def decode_jit(shape: Tuple[int, ...], dtype, codec: CollectiveCodec,
                profile: str, out_sharding=None) -> Callable:
-    """A decoder of one host-encoded leaf: packed int8 [1, packed_width] ->
-    a tensor of ``shape``/``dtype`` on the packed bytes' device.  The JAX
-    name is kept; here it is a plain closure, nothing is compiled, and
-    ``out_sharding`` (a JAX placement) must be None."""
-    if out_sharding is not None:
-        raise NotImplementedError(
-            "decode_jit(out_sharding=...) places the decoded leaf for the "
-            "fleet's weight delivery, ROADMAP queue A6")
+    """A decoder of one host-encoded leaf or chunk: packed int8
+    [1, packed_width] -> a tensor of ``shape``/``dtype``.  The JAX name is
+    kept; here it is a plain closure and nothing is compiled.  Without
+    ``out_sharding`` the leaf decodes where the packed bytes lie.  With it
+    (``_placement_device``'s forms) the PACKED bytes move to the
+    placement's device first and the decode runs there, so what crosses
+    to the destination is the post-codec payload.  The decode is bit-equal
+    on every device: one fp32 product per element and a round-to-nearest
+    cast."""
     n = int(np.prod(shape)) if shape else 1
+    dev = None if out_sharding is None else _placement_device(out_sharding)
 
-    def _dec(packed: torch.Tensor) -> torch.Tensor:
+    def _dec(packed) -> torch.Tensor:
+        if isinstance(packed, np.ndarray):
+            packed = torch.from_numpy(np.ascontiguousarray(packed))
+        if dev is not None and packed.device != dev:
+            packed = packed.to(dev)
         return decode_rows(packed, n, codec, profile,
                            out_dtype=dtype).reshape(shape)
 

@@ -229,7 +229,11 @@ class ReshardStep:
 
 
 class ReshardPlan:
-    """The planned redistribution; ``execute`` applies it."""
+    """The planned redistribution; ``execute`` applies it.  ``telemetry``
+    counts the executions and the bytes their host-route chunks staged
+    toward the destination (``staged_bytes`` over all executions,
+    ``last_staged_bytes`` of the latest): raw bytes for a plain chunk, the
+    packed bytes for a coded one (``execute_encoded``)."""
 
     def __init__(self, dst_mesh: Mesh, steps: List[ReshardStep],
                  leaf_plans: List[LeafPlan],
@@ -238,6 +242,8 @@ class ReshardPlan:
         self.steps = steps
         self.leaf_plans = leaf_plans
         self.transient_budget = transient_budget
+        self.telemetry: Dict[str, int] = {
+            "executions": 0, "staged_bytes": 0, "last_staged_bytes": 0}
 
     @property
     def total_bytes(self) -> int:
@@ -292,6 +298,9 @@ class ReshardPlan:
                 raise KeyError(f"leaf {path!r} was not in the planned tree")
             fn = _leaf_fn or _execute_leaf
             out.append(fn(lp, val, self.dst_mesh, rank, device, staging))
+        self.telemetry["executions"] += 1
+        self.telemetry["staged_bytes"] += staging.bytes
+        self.telemetry["last_staged_bytes"] = staging.bytes
         return unflatten(treedef, out)
 
     def __repr__(self):
@@ -532,16 +541,19 @@ def _assemble(lp: LeafPlan, val, box: Tuple[slice, ...]) -> torch.Tensor:
 class _Staging:
     """The pinned host buffer host-route chunks pass through on their way
     to a CUDA destination: one per execution, grown to the largest chunk
-    (a pinned allocation costs more than its copy)."""
+    (a pinned allocation costs more than its copy).  ``bytes`` counts what
+    it staged, whatever the destination."""
 
     def __init__(self):
         self.buf: Optional[torch.Tensor] = None
+        self.bytes = 0
 
     def __call__(self, piece: torch.Tensor, dev: torch.device
                  ) -> torch.Tensor:
+        n = piece.numel() * piece.element_size()
+        self.bytes += n
         if dev.type != "cuda":
             return piece.to(dev)
-        n = piece.numel() * piece.element_size()
         if self.buf is None or self.buf.numel() < n:
             self.buf = torch.empty(n, dtype=torch.uint8, pin_memory=True)
         host = self.buf[:n].view(piece.dtype).view(piece.shape)
@@ -558,6 +570,9 @@ def _place(lp: LeafPlan, local: torch.Tensor, dst_mesh: Mesh):
 
 def _execute_leaf(lp: LeafPlan, val, dst_mesh: Mesh, rank, device,
                   staging: _Staging, transform=None):
+    """One leaf's destination block.  ``transform(piece, chunk_index, dev,
+    staging)`` replaces a host chunk's staging: it returns the chunk's
+    values on ``dev`` (the codec's packed route)."""
     if not lp.moved:
         if isinstance(val, ShardedTensor) and dst_mesh.live \
                 and val.mesh is not dst_mesh:
@@ -576,7 +591,7 @@ def _execute_leaf(lp: LeafPlan, val, dst_mesh: Mesh, rank, device,
         box = _chunk_box(lp, a, b) if lp.shape else ()
         piece = _assemble(lp, val, box)
         if transform is not None:
-            piece = transform(piece, ci)
+            piece = transform(piece, ci, dev, staging)
         if dst is None:
             continue
         if not lp.shape:
@@ -586,7 +601,7 @@ def _execute_leaf(lp: LeafPlan, val, dst_mesh: Mesh, rank, device,
         if part is None:
             continue
         piece = piece[_relative(part, box)]
-        if lp.route == "host":
+        if lp.route == "host" and transform is None:
             piece = staging(piece, dev)
         dst[_relative(part, mine)] = piece.to(dev, dst.dtype)
     return None if dst is None else _place(lp, dst, dst_mesh)
@@ -625,14 +640,19 @@ def execute_encoded(plan: ReshardPlan, tree, codec, *, corrupt=None,
                     rank: Optional[int] = None, device=None):
     """Execute ``plan`` with host-route float leaves streamed as
     block-scaled packed payloads (``parallel/codec.py``, round to nearest
-    on the host) and decoded at the destination: lossy by construction,
-    the error bounded by absmax/qmax per block.  Device-route, noop and
+    on the host): each chunk is encoded on the host, its PACKED int8 bytes
+    pass through the pinned staging buffer to the destination device, and
+    ``decode_jit(out_sharding=device)`` decodes them there, so a coded
+    leaf stages ``plan_wire_bytes``' wire bytes, not its raw ones
+    (``plan.telemetry["last_staged_bytes"]``).  Lossy by construction,
+    the error bounded by absmax/qmax per block; the decoded values equal a
+    CPU decode of the same bytes bit for bit.  Device-route, noop and
     integer leaves take the bit-exact path; ``codec.weight_profile ==
     "none"`` is ``plan.execute`` exactly.  With ``codec.checksum`` every
-    packed chunk is verified before decode (``ChecksumError``);
+    packed chunk is verified before it is staged (``ChecksumError``);
     ``corrupt(packed, path, chunk) -> packed`` is the fault harness's
-    wire-corruption hook, applied between encode and decode."""
-    from .codec import decode_rows, encode_rows_host, verify_rows_host
+    wire-corruption hook, applied between encode and verification."""
+    from .codec import decode_jit, encode_rows_host, verify_rows_host
 
     rp = codec.resolve("weight")
 
@@ -641,15 +661,15 @@ def execute_encoded(plan: ReshardPlan, tree, codec, *, corrupt=None,
             return _execute_leaf(lp, val, dst_mesh, r, dev, staging)
         profile = rp[0]
 
-        def coded(piece, ci):
+        def coded(piece, ci, dst_dev, stage):
             packed = encode_rows_host(piece.reshape(1, -1), codec, profile)
             if corrupt is not None:
                 packed = corrupt(packed, lp.path, ci)
             if codec.checksum:
                 verify_rows_host(packed, where=f"{lp.path}[{ci}]")
-            return decode_rows(torch.from_numpy(np.ascontiguousarray(
-                packed)), piece.numel(), codec, profile,
-                out_dtype=_torch_dtype(lp.dtype)).reshape(piece.shape)
+            dec = decode_jit(tuple(piece.shape), _torch_dtype(lp.dtype),
+                             codec, profile, out_sharding=dst_dev)
+            return dec(stage(torch.from_numpy(packed), dst_dev))
 
         return _execute_leaf(lp, val, dst_mesh, r, dev, staging,
                              transform=coded)
@@ -699,8 +719,8 @@ def reshard(tree, dst_mesh: Mesh, dst_specs=None, *,
 
 def check_reshard_budget(plan: ReshardPlan, tree, **kwargs):
     """The Graph Doctor's MEM001 pricing of a plan step (the JAX
-    ``check_reshard_budget``) needs the doctor, which the port does not
-    have yet."""
+    ``check_reshard_budget``) needs the graph doctor, which the port does
+    not have yet (its Concurrency Doctor is in ``analysis/``)."""
     raise NotImplementedError(
         "check_reshard_budget is the Graph Doctor's MEM001 pass, ROADMAP "
         "queue A7")

@@ -105,6 +105,35 @@ def test_encode_rows_host_equals_jax(profile, checksum):
             jnp.asarray(want))))
 
 
+@pytest.mark.parametrize("shape",
+                         [(1, (3 << 20) + 256), (3, (1 << 20) + 256)],
+                         ids=["one_row", "three_rows"])
+@pytest.mark.parametrize("checksum", [False, True], ids=["plain", "cs"])
+@pytest.mark.parametrize("profile", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_encode_rows_host_parts_equal_encode_rows(dtype, profile, checksum,
+                                                  shape):
+    """Rows of whole blocks longer than two of the host encode's parts:
+    its bytes equal one ``encode_rows`` over each row, with a NaN, an inf
+    and an all-zero block inside the second part and parts that straddle
+    rows."""
+    tc = T.CollectiveCodec(block=256, checksum=checksum)
+    rows, n = shape
+    assert rows * n > 2 * T._HOST_PART
+    x = torch.from_numpy(
+        np.random.RandomState(11).randn(rows, n).astype(np.float32) * 4)
+    flat = x.view(-1)
+    flat[T._HOST_PART + 5] = float("nan")
+    flat[T._HOST_PART + 300] = float("inf")
+    flat[T._HOST_PART + 512:T._HOST_PART + 768] = 0.0
+    x = x.to(dtype)
+    want = T.encode_rows(x.to(torch.float32), tc, profile).numpy()
+    got = T.encode_rows_host(x, tc, profile)
+    assert got.shape == (rows, T.packed_width(n, 256, checksum))
+    np.testing.assert_array_equal(got, want)
+
+
 ROUNDTRIP_TOLS = [("int8", False, 0.5 / 127), ("int8", True, 1.0 / 127),
                   ("fp8", False, 1.0 / 16)]
 

@@ -2127,6 +2127,102 @@ def test_codec_bytes_equal(dev, tmp_path):
     assert all(v == 0 for v in rows.values()), rows
 
 
+# ------------------------------------------------- the serving fleet (A6.2)
+
+
+def test_coded_delivery_decodes_on_card_bit_equal(dev):
+    """The coded weight delivery onto a one-rank cuda mesh: the packed
+    bytes are what the staging buffer carries (staged bytes equal
+    ``plan_wire_bytes``' wire bytes), the decode runs on the card, and
+    each leaf equals the CPU decode of the bytes that crossed, bit for
+    bit; an int8 leaf rides the exact path; ``decode_jit`` placed on the
+    card equals it placed on the CPU."""
+    from paddle_tpu_torch.parallel import reshard as R
+    from paddle_tpu_torch.parallel.codec import (CollectiveCodec,
+                                                 decode_jit, decode_rows)
+    from paddle_tpu_torch.parallel.specs import Mesh, P
+
+    g = torch.Generator().manual_seed(0)
+    tree = {"w": torch.randn(384, 1024, generator=g).to(torch.bfloat16),
+            "b": torch.randn(1000, generator=g),
+            "i": torch.arange(77, dtype=torch.int32)}
+    mesh = Mesh((1,), ("replica",), device_type="cuda")
+    for profile in ("int8", "fp8"):
+        codec = CollectiveCodec(weight_profile=profile, block=256,
+                                checksum=profile == "fp8")
+        plan = R.plan_reshard(tree, mesh, None, max_transient_bytes=1 << 18)
+        wire = {}
+
+        def capture(packed, path, chunk):
+            wire[(path, chunk)] = packed
+            return packed
+
+        out = R.execute_encoded(plan, tree, codec, corrupt=capture)
+        assert plan.telemetry["last_staged_bytes"] == \
+            R.plan_wire_bytes(plan, codec)["wire_bytes"]
+        assert torch.equal(out["i"].cpu(), tree["i"])
+        for lp in plan.leaf_plans:
+            if lp.path == "i":
+                continue
+            leaf = out[lp.path]
+            assert leaf.device.type == "cuda"
+            axis = lp.chunk_axis or 0
+            spans = lp.chunks if lp.chunk_axis is not None \
+                else [(0, leaf.shape[0])]
+            assert len(spans) > 1 or lp.path == "b"
+            for ci, (a, b) in enumerate(spans):
+                card = leaf.narrow(axis, a, b - a).cpu()
+                packed = torch.from_numpy(wire[(lp.path, ci)])
+                cpu = decode_rows(packed, card.numel(), codec, profile,
+                                  out_dtype=card.dtype).reshape(card.shape)
+                assert torch.equal(card, cpu), (profile, lp.path, ci)
+                on_card = decode_jit(tuple(card.shape), card.dtype, codec,
+                                     profile, out_sharding=(mesh, P()))
+                assert torch.equal(on_card(packed).cpu(), cpu)
+
+
+def _fleet_tokens(device, disagg):
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch_fault_injection as T
+
+    cfg, params = _debug_llama()
+    host = {k: v.numpy() for k, v in params.items()}
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, 64, (n,)).astype(np.int32)
+               for n in (5, 9, 17, 7, 20, 11)]
+    da.reset_launches()
+    if disagg:
+        router, rs = T.build_disagg_fleet(
+            cfg, host, prefill=1, decode=1, device=device,
+            cache_dtype=torch.int8, host_tier_pages=4,
+            scripts={1: [T.ReplicaFaultEvent(step=4, kind="kill")]})
+    else:
+        router, rs = T.build_serving_fleet(
+            cfg, host, target=2, device=device,
+            scripts={0: [T.ReplicaFaultEvent(step=2, kind="kill")]})
+    rids = [router.submit(p, max_new_tokens=6) for p in prompts]
+    out = router.run()
+    events = [(ev.fault, ev.migrated_requests)
+              for ev in router.telemetry["recoveries"]]
+    return ({r: out[r].tolist() for r in rids}, events, dict(da.LAUNCHES),
+            dict(rs.telemetry))
+
+
+@pytest.mark.parametrize("disagg", [False, True])
+def test_fleet_on_cuda_matches_cpu(dev, disagg):
+    """The debug model's fleet (two unified replicas, a kill) and its
+    disaggregated int8 fleet (a decode-replica kill) in fp32 on the card
+    emit the CPU fleets' tokens with the same recoveries and telemetry,
+    every attention call a B3' launch."""
+    got, events, launches, tel = _fleet_tokens(dev, disagg)
+    want, want_events, _, want_tel = _fleet_tokens("cpu", disagg)
+    assert got == want and events == want_events and tel == want_tel
+    assert launches["ragged_paged_decode"] > 0
+    assert launches["flash_decode"] == launches["paged_decode"] == 0
+
+
 # ------------------------------------------- training resilience (A6.1)
 
 RESIL4_CFG = dict(vocab=128, hidden=128, layers=2, heads=4, kv_heads=2,

@@ -5,10 +5,11 @@ tests/fault_injection.py, JAX's cluster cut to the one device of the
 port's one process).
 
 - Every scenario of tests/test_resilience.py's one-process legs: kill,
-  kill before the first checkpoint, preemption, hang (a stall of 6 s
-  against a 1 s step timeout: 6x, so that the watchdog's 0.1 s scan
-  flags it whatever the load, and JAX's first step, which compiles
-  inside the watch window, stays under the timeout), slow step,
+  kill before the first checkpoint, preemption, hang (a stall of
+  ``HANG_STALL_X`` step timeouts, the timeout itself derived in the test
+  from both sides' measured toy steps, so that neither side's clean steps,
+  the first included, reach it however loaded the machine is, and the
+  watchdog's 0.1 s scan flags the stall), slow step,
   rendezvous retry and exhaustion, restart budget, corrupt latest
   checkpoint, all checkpoints corrupt: the ``RecoveryEvent`` fields
   equal JAX's exactly, every loss
@@ -24,11 +25,13 @@ port's one process).
   within 1e-6 relative, the final params within 1e-6.
 """
 
+import dataclasses
 import glob
 import json
 import os
 import random
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -82,9 +85,8 @@ SCENARIOS = {
     "kill_before_first_checkpoint": dict(
         n=8, faults=[T.FaultEvent(step=2, kind="kill")]),
     "preempt": dict(n=12, faults=[T.FaultEvent(step=7, kind="preempt")]),
-    "hang": dict(n=8, faults=[T.FaultEvent(step=5, kind="hang",
-                                           stall_s=6.0)],
-                 kw=dict(step_timeout_s=1.0)),
+    # the stall and the step timeout are derived in the test
+    "hang": dict(n=8, faults=[T.FaultEvent(step=5, kind="hang")]),
     "slow": dict(n=8, faults=[T.FaultEvent(step=5, kind="slow",
                                            stall_s=0.02)],
                  kw=dict(step_timeout_s=10.0)),
@@ -94,13 +96,52 @@ SCENARIOS = {
 }
 
 
+# the hang scenario's step timeout: STEP_TIMEOUT_X times the slowest of
+# the measured toy steps (floored at 1 s), its stall HANG_STALL_X timeouts
+STEP_TIMEOUT_X = 8.0
+HANG_STALL_X = 6.0
+TIMED_STEPS = 3
+
+
+def _slowest_toy_step(steps=TIMED_STEPS):
+    """The slowest of the first ``steps`` steps of a freshly built toy
+    step on either side, in seconds: JAX's first step compiles, and on a
+    loaded machine every step of either side is several times slower than
+    on an idle one (both sides' toy steps take ~0.1 s idle and past 1 s on
+    one core shared by six test workers)."""
+    import jax
+
+    import fault_injection as J
+
+    worst = 0.0
+    for side in (J, T):
+        devices = jax.devices()[:1] if side is J else [0]
+        mesh, specs = side.toy_mesh_builder(devices)
+        state = side.toy_init(mesh, specs)
+        step = side.toy_step_builder(mesh, specs)
+        for s in range(steps):
+            t0 = time.perf_counter()
+            loss, state = step(state, side.toy_target(s))
+            float(loss)
+            worst = max(worst, time.perf_counter() - t0)
+    return worst
+
+
 @pytest.mark.parametrize("name", list(SCENARIOS))
 def test_scenario_matches_jax(name, tmp_path, ref12):
     sc = SCENARIOS[name]
-    kw = sc.get("kw", {})
+    kw = dict(sc.get("kw", {}))
+    faults = list(sc["faults"])
+    if name == "hang":
+        # the watchdog must judge the stall alone: a timeout above every
+        # clean step of both sides as this machine runs them now, and a
+        # stall a fixed multiple above that timeout
+        kw["step_timeout_s"] = max(1.0, STEP_TIMEOUT_X * _slowest_toy_step())
+        faults = [dataclasses.replace(
+            f, stall_s=HANG_STALL_X * kw["step_timeout_s"]) for f in faults]
     tres, tcl = T.run_toy_loop(str(tmp_path / "t"), sc["n"],
-                               faults=list(sc["faults"]), **kw)
-    jres, jcl = _jax_run(tmp_path / "j", sc["n"], sc["faults"], **kw)
+                               faults=list(faults), **kw)
+    jres, jcl = _jax_run(tmp_path / "j", sc["n"], faults, **kw)
     _same(tres, jres)
     assert [e.kind for e in tcl.fired] == [e.kind for e in jcl.fired]
     # a correct resume replays the uninterrupted trajectory exactly

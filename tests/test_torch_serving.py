@@ -488,7 +488,8 @@ def test_import_leaves_jax_and_paddle_tpu_out():
 
 def test_import_guard_walks_every_module():
     """The subprocess guard above imports every module pkgutil finds in
-    the package, the training left-outs' modules among them."""
+    the package, the training left-outs' modules, the serving fleet's and
+    the Concurrency Doctor's among them."""
     import pkgutil
 
     import paddle_tpu_torch
@@ -515,7 +516,14 @@ def test_import_guard_walks_every_module():
             "paddle_tpu_torch.distributed.checkpoint.load_state_dict",
             "paddle_tpu_torch.distributed.checkpoint.manager",
             "paddle_tpu_torch.parallel.reshard",
-            "paddle_tpu_torch.nn.functional"} <= walked
+            "paddle_tpu_torch.nn.functional",
+            "paddle_tpu_torch.inference.fleet",
+            "paddle_tpu_torch.inference.disagg",
+            "paddle_tpu_torch.analysis.findings",
+            "paddle_tpu_torch.analysis.concurrency",
+            "paddle_tpu_torch.analysis.lock_sanitizer",
+            "paddle_tpu_torch.analysis.fixtures",
+            "paddle_tpu_torch.analysis.passes.lock_discipline"} <= walked
 
 
 def test_port_sources_import_no_jax_or_paddle_tpu():
@@ -546,4 +554,7 @@ def test_port_sources_import_no_jax_or_paddle_tpu():
             "distributed/checkpoint/save_state_dict.py",
             "distributed/checkpoint/load_state_dict.py",
             "distributed/checkpoint/manager.py",
-            "parallel/reshard.py"} <= scanned
+            "parallel/reshard.py", "inference/fleet.py",
+            "inference/disagg.py", "analysis/concurrency.py",
+            "analysis/lock_sanitizer.py", "analysis/fixtures.py",
+            "analysis/passes/lock_discipline.py"} <= scanned

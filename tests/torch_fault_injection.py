@@ -30,6 +30,14 @@ Fault kinds (``FaultEvent.kind``), as the JAX harness's:
 
 Each event fires once (consumed at its step boundary), so the replay of the
 same step after recovery runs clean.
+
+The serving half (the port's copy of the JAX harness's): ``FakeReplica`` is
+a fleet ``Replica`` whose script kills, preempts, hangs or slows its engine
+step at its own step boundaries (a hang or slow stall sits inside the
+watchdog window), ``OverloadBurst`` and ``run_fleet_trace`` drive scripted
+traffic through a router, ``toy_llama`` is the port's toy Llama built from
+the JAX toy's weights, and ``build_serving_fleet``/``build_disagg_fleet``
+assemble routers over FakeReplicas on ``device`` (the CPU in the tests).
 """
 
 from __future__ import annotations
@@ -669,3 +677,237 @@ def run_hung_collective(tmpdir: str, backend: str, timeout_s: float = 1.0,
             if p.poll() is None:
                 p.kill()
             p.communicate()
+
+
+# ---------------------------------------------------------------------------
+# the serving half: scripted replicas, traffic bursts, fleets
+# ---------------------------------------------------------------------------
+#
+# ``kill`` raises before the engine step (tokens since the router's last
+# harvest are lost; the router replays them from its committed prefix),
+# ``preempt`` is the advance notice, ``hang``/``slow`` stall inside the
+# watchdog window (past ``step_timeout_s`` the scanner flags the step and
+# the replica raises ReplicaHung; under it the stall rides through).
+
+import time as _time
+
+from paddle_tpu_torch.distributed.resilience import (ReplicaKilled,
+                                                     ReplicaPreempted)
+from paddle_tpu_torch.inference.fleet import (FleetConfig, FleetRouter,
+                                              OverloadRejected, Replica,
+                                              ReplicaSet, RouterConfig)
+
+TOY_LLAMA = dict(vocab=64, hidden=32, layers=2, heads=4, kv_heads=2,
+                 inter=64, max_pos=128)
+FLEET_ENGINE = dict(max_slots=2, num_pages=33, page_size=16,
+                    max_seq_len=128, prefill_token_budget=16,
+                    enable_prefix_cache=True)
+
+
+@dataclass
+class ReplicaFaultEvent:
+    step: int                    # the replica's own completed-step count
+    kind: str                    # kill | preempt | hang | slow
+    stall_s: float = 0.0         # for hang/slow
+
+
+@dataclass
+class OverloadBurst:
+    """``n_requests`` uniform requests submitted per router tick for
+    ``duration`` ticks: sustained pressure that walks the ladder."""
+
+    tick: int
+    n_requests: int
+    duration: int = 1
+    prompt_len: int = 24
+    max_new_tokens: int = 4
+
+
+class FakeReplica(Replica):
+    """A fleet replica with a fault script (see the section comment)."""
+
+    def __init__(self, replica_id, engine_factory, step_timeout_s=0.0,
+                 script=(), sleep=_time.sleep):
+        super().__init__(replica_id, engine_factory,
+                         step_timeout_s=step_timeout_s)
+        self._script: Dict[int, List[ReplicaFaultEvent]] = {}
+        for ev in script:
+            self._script.setdefault(ev.step, []).append(ev)
+        self._sleep = sleep
+        self.fired: List[ReplicaFaultEvent] = []
+
+    def _engine_step(self):
+        stall = 0.0
+        for ev in self._script.pop(self.steps, []):
+            self.fired.append(ev)
+            if ev.kind == "kill":
+                raise ReplicaKilled(
+                    f"injected kill at replica step {self.steps}")
+            if ev.kind == "preempt":
+                raise ReplicaPreempted(
+                    f"injected preemption at replica step {self.steps}")
+            if ev.kind in ("hang", "slow"):
+                stall += ev.stall_s
+                continue
+            raise AssertionError(f"unknown replica fault kind {ev.kind!r}")
+        if stall:
+            self._sleep(stall)        # inside Replica.step's watch window
+        return self.engine.step()
+
+
+def toy_llama(jax_state, device="cpu"):
+    """The port's twin of the JAX harness's toy Llama: (cfg, model, host
+    params), the model on ``device`` and the params as host numpy arrays,
+    built from the JAX toy's ``functional_state()`` (host numpy) through
+    ``params_from_jax``, so a replica's delivery moves real bytes."""
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         params_from_jax)
+
+    cfg = LlamaConfig.debug(**TOY_LLAMA)
+    params = params_from_jax(jax_state, device)
+    model = LlamaForCausalLM(cfg, device=device).load_functional_state(params)
+    return cfg, model, {k: v.cpu().numpy() for k, v in params.items()}
+
+
+def _replica_factory(scripts, sleep):
+    def make(rid, engine_factory, step_timeout_s=0.0):
+        return FakeReplica(rid, engine_factory,
+                           step_timeout_s=step_timeout_s,
+                           script=scripts.get(rid, ()), sleep=sleep)
+
+    return make
+
+
+def build_serving_fleet(cfg, params_host, *, target=2, scripts=None,
+                        step_timeout_s=0.0, engine_kwargs=None,
+                        router_cfg=None, clock=None, autoscale=None,
+                        max_transient_bytes=64 << 20, sleep=_time.sleep,
+                        device=None, delivery_codec=None):
+    """A FleetRouter over FakeReplicas on ``device``.  ``scripts`` maps a
+    replica id (spawn order, replacements continuing the sequence) to its
+    ReplicaFaultEvents; ``engine_kwargs`` override the toy engine geometry
+    (``self_draft=True``: the replica's own weights as the draft)."""
+    from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+
+    ekw = dict(FLEET_ENGINE)
+    ekw.update(engine_kwargs or {})
+
+    def engine_factory(params):
+        kw = dict(ekw)
+        if kw.pop("self_draft", False):
+            kw["draft_params"] = params
+        return ContinuousBatchingEngine(cfg, params, device=device, **kw)
+
+    rs = ReplicaSet(
+        params_host, engine_factory,
+        FleetConfig(target_replicas=target, step_timeout_s=step_timeout_s,
+                    max_transient_bytes=max_transient_bytes,
+                    delivery_codec=delivery_codec),
+        replica_factory=_replica_factory(scripts or {}, sleep),
+        device=device)
+    kw = {} if clock is None else {"clock": clock}
+    if autoscale is not None:
+        kw["autoscale"] = autoscale
+    router = FleetRouter(rs, router_cfg
+                         or RouterConfig(admission_token_cap=64), **kw)
+    return router, rs
+
+
+def build_disagg_fleet(cfg, params_host, *, prefill=1, decode=1,
+                       unified=0, scripts=None, step_timeout_s=0.0,
+                       engine_kwargs=None, router_cfg=None, clock=None,
+                       cache_dtype=None, host_tier_pages=0,
+                       autoscale=None, handoff_codec=None,
+                       max_transient_bytes=64 << 20, sleep=_time.sleep,
+                       device=None):
+    """A DisaggRouter over FakeReplicas on ``device``: ``prefill``
+    prompt-only replicas, ``decode`` full replicas fed by KV handoff,
+    optional ``unified`` fallbacks.  Spawn order follows the pool map
+    (prefill ids first, then decode, then unified)."""
+    from paddle_tpu_torch.inference.disagg import (AutoscaleConfig,
+                                                   DisaggRouter,
+                                                   KVHandoffPlanner)
+    from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+
+    ekw = dict(FLEET_ENGINE)
+    ekw.update(engine_kwargs or {})
+    if cache_dtype is not None:
+        ekw["cache_dtype"] = cache_dtype
+
+    def decode_factory(params):
+        return ContinuousBatchingEngine(cfg, params, device=device, **ekw)
+
+    def prefill_factory(params):
+        return ContinuousBatchingEngine(
+            cfg, params, prefill_only=True,
+            host_tier_pages=host_tier_pages, device=device, **ekw)
+
+    pool_targets = {"prefill": prefill, "decode": decode}
+    if unified:
+        pool_targets["unified"] = unified
+    rs = ReplicaSet(
+        params_host, decode_factory,
+        FleetConfig(pool_targets=pool_targets,
+                    step_timeout_s=step_timeout_s,
+                    max_transient_bytes=max_transient_bytes),
+        engine_factories={"prefill": prefill_factory,
+                          "decode": decode_factory,
+                          "unified": decode_factory},
+        replica_factory=_replica_factory(scripts or {}, sleep),
+        device=device)
+    planner = KVHandoffPlanner(codec=handoff_codec, device=device)
+    kw = {} if clock is None else {"clock": clock}
+    router = DisaggRouter(
+        rs, router_cfg or RouterConfig(admission_token_cap=64),
+        planner=planner,
+        autoscale=autoscale or AutoscaleConfig(enabled=False), **kw)
+    return router, rs
+
+
+def run_fleet_trace(router, requests, bursts=(), *, seed=0,
+                    max_iters=2000, vocab=64):
+    """Deterministic trace runner: ``requests`` is a list of (tick,
+    prompt, max_new_tokens) submitted at their tick, ``bursts`` expand into
+    uniform submissions; rejected submissions (the ladder's stage 3) are
+    counted, never retried.  Returns per-token latency samples, the
+    rejection count and the submitted rids."""
+    rng = np.random.default_rng(seed)
+    by_tick: Dict[int, list] = {}
+    for t, prompt, mnew in requests:
+        by_tick.setdefault(int(t), []).append((prompt, mnew))
+    burst_by_tick: Dict[int, list] = {}
+    for b in bursts:
+        for t in range(b.tick, b.tick + b.duration):
+            burst_by_tick.setdefault(t, []).append(b)
+    submitted, rejected, lat = [], 0, []
+    tick = 0
+    while True:
+        for prompt, mnew in by_tick.pop(tick, []):
+            try:
+                submitted.append((router.submit(prompt,
+                                                max_new_tokens=mnew),
+                                  prompt, mnew))
+            except OverloadRejected:
+                rejected += 1
+        for b in burst_by_tick.pop(tick, []):
+            for _ in range(b.n_requests):
+                p = rng.integers(1, vocab,
+                                 (b.prompt_len,)).astype(np.int32)
+                try:
+                    submitted.append((router.submit(
+                        p, max_new_tokens=b.max_new_tokens), p,
+                        b.max_new_tokens))
+                except OverloadRejected:
+                    rejected += 1
+        t0 = _time.perf_counter()
+        produced = router.step()
+        dt = _time.perf_counter() - t0
+        if produced:
+            lat.extend([dt / produced] * produced)
+        tick += 1
+        if not by_tick and not burst_by_tick and not router.pending():
+            break
+        if tick > max_iters:
+            raise RuntimeError("fleet trace did not drain")
+    return {"rids": [s[0] for s in submitted], "submitted": submitted,
+            "rejected": rejected, "per_token_lat": lat, "ticks": tick}
