@@ -215,7 +215,21 @@ its row and make ``verify_rows_host`` raise; encode and decode ms beside
 a bytes bound.  The codec is not a TPU kernel and is not in the kernels
 line.
 
-The ``serving_fleet`` phase follows the serving extras: the 8B weights
+The ``graph_doctor`` phase follows the serving extras: the Graph Doctor's
+capture probes (a fake cuda tensor's data_ptr, empty stack traces, B1 and
+B2 through autograd as one node each, the host microseconds of an
+operator call three ways), then the train cell's step at full width and
+depth (accum GD_TRAIN_ACCUM), the same step with ``health=``, and
+``analysis_entry()`` of the 8B engine on both serving paths, each captured
+on fake cuda tensors and run once.  It raises where a capture allocates or
+launches, a kernel node count differs from the real call's launches, a
+sweep has an active finding, or a static peak lies more than GD_PEAK_TOL
+from the measured one; it prints each capture's seconds and nodes, the
+functional step's DON001 bytes with the peak without the duplicate, and
+the registration's host cost (``host_cost_phase``: B3' host ms, a unified
+8B decode step, a train step; also a ``--turns`` phase, ``host_cost``).
+
+The ``serving_fleet`` phase follows the graph doctor: the 8B weights
 moved to the host (a checkpoint's form) feed ``inference/fleet.py``'s
 replica sets on the unified cell's engine geometry.  A fleet of 2
 replicas serves FLEET_REQUESTS requests (32-300 prompt tokens, every other
@@ -249,6 +263,9 @@ To compare two checkouts on one card (say, the parent commit unpacked by
 ``git archive`` into a gitignored directory):
 
     python3 chip_smoke.py --turns OTHER_ROOT --phases moe_train,gpt_moe_train
+
+(``host_cost`` runs this script's ``host_cost_phase`` over each turn's own
+package, so it also compares a parent whose script has no such phase.)
 
 runs the named phases (``TURN_PHASES``) of OTHER_ROOT, of this checkout,
 of this checkout and of OTHER_ROOT, each turn in a fresh process that
@@ -5927,6 +5944,354 @@ def print_serving_fleet(rec, card):
           f"{rec['wall_s']:.1f} ({card})", flush=True)
 
 
+# ------------------------------------------------------- graph doctor phase
+
+# the train cell's step captured and run at full width and depth; cut:
+# accum 4 of 64 (a capture walks every micro-step in Python, ~1 ms a node)
+GD_TRAIN_ACCUM = 4
+GD_TRAIN_STEPS = 3               # timed train steps after one warm-up
+GD_PEAK_TOL = 0.05               # static against measured peak, relative
+# the serving phase's engine geometry (serve_chunked / serve_unified)
+GD_ENGINE = dict(max_slots=8, num_pages=1025, page_size=16, max_seq_len=2048)
+GD_UNIFIED = dict(prefill_token_budget=256, enable_prefix_cache=True)
+GD_PROBE_CALLS = 20000           # host cost of one operator call
+# a kernel operator -> its wrapper's LAUNCHES key (the phase's kernels)
+GD_LAUNCH_KEYS = {"hb_flash_fwd": "flash_attention_fwd",
+                  "hb_flash_bwd": "flash_attention_bwd",
+                  "paged_decode": "paged_decode",
+                  "ragged_paged_decode": "ragged_paged_decode"}
+
+
+def _all_launches():
+    from paddle_tpu_torch.ops import (decode_attention, flash_attention,
+                                      grouped_matmul)
+
+    return {f"{m.__name__.rsplit('.', 1)[-1]}.{k}": v
+            for m in (decode_attention, flash_attention, grouped_matmul)
+            for k, v in m.LAUNCHES.items()}
+
+
+def _reset_all_launches():
+    from paddle_tpu_torch.ops import (decode_attention, flash_attention,
+                                      grouped_matmul)
+
+    for m in (decode_attention, flash_attention, grouped_matmul):
+        m.reset_launches()
+
+
+def capture_probes(dev):
+    """The design note's probes (paddle_tpu_torch/analysis/DESIGN.md) on
+    this card's PyTorch: a fake cuda tensor's data_ptr(); whether
+    make_fx(record_stack_traces=True) fills stack traces; a capture of B1
+    and B2 through torch.autograd.grad (one node each, nothing launched,
+    nothing allocated); and the host microseconds of one call of a
+    trivial function three ways (a plain Python call, a
+    torch.library.custom_op, a low-level torch.library.Library op)."""
+    import warnings
+
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.fx.experimental.proxy_tensor import make_fx
+    from paddle_tpu_torch.ops import _registry
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    out = {}
+    with FakeTensorMode():
+        t = torch.empty(1024, device=dev)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        try:
+            out["fake_cuda_data_ptr"] = int(t.data_ptr())
+        except Exception as e:  # noqa: BLE001 - the probe's finding
+            out["fake_cuda_data_ptr"] = repr(e)[:200]
+    gm = make_fx(lambda x: (x * 2).sum(), tracing_mode="fake",
+                 record_stack_traces=True)(torch.ones(4, device=dev))
+    out["stack_traces_empty"] = all(
+        not n.meta.get("stack_trace") for n in gm.graph.nodes
+        if n.op == "call_function")
+
+    def fwd_bwd(q, k, v):
+        q = q.detach().requires_grad_()
+        o = fa._FlashHB.apply(q, k, v, True, 0.125)
+        (dq,) = torch.autograd.grad(o.float().sum(), [q])
+        return dq
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    q = torch.randn(2, 4, 256, 64, generator=g, device=dev).bfloat16()
+    k = torch.randn(2, 256, 64, generator=g, device=dev).bfloat16()
+    v = torch.randn(2, 256, 64, generator=g, device=dev).bfloat16()
+    _sync()
+    alloc, launches = torch.cuda.memory_allocated(), _all_launches()
+    gm = make_fx(fwd_bwd, tracing_mode="fake")(q, k, v)
+    nodes = [_registry.kernel_op(n.target) for n in gm.graph.nodes]
+    out["autograd_capture"] = {
+        "kernel_nodes": sorted(n for n in nodes if n),
+        "allocated_delta": torch.cuda.memory_allocated() - alloc,
+        "launched": _all_launches() != launches}
+    if out["autograd_capture"]["kernel_nodes"] != ["hb_flash_bwd",
+                                                   "hb_flash_fwd"] \
+            or out["autograd_capture"]["allocated_delta"] \
+            or out["autograd_capture"]["launched"]:
+        raise AssertionError(f"capture probe: {out['autograd_capture']}")
+
+    def empty(x):
+        return torch.empty_like(x)
+
+    # the schema is given: this module's annotations are strings
+    empty_c = torch.library.custom_op(
+        "chip_smoke_probe::empty_c", empty, mutates_args=(),
+        schema="(Tensor x) -> Tensor")
+
+    lib = torch.library.Library("chip_smoke_probe", "FRAGMENT")
+    lib.define("empty_l(Tensor x) -> Tensor")
+    lib.impl("empty_l", empty, "CUDA")
+    low = torch.ops.chip_smoke_probe.empty_l.default
+    x = torch.ones(16, device=dev)
+    us = {}
+    for name, f in (("plain", empty), ("custom_op", empty_c),
+                    ("library", low)):
+        f(x)
+        best = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(GD_PROBE_CALLS):
+                f(x)
+            best.append((time.perf_counter() - t0) / GD_PROBE_CALLS * 1e6)
+        us[name] = min(best)
+    _sync()
+    out["call_us"] = us
+    return out
+
+
+def _doctor_target(what, fn, args, kwargs, options, dev, want, *,
+                   passes=None, declared=None, baseline=None):
+    """One target of the graph_doctor phase: capture on fake cuda tensors
+    (nothing allocated, nothing launched), the sweep (no active finding),
+    then one real call: its kernel launches against the graph's kernel
+    nodes (and ``want``, {operator: nodes}), its peak above the bytes held
+    before it against the static peak above the caller-held inputs."""
+    import torch
+    from paddle_tpu_torch.analysis import capture, check, static_peak
+    from paddle_tpu_torch.ops import _registry
+
+    gc.collect()
+    _sync()
+    alloc, launches = torch.cuda.memory_allocated(), _all_launches()
+    cap = capture(fn, args, kwargs, device=dev)
+    _sync()
+    moved = torch.cuda.memory_allocated() - alloc
+    if moved or _all_launches() != launches:
+        raise AssertionError(f"graph_doctor {what}: the capture moved the "
+                             f"allocated bytes by {moved} or launched "
+                             f"({_all_launches()} vs {launches})")
+    opts = dict(options)
+    if baseline is not None:
+        opts["health_probe"] = dict(opts.get("health_probe", {}),
+                                    baseline_peak_bytes=baseline)
+    rep = check(fn, *args, kwargs=kwargs, options=opts, passes=passes,
+                declared_dtype=declared, device=dev, graph=cap,
+                target=f"graph_doctor:{what}")
+    if not rep.ok:
+        raise AssertionError(f"graph_doctor {what}: active findings\n"
+                             + rep.summary())
+    nodes = {}
+    for n in cap.gm.graph.nodes:
+        op = _registry.kernel_op(n.target)
+        if op:
+            nodes[op] = nodes.get(op, 0) + 1
+    if nodes != want:
+        raise AssertionError(f"graph_doctor {what}: kernel nodes {nodes}, "
+                             f"expected {want}")
+    peak = static_peak(cap)
+    double = sum(f.data.get("bytes", 0) for f in rep.suppressed
+                 if f.code == "DON001")
+    donated = (static_peak(cap, donated=tuple(
+        f.arg_path for f in rep.suppressed if f.code == "DON001"))
+        if double else peak)
+    # one real call
+    gc.collect()
+    _sync()
+    _reset_all_launches()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    res = fn(*args, **kwargs)
+    _sync()
+    wall = time.perf_counter() - t0
+    measured = torch.cuda.max_memory_allocated() - held
+    ran = {k.split(".", 1)[1]: v for k, v in _all_launches().items() if v}
+    del res
+    gc.collect()
+    counted = {GD_LAUNCH_KEYS[op]: n for op, n in nodes.items()}
+    if ran != counted:
+        raise AssertionError(f"graph_doctor {what}: the real call launched "
+                             f"{ran}, the graph holds {counted}")
+    static_above = peak["peak_bytes"] - peak["argument_bytes"]
+    rel = abs(static_above - measured) / max(measured, 1)
+    rec = dict(capture_s=cap.seconds, nodes=len(cap.nodes),
+               kernel_nodes=nodes, launches=ran, real_s=wall,
+               static_peak_bytes=peak["peak_bytes"],
+               argument_bytes=peak["argument_bytes"],
+               static_above_inputs=static_above,
+               measured_above_held=measured, held_bytes=held,
+               peak_rel_err=rel, suppressed=[f.format()[:300]
+                                             for f in rep.suppressed],
+               skipped=dict(rep.skipped), double_resident_bytes=double,
+               static_peak_donated_bytes=donated["peak_bytes"])
+    print(f"graph_doctor {what}: capture {cap.seconds:.2f} s, "
+          f"{len(cap.nodes)} nodes, kernel nodes {json.dumps(nodes)}, "
+          f"launches {json.dumps(ran)}; static peak above inputs "
+          f"{static_above} B vs measured {measured} B (rel {rel:.4f}); "
+          f"DON001 double-resident {double} B; measured peak "
+          f"{held + measured} B, static peak {peak['peak_bytes']} B, "
+          f"{donated['peak_bytes']} B without the duplicate (donated)",
+          flush=True)
+    return rec, peak
+
+
+def graph_doctor_phase(dev, cfg=None, params=None):
+    """The Graph Doctor at the cells' shapes on the card: the train cell's
+    step (TRAIN_CFG at full width and depth, accum GD_TRAIN_ACCUM), the
+    same step with health=, and analysis_entry() of the Llama-3-8B
+    engine on both paths (the serving phase's geometry; ``cfg``/
+    ``params`` the 8B weights, else rebuilt from SEED).  Each target is
+    captured on fake cuda tensors and then run once for real
+    (``_doctor_target``); a capture that allocates or launches, a kernel
+    node count unlike the real run's launches, an active finding, or a
+    static peak more than GD_PEAK_TOL from the measured one raises.  Also
+    the capture probes and the registration's host cost
+    (``host_cost_phase``)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.analysis.self_check import HEALTH_PROBE_OVERHEAD
+    from paddle_tpu_torch.distributed.health import (HealthConfig,
+                                                     default_gates)
+    from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         build_train_step)
+
+    t0 = time.perf_counter()
+    # the process's cuBLAS workspace (32 MiB on the H100) comes from the
+    # caching allocator at its first matmul and stays: make it before any
+    # measured call, as a step run after the earlier phases finds it
+    for dt in (torch.bfloat16, torch.float32):
+        x = torch.ones((16, 16), dtype=dt, device=dev)
+        (x @ x).sum().item()
+    del x
+    rec = {"probes": capture_probes(dev), "accum": GD_TRAIN_ACCUM,
+           "reduced": f"train accum {GD_TRAIN_ACCUM} of {TRAIN_ACCUM}",
+           "tol": GD_PEAK_TOL, "targets": {}}
+    print("graph_doctor probes: " + json.dumps(rec["probes"]), flush=True)
+    if cfg is None:
+        cfg = dataclasses.replace(LlamaConfig.llama3_8b(),
+                                  max_position_embeddings=2048)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        params = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
+                                  generator=gen).functional_state()
+    L = cfg.num_hidden_layers
+    for path, kw in (("chunked", {}), ("unified", GD_UNIFIED)):
+        eng = ContinuousBatchingEngine(cfg, params, device=dev,
+                                       **GD_ENGINE, **kw)
+        fn, args, kwargs, options = eng.analysis_entry()
+        want = ({"ragged_paged_decode": L} if path == "unified"
+                else {"paged_decode": L * eng.chunk})
+        rec["targets"][f"serving_{path}"], _ = _doctor_target(
+            f"serving_{path}", fn, args, kwargs, options, dev, want)
+        del eng, fn, args, kwargs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tcfg, model, tparams, opt, state, _ = train_setup(dev)
+    rng = np.random.default_rng(SEED)
+    shape = (GD_TRAIN_ACCUM, TRAIN_BATCH, TRAIN_SEQ)
+    ids = torch.from_numpy(rng.integers(0, tcfg.vocab_size, shape)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, tcfg.vocab_size,
+                                           shape)).to(dev)
+    per = tcfg.num_hidden_layers * GD_TRAIN_ACCUM
+    want = {"hb_flash_fwd": per, "hb_flash_bwd": per}
+    options = {"donation": {}}
+    step = build_train_step(model, opt, compute_dtype=torch.bfloat16,
+                            accum_steps=GD_TRAIN_ACCUM)
+    args = (tparams, state, 0, TRAIN_LR, ids, labels)
+    rec["targets"]["train"], base = _doctor_target(
+        "train", step, args, {}, options, dev, want,
+        passes=["dtype_promotion", "donation", "memory_budget"],
+        declared=torch.bfloat16)
+    hstep = build_train_step(model, opt, compute_dtype=torch.bfloat16,
+                             accum_steps=GD_TRAIN_ACCUM,
+                             health=HealthConfig())
+    rec["targets"]["train_health"], _ = _doctor_target(
+        "train_health", hstep, args, {"health_gates": default_gates()},
+        {**options, "health_probe": {
+            "probe_overhead_bytes": HEALTH_PROBE_OVERHEAD,
+            "baseline_collectives": {}}},
+        dev, want, passes=["dtype_promotion", "donation", "health_probe"],
+        declared=torch.bfloat16, baseline=base["peak_bytes"])
+    del step, hstep, args, tparams, state, model, opt, ids, labels
+    gc.collect()
+    torch.cuda.empty_cache()
+    bad = {k: r["peak_rel_err"] for k, r in rec["targets"].items()
+           if not r["peak_rel_err"] <= GD_PEAK_TOL}
+    rec["host_cost"] = host_cost_phase(dev, cfg, params)
+    rec["wall_s"] = time.perf_counter() - t0
+    if bad:
+        raise AssertionError(f"graph_doctor: static peaks off the measured "
+                             f"ones by more than {GD_PEAK_TOL}: {bad}")
+    return rec
+
+
+def host_cost_phase(dev, cfg=None, params=None):
+    """The registration's host cost on this checkout's package: host ms of
+    one B3' wrapper call at the unified engine's 8B shape (``host_ms``),
+    ms per unified decode step of the 8B engine (the serving phase's
+    geometry, 8 requests of 64 new tokens), and ms per train step of the
+    train cell at accum GD_TRAIN_ACCUM (GD_TRAIN_STEPS after a warm-up)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         build_train_step)
+    from paddle_tpu_torch.ops import decode_attention as da
+
+    out = {}
+    inp = launcher_inputs("bf16", dev)["ragged_paged_decode"]
+    host = host_ms(lambda: da.ragged_paged_decode(*inp["args"]))
+    out["b3p_host_ms"], out["b3p_host_ms_min"], out["b3p_host_ms_max"] = host
+    del inp
+    if cfg is None:
+        cfg = dataclasses.replace(LlamaConfig.llama3_8b(),
+                                  max_position_embeddings=2048)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        params = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
+                                  generator=gen).functional_state()
+    rng = np.random.default_rng(SEED)
+    eng = ContinuousBatchingEngine(cfg, params, device=dev, **GD_ENGINE,
+                                   **GD_UNIFIED)
+    reqs = [(rng.integers(1, cfg.vocab_size, (n,)).astype(np.int32),
+             {"max_new_tokens": 64}) for n in (32, 64, 96, 128, 160, 192,
+                                              224, 256)]
+    _, steps = _drive_unified(eng, reqs)
+    out["unified_decode_ms"], out["unified_tokens_per_step"] = \
+        _decode_ms(steps)
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    tcfg, model, tparams, opt, state, _ = train_setup(dev)
+    shape = (GD_TRAIN_ACCUM, TRAIN_BATCH, TRAIN_SEQ)
+    ids = torch.from_numpy(rng.integers(0, tcfg.vocab_size, shape)).to(dev)
+    step = build_train_step(model, opt, compute_dtype=torch.bfloat16,
+                            accum_steps=GD_TRAIN_ACCUM)
+    _, walls, *_ = train_steps(step, [tparams, state], 1 + GD_TRAIN_STEPS,
+                               ids, ids)
+    out["train_ms"] = statistics.median(walls[1:]) * 1e3
+    out["train_ms_all"] = [w * 1e3 for w in walls]
+    del model, tparams, state, step, ids
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("graph_doctor host cost: " + json.dumps(out), flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -6108,6 +6473,16 @@ def main() -> int:
           f"{serving['unified']['ms_per_decode_step']:.2f} "
           f"[{extras['unified_int8']['ms_per_decode_step']:.2f}] ({card})",
           flush=True)
+    # the Graph Doctor on the 8B engines and the train cell, after the
+    # serving extras (PR 19)
+    gd = record["graph_doctor"] = graph_doctor_phase(dev, cfg, params)
+    print("graph_doctor: " + json.dumps(
+        {k: {f: v[f] for f in ("capture_s", "nodes", "kernel_nodes",
+                               "static_above_inputs", "measured_above_held",
+                               "peak_rel_err", "double_resident_bytes",
+                               "static_peak_donated_bytes")}
+         for k, v in gd["targets"].items()})
+        + f" host_cost={json.dumps(gd['host_cost'])} ({card})", flush=True)
     host = host_weights(params)
     del model, params
     gc.collect()
@@ -6250,6 +6625,10 @@ def main() -> int:
                 if n:
                     by_path[name][tag] = n
     by_path["ragged_paged_decode"].update(fleet["launches_by_path"])
+    for target, r in gd["targets"].items():
+        for name, n in r["launches"].items():
+            if name in by_path:
+                by_path[name][f"graph_doctor_{target}"] = n
     for r in record["kernels"]:
         path = main_path[r["name"]][0]
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
@@ -6313,7 +6692,9 @@ def main() -> int:
                 **{f"hybrid_train_{sched}": hy[sched]["launches_per_step"][
                     name] * len(hy[sched]["losses"])
                    for sched, _ in HYBRID_RUNS},
-                "resilient_train": rt["launches"][name]},
+                "resilient_train": rt["launches"][name],
+                **{f"graph_doctor_{t}": gd["targets"][t]["launches"].get(
+                    name, 0) for t in ("train", "train_health")}},
             "gpt_moe_shape": next(
                 {k: r[k] for k in ("shape", "err", "max_abs_err", "ms",
                                    "ms_min", "ms_max", "plain_ms",
@@ -6451,6 +6832,10 @@ TURN_PHASES = {
         dev, flush),
     "resilient_train": lambda cs, dev, flush: cs.resilient_train_phase(dev),
     "serving_fleet": lambda cs, dev, flush: cs.serving_fleet_phase(dev),
+    # this script's function over the turn's own package: the parent
+    # checkout's chip_smoke.py has no such phase
+    "host_cost": lambda cs, dev, flush: host_cost_phase(dev),
+    "graph_doctor": lambda cs, dev, flush: cs.graph_doctor_phase(dev),
 }
 
 

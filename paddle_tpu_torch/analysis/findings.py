@@ -1,10 +1,12 @@
 """Typed findings of the analysis passes.
 
-The part of ``paddle_tpu/analysis/findings.py`` that the Concurrency Doctor
-needs: a ``Finding`` is one detected hazard (a stable CODE, a severity, a
-message and location breadcrumbs), a ``Report`` what a sweep returns
-(active and suppressed findings, the passes that ran); ``report.ok`` is the
-gate.
+Port of ``paddle_tpu/analysis/findings.py``: a ``Finding`` is one detected
+hazard (a stable CODE, a severity, a message and location breadcrumbs: the
+source frame of a graph node, the argument of a per-argument finding), a
+``Report`` what ``check`` or a sweep returns (active and suppressed
+findings, the passes that ran, the passes skipped and why);
+``report.ok`` is the gate and ``raise_if_findings`` raises
+``AnalysisError`` with the report's summary.
 """
 
 from __future__ import annotations
@@ -69,5 +71,18 @@ class Report:
             lines.append(f"  (skipped {name}: {why})")
         return "\n".join(lines)
 
+    def raise_if_findings(self):
+        if self.findings:
+            raise AnalysisError(self)
 
-__all__ = ["SEVERITIES", "Finding", "Report"]
+
+class AnalysisError(AssertionError):
+    """Raised by ``Report.raise_if_findings``: an AssertionError, so pytest
+    renders the whole report."""
+
+    def __init__(self, report: Report):
+        self.report = report
+        super().__init__(report.summary())
+
+
+__all__ = ["SEVERITIES", "AnalysisError", "Finding", "Report"]

@@ -171,6 +171,19 @@ def _count_nonfinite(x) -> int:
     return int((~torch.isfinite(x)).sum().item())
 
 
+def _host_read(t: torch.Tensor) -> np.ndarray:
+    """The probe's one device-to-host transfer.  A capture's fake tensor
+    holds no values: the copy is still made (the graph records it) and the
+    read gives zeros, so the guard takes the passing branch, the one whose
+    memory the Graph Doctor prices (a fired gate drops the new tree)."""
+    from torch._subclasses.fake_tensor import is_fake
+
+    host = t.cpu()
+    if is_fake(host):
+        return np.zeros(tuple(host.shape), np.float32)
+    return host.numpy()
+
+
 def make_probe(loss, grads, params, new_params, gates=None, *,
                buckets: int = 8) -> Dict[str, Any]:
     """The fused health probe (module docstring): ``{"loss",
@@ -199,7 +212,7 @@ def make_probe(loss, grads, params, new_params, gates=None, *,
             torch.sqrt(torch.stack(pn).sum()) + 1e-12)
     terms += [torch.sqrt(gsq), ratio]
     # the one transfer: the scalars and each leaf's squared norm
-    host = torch.stack(terms + [s.to(dev) for s in sq]).cpu().numpy()
+    host = _host_read(torch.stack(terms + [s.to(dev) for s in sq]))
     loss32, gnorm, ratio32 = (np.float32(v) for v in host[:3])
     counts = np.zeros(int(buckets), np.int64)
     for i, s in enumerate(host[3:]):

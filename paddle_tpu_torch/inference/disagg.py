@@ -17,8 +17,9 @@ composes what the fleet and the engine already have:
   ``reshard.execute_encoded`` when a handoff codec is configured.  int8
   pages are integer leaves, so they travel bit-exact on either path and
   move a byte an element: the int8-KV fleet's handoff is the cheap one.
-  ``check_handoff_budget``'s MEM001 half is the graph doctor's (ROADMAP
-  A7) and raises; its wire half is ``reshard.plan_wire_bytes``.
+  ``check_handoff_budget`` prices a payload's worst plan step through the
+  Graph Doctor's MEM001 (``reshard.check_reshard_budget``); its wire
+  bytes are ``reshard.plan_wire_bytes``.
 - the tiered prefix cache: the host tier of ``serving.PrefixCache``
   (``host_tier_pages``); ``DisaggRouter`` probes every prefill replica's
   trie, device and host tier, and prefers the longest cached prefix.
@@ -141,15 +142,19 @@ class KVHandoffPlanner:
         self.telemetry["bytes_raw"] -= wb["raw_bytes"]
         self.telemetry["bytes_wire"] -= wb["wire_bytes"]
 
-    def check_handoff_budget(self, tree, *, budget_bytes: int,
+    def check_handoff_budget(self, tree, *,
+                             budget_bytes: Optional[int] = None,
                              exemptions=(), target: str = "kv_handoff"):
         """Price one handoff payload's worst plan step against
-        ``budget_bytes`` through the Graph Doctor's MEM001 pass
-        (``check_reshard_budget``).  That pass is ROADMAP A7's, so this
-        raises as ``check_reshard_budget`` does.  The handoff's wire bytes
-        are ``reshard.plan_wire_bytes(self.plan_for(tree), self.codec)``."""
+        ``budget_bytes`` (default: the planner's transient cap) through
+        the Graph Doctor's MEM001 pass (``check_reshard_budget``); with a
+        handoff codec, on its post-codec packed payloads.  The handoff's
+        wire bytes are ``reshard.plan_wire_bytes(self.plan_for(tree),
+        self.codec)``."""
         from ..parallel.reshard import check_reshard_budget
 
+        if budget_bytes is None:
+            budget_bytes = self.max_transient_bytes
         return check_reshard_budget(self.plan_for(tree), tree,
                                     budget_bytes=budget_bytes,
                                     exemptions=exemptions, target=target,

@@ -329,13 +329,18 @@ class ReplicaSet:
             "moved_bytes": plan.moved_bytes, "coded": codec is not None})
         return out
 
-    def check_delivery_budget(self, budget_bytes: int, exemptions=(),
-                              target: Optional[str] = None):
+    def check_delivery_budget(self, budget_bytes: Optional[int] = None,
+                              exemptions=(), target: Optional[str] = None):
         """Price the delivery plan's worst step against ``budget_bytes``
-        through the Graph Doctor's MEM001 pass (``check_reshard_budget``):
-        that pass is ROADMAP A7's, so this raises as it does."""
+        (default: ``FleetConfig.max_transient_bytes``, the plan's own cap)
+        through the Graph Doctor's MEM001 pass (``check_reshard_budget``);
+        with a delivery codec, on its post-codec packed payloads, the bytes
+        an encoded delivery stages.  An unbounded plan against a real
+        budget fires MEM001 (the seeded ``MEM001[replica_delivery]``)."""
         from ..parallel.reshard import check_reshard_budget
 
+        if budget_bytes is None:
+            budget_bytes = self.config.max_transient_bytes
         return check_reshard_budget(self.delivery_plan(), self.params,
                                     budget_bytes=budget_bytes,
                                     exemptions=exemptions,

@@ -48,10 +48,10 @@ speculation depth and the prefill budget at run time;
 (``tune_page_size``).
 
 Unlike the JAX engine, the page pools are updated IN PLACE (indexed
-assignment) instead of being donated through a compiled program.
-
-The doctors' entries (``analysis_entry``, ``param_layout``) belong to a
-later slice of the port and raise.
+assignment) instead of being donated through a compiled program: that is
+the donation contract ``analysis_entry`` hands the Graph Doctor, on both
+paths.  The Sharding Doctor's ``param_layout`` is ROADMAP A7 part three
+and raises.
 """
 
 from __future__ import annotations
@@ -71,12 +71,6 @@ from ..models.generation import (_Weights, _apply_rope, _ffn, _prefill,
 from ..models.llama import _to_torch
 from ..ops.decode_attention import (MAX_PAGE_ON_CARD, default_pages_per_step,
                                     paged_decode, ragged_paged_decode)
-
-
-def _later(feature: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{feature} belongs to a later slice of the PyTorch port "
-        f"(paddle_tpu.inference.serving has it)")
 
 
 @dataclasses.dataclass
@@ -1294,10 +1288,107 @@ class ContinuousBatchingEngine:
         return rid
 
     def analysis_entry(self):
-        raise _later("the graph doctor entry (analysis_entry)")
+        """(fn, args, kwargs, options) for ``analysis.check`` over the
+        serving hot path (mirror of the JAX ``analysis_entry``): the
+        decode chunk, or on the unified engine one ragged step at its
+        static row capacity (decode rows + spec windows + a full prefill
+        chunk), with the engine's own weights, pools and rope tables.
+
+            fn, args, kwargs, options = engine.analysis_entry()
+            report = analysis.check(fn, *args, kwargs=kwargs,
+                                    options=options, device=engine.device)
+
+        ``options`` declares the donation contract: the params and the
+        rope tables (arguments 0, 5, 6) persist across steps by design;
+        the page pools (1, 2) are the port's donation, updated in place,
+        and the doctor checks that stays true (``min_bytes`` is half a
+        layer's pool, so a debug engine whose pools stopped being written
+        in place still fails)."""
+        if self.unified:
+            return self._unified_analysis_entry()
+        dev_tok = (self._dev_tok if self._dev_tok is not None else
+                   torch.zeros(self.max_slots, dtype=torch.int32,
+                               device=self.device))
+        sched = torch.from_numpy(self._pack_sched()).to(self.device)
+
+        def decode_chunk(params, k_pages, v_pages, sched, dev_tok, cos_tab,
+                         sin_tab, kv_scales=None):
+            view = self._view(params, k_pages, v_pages, cos_tab, sin_tab,
+                              kv_scales)
+            return ContinuousBatchingEngine._decode_chunk(view, sched,
+                                                          dev_tok)
+
+        args = (self.params, list(self.k_pages), list(self.v_pages), sched,
+                dev_tok, self.cos_tab, self.sin_tab)
+        return decode_chunk, args, {"kv_scales": self._entry_scales()}, \
+            self._entry_options()
+
+    def _unified_analysis_entry(self):
+        """The unified ragged step at ``rows_cap`` rows (every row padding:
+        slot -1, the trash page), the engine's page table and a full
+        consumed-row gather."""
+        rows = np.zeros((self.rows_cap, 5), np.int32)
+        rows[:, 1] = self.trash_page
+        rows[:, 4] = -1
+
+        def unified_step(params, k_pages, v_pages, rows, tables, cos_tab,
+                         sin_tab, kv_scales=None, gather=None):
+            view = self._view(params, k_pages, v_pages, cos_tab, sin_tab,
+                              kv_scales)
+            return ContinuousBatchingEngine._unified_step(view, rows, tables,
+                                                          gather)
+
+        dev = self.device
+        args = (self.params, list(self.k_pages), list(self.v_pages),
+                torch.from_numpy(rows).to(dev),
+                torch.from_numpy(self.tables).to(dev), self.cos_tab,
+                self.sin_tab)
+        kwargs = {"kv_scales": self._entry_scales(),
+                  "gather": torch.zeros(self.gather_cap, dtype=torch.int32,
+                                        device=dev)}
+        return unified_step, args, kwargs, self._entry_options()
+
+    def _view(self, params, k_pages, v_pages, cos_tab, sin_tab, kv_scales):
+        """A shallow copy of the engine over the given weights, pools,
+        rope tables and int8 scales (the entries' functional form)."""
+        import copy
+
+        view = copy.copy(self)
+        view.params, view.w = params, _Weights(self.cfg, params)
+        view.k_pages, view.v_pages = list(k_pages), list(v_pages)
+        view.cos_tab, view.sin_tab = cos_tab, sin_tab
+        view._fold = None
+        if kv_scales is not None:
+            rep = self.cfg.num_attention_heads // self.cfg.num_key_value_heads
+            view._fold = {
+                "kq": kv_scales["kq"], "vq": kv_scales["vq"],
+                "kdq": kv_scales["kdq"].repeat_interleave(rep, dim=1),
+                "vdq": kv_scales["vdq"].repeat_interleave(rep, dim=1)}
+        return view
+
+    def _entry_scales(self):
+        """The engine's int8 scales; before the first admission calibrated
+        them, unit placeholders of their shape, so the priced program is
+        the one real traffic runs (as the JAX entry does)."""
+        if self.kv_scales is not None or self.cache_dtype != torch.int8:
+            return self.kv_scales
+        ones = torch.ones((self.cfg.num_hidden_layers,
+                           self.cfg.num_key_value_heads),
+                          dtype=torch.float32, device=self.device)
+        return {"kq": ones, "kdq": ones, "vq": ones, "vdq": ones}
+
+    def _entry_options(self):
+        pool = self.k_pages[0]
+        pool_bytes = pool.numel() * pool.element_size()
+        return {"donation": {"persistent": (0, 5, 6),
+                             "min_bytes": min(1 << 20,
+                                              max(1, pool_bytes // 2))}}
 
     def param_layout(self):
-        raise _later("the sharding doctor entry (param_layout)")
+        raise NotImplementedError(
+            "param_layout (the Sharding Doctor's serving-stack extractor) "
+            "is ROADMAP A7 part three (paddle_tpu.inference.serving has "
+            "it)")
 
     # ---------------- unified serving plane ----------------
 

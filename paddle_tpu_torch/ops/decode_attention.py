@@ -13,10 +13,13 @@ keep the signatures, layouts and semantics of the TPU ones:
   visibility), row_slot [T] (< 0 = padding, output 0), block_tables
   [slots, max_pages].
 
-On a CUDA tensor each launcher runs its hand-written kernels
-(``csrc/decode_attention.cu``) and counts the launch in ``LAUNCHES``;
-on a CPU tensor it runs the ``*_plain`` PyTorch version beside it.  There
-is no other route: a tensor on any other device raises.
+Each launcher is a registered operator (``ops/_registry.py``:
+``flash_decode``, ``paged_decode``, ``ragged_paged_decode``): on a CUDA
+tensor its implementation runs the hand-written kernels
+(``csrc/decode_attention.cu``) and counts the launch in ``LAUNCHES``; on a
+CPU tensor it runs the ``*_plain`` PyTorch version beside it; on fake
+tensors it gives the output shape and runs nothing.  There is no other
+route: a tensor on any other device raises.
 
 All three split each row's visible length over CTAs (a split kernel per
 chunk of C tokens, then a combine kernel): ``decode_split_plan`` picks C
@@ -36,7 +39,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from . import _build
+from . import _build, _registry
 
 # masking constant of paddle_tpu/ops/pallas/flash_attention.py (NEG_INF):
 # finite, so an all-masked row keeps m = NEG_INF and outputs 0
@@ -369,17 +372,24 @@ def flash_decode(q, k_cache, v_cache, seq_lens, scale=None,
     ``flash_decode_raw``).  q [b, h, d]; k/v [b, kvh, t_max, d] (kvh
     divides h, heads group-major); seq_lens [b] = visible cache rows (the
     new token's K/V already written).  Returns [b, h, d] in q's dtype.
-    On the card: the split kernel over chunks of C tokens
-    (``decode_split_plan``; ``block_k`` caps C), its fp32 partials in a
-    scratch allocated here, then the combine kernel; K and V must be
-    16-byte aligned (their chunks are copied in bulk)."""
+    The operator ``flash_decode``; on the card: the split kernel over
+    chunks of C tokens (``decode_split_plan``; ``block_k`` caps C), its fp32
+    partials in a scratch allocated there, then the combine kernel; K and V
+    must be 16-byte aligned (their chunks are copied in bulk)."""
     _check_inputs(q, k_cache, v_cache, "flash_decode")
-    dev = _on_device("flash_decode", q, k_cache, v_cache, seq_lens)
-    b, h, d = q.shape
+    _on_device("flash_decode", q, k_cache, v_cache, seq_lens)
     if scale is None:
-        scale = 1.0 / math.sqrt(d)
-    if dev == "cpu":
-        return flash_decode_plain(q, k_cache, v_cache, seq_lens, scale)
+        scale = 1.0 / math.sqrt(q.shape[2])
+    return _FLASH_DECODE(q, k_cache, v_cache, seq_lens, float(scale),
+                         int(block_k))
+
+
+def _flash_decode_cpu(q, k_cache, v_cache, seq_lens, scale, block_k):
+    return flash_decode_plain(q, k_cache, v_cache, seq_lens, scale)
+
+
+def _flash_decode_cuda(q, k_cache, v_cache, seq_lens, scale, block_k):
+    b, h, d = q.shape
     kvh, t_max = k_cache.shape[1], k_cache.shape[2]
     if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
         raise ValueError("flash_decode: K and V must be 16-byte aligned")
@@ -400,9 +410,33 @@ def flash_decode(q, k_cache, v_cache, seq_lens, scale=None,
     return out
 
 
+def _decode_fake(q, *rest):
+    return torch.empty_like(q)
+
+
+def _i32_bytes(*ts) -> int:
+    """The int32 copies ``_i32`` makes of index tensors not int32 yet."""
+    return sum(4 * t.numel() for t in ts
+               if t is not None and t.dtype != torch.int32)
+
+
+def _flash_decode_scratch(q, k_cache, v_cache, seq_lens, scale, block_k):
+    b, h, d = q.shape
+    _, splits = decode_split_plan(b, k_cache.shape[1], k_cache.shape[2],
+                                  block_k)
+    return 4 * b * h * splits * (d + 2) + _i32_bytes(seq_lens)
+
+
+_FLASH_DECODE = _registry.define(
+    "flash_decode", "(Tensor q, Tensor k_cache, Tensor v_cache, "
+    "Tensor seq_lens, float scale, int block_k) -> Tensor", kernel="B4",
+    cpu=_flash_decode_cpu, cuda=_flash_decode_cuda, fake=_decode_fake,
+    scratch=_flash_decode_scratch)
+
+
 def _paged_kernel(name, q, key_cache, value_cache, lens, row_slot,
-                  block_tables, scale, pages_per_step):
-    """The card side of both paged launchers (``row_slot`` None: one row
+                  block_tables, scale, pp):
+    """The card side of both paged operators (``row_slot`` None: one row
     per table row): the paged split kernel over chunks of whole pages
     (``paged_split_plan``), then the combine kernel.  The pools' pages are
     bulk-copied, so both pools must be 16-byte aligned and one page of one
@@ -421,7 +455,6 @@ def _paged_kernel(name, q, key_cache, value_cache, lens, row_slot,
     if rows > 65535 or max_pages == 0:
         raise ValueError(f"{name}: {rows} rows, {max_pages} table columns "
                          f"on the card")
-    pp = _resolve_pp(pages_per_step, key_cache, max_pages)
     chunk, splits = paged_split_plan(rows, kvh, page, max_pages, pp)
     part, part_m, part_l, part_acc = _partials(rows, h, d, splits,
                                                q.device)
@@ -440,6 +473,16 @@ def _paged_kernel(name, q, key_cache, value_cache, lens, row_slot,
     return out
 
 
+def _paged_scratch(q, key_cache, lens, row_slot, block_tables, pp):
+    rows, h, d = q.shape
+    if rows == 0 or block_tables.shape[1] == 0:
+        return 0
+    _, splits = paged_split_plan(rows, key_cache.shape[1], key_cache.shape[2],
+                                 block_tables.shape[1], pp)
+    return (4 * rows * h * splits * (d + 2)
+            + _i32_bytes(lens, row_slot, block_tables))
+
+
 def paged_decode(q, key_cache, value_cache, seq_lens, block_tables,
                  scale=None, pages_per_step="auto"):
     """Paged (vLLM-layout) decode (mirrors ``paged_decode_raw``).  q
@@ -447,18 +490,36 @@ def paged_decode(q, key_cache, value_cache, seq_lens, block_tables,
     tokens, the current one included); block_tables [b, max_pages]
     physical page ids, -1 for unused entries.  Only the visible pages are
     read; lengths past the table (the lookahead chunk of a finished
-    sequence) re-read the last page and stay finite.  On the card: the
-    paged split and combine kernels (``_paged_kernel``)."""
+    sequence) re-read the last page and stay finite.  The operator
+    ``paged_decode``; on the card the paged split and combine kernels
+    (``_paged_kernel``)."""
     _check_inputs(q, key_cache, value_cache, "paged_decode")
-    dev = _on_device("paged_decode", q, key_cache, value_cache, seq_lens,
-                     block_tables)
+    _on_device("paged_decode", q, key_cache, value_cache, seq_lens,
+               block_tables)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    if dev == "cpu":
-        return paged_decode_plain(q, key_cache, value_cache, seq_lens,
-                                  block_tables, scale, pages_per_step)
+    pp = _resolve_pp(pages_per_step, key_cache, block_tables.shape[1])
+    return _PAGED(q, key_cache, value_cache, seq_lens, block_tables,
+                  float(scale), pp)
+
+
+def _paged_cpu(q, key_cache, value_cache, seq_lens, block_tables, scale, pp):
+    return paged_decode_plain(q, key_cache, value_cache, seq_lens,
+                              block_tables, scale, pp)
+
+
+def _paged_cuda(q, key_cache, value_cache, seq_lens, block_tables, scale,
+                pp):
     return _paged_kernel("paged_decode", q, key_cache, value_cache, seq_lens,
-                         None, block_tables, scale, pages_per_step)
+                         None, block_tables, scale, pp)
+
+
+_PAGED = _registry.define(
+    "paged_decode", "(Tensor q, Tensor key_cache, Tensor value_cache, "
+    "Tensor seq_lens, Tensor block_tables, float scale, int pp) -> Tensor",
+    kernel="B3", cpu=_paged_cpu, cuda=_paged_cuda, fake=_decode_fake,
+    scratch=lambda q, kc, vc, lens, tables, scale, pp: _paged_scratch(
+        q, kc, lens, None, tables, pp))
 
 
 def ragged_paged_decode(q, key_cache, value_cache, row_lens, row_slot,
@@ -467,17 +528,35 @@ def ragged_paged_decode(q, key_cache, value_cache, row_lens, row_slot,
     ``ragged_paged_decode_raw``): decode slots give one row each, prefill
     chunks one row per prompt token.  Row r attends positions
     < row_lens[r] of sequence row_slot[r] (its K/V already scattered into
-    the pages); rows with row_slot < 0 are padding and output 0.  On the
-    card: ``paged_decode``'s kernels, each row split on its own."""
+    the pages); rows with row_slot < 0 are padding and output 0.  The
+    operator ``ragged_paged_decode``; on the card ``paged_decode``'s
+    kernels, each row split on its own."""
     _check_inputs(q, key_cache, value_cache, "ragged_paged_decode")
-    dev = _on_device("ragged_paged_decode", q, key_cache, value_cache,
-                     row_lens, row_slot, block_tables)
+    _on_device("ragged_paged_decode", q, key_cache, value_cache,
+               row_lens, row_slot, block_tables)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    if dev == "cpu":
-        return ragged_paged_decode_plain(q, key_cache, value_cache, row_lens,
-                                         row_slot, block_tables, scale,
-                                         pages_per_step)
+    pp = _resolve_pp(pages_per_step, key_cache, block_tables.shape[1])
+    return _RAGGED(q, key_cache, value_cache, row_lens, row_slot,
+                   block_tables, float(scale), pp)
+
+
+def _ragged_cpu(q, key_cache, value_cache, row_lens, row_slot, block_tables,
+                scale, pp):
+    return ragged_paged_decode_plain(q, key_cache, value_cache, row_lens,
+                                     row_slot, block_tables, scale, pp)
+
+
+def _ragged_cuda(q, key_cache, value_cache, row_lens, row_slot,
+                 block_tables, scale, pp):
     return _paged_kernel("ragged_paged_decode", q, key_cache, value_cache,
-                         row_lens, row_slot, block_tables, scale,
-                         pages_per_step)
+                         row_lens, row_slot, block_tables, scale, pp)
+
+
+_RAGGED = _registry.define(
+    "ragged_paged_decode", "(Tensor q, Tensor key_cache, "
+    "Tensor value_cache, Tensor row_lens, Tensor row_slot, "
+    "Tensor block_tables, float scale, int pp) -> Tensor", kernel="B3'",
+    cpu=_ragged_cpu, cuda=_ragged_cuda, fake=_decode_fake,
+    scratch=lambda q, kc, vc, lens, slot, tables, scale, pp: _paged_scratch(
+        q, kc, lens, slot, tables, pp))

@@ -28,11 +28,15 @@ not ported) are the varlen entries.
 The TPU kernels write lse as [.., 8, s]: the 8-row broadcast is TPU sublane
 padding, so the port keeps [.., s].
 
-On a CUDA tensor each launcher runs its hand-written kernel
-(``csrc/flash_attention.cu`` for B1/B2, ``csrc/masked_flash_attention.cu``
-for B5/B6) and counts the launch in ``LAUNCHES``; on a CPU tensor it runs
-the ``*_plain`` PyTorch version beside it.  There is no other route: a
-tensor on any other device raises.
+Each launcher is a registered operator (``ops/_registry.py``:
+``hb_flash_fwd``, ``hb_flash_bwd``, ``masked_flash_fwd``,
+``masked_flash_bwd``): on a CUDA tensor its implementation runs the
+hand-written kernel (``csrc/flash_attention.cu`` for B1/B2,
+``csrc/masked_flash_attention.cu`` for B5/B6) and counts the launch in
+``LAUNCHES``; on a CPU tensor it runs the ``*_plain`` PyTorch version
+beside it; on fake tensors (a Graph Doctor capture) it gives the output
+shapes and runs nothing.  There is no other route: a tensor on any other
+device raises.
 """
 
 from __future__ import annotations
@@ -45,7 +49,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, _registry
 
 # masking constant of paddle_tpu/ops/pallas/flash_attention.py (NEG_INF):
 # finite, so a row that sees no key keeps m = NEG_INF and outputs 0
@@ -336,16 +340,24 @@ def hb_flash_forward(q, k, v, causal: bool = True,
     """Head-batched flash attention forward (mirrors ``_hb_flash_forward``).
     q [b*kvh, rep, sq, d]; k/v [b*kvh, sk, d], one dtype (float32 or
     bfloat16).  Returns (o [b*kvh, rep, sq, d] in q's dtype, lse
-    [b*kvh, rep, sq] fp32).  On the card, ``fwd_route`` picks the kernel
-    before the launch; the wgmma kernel also needs 16-byte aligned q, k, v
-    (TMA) and raises otherwise."""
+    [b*kvh, rep, sq] fp32).  The operator ``hb_flash_fwd``: on the card
+    ``fwd_route`` picks the kernel before the launch; the wgmma kernel also
+    needs 16-byte aligned q, k, v (TMA) and raises otherwise."""
     dev = _check("hb_flash_forward", q, k, v)
+    d = q.shape[3]
+    scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
+    if dev == "cuda":
+        _check_cuda("hb_flash_forward", {"q": q, "k": k, "v": v}, q.dtype, d)
+    return _HB_FWD(q, k, v, bool(causal), scale)
+
+
+def _hb_fwd_cpu(q, k, v, causal, scale):
+    return hb_flash_forward_plain(q, k, v, causal, scale)
+
+
+def _hb_fwd_cuda(q, k, v, causal, scale):
     bkv, rep, sq, d = q.shape
     sk = k.shape[1]
-    scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
-    if dev == "cpu":
-        return hb_flash_forward_plain(q, k, v, causal, scale)
-    _check_cuda("hb_flash_forward", {"q": q, "k": k, "v": v}, q.dtype, d)
     o = torch.empty_like(q)
     lse = torch.empty((bkv, rep, sq), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
@@ -365,30 +377,51 @@ def hb_flash_forward(q, k, v, causal: bool = True,
     return o, lse
 
 
+def _hb_fwd_fake(q, k, v, causal, scale):
+    bkv, rep, sq, _ = q.shape
+    return torch.empty_like(q), q.new_empty((bkv, rep, sq),
+                                            dtype=torch.float32)
+
+
+_HB_FWD = _registry.define(
+    "hb_flash_fwd", "(Tensor q, Tensor k, Tensor v, bool causal, "
+    "float scale) -> (Tensor, Tensor)", kernel="B1", cpu=_hb_fwd_cpu,
+    cuda=_hb_fwd_cuda, fake=_hb_fwd_fake)
+
+
 def hb_flash_backward(q, k, v, o, lse, do, causal: bool = True,
                       scale: Optional[float] = None):
     """Head-batched flash attention backward (mirrors
     ``_hb_flash_backward``): returns (dq [b*kvh, rep, sq, d], dk, dv
     [b*kvh, sk, d]) with dk/dv summed over the rep heads of each group.
-    delta = rowsum(do * o) is one PyTorch reduction before the kernels, as
-    the TPU launcher computes it outside its kernel.  One launch of this
-    wrapper runs two kernels, chosen by ``bwd_route``: dk/dv per k tile,
-    then dq per q tile.  The wgmma pair also needs 16-byte aligned q, k, v
-    and do (TMA) and raises otherwise."""
+    The operator ``hb_flash_bwd``: delta = rowsum(do * o) is one PyTorch
+    reduction before the kernels, as the TPU launcher computes it outside
+    its kernel.  One launch of this wrapper runs two kernels, chosen by
+    ``bwd_route``: dk/dv per k tile, then dq per q tile.  The wgmma pair
+    also needs 16-byte aligned q, k, v and do (TMA) and raises
+    otherwise."""
     dev = _check("hb_flash_backward", q, k, v, o, lse, do)
     bkv, rep, sq, d = q.shape
-    sk = k.shape[1]
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
     if o.shape != q.shape or do.shape != q.shape \
             or lse.shape != (bkv, rep, sq):
         raise ValueError(f"hb_flash_backward: o {tuple(o.shape)}, do "
                          f"{tuple(do.shape)}, lse {tuple(lse.shape)} do not "
                          f"match q {tuple(q.shape)}")
-    if dev == "cpu":
-        return hb_flash_backward_plain(q, k, v, o, lse, do, causal, scale)
-    _check_cuda("hb_flash_backward", {"q": q, "k": k, "v": v, "o": o,
-                                      "do": do}, q.dtype, d)
-    _check_cuda("hb_flash_backward", {"lse": lse}, torch.float32, d)
+    if dev == "cuda":
+        _check_cuda("hb_flash_backward", {"q": q, "k": k, "v": v, "o": o,
+                                          "do": do}, q.dtype, d)
+        _check_cuda("hb_flash_backward", {"lse": lse}, torch.float32, d)
+    return _HB_BWD(q, k, v, o, lse, do, bool(causal), scale)
+
+
+def _hb_bwd_cpu(q, k, v, o, lse, do, causal, scale):
+    return hb_flash_backward_plain(q, k, v, o, lse, do, causal, scale)
+
+
+def _hb_bwd_cuda(q, k, v, o, lse, do, causal, scale):
+    bkv, rep, sq, d = q.shape
+    sk = k.shape[1]
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -410,6 +443,26 @@ def hb_flash_backward(q, k, v, o, lse, do, causal: bool = True,
     _build.check(lib, rc, "hb_flash_backward")
     LAUNCHES["flash_attention_bwd"] += 1
     return dq, dk, dv
+
+
+def _hb_bwd_fake(q, k, v, o, lse, do, causal, scale):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def _delta_scratch(q, o, do, *rest):
+    """delta = rowsum(do * o) of a backward: do and o widened to fp32 (a
+    copy unless already fp32), their product, then the [.., sq] sum, all
+    live together at the sum."""
+    n = q.numel()
+    wide = 0 if q.dtype == torch.float32 else 2 * 4 * n
+    return wide + 4 * n + 4 * (n // max(q.shape[-1], 1))
+
+
+_HB_BWD = _registry.define(
+    "hb_flash_bwd", "(Tensor q, Tensor k, Tensor v, Tensor o, Tensor lse, "
+    "Tensor do, bool causal, float scale) -> (Tensor, Tensor, Tensor)",
+    kernel="B2", cpu=_hb_bwd_cpu, cuda=_hb_bwd_cuda, fake=_hb_bwd_fake,
+    scratch=lambda q, k, v, o, lse, do, *a: _delta_scratch(q, o, do))
 
 
 class _FlashHB(torch.autograd.Function):
@@ -794,13 +847,26 @@ def flash_forward(q, k, v, causal: bool, scale: Optional[float], h: int,
     otherwise."""
     dev = _check_masked("flash_forward", q, k, v, h, kvh, q_seg, k_seg,
                         bands, mask_h)
+    d = q.shape[2]
+    scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
+    if dev == "cuda":
+        _check_cuda("flash_forward", {"q": q, "k": k, "v": v}, q.dtype, d)
+    return _MASKED_FWD(q, k, v, bool(causal), scale, int(h), int(kvh), q_seg,
+                       k_seg, None if bands is None else list(bands),
+                       int(mask_h))
+
+
+def _masked_fwd_cpu(q, k, v, causal, scale, h, kvh, q_seg, k_seg, bands,
+                    mask_h):
+    return flash_forward_plain(q, k, v, causal, scale, h, kvh, q_seg, k_seg,
+                               None if bands is None else tuple(bands),
+                               mask_h)
+
+
+def _masked_fwd_cuda(q, k, v, causal, scale, h, kvh, q_seg, k_seg, bands,
+                     mask_h):
     bh, sq, d = q.shape
     sk = k.shape[1]
-    scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
-    if dev == "cpu":
-        return flash_forward_plain(q, k, v, causal, scale, h, kvh, q_seg,
-                                   k_seg, bands, mask_h)
-    _check_cuda("flash_forward", {"q": q, "k": k, "v": v}, q.dtype, d)
     o = torch.empty_like(q)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     if o.numel() == 0 or sk == 0:
@@ -823,6 +889,54 @@ def flash_forward(q, k, v, causal: bool, scale: Optional[float], h: int,
     return o, lse
 
 
+def _masked_fwd_fake(q, k, v, causal, scale, h, kvh, q_seg, k_seg, bands,
+                     mask_h):
+    bh, sq, _ = q.shape
+    return torch.empty_like(q), q.new_empty((bh, sq), dtype=torch.float32)
+
+
+def _live_list_bytes(tiles, b, gate_h, sq, sk):
+    """Device bytes of one kernel's live lists (``masked_live_lists``): the
+    bool table [gb, nq, nk], its int32 count [gb, nq] and idx [gb, nq,
+    nk], and the int64 argsort order beside them."""
+    _, bq, bk = tiles
+    nq, nk = -(-sq // bq), -(-sk // bk)
+    cells = b * gate_h * nq * nk
+    return cells * (1 + 4 + 8) + 4 * b * gate_h * nq
+
+
+def _mask_bytes(q_seg, k_seg, bands, b, mask_h, sk):
+    """The int32 masks ``_mask_tensors`` makes (segment ids cast when not
+    int32 already; the four bands stacked)."""
+    n = 0
+    for x in (q_seg, k_seg):
+        if x is not None and x.dtype != torch.int32:
+            n += 4 * x.numel()
+    if bands is not None:
+        n += 4 * 4 * b * mask_h * sk
+    return n
+
+
+def _masked_fwd_scratch(q, k, v, causal, scale, h, kvh, q_seg, k_seg, bands,
+                        mask_h):
+    bh, sq, d = q.shape
+    b, rep = bh // h, h // kvh
+    tiles = (masked_fwd_wgmma_tiles(rep)
+             if masked_fwd_route(d, q.dtype) == "wgmma"
+             else masked_tiles(rep, d, q.dtype))
+    gate_h = mask_h if bands is not None else 1
+    return (_live_list_bytes(tiles, b, gate_h, sq, k.shape[1])
+            + _mask_bytes(q_seg, k_seg, bands, b, mask_h, k.shape[1]))
+
+
+_MASKED_FWD = _registry.define(
+    "masked_flash_fwd", "(Tensor q, Tensor k, Tensor v, bool causal, "
+    "float scale, int h, int kvh, Tensor? q_seg, Tensor? k_seg, "
+    "Tensor[]? bands, int mask_h) -> (Tensor, Tensor)", kernel="B5",
+    cpu=_masked_fwd_cpu, cuda=_masked_fwd_cuda, fake=_masked_fwd_fake,
+    scratch=_masked_fwd_scratch)
+
+
 def flash_backward(q, k, v, o, lse, do, causal: bool, scale: Optional[float],
                    h: int, kvh: int, q_seg=None, k_seg=None, bands=None,
                    mask_h: int = 1, blocks=None):
@@ -841,26 +955,47 @@ def flash_backward(q, k, v, o, lse, do, causal: bool, scale: Optional[float],
     dev = _check_masked("flash_backward", q, k, v, h, kvh, q_seg, k_seg,
                         bands, mask_h, o, lse, do)
     bh, sq, d = q.shape
-    sk = k.shape[1]
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
     if o.shape != q.shape or do.shape != q.shape or lse.shape != (bh, sq):
         raise ValueError(f"flash_backward: o {tuple(o.shape)}, do "
                          f"{tuple(do.shape)}, lse {tuple(lse.shape)} do not "
                          f"match q {tuple(q.shape)}")
-    if dev == "cpu":
-        return flash_backward_plain(q, k, v, o, lse, do, causal, scale, h,
-                                    kvh, q_seg, k_seg, bands, mask_h)
-    _check_cuda("flash_backward", {"q": q, "k": k, "v": v, "o": o,
-                                   "do": do}, q.dtype, d)
-    _check_cuda("flash_backward", {"lse": lse}, torch.float32, d)
+    if dev == "cuda":
+        _check_cuda("flash_backward", {"q": q, "k": k, "v": v, "o": o,
+                                       "do": do}, q.dtype, d)
+        _check_cuda("flash_backward", {"lse": lse}, torch.float32, d)
+    return _MASKED_BWD(q, k, v, o, lse, do, bool(causal), scale, int(h),
+                       int(kvh), q_seg, k_seg,
+                       None if bands is None else list(bands), int(mask_h),
+                       None if blocks is None else [int(x) for x in blocks])
+
+
+def _masked_bwd_cpu(q, k, v, o, lse, do, causal, scale, h, kvh, q_seg, k_seg,
+                    bands, mask_h, blocks):
+    return flash_backward_plain(q, k, v, o, lse, do, causal, scale, h, kvh,
+                                q_seg, k_seg,
+                                None if bands is None else tuple(bands),
+                                mask_h)
+
+
+def _masked_bwd_tiles(q, h, kvh):
+    d = q.shape[2]
+    rep = h // kvh
+    if masked_bwd_route(d, q.dtype) == "wgmma":
+        return masked_bwd_wgmma_tiles(rep)
+    t = masked_tiles(rep, d, q.dtype)
+    return t, t
+
+
+def _masked_bwd_cuda(q, k, v, o, lse, do, causal, scale, h, kvh, q_seg,
+                     k_seg, bands, mask_h, blocks):
+    bh, sq, d = q.shape
+    sk = k.shape[1]
     if q.numel() == 0 or k.numel() == 0:
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     b, rep = bh // h, h // kvh
     wgmma = masked_bwd_route(d, q.dtype) == "wgmma"
-    if wgmma:
-        tiles_kv, tiles_q = masked_bwd_wgmma_tiles(rep)
-    else:
-        tiles_kv = tiles_q = masked_tiles(rep, d, q.dtype)
+    tiles_kv, tiles_q = _masked_bwd_tiles(q, h, kvh)
     suffix = "_wgmma" if wgmma else ""
     gate_h = mask_h if bands is not None else 1
     masks = (b, gate_h, sq, sk, causal, q_seg, k_seg, bands)
@@ -894,6 +1029,35 @@ def flash_backward(q, k, v, o, lse, do, causal: bool, scale: Optional[float],
                    dict(ints, **kv_ints), scale, q.dtype)
     LAUNCHES["flash_masked_bwd_dkv"] += 1
     return dq, dk, dv
+
+
+def _masked_bwd_fake(q, k, v, o, lse, do, causal, scale, h, kvh, q_seg,
+                     k_seg, bands, mask_h, blocks):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def _masked_bwd_scratch(q, k, v, o, lse, do, causal, scale, h, kvh, q_seg,
+                        k_seg, bands, mask_h, blocks):
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    b = bh // h
+    gate_h = mask_h if bands is not None else 1
+    tiles_kv, tiles_q = _masked_bwd_tiles(q, h, kvh)
+    n = (_delta_scratch(q, o, do)
+         + _mask_bytes(q_seg, k_seg, bands, b, mask_h, sk)
+         + _live_list_bytes(tiles_kv, b, gate_h, sq, sk))
+    if flash_bwd_route(sq, sk, d, blocks) == "fused":
+        return n + (0 if q.dtype == torch.float32 else 4 * q.numel())
+    return n + _live_list_bytes(tiles_q, b, gate_h, sq, sk)
+
+
+_MASKED_BWD = _registry.define(
+    "masked_flash_bwd", "(Tensor q, Tensor k, Tensor v, Tensor o, "
+    "Tensor lse, Tensor do, bool causal, float scale, int h, int kvh, "
+    "Tensor? q_seg, Tensor? k_seg, Tensor[]? bands, int mask_h, "
+    "int[]? blocks) -> (Tensor, Tensor, Tensor)", kernel="B6",
+    cpu=_masked_bwd_cpu, cuda=_masked_bwd_cuda, fake=_masked_bwd_fake,
+    scratch=_masked_bwd_scratch)
 
 
 def _to_bh(x):

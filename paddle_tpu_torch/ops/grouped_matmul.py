@@ -27,9 +27,11 @@ memory, the product swapped so a segment's few rows are wgmma's narrow N),
 its row tile and K splits picked by ``gmm_int8_plan`` from static shapes;
 fp32 x runs ``gmm_kernel``.
 
-On a CUDA tensor each launcher runs its kernel and counts the launch in
-``LAUNCHES``; on a CPU tensor it runs the ``*_plain`` PyTorch version beside
-it.  A tensor on any other device raises.
+Each launcher is a registered operator (``ops/_registry.py``:
+``grouped_matmul``, ``grouped_outer``): on a CUDA tensor its implementation
+runs the kernel and counts the launch in ``LAUNCHES``; on a CPU tensor it
+runs the ``*_plain`` PyTorch version beside it; on fake tensors it gives
+the output shape and runs nothing.  A tensor on any other device raises.
 
 Contract (as the TPU launcher's): ``x`` [R, K] with R a multiple of
 ``block_rows``; ``seg_starts`` ``block_rows``-aligned (an unaligned start
@@ -53,7 +55,7 @@ from typing import Dict
 
 import torch
 
-from . import _build
+from . import _build, _registry
 
 #: kernel launches per kernel, counted where each wrapper launches: B7 with
 #: a float bank, B7 with an int8 bank, B7 on the transposed slices (dx), B8
@@ -272,9 +274,15 @@ def grouped_matmul_raw(x, w, seg_starts, seg_lens, seg_wids,
     if w_scale is not None and tuple(w_scale.shape) != (E, N):
         raise ValueError(f"{name}: w_scale {tuple(w_scale.shape)} != "
                          f"{(E, N)}")
-    if dev == "cpu":
-        return grouped_matmul_plain(x, w, seg_starts, seg_lens, seg_wids, bm,
-                                    w_scale, transpose_w)
+    if dev == "cuda":
+        _check_gmm_cuda(name, x, w, K, N, R, S, transpose_w)
+    return _GMM(x, w, seg_starts, seg_lens, seg_wids, bm, w_scale,
+                bool(transpose_w))
+
+
+def _check_gmm_cuda(name, x, w, K, N, R, S, transpose_w):
+    """The card's envelope, from shapes alone (checked before the
+    operator, so a capture meets it too)."""
     if transpose_w and w.dtype == torch.int8:
         raise ValueError(f"{name}: the transposed launch takes float banks")
     route = gmm_route(x.dtype, w.dtype == torch.int8)
@@ -287,18 +295,43 @@ def grouped_matmul_raw(x, w, seg_starts, seg_lens, seg_wids,
     for t, what in ((x, "x"), (w, "w")):
         if not t.is_contiguous():
             raise ValueError(f"{name}: {what} must be contiguous")
-    y = torch.zeros((R, N), dtype=x.dtype, device=x.device)
-    if R == 0 or S == 0 or N == 0 or K == 0:
-        return y
-    tile, splits, rows_inner = 0, 1, False
-    if route == "int8_wgmma":
-        tile, splits, rows_inner, ctas = gmm_int8_plan(R, K, N, S)
-        if ctas >= 2 ** 31:
+    if route == "int8_wgmma" and R and S and N and K:
+        if gmm_int8_plan(R, K, N, S)[3] >= 2 ** 31:
             raise ValueError(f"{name}: {R} rows over {S} segments exceed "
                              f"the grid")
     elif route != "wgmma" and -(-R // _KERNEL_ROWS) + S > _MAX_GRID_Y:
         raise ValueError(f"{name}: {R} rows over {S} segments exceed the "
                          f"grid")
+
+
+def _gmm_cpu(x, w, seg_starts, seg_lens, seg_wids, block_rows, w_scale,
+             transpose_w):
+    return grouped_matmul_plain(x, w, seg_starts, seg_lens, seg_wids,
+                                block_rows, w_scale, transpose_w)
+
+
+def _gmm_splits(x, w, seg_starts, transpose_w):
+    R, K = x.shape
+    N = w.shape[1] if transpose_w else w.shape[2]
+    S = seg_starts.shape[0]
+    if gmm_route(x.dtype, w.dtype == torch.int8) != "int8_wgmma" \
+            or not (R and S and N and K):
+        return 0, 1, False
+    tile, splits, rows_inner, _ = gmm_int8_plan(R, K, N, S)
+    return tile, splits, rows_inner
+
+
+def _gmm_cuda(x, w, seg_starts, seg_lens, seg_wids, block_rows, w_scale,
+              transpose_w):
+    R, K = x.shape
+    E = w.shape[0]
+    N = w.shape[1] if transpose_w else w.shape[2]
+    S = seg_starts.shape[0]
+    route = gmm_route(x.dtype, w.dtype == torch.int8)
+    y = torch.zeros((R, N), dtype=x.dtype, device=x.device)
+    if R == 0 or S == 0 or N == 0 or K == 0:
+        return y
+    tile, splits, rows_inner = _gmm_splits(x, w, seg_starts, transpose_w)
     scale = (None if w_scale is None
              else w_scale.to(torch.float32).contiguous())
     starts, lens, wids = _i32(seg_starts), _i32(seg_lens), _i32(seg_wids)
@@ -310,14 +343,45 @@ def grouped_matmul_raw(x, w, seg_starts, seg_lens, seg_wids,
         x.data_ptr(), w.data_ptr(), None if scale is None else
         scale.data_ptr(), y.data_ptr(), starts.data_ptr(), lens.data_ptr(),
         wids.data_ptr(), None if part is None else part.data_ptr(), R, K, N,
-        S, E, bm, _DTYPE_CODES[x.dtype], int(w.dtype == torch.int8),
+        S, E, block_rows, _DTYPE_CODES[x.dtype], int(w.dtype == torch.int8),
         int(bool(transpose_w)), _ROUTE_CODES[route], tile, splits,
         int(rows_inner), _stream())
-    _build.check(lib, rc, name)
+    _build.check(lib, rc, "grouped_matmul_raw")
     key = ("grouped_matmul_t" if transpose_w else "grouped_matmul_int8"
            if w.dtype == torch.int8 else "grouped_matmul")
     LAUNCHES[key] += 1
     return y
+
+
+def _gmm_fake(x, w, seg_starts, seg_lens, seg_wids, block_rows, w_scale,
+              transpose_w):
+    N = w.shape[1] if transpose_w else w.shape[2]
+    return x.new_empty((x.shape[0], N))
+
+
+def _index_bytes(*ts) -> int:
+    """The int32 copies ``_i32`` makes of segment arrays not int32 yet."""
+    return sum(4 * t.numel() for t in ts if t.dtype != torch.int32)
+
+
+def _gmm_scratch(x, w, seg_starts, seg_lens, seg_wids, block_rows, w_scale,
+                 transpose_w):
+    R = x.shape[0]
+    N = w.shape[1] if transpose_w else w.shape[2]
+    _, splits, _ = _gmm_splits(x, w, seg_starts, transpose_w)
+    n = _index_bytes(seg_starts, seg_lens, seg_wids)
+    if splits > 1:
+        n += 4 * splits * R * N
+    if w_scale is not None and w_scale.dtype != torch.float32:
+        n += 4 * w_scale.numel()
+    return n
+
+
+_GMM = _registry.define(
+    "grouped_matmul", "(Tensor x, Tensor w, Tensor seg_starts, "
+    "Tensor seg_lens, Tensor seg_wids, int block_rows, Tensor? w_scale, "
+    "bool transpose_w) -> Tensor", kernel="B7", cpu=_gmm_cpu, cuda=_gmm_cuda,
+    fake=_gmm_fake, scratch=_gmm_scratch)
 
 
 def grouped_outer_raw(x, dy, seg_starts, seg_lens, block_rows: int = 128):
@@ -327,7 +391,7 @@ def grouped_outer_raw(x, dy, seg_starts, seg_lens, block_rows: int = 128):
     segment.  Deterministic: one CTA owns each output tile."""
     name = "grouped_outer_raw"
     dev = _device(name, x, dy, seg_starts, seg_lens)
-    S = _check_segments(name, seg_starts, seg_lens)
+    _check_segments(name, seg_starts, seg_lens)
     if x.dtype not in _DTYPE_CODES or dy.dtype != x.dtype:
         raise TypeError(f"{name}: x {x.dtype}, dy {dy.dtype} (one of "
                         f"float32, bfloat16)")
@@ -340,14 +404,24 @@ def grouped_outer_raw(x, dy, seg_starts, seg_lens, block_rows: int = 128):
     bm = int(block_rows)
     if R % bm:
         raise ValueError(f"rows {R} not a multiple of block_rows {bm}")
-    if dev == "cpu":
-        return grouped_outer_plain(x, dy, seg_starts, seg_lens, bm)
-    if K % 8 or N % 8:
-        raise ValueError(f"{name}: K {K} and N {N} must be multiples of 8 "
-                         f"on the card")
-    for t, what in ((x, "x"), (dy, "dy")):
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {what} must be contiguous")
+    if dev == "cuda":
+        if K % 8 or N % 8:
+            raise ValueError(f"{name}: K {K} and N {N} must be multiples of "
+                             f"8 on the card")
+        for t, what in ((x, "x"), (dy, "dy")):
+            if not t.is_contiguous():
+                raise ValueError(f"{name}: {what} must be contiguous")
+    return _OUTER(x, dy, seg_starts, seg_lens, bm)
+
+
+def _outer_cpu(x, dy, seg_starts, seg_lens, block_rows):
+    return grouped_outer_plain(x, dy, seg_starts, seg_lens, block_rows)
+
+
+def _outer_cuda(x, dy, seg_starts, seg_lens, block_rows):
+    R, K = x.shape
+    N = dy.shape[1]
+    S = seg_starts.shape[0]
     out = torch.empty((S, K, N), dtype=torch.float32, device=x.device)
     if S == 0 or K == 0 or N == 0:
         return out
@@ -355,10 +429,23 @@ def grouped_outer_raw(x, dy, seg_starts, seg_lens, block_rows: int = 128):
     lib = _build.library()
     rc = lib.pt_grouped_outer(
         x.data_ptr(), dy.data_ptr(), out.data_ptr(), starts.data_ptr(),
-        lens.data_ptr(), R, K, N, S, bm, _DTYPE_CODES[x.dtype], _stream())
-    _build.check(lib, rc, name)
+        lens.data_ptr(), R, K, N, S, block_rows, _DTYPE_CODES[x.dtype],
+        _stream())
+    _build.check(lib, rc, "grouped_outer_raw")
     LAUNCHES["grouped_outer"] += 1
     return out
+
+
+def _outer_fake(x, dy, seg_starts, seg_lens, block_rows):
+    return x.new_empty((seg_starts.shape[0], x.shape[1], dy.shape[1]),
+                       dtype=torch.float32)
+
+
+_OUTER = _registry.define(
+    "grouped_outer", "(Tensor x, Tensor dy, Tensor seg_starts, "
+    "Tensor seg_lens, int block_rows) -> Tensor", kernel="B8",
+    cpu=_outer_cpu, cuda=_outer_cuda, fake=_outer_fake,
+    scratch=lambda x, dy, starts, lens, bm: _index_bytes(starts, lens))
 
 
 class _GroupedMatmul(torch.autograd.Function):

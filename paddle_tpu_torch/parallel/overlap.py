@@ -46,9 +46,10 @@ overlap step's bucket leaves by dp, its replicated leaves by dp x
 sharding, the embedding by mp), which AdamW's scale invariance hides from
 its parity tests.  The port keeps the loss's gradients.
 
-What stays in the JAX package for later work: ``OVERLAP_REGION_FUNCS``
-names JAX frames for the Graph Doctor, and the XLA latency-hiding flags
-have no PyTorch counterpart; both wait for ROADMAP A7.
+What stays in the JAX package: ``OVERLAP_REGION_FUNCS`` names JAX frames
+for the Graph Doctor's collective attribution (COMM002), which is
+ROADMAP A7 part three; the XLA latency-hiding flags have no PyTorch
+counterpart.
 """
 
 from __future__ import annotations

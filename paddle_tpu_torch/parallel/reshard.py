@@ -717,17 +717,118 @@ def reshard(tree, dst_mesh: Mesh, dst_specs=None, *,
     return plan.execute(tree), plan
 
 
-def check_reshard_budget(plan: ReshardPlan, tree, **kwargs):
-    """The Graph Doctor's MEM001 pricing of a plan step (the JAX
-    ``check_reshard_budget``) needs the graph doctor, which the port does
-    not have yet (its Concurrency Doctor is in ``analysis/``)."""
-    raise NotImplementedError(
-        "check_reshard_budget is the Graph Doctor's MEM001 pass, ROADMAP "
-        "queue A7")
+# ---------------------------------------------------------------------------
+# Graph Doctor entry: price a plan step's transient residency
+# ---------------------------------------------------------------------------
+
+
+def reshard_step_entry(plan: ReshardPlan, step: ReshardStep, tree,
+                       codec=None, device=None):
+    """(fn, args) for the Graph Doctor (mirror of the JAX
+    ``reshard_step_entry``): the program takes the FIRST chunk of every
+    leaf the step moves, as this rank assembles it, and returns it placed
+    on the destination device (a copy: the staged transit and the
+    destination block are both live, the plan's two-copy transient).  Its
+    static peak is the step's transient footprint.  With ``codec`` a
+    codec-routed leaf enters as its PACKED int8 payload (the host encode)
+    and the program decodes it, pricing the post-codec transient an
+    encoded delivery moves.  None when the step moves nothing."""
+    from .codec import decode_rows, encode_rows_host
+
+    rp = codec.resolve("weight") if codec is not None else None
+    flat, _ = path_leaves(tree)
+    values = dict(flat)
+    args, decoders, devs = [], [], []
+    for lp in step.leaves:
+        if not lp.moved:
+            continue
+        val = values[lp.path]
+        if lp.shape:
+            a, b = lp.chunks[0] if lp.chunk_axis is not None \
+                else (0, lp.shape[0])
+            box = _chunk_box(lp, a, b) if lp.chunk_axis is not None \
+                else tuple(slice(0, n) for n in lp.shape)
+        else:
+            box = ()
+        # the chunk as the transit holds it: its own bytes, not a view of
+        # the whole source leaf
+        piece = _assemble(lp, val, box).clone()
+        devs.append(_dst_device(val, plan.dst_mesh, device))
+        if rp is not None and _leaf_codec_applies(lp):
+            profile = rp[0]
+            shape = tuple(piece.shape)
+            n = piece.numel()
+            args.append(torch.from_numpy(encode_rows_host(
+                piece.reshape(1, -1), codec, profile)))
+
+            def dec(p, n=n, shape=shape, dtype=_torch_dtype(lp.dtype),
+                    profile=profile):
+                return decode_rows(p, n, codec, profile,
+                                   out_dtype=dtype).reshape(shape)
+
+            decoders.append(dec)
+        else:
+            args.append(piece)
+            decoders.append(None)
+    if not args:
+        return None
+
+    def reshard_step(*xs):
+        out = []
+        for d, dev, x in zip(decoders, devs, xs):
+            out.append(d(x.to(dev)) if d is not None
+                       else x.to(dev, copy=True))
+        return tuple(out)
+
+    return reshard_step, tuple(args)
+
+
+def check_reshard_budget(plan: ReshardPlan, tree, *,
+                         budget_bytes: Optional[int] = None,
+                         step_index: Optional[int] = None,
+                         exemptions=None, target: Optional[str] = None,
+                         codec=None, device=None):
+    """The Graph Doctor's ``memory_budget`` pass (MEM001) over one plan
+    step's redistribution entry (mirror of the JAX
+    ``check_reshard_budget``): ``budget_bytes`` defaults to the plan's
+    declared transient cap, ``step_index`` to the worst (largest-transient)
+    step; ``codec`` prices the step on its post-codec packed payloads.
+    The capture runs on ``device``, by default the destination's.
+    Returns the Report: an unbounded plan against a real budget fires
+    MEM001, a bounded plan sweeps clean."""
+    from ..analysis import check
+    from ..analysis.findings import Report
+
+    if budget_bytes is None:
+        if plan.transient_budget is None:
+            raise ValueError(
+                "plan has no transient budget and none was declared: "
+                "pass budget_bytes explicitly")
+        budget_bytes = plan.transient_budget
+    if not plan.steps:
+        return Report(target=target or "reshard_plan[empty]", findings=[],
+                      passes_run=("memory_budget",))
+    if step_index is None:
+        step_index = max(range(len(plan.steps)),
+                         key=lambda i: plan.steps[i].transient_bytes)
+    entry = reshard_step_entry(plan, plan.steps[step_index], tree,
+                               codec=codec, device=device)
+    if entry is None:
+        return Report(target=target or f"reshard_step[{step_index}]",
+                      findings=[], passes_run=("memory_budget",))
+    fn, args = entry
+    if device is None:
+        flat, _ = path_leaves(tree)
+        device = _dst_device(flat[0][1], plan.dst_mesh, None)
+    kw = {} if exemptions is None else {"exemptions": exemptions}
+    return check(fn, *args, passes=["memory_budget"],
+                 target=target or f"reshard_step[{step_index}]",
+                 options={"memory_budget": {"hbm_bytes": int(budget_bytes)}},
+                 device=device, **kw)
 
 
 __all__ = ["DEFAULT_TRANSIENT_BYTES", "LeafPlan", "ReshardPlan",
            "ReshardStep", "bind_mesh", "block_slices",
            "check_reshard_budget", "execute_encoded", "fit_spec",
            "path_leaves", "plan_reshard", "plan_wire_bytes", "reshard",
-           "unflatten"]
+           "reshard_step_entry", "unflatten"]

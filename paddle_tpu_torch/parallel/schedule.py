@@ -33,11 +33,12 @@ Port of ``paddle_tpu/parallel/schedule.py``:
   walk one axis richer.
 
 ``from_moe_ep`` is the MoE EP block's schedule (``parallel/expert.py``'s
-plan, the ``ep`` or ``ep_dropless`` tactic).  What waits for A7 raises
-``NotImplementedError``: the DCN wire
-measurement of a traced step (``measure_dcn_wire_bytes``, the Graph
-Doctor's COMM004 pricing) and the roofline-predicted walk
-(``tune_schedule_config(predict=True)``), both A7.
+plan, the ``ep`` or ``ep_dropless`` tactic).  Two parts of the Graph
+Doctor are not in the port and raise ``NotImplementedError``: the DCN wire
+measurement of a traced step (``measure_dcn_wire_bytes``, the COMM004
+pricing, ROADMAP A7 part three: it needs a capture at a world size above
+one) and the roofline-predicted walk (``tune_schedule_config(
+predict=True)``, A7 part four).
 """
 
 from __future__ import annotations
@@ -748,9 +749,10 @@ def choose_joint_config(records: Sequence[Dict[str, Any]],
 
 def measure_dcn_wire_bytes(cfg: JointScheduleConfig, fn, args) -> int:
     """Post-codec DCN bytes of one built step: the Graph Doctor's COMM004
-    pricing of a traced program, ROADMAP A7."""
+    pricing of a traced program, ROADMAP A7 part three (a capture at a
+    world size above one)."""
     raise _unported("measure_dcn_wire_bytes (the Graph Doctor's COMM004 "
-                    "pricing of a traced step)", "A7")
+                    "pricing of a traced step)", "A7 part three")
 
 
 def tune_schedule_config(step_builder: Callable[[JointScheduleConfig],
@@ -764,18 +766,18 @@ def tune_schedule_config(step_builder: Callable[[JointScheduleConfig],
     """The joint search: ``memory.tune_memory_config``'s walk (cheapest
     first, each built step's peak measured on the card, first fit wins)
     over the partition x memory x overlap lattice; returns ``(chosen,
-    records)``.  A DCN wire budget (measured by ``measure_dcn_wire_bytes``)
-    and ``predict=True`` (the roofline estimator's ranking) belong to
-    ROADMAP A7 and raise."""
+    records)``.  A DCN wire budget (measured by ``measure_dcn_wire_bytes``,
+    ROADMAP A7 part three) and ``predict=True`` (the roofline estimator's
+    ranking, A7 part four) raise."""
     from .memory import tune_memory_config
 
     if predict:
         raise _unported("tune_schedule_config(predict=True) (the roofline "
-                        "estimator's ranking)", "A7")
+                        "estimator's ranking)", "A7 part four")
     if dcn_wire_bytes is not None:
         raise _unported("tune_schedule_config(dcn_wire_bytes=...) (the "
                         "Graph Doctor's COMM004 pricing of a traced step)",
-                        "A7")
+                        "A7 part three")
     return tune_memory_config(step_builder, hbm_bytes,
                               lattice=tuple(lattice))
 

@@ -354,7 +354,7 @@ def test_choose_joint_config_equals_jax():
     """The same index as JAX's under every pair of budgets on its seeded
     records (the single-budget and joint picks, monotone, None when
     nothing fits); the tuner's DCN budget and predicted walk raise citing
-    ROADMAP A7."""
+    ROADMAP A7 (parts three and four)."""
     from paddle_tpu.parallel import schedule as JS
     from paddle_tpu_torch.parallel import schedule as S
 

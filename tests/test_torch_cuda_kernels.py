@@ -2974,3 +2974,153 @@ def _check_hybrid_gang(root, sizes, tol, fp32_tol, kernels=True):
         ref = outs[0][f"step.{name}.one_card"]
         assert abs(outs[0][f"step.{name}.loss"] - ref) <= t * abs(ref), \
             (name, outs[0][f"step.{name}.loss"], ref)
+
+
+# ------------------------------------------ the kernels as registered ops
+
+def _op_cases(dev):
+    """(operator, args, the module's CUDA implementation) of every kernel
+    operator (B1-B8) at a small shape on ``dev``, bf16."""
+    from paddle_tpu_torch.ops import grouped_matmul as gm
+
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).bfloat16()
+
+    def i32(x):
+        return torch.tensor(x, dtype=torch.int32, device=dev)
+
+    q, k, v = rnd(2, 2, 128, 64), rnd(2, 128, 64), rnd(2, 128, 64)
+    o, lse = fa._hb_fwd_cuda(q, k, v, True, 0.125)
+    qm, km, vm = rnd(4, 128, 64), rnd(2, 128, 64), rnd(2, 128, 64)
+    seg = i32([[1] * 100 + [0] * 28])
+    om, lsem = fa._masked_fwd_cuda(qm, km, vm, True, 0.125, 4, 2, seg, seg,
+                                   None, 1)
+    qd, kc, vc = rnd(3, 8, 64), rnd(3, 2, 256, 64), rnd(3, 2, 256, 64)
+    kp, vp = rnd(17, 2, 16, 64), rnd(17, 2, 16, 64)
+    tables = i32([[0, 1, 2, -1], [3, 4, -1, -1], [5, 6, 7, 8]])
+    x, w = rnd(256, 64), rnd(2, 64, 64)
+    starts, lens, wids = i32([0, 128]), i32([100, 128]), i32([0, 1])
+    return [
+        ("hb_flash_fwd", (q, k, v, True, 0.125), fa._hb_fwd_cuda),
+        ("hb_flash_bwd", (q, k, v, o, lse, rnd(2, 2, 128, 64), True, 0.125),
+         fa._hb_bwd_cuda),
+        ("masked_flash_fwd", (qm, km, vm, True, 0.125, 4, 2, seg, seg, None,
+                              1), fa._masked_fwd_cuda),
+        ("masked_flash_bwd", (qm, km, vm, om, lsem, rnd(4, 128, 64), True,
+                              0.125, 4, 2, seg, seg, None, 1, None),
+         fa._masked_bwd_cuda),
+        ("flash_decode", (qd, kc, vc, i32([0, 100, 256]), 0.125, 512),
+         da._flash_decode_cuda),
+        ("paged_decode", (qd, kp, vp, i32([40, 20, 64]), tables, 0.125, 2),
+         da._paged_cuda),
+        ("ragged_paged_decode", (rnd(5, 8, 64), kp, vp, i32([3, 40, 7, 64, 0]),
+                                 i32([0, 0, 1, 2, -1]), tables, 0.125, 2),
+         da._ragged_cuda),
+        ("grouped_matmul", (x, w, starts, lens, wids, 128, None, False),
+         gm._gmm_cuda),
+        ("grouped_outer", (x, x, starts, lens, 128), gm._outer_cuda),
+    ]
+
+
+def _launch_counts():
+    from paddle_tpu_torch.ops import grouped_matmul as gm
+
+    return [dict(m.LAUNCHES) for m in (da, fa, gm)]
+
+
+def test_kernel_ops_on_fake_cuda_give_shapes_and_launch_nothing(dev):
+    """Every kernel operator on fake cuda tensors: the real call's output
+    shapes and dtypes, no launch and no device byte allocated."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from paddle_tpu_torch.ops import _registry
+
+    cases = _op_cases(dev)
+    assert sorted({_registry.KERNELS[n] for n, _, _ in cases}) == [
+        "B1", "B2", "B3", "B3'", "B4", "B5", "B6", "B7", "B8"]
+    for name, args, _ in cases:
+        op = getattr(torch.ops.paddle_tpu_torch, name).default
+        real = op(*args)
+        torch.cuda.synchronize()
+        mode = FakeTensorMode()
+        fake_args = [mode.from_tensor(a) if isinstance(a, torch.Tensor)
+                     else a for a in args]
+        before, alloc = _launch_counts(), torch.cuda.memory_allocated()
+        with mode:
+            fake = op(*fake_args)
+        assert _launch_counts() == before, name
+        assert torch.cuda.memory_allocated() == alloc, name
+        reals = real if isinstance(real, tuple) else (real,)
+        fakes = fake if isinstance(fake, tuple) else (fake,)
+        assert [(tuple(t.shape), t.dtype, t.device.type) for t in fakes] \
+            == [(tuple(t.shape), t.dtype, t.device.type) for t in reals], \
+            name
+
+
+def test_kernel_ops_equal_direct_launches_bit_for_bit(dev, monkeypatch):
+    """Each operator's output equals its CUDA implementation called
+    directly (the launch the wrapper made before the registration), bit
+    for bit; B6 on its deterministic split route."""
+    monkeypatch.setattr(fa, "_FUSED_BWD_VMEM_BUDGET", 0)
+    for name, args, impl in _op_cases(dev):
+        op = getattr(torch.ops.paddle_tpu_torch, name).default
+        got, want = op(*args), impl(*args)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), name
+
+
+def test_graph_doctor_checks_at_small_width(dev):
+    """chip_smoke's graph_doctor checks (``_doctor_target``) at a small
+    width: a capture on fake cuda tensors allocates and launches nothing,
+    the sweeps are clean, the kernel nodes equal the real call's launches
+    and the static peak lies within GD_PEAK_TOL of the measured one, for
+    the train step, the health-probed step and both serving paths."""
+    from paddle_tpu_torch.distributed.health import (HealthConfig,
+                                                     default_gates)
+    from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         build_train_step, llama_decay_mask)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = LlamaConfig.debug(vocab=512, hidden=256, layers=2, heads=4,
+                            kv_heads=2, inter=512, max_pos=256)
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.float32,
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(0))
+    p32 = model.functional_state()
+    params = {k: v.bfloat16() for k, v in p32.items()}
+    opt = AdamW(learning_rate=1e-4, multi_precision=True)
+    state = opt.init_flat_state(params, decay_mask=llama_decay_mask(model),
+                                master_from=p32)
+    ids = torch.randint(0, cfg.vocab_size, (2, 2, 128), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1))
+    want = {"hb_flash_fwd": 4, "hb_flash_bwd": 4}
+    args = (params, state, 0, 1e-4, ids, ids)
+    step = build_train_step(model, opt, compute_dtype=torch.bfloat16,
+                            accum_steps=2)
+    rec, base = chip_smoke._doctor_target(
+        "train", step, args, {}, {"donation": {}}, dev, want,
+        passes=["dtype_promotion", "donation", "memory_budget"],
+        declared=torch.bfloat16)
+    assert rec["double_resident_bytes"] > 0
+    hstep = build_train_step(model, opt, compute_dtype=torch.bfloat16,
+                             accum_steps=2, health=HealthConfig())
+    chip_smoke._doctor_target(
+        "train_health", hstep, args, {"health_gates": default_gates()},
+        {"donation": {}, "health_probe": {"probe_overhead_bytes": 1 << 20,
+                                          "baseline_collectives": {}}},
+        dev, want, passes=["dtype_promotion", "donation", "health_probe"],
+        declared=torch.bfloat16, baseline=base["peak_bytes"])
+    for kw, want in (({"decode_chunk_steps": 2}, {"paged_decode": 4}),
+                     ({"prefill_token_budget": 16},
+                      {"ragged_paged_decode": 2})):
+        eng = ContinuousBatchingEngine(cfg, params, max_slots=2,
+                                       num_pages=33, page_size=16,
+                                       max_seq_len=128, device=dev, **kw)
+        fn, a, kwargs, options = eng.analysis_entry()
+        chip_smoke._doctor_target("serving", fn, a, kwargs, options, dev,
+                                  want)

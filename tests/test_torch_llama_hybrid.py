@@ -414,3 +414,40 @@ def test_no_stale_a6_pointers():
                 if "NotImplementedError" in src and "A6" in src:
                     hits.append(f"{path.name}:{node.lineno}: {src}")
     assert not hits, hits
+
+
+def test_no_stale_a7_pointers():
+    """Since the Graph Doctor's one-rank half is in (ROADMAP A7's second
+    part), a port line that names A7 names part three (what needs a world
+    size above one) or part four (the roofline), and the hooks it ported
+    (the reshard plan's, the fleet's and the handoff's MEM001 budgets, the
+    serving entry) neither raise nor point at a later slice."""
+    import inspect
+
+    from paddle_tpu_torch.inference import disagg, fleet, serving
+    from paddle_tpu_torch.parallel import reshard
+
+    root = Path(__file__).resolve().parent.parent / "paddle_tpu_torch"
+    hits = []
+    for path in sorted(p for p in root.rglob("*.py")
+                       if "_build" not in p.relative_to(root).parts):
+        text = path.read_text()
+        for i, line in enumerate(text.splitlines()):
+            if re.search(r"\bA7\b", line) and not re.search(
+                    r"A7 part (three|four)", line):
+                hits.append(f"{path.name}:{i + 1}: {line.strip()}")
+        for node in ast.walk(ast.parse(text)):
+            if isinstance(node, ast.Raise) and node.exc is not None:
+                src = ast.get_source_segment(text, node.exc) or ""
+                if "later slice" in src:
+                    hits.append(f"{path.name}:{node.lineno}: {src}")
+    for fn in (reshard.check_reshard_budget, reshard.reshard_step_entry,
+               fleet.ReplicaSet.check_delivery_budget,
+               disagg.KVHandoffPlanner.check_handoff_budget,
+               serving.ContinuousBatchingEngine.analysis_entry,
+               serving.ContinuousBatchingEngine._unified_analysis_entry):
+        src = inspect.getsource(fn)
+        if "NotImplementedError" in src or "later slice" in src:
+            hits.append(fn.__qualname__)
+    assert not hits, hits
+

@@ -19,7 +19,8 @@ reshard.py) against the JAX package's ``parallel/reshard.py`` on the CPU.
   first 4 devices.
 - ``plan_wire_bytes`` equal to JAX's; ``execute_encoded`` within 1e-6 of
   JAX's decoded values (the same packed bytes); ``check_reshard_budget``
-  names ROADMAP A7.
+  of an empty plan is clean (the Graph Doctor's budget legs are
+  tests/test_torch_doctor_budgets.py).
 """
 
 import importlib
@@ -207,8 +208,9 @@ def test_empty_and_noop_plans():
     plan = R.plan_reshard({"x": x}, mesh, {"x": P("dp")})
     assert not plan.steps and plan.moved_bytes == 0
     assert R.plan_reshard({}, mesh).summary()["leaves"] == 0
-    with pytest.raises(NotImplementedError, match="A7"):
-        R.check_reshard_budget(plan, {"x": x})
+    rep = R.check_reshard_budget(plan, {"x": x}, budget_bytes=1,
+                                 exemptions=())
+    assert rep.ok and rep.passes_run == ("memory_budget",)
 
 
 # ---------------------------------------------------------------------------

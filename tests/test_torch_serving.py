@@ -368,11 +368,16 @@ def test_engine_later_slices_raise(pair, kw, match):
 
 
 def test_engine_later_methods_raise(pair):
+    """The Graph Doctor's entry is ported (tests/test_torch_doctor_budgets.py
+    sweeps it); the Sharding Doctor's ``param_layout`` is ROADMAP A7 part
+    three and raises citing it."""
     _, _, cfg, _, params = pair
     eng = _port_engine(cfg, params, prefill_token_budget=8)
-    for call in (eng.analysis_entry, eng.param_layout):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            call()
+    fn, args, kwargs, options = eng.analysis_entry()
+    assert callable(fn) and len(args) == 7
+    assert options["donation"]["persistent"] == (0, 5, 6)
+    with pytest.raises(NotImplementedError, match="A7 part three"):
+        eng.param_layout()
 
 
 # ------------------------------------------- allocator and prefix cache units

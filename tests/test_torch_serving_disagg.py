@@ -10,8 +10,8 @@ handoff planner's (plans, handoffs, raw and wire bytes), the prefix-cache
 counters the leg reads.  The port's streams also equal its own unified
 engine's.  Beyond JAX's legs: ``plan_wire_bytes`` of an int8 handoff equals
 JAX's and undercuts the float form of the same pages, an int8 handoff's
-pages and scales arrive bit for bit, and ``check_handoff_budget`` raises
-citing ROADMAP A7 (its MEM001 half is the graph doctor's).
+pages and scales arrive bit for bit, and ``check_handoff_budget`` (the
+Graph Doctor's MEM001) gives JAX's verdict at the same budgets.
 """
 
 import dataclasses
@@ -334,8 +334,8 @@ def test_prefill_only_engine_guards(sides):
 def test_int8_handoff_wire_bytes_and_bit_exact_pages(sides):
     """An int8 handoff: ``plan_wire_bytes`` equals JAX's and undercuts the
     fp32 form of the same pages; every page and scale the decode engine
-    adopts equals what the prefill engine exported; the MEM001 half of
-    ``check_handoff_budget`` raises citing A7."""
+    adopts equals what the prefill engine exported; ``check_handoff_budget``
+    gives JAX's MEM001 verdict at the same budgets."""
     from paddle_tpu.inference.disagg import KVHandoffPlanner as JPlanner
     from paddle_tpu.parallel.reshard import plan_wire_bytes as jwire
     from paddle_tpu_torch.inference.disagg import KVHandoffPlanner
@@ -384,5 +384,11 @@ def test_int8_handoff_wire_bytes_and_bit_exact_pages(sides):
     assert raw["wire_bytes"] / wire["wire_bytes"] == 4.0
     tel = router.planner.telemetry
     assert tel["handoffs"] == 2 and tel["bytes_wire"] == tel["bytes_raw"]
-    with pytest.raises(NotImplementedError, match="A7"):
-        router.planner.check_handoff_budget(tree, budget_bytes=8 << 20)
+    # the Graph Doctor's MEM001 over the handoff plan: the same verdict
+    # as JAX's at the same budgets, clean at 8 MB, firing at 1 KB
+    for budget in (8 << 20, 1 << 10):
+        rep = router.planner.check_handoff_budget(tree, budget_bytes=budget)
+        jrep = jplanner.check_handoff_budget(tree, budget_bytes=budget,
+                                             exemptions=())
+        assert sorted(rep.codes()) == sorted(jrep.codes()) == (
+            [] if budget == 8 << 20 else ["MEM001"])
