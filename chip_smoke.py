@@ -225,9 +225,23 @@ on fake cuda tensors and run once.  It raises where a capture allocates or
 launches, a kernel node count differs from the real call's launches, a
 sweep has an active finding, or a static peak lies more than GD_PEAK_TOL
 from the measured one; it prints each capture's seconds and nodes, the
-functional step's DON001 bytes with the peak without the duplicate, and
-the registration's host cost (``host_cost_phase``: B3' host ms, a unified
-8B decode step, a train step; also a ``--turns`` phase, ``host_cost``).
+train step's DON001 bytes (0 since its update went in place, ROADMAP C.7)
+and the registration's host cost (``host_cost_phase``: B3' host ms, a
+unified 8B decode step, a train step; also a ``--turns`` phase,
+``host_cost``).  Then C.7's readings (``c7_readings``: the static and
+measured peaks beside the functional step's GD4 ones, the static peak
+within GD_C7_PEAK_TOL of GD4's without the duplicate, GD_C7_STEPS losses
+of the in-place step bit-equal to its functional twin's), this
+PyTorch's c10d operators as the capture records them (``c10d_probe``),
+and the Graph Doctor above one rank (``graph_doctor_ranks``): the mesh
+step (dp2 x sharding2 x mp2, accum GD_TRAIN_ACCUM), the overlap step
+plain and coded on a two-slice map, the hybrid step (gpipe and 1F1B on
+pp2 x sharding2 x mp2), the dropless EP step at Mixtral's expert shape
+and GPT-MoE on dp2 x ep2 x mp2, each captured at rank GD_RANK of a fake
+process group of GD_WORLD on fake cuda tensors at full width (the Llama
+stacks at GD_RANK_LAYERS layers; nothing allocated or launched), swept
+with no active finding; each prints its capture seconds, nodes,
+collectives by axis and kind and its ICI/DCN wire table.
 
 The ``serving_fleet`` phase follows the graph doctor: the 8B weights
 moved to the host (a checkpoint's form) feed ``inference/fleet.py``'s
@@ -6072,6 +6086,7 @@ def _doctor_target(what, fn, args, kwargs, options, dev, want, *,
     before it against the static peak above the caller-held inputs."""
     import torch
     from paddle_tpu_torch.analysis import capture, check, static_peak
+    from paddle_tpu_torch.analysis.passes.donation import undonated_bytes
     from paddle_tpu_torch.ops import _registry
 
     gc.collect()
@@ -6103,11 +6118,13 @@ def _doctor_target(what, fn, args, kwargs, options, dev, want, *,
         raise AssertionError(f"graph_doctor {what}: kernel nodes {nodes}, "
                              f"expected {want}")
     peak = static_peak(cap)
-    double = sum(f.data.get("bytes", 0) for f in rep.suppressed
-                 if f.code == "DON001")
-    donated = (static_peak(cap, donated=tuple(
-        f.arg_path for f in rep.suppressed if f.code == "DON001"))
-        if double else peak)
+    # DON001's pricing with no floor: the bytes of the arguments the call
+    # neither writes in place nor releases while it builds their like
+    undonated = undonated_bytes(cap, options.get("donation", {}).get(
+        "persistent", ()))
+    double = sum(v["bytes"] for v in undonated.values())
+    donated = (static_peak(cap, donated=tuple(undonated)) if double
+               else peak)
     # one real call
     gc.collect()
     _sync()
@@ -6232,6 +6249,11 @@ def graph_doctor_phase(dev, cfg=None, params=None):
     torch.cuda.empty_cache()
     bad = {k: r["peak_rel_err"] for k, r in rec["targets"].items()
            if not r["peak_rel_err"] <= GD_PEAK_TOL}
+    rec["c7"] = c7_readings(dev, rec["targets"]["train"])
+    above = _ranks_in_child()
+    rec["c10d_probe"], rec["ranks"] = above["c10d_probe"], above["ranks"]
+    rec["reduced"] += (f"; the stacks above one rank at {GD_RANK_LAYERS} "
+                       f"of {TRAIN_CFG['num_hidden_layers']} layers")
     rec["host_cost"] = host_cost_phase(dev, cfg, params)
     rec["wall_s"] = time.perf_counter() - t0
     if bad:
@@ -6240,14 +6262,416 @@ def graph_doctor_phase(dev, cfg=None, params=None):
     return rec
 
 
+# ROADMAP C.7 (the in-place update) against the GD4 reading of the
+# functional step on NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6): DON001
+# 8 037 937 152 B, the train step's static peak with its inputs
+# 24 122 163 712 B, 18 930 366 976 B with the duplicate freed
+GD4_STATIC_PEAK = 24_122_163_712
+GD4_STATIC_PEAK_NO_DUP = 18_930_366_976
+GD4_DON001_BYTES = 8_037_937_152
+GD_C7_PEAK_TOL = 0.02
+GD_C7_STEPS = 3
+# the Graph Doctor above one rank: each stack captured at rank GD_RANK of
+# a fake process group of GD_WORLD on fake cuda tensors, at the train
+# cell's width (the EP step at Mixtral's expert shape, GPT-MoE at
+# GPTMoEConfig()); cut: the Llama stacks at GD_RANK_LAYERS of the cell's
+# 10 layers (a capture walks each layer's collectives in Python: the mesh
+# step's 10 layers at accum 4 took 18.8-21.3 s); the two-slice map of the
+# coded steps' DCN tables
+GD_WORLD, GD_RANK = 8, 0
+GD_RANK_LAYERS = 4
+GD_SLICE_MAP = (0, 0, 1, 1)
+# SHARD005's floor on the mesh step's flat buffers (the pass's default)
+GD_UPDATE_MIN_BYTES = 64 << 10
+GD_HYBRID_BATCH, GD_HYBRID_MICRO = 8, 2
+
+
+def _functional_twin(step, opt, decay_mask):
+    """The train step's update as it was before C.7: its gradient half,
+    then the optimizer's functional ``apply_flat`` (new params and state
+    beside the given ones), for the bit-equality reading only."""
+    def twin(params, state, step_no, lr, ids, labels):
+        loss, grads = step.accumulate(params, ids, labels)
+        new_p, new_s = opt.apply_flat(params, grads, state, float(lr),
+                                      step_no + 1, decay_mask=decay_mask)
+        return loss, new_p, new_s
+    return twin
+
+
+def c7_readings(dev, train_rec):
+    """C.7 on the card: the train cell's step (accum GD_TRAIN_ACCUM) as the
+    graph_doctor phase captured and ran it (``train_rec``): its DON001
+    bytes (0), its static peak with the inputs against GD4's without the
+    duplicate (within GD_C7_PEAK_TOL) and its measured peak beside GD4's;
+    then GD_C7_STEPS steps of the in-place step against its functional
+    twin from the same params and state: losses bit-equal and the params
+    and state after them equal."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import build_train_step, llama_decay_mask
+
+    static = train_rec["static_peak_bytes"]
+    out = {"don001_bytes": train_rec["double_resident_bytes"],
+           "static_peak_bytes": static,
+           "measured_peak_bytes": train_rec["held_bytes"]
+           + train_rec["measured_above_held"],
+           "gd4_static_peak_bytes": GD4_STATIC_PEAK,
+           "gd4_static_peak_no_dup_bytes": GD4_STATIC_PEAK_NO_DUP,
+           "gd4_don001_bytes": GD4_DON001_BYTES,
+           "peak_rel_to_gd4_no_dup":
+               (static - GD4_STATIC_PEAK_NO_DUP) / GD4_STATIC_PEAK_NO_DUP}
+    tcfg, model, params, opt, state, _ = train_setup(dev)
+    rng = np.random.default_rng(SEED)
+    shape = (GD_TRAIN_ACCUM, TRAIN_BATCH, TRAIN_SEQ)
+    ids = torch.from_numpy(rng.integers(0, tcfg.vocab_size, shape)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, tcfg.vocab_size,
+                                           shape)).to(dev)
+    step = build_train_step(model, opt, compute_dtype=torch.bfloat16,
+                            accum_steps=GD_TRAIN_ACCUM)
+    twin = _functional_twin(step, opt, llama_decay_mask(model))
+    tp = {k: v.clone() for k, v in params.items()}
+    ts = {"__flat__": {g: {n: t.clone() for n, t in gs.items()}
+                       for g, gs in state["__flat__"].items()}}
+    losses, twin_losses, same = [], [], True
+    for i in range(GD_C7_STEPS):
+        loss, p2, s2 = step(params, state, i, TRAIN_LR, ids, labels)
+        same = same and p2 is params and s2 is state
+        losses.append(loss.item())
+        tloss, tp, ts = twin(tp, ts, i, TRAIN_LR, ids, labels)
+        twin_losses.append(tloss.item())
+    equal = all(torch.equal(a, b) for a, b in zip(_tensors(params),
+                                                  _tensors(tp))) and all(
+        torch.equal(a, b) for a, b in zip(_tensors(state), _tensors(ts)))
+    out.update(losses=losses, twin_losses=twin_losses,
+               losses_bit_equal=losses == twin_losses, state_equal=equal,
+               same_objects=same)
+    del tcfg, model, params, opt, state, step, twin, tp, ts, ids, labels
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("graph_doctor c7: " + json.dumps(out) + f" ({_card_line()})",
+          flush=True)
+    if out["don001_bytes"] != 0 or not out["losses_bit_equal"] \
+            or not equal or not same \
+            or abs(out["peak_rel_to_gd4_no_dup"]) > GD_C7_PEAK_TOL:
+        raise AssertionError(f"graph_doctor c7: {out}")
+    return out
+
+
+def _card_line():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+
+def c10d_probe(dev):
+    """This PyTorch's c10d operators as a capture on a fake group of 4
+    records them (``collective_kind``): an all-reduce, a gather, a
+    reduce-scatter, an all-to-all and a send/recv pair on fake cuda
+    tensors.  Raises if one is missing or unclassified."""
+    import torch
+    import torch.distributed as dist
+    from paddle_tpu_torch.analysis.core import capture, fake_ranks
+
+    def body(x):
+        y = x.clone()
+        dist.all_reduce(y)
+        g = torch.empty(4 * x.numel(), device=x.device)
+        dist.all_gather_into_tensor(g, x)
+        r = torch.empty(x.numel() // 4, device=x.device)
+        dist.reduce_scatter_tensor(r, x)
+        a = torch.empty_like(x)
+        dist.all_to_all_single(a, x)
+        out = torch.zeros_like(x)
+        for w in dist.batch_isend_irecv([dist.P2POp(dist.isend, x, 1),
+                                         dist.P2POp(dist.irecv, out, 3)]):
+            w.wait()
+        return y, g, r, a, out
+
+    with fake_ranks(4, 2):
+        cap = capture(body, (torch.ones(64, device=dev),), device=dev)
+    got = [(c.node.target._schema.name, c.kind, c.op, c.peer)
+           for c in cap.collectives]
+    kinds = [k for _, k, _, _ in got]
+    want = ["allreduce", "allgather", "reducescatter", "alltoall",
+            "collectivepermute", "collectivepermute"]
+    print("graph_doctor c10d ops: " + json.dumps(got), flush=True)
+    if kinds != want or [p for *_, p in got[-2:]] != [1, 3]:
+        raise AssertionError(f"graph_doctor c10d probe: {got}")
+    return {"ops": got}
+
+
+def _rank_llama(dev, shape, overlap=None, accum=1, flat=True):
+    """``build()`` of the train cell's mesh step on a fake mesh of
+    ``shape`` (dp, sharding, mp), its flat AdamW state in the step's
+    shard-major layout, bf16 params with fp32 masters."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.analysis.core import fake_mesh
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         apply_llama_sharding,
+                                         build_train_step, llama_decay_mask)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    def build():
+        mesh = fake_mesh(shape, ("dp", "sharding", "mp"), dev.type)
+        cfg = LlamaConfig(**dict(TRAIN_CFG,
+                                 num_hidden_layers=GD_RANK_LAYERS))
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        model = LlamaForCausalLM(cfg, device=dev, dtype=torch.float32,
+                                 generator=gen)
+        apply_llama_sharding(model, mesh)
+        p32 = model.functional_state()
+        params = {k: v.with_local(v.local.to(torch.bfloat16))
+                  for k, v in p32.items()}
+        opt = AdamW(learning_rate=TRAIN_LR, multi_precision=True)
+        step = build_train_step(model, opt, mesh=mesh,
+                                compute_dtype=torch.bfloat16,
+                                accum_steps=accum, overlap=overlap)
+        state = opt.init_flat_state(params,
+                                    decay_mask=llama_decay_mask(model),
+                                    master_from=p32,
+                                    flat_layout=step.flat_layout)
+        del p32
+        rng = np.random.default_rng(SEED)
+        bshape = ((accum,) if accum > 1 else ()) + (TRAIN_BATCH, TRAIN_SEQ)
+        ids = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                            bshape)).to(dev)
+        return step, (params, state, 0, TRAIN_LR, ids, ids), {}, mesh, \
+            (opt, llama_decay_mask(model))
+    return build
+
+
+def _rank_hybrid(dev, schedule):
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.analysis.core import fake_mesh
+    from paddle_tpu_torch.models import (HYBRID_AXES, LlamaConfig,
+                                         LlamaForCausalLM,
+                                         build_hybrid_train_step)
+    from paddle_tpu_torch.models.llama_hybrid import init_hybrid_state
+    from paddle_tpu_torch.optimizer import AdamW
+
+    def build():
+        mesh = fake_mesh((2, 1, 2, 1, 2), HYBRID_AXES, dev.type)
+        cfg = LlamaConfig(**dict(TRAIN_CFG,
+                                 num_hidden_layers=GD_RANK_LAYERS))
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
+                                 generator=gen)
+        state = init_hybrid_state(model, mesh)
+        del model
+        opt = AdamW(learning_rate=TRAIN_LR, multi_precision=True)
+        step = build_hybrid_train_step(cfg, opt, mesh,
+                                       num_microbatches=GD_HYBRID_MICRO,
+                                       compute_dtype=torch.bfloat16,
+                                       schedule=schedule)
+        rng = np.random.default_rng(SEED)
+        ids = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (GD_HYBRID_BATCH, TRAIN_SEQ))).to(dev)
+        return step, (state, opt.init_state(state), 0, TRAIN_LR, ids,
+                      ids), {}, mesh, None
+    return build
+
+
+def _rank_ep(dev):
+    import torch
+    from paddle_tpu_torch.analysis.core import fake_mesh
+    from paddle_tpu_torch.parallel import expert as pexp
+    from paddle_tpu_torch.parallel.codec import CollectiveCodec
+    from paddle_tpu_torch.parallel.overlap import OverlapConfig
+    from paddle_tpu_torch.parallel.specs import (NamedSharding,
+                                                 filter_divisible_spec)
+
+    def build():
+        mesh = fake_mesh((1, 2, 4), ("dp", "sharding", "ep"), dev.type)
+        cfg = pexp.MoEEPConfig(**MOE_TRAIN_CFG)
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        # drawn on the card (the host draw of init_moe_ep_params takes ~35 s
+        # at this shape; a capture reads no value), placed by the EP plan
+        params = {k: NamedSharding(mesh, filter_divisible_spec(
+            pexp.moe_ep_spec_for(k), sh, mesh)).shard(torch.randn(
+                sh, device=dev, generator=g) * cfg.d_model ** -0.5)
+            for k, sh in pexp.moe_ep_shapes(cfg).items()}
+        oc = OverlapConfig(hierarchical="on", slice_map=GD_SLICE_MAP,
+                           codec=CollectiveCodec())
+        x2d = torch.randn(MOE_TRAIN_TOKENS, cfg.d_model, device=dev,
+                          generator=g).to(torch.bfloat16)
+        tgt = torch.randn(MOE_TRAIN_TOKENS, cfg.d_model, device=dev,
+                          generator=g)
+        step = pexp.build_moe_ep_dropless_train_step(cfg, mesh, oc=oc,
+                                                     lr=MOE_TRAIN_LR)
+        return step, (params, x2d, tgt), {}, mesh, None
+    return build
+
+
+def _rank_gpt_moe(dev):
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.analysis.core import fake_mesh
+    from paddle_tpu_torch.models import (GPTMoEConfig, GPTMoEForCausalLM,
+                                         apply_gpt_moe_sharding,
+                                         build_moe_train_step)
+    from paddle_tpu_torch.ops import random as prandom
+    from paddle_tpu_torch.optimizer import AdamW
+
+    def build():
+        mesh = fake_mesh((2, 2, 2), ("dp", "ep", "mp"), dev.type)
+        cfg = GPTMoEConfig()
+        prandom.seed(SEED)
+        model = GPTMoEForCausalLM(cfg, device=dev)
+        apply_gpt_moe_sharding(model, mesh)
+        opt = AdamW(learning_rate=GPT_MOE_LR)
+        step = build_moe_train_step(model, opt, mesh=mesh,
+                                    compute_dtype=torch.bfloat16)
+        params = model.functional_state()
+        rng = np.random.default_rng(SEED)
+        ids = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (GPT_MOE_BATCH, GPT_MOE_SEQ))).to(dev)
+        return step, (params, opt.init_state(params), 0, GPT_MOE_LR, ids,
+                      ids), {}, mesh, None
+    return build
+
+
+def _rank_targets(dev):
+    """(name, build, passes, options(fn, args, extra), dcn map) of the
+    captures above one rank."""
+    from paddle_tpu_torch.analysis.self_check import flat_local_sizes
+    from paddle_tpu_torch.parallel.codec import CollectiveCodec
+    from paddle_tpu_torch.parallel.overlap import OverlapConfig
+
+    audit = {"sharding_consistency": {"audit_resharding": True}}
+    every = ["collective_order", "collective_budget", "hlo_post_checks",
+             "sharding_consistency"]
+
+    def mesh_opts(fn, args, extra):
+        opt, mask = extra
+        return {"donation": {},
+                "sharding_consistency": {
+                    "audit_resharding": True, "expect_update_pin": True,
+                    "flat_layout": fn.flat_layout,
+                    "update_min_bytes": GD_UPDATE_MIN_BYTES,
+                    "flat_local_sizes": flat_local_sizes(
+                        opt, args[0], mask, fn.flat_layout)}}
+
+    def engine(fn, args, extra):
+        return {"donation": {}, **audit,
+                "collective_budget": {"overlap_active": True}}
+
+    coded = OverlapConfig(hierarchical="on", slice_map=GD_SLICE_MAP,
+                          codec=CollectiveCodec())
+    return (
+        ("mesh[dp2,sharding2,mp2]",
+         _rank_llama(dev, (2, 2, 2), accum=GD_TRAIN_ACCUM),
+         every + ["donation"], mesh_opts, None),
+        ("overlap[dp2,sharding2,mp2]",
+         _rank_llama(dev, (2, 2, 2), overlap=OverlapConfig()),
+         every + ["donation"], engine, None),
+        ("overlap[hier2slice,codec]",
+         _rank_llama(dev, (1, 4, 2), overlap=coded),
+         every + ["donation"], engine, {"sharding": list(GD_SLICE_MAP)}),
+        ("hybrid[gpipe]", _rank_hybrid(dev, "gpipe"), every,
+         lambda *a: audit, None),
+        ("hybrid[1F1B]", _rank_hybrid(dev, "1F1B"), every,
+         lambda *a: audit, None),
+        ("moe_ep_dropless[hier2slice,codec]", _rank_ep(dev), every,
+         lambda *a: {**audit,
+                     "collective_budget": {"overlap_active": True}},
+         {"ep": list(GD_SLICE_MAP)}),
+        ("gpt_moe[dp2,ep2,mp2]", _rank_gpt_moe(dev), every,
+         lambda *a: audit, None),
+    )
+
+
+def _ranks_in_child():
+    """``c10d_probe`` and ``graph_doctor_ranks`` in a process of their own
+    (``--phase-worker``): their fake process groups never share a process
+    with the later phases' NCCL groups (an NCCL group started after another
+    group was destroyed in the same process has crashed on this machine's
+    torch 2.11).  Prints the child's readings; returns its record."""
+    out = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--phase-worker",
+         str(HERE), "--phases", "graph_doctor_ranks"], capture_output=True,
+        text=True, cwd=str(HERE), timeout=1200)
+    rec = None
+    for line in out.stdout.splitlines():
+        if line.startswith("TURN "):
+            rec = json.loads(line[5:])["record"]
+        elif line.startswith("graph_doctor"):
+            print(line, flush=True)
+    if out.returncode or rec is None:
+        raise AssertionError("graph_doctor ranks: the child failed "
+                             f"({out.returncode}):\n" + out.stderr[-6000:])
+    return rec
+
+
+def graph_doctor_ranks(dev):
+    """Each stack at rank GD_RANK of a fake group of GD_WORLD (fake cuda
+    tensors, ``analysis.core.fake_ranks``): the capture must allocate and
+    launch nothing, and the sweep (collective order, budget and ring,
+    HLO002, unplanned reshards, and for the Llama steps the donation and,
+    on the mesh step, the flat update's cut) must find nothing.  Prints
+    each capture's seconds, nodes, collectives by axis and kind (count,
+    payload bytes), the ICI/DCN wire table and the findings."""
+    import torch
+    from paddle_tpu_torch.analysis.core import capture, check, fake_ranks
+    from paddle_tpu_torch.analysis.passes.collective_budget import (
+        collect_wire_table, tally_by_axis)
+
+    out = {}
+    for name, build, passes, options, dcn in _rank_targets(dev):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        with fake_ranks(GD_WORLD, GD_RANK):
+            fn, args, kwargs, mesh, extra = build()
+            built_s = time.perf_counter() - t0
+            _sync()
+            alloc, launches = torch.cuda.memory_allocated(), _all_launches()
+            cap = capture(fn, args, kwargs, device=dev, mesh=mesh)
+            _sync()
+            moved = torch.cuda.memory_allocated() - alloc
+            if moved or _all_launches() != launches:
+                raise AssertionError(
+                    f"graph_doctor ranks {name}: the capture moved the "
+                    f"allocated bytes by {moved} or launched")
+            rep = check(fn, *args, kwargs=kwargs, device=dev, graph=cap,
+                        mesh=mesh, passes=passes,
+                        options=options(fn, args, extra),
+                        target=f"graph_doctor_ranks:{name}")
+            wire = collect_wire_table(cap, mesh, dcn or {})
+        rec = dict(build_s=built_s, capture_s=cap.seconds,
+                   nodes=len(cap.nodes), collectives=len(cap.collectives),
+                   by_axis=tally_by_axis(cap), wire=wire,
+                   findings=[f.format()[:300] for f in rep.findings],
+                   skipped=dict(rep.skipped))
+        out[name] = rec
+        print(f"graph_doctor ranks {name}: rank {GD_RANK} of {GD_WORLD}, "
+              f"capture {cap.seconds:.2f} s (build {built_s:.2f} s), "
+              f"{len(cap.nodes)} nodes, {len(cap.collectives)} collectives "
+              f"by axis {json.dumps(rec['by_axis'])}; wire "
+              f"ici {wire['ici']['bytes']} B / {wire['ici']['count']}, dcn "
+              f"{wire['dcn']['bytes']} B / {wire['dcn']['count']}; "
+              f"findings {rec['findings']}", flush=True)
+        del fn, args, kwargs, mesh, extra, cap
+        if not rep.ok:
+            raise AssertionError(f"graph_doctor ranks {name}: active "
+                                 f"findings\n" + rep.summary())
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def host_cost_phase(dev, cfg=None, params=None):
     """The registration's host cost on this checkout's package: host ms of
     one B3' wrapper call at the unified engine's 8B shape (``host_ms``),
     ms per unified decode step of the 8B engine (the serving phase's
     geometry, 8 requests of 64 new tokens), and ms per train step of the
-    train cell at accum GD_TRAIN_ACCUM (GD_TRAIN_STEPS after a warm-up)."""
+    train cell at accum GD_TRAIN_ACCUM (GD_TRAIN_STEPS after a warm-up),
+    without and with ``health=`` (``train_ms``, ``train_health_ms``)."""
     import numpy as np
     import torch
+    from paddle_tpu_torch.distributed.health import HealthConfig
     from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
     from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
                                          build_train_step)
@@ -6281,11 +6705,20 @@ def host_cost_phase(dev, cfg=None, params=None):
     ids = torch.from_numpy(rng.integers(0, tcfg.vocab_size, shape)).to(dev)
     step = build_train_step(model, opt, compute_dtype=torch.bfloat16,
                             accum_steps=GD_TRAIN_ACCUM)
-    _, walls, *_ = train_steps(step, [tparams, state], 1 + GD_TRAIN_STEPS,
-                               ids, ids)
+    _, walls, tparams, state, *_ = train_steps(
+        step, [tparams, state], 1 + GD_TRAIN_STEPS, ids, ids)
     out["train_ms"] = statistics.median(walls[1:]) * 1e3
     out["train_ms_all"] = [w * 1e3 for w in walls]
-    del model, tparams, state, step, ids
+    # the same steps with the health probe and guard (gates open)
+    hstep = build_train_step(model, opt, compute_dtype=torch.bfloat16,
+                             accum_steps=GD_TRAIN_ACCUM,
+                             health=HealthConfig())
+    _, walls, tparams, state, *_ = train_steps(
+        lambda *a: hstep(*a)[:3], [tparams, state], 1 + GD_TRAIN_STEPS,
+        ids, ids, first=1 + GD_TRAIN_STEPS)
+    out["train_health_ms"] = statistics.median(walls[1:]) * 1e3
+    out["train_health_ms_all"] = [w * 1e3 for w in walls]
+    del model, tparams, state, step, hstep, ids
     gc.collect()
     torch.cuda.empty_cache()
     print("graph_doctor host cost: " + json.dumps(out), flush=True)
@@ -6483,6 +6916,15 @@ def main() -> int:
                                "static_peak_donated_bytes")}
          for k, v in gd["targets"].items()})
         + f" host_cost={json.dumps(gd['host_cost'])} ({card})", flush=True)
+    print("graph_doctor c7 and ranks: " + json.dumps(
+        {"c7": {k: gd["c7"][k] for k in (
+            "don001_bytes", "static_peak_bytes", "measured_peak_bytes",
+            "gd4_static_peak_no_dup_bytes", "peak_rel_to_gd4_no_dup",
+            "losses_bit_equal")},
+         "ranks": {k: {f: v[f] for f in ("capture_s", "nodes",
+                                         "collectives")}
+                   for k, v in gd["ranks"].items()}}) + f" ({card})",
+          flush=True)
     host = host_weights(params)
     del model, params
     gc.collect()
@@ -6835,7 +7277,10 @@ TURN_PHASES = {
     # this script's function over the turn's own package: the parent
     # checkout's chip_smoke.py has no such phase
     "host_cost": lambda cs, dev, flush: host_cost_phase(dev),
+    "train": lambda cs, dev, flush: cs.train_phase(dev),
     "graph_doctor": lambda cs, dev, flush: cs.graph_doctor_phase(dev),
+    "graph_doctor_ranks": lambda cs, dev, flush: {
+        "c10d_probe": cs.c10d_probe(dev), "ranks": cs.graph_doctor_ranks(dev)},
 }
 
 

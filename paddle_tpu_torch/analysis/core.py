@@ -15,12 +15,28 @@ their storages (``storage_key``) and what an op writes in place
 (``written_inputs``); ``static_peak`` is the live device bytes over the
 graph in execution order with the caller-held inputs counted, the port's
 ``compiled.memory_analysis()``.
+
+Above one rank (the counterpart of JAX tracing a ``shard_map`` body over a
+mesh): ``fake_ranks(world_size, rank)`` starts a ``"fake"`` default
+process group (``FakeStore``: no peer, every collective returns at once)
+and always destroys it; ``fake_mesh`` builds the port's ``Mesh`` over
+``init_device_mesh`` on it.  A capture then records this rank's ``c10d``
+collectives as nodes, and ``capture`` annotates each with a
+``Collective`` (``collectives``): its kind, its group's global ranks, the
+mesh axis the group belongs to, the peer of a send or a recv, and the
+payload's bytes and dtype.  One rank's capture shows only that rank's
+collectives: a check that needs the whole program captures every rank of
+a group (``capture_ranks``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import inspect
+import itertools
+import math
+import operator
 import os
 import sys
 import time
@@ -43,16 +59,18 @@ ALLOC_BLOCK = 512
 
 # ---------------------------------------------------------------- provenance
 
-def _user_frames(frame) -> Tuple[Tuple[str, int, str], ...]:
-    """(file, line, function) of the frames from ``frame`` outwards,
-    innermost first, outside PyTorch, the standard library and this
-    module."""
+def _user_frames(frame) -> Tuple[Tuple[str, int, str, str], ...]:
+    """(file, line, function, qualified name) of the frames from ``frame``
+    outwards, innermost first, outside PyTorch, the standard library and
+    this module."""
     out = []
     while frame is not None:
         fname = frame.f_code.co_filename
         if not (fname.startswith(_TORCH_DIR) or fname.startswith(_STDLIB_DIR)
                 or fname == _THIS or fname.startswith("<")):
-            out.append((fname, frame.f_lineno, frame.f_code.co_name))
+            code = frame.f_code
+            out.append((fname, frame.f_lineno, code.co_name,
+                        getattr(code, "co_qualname", code.co_name)))
         frame = frame.f_back
     return tuple(out)
 
@@ -92,14 +110,19 @@ def _provenance_mode(deaths: Dict[int, Any], finalizers: List[Any]):
     return _Provenance()
 
 
-def node_where(node) -> Tuple[Optional[str], Dict[str, Any]]:
+def node_where(node, skip: Sequence[str] = ()
+               ) -> Tuple[Optional[str], Dict[str, Any]]:
     """(where-string, data) of a node from its frames, for Finding fields
     (mirror of ``format_where``): ``data["stack_functions"]`` is the whole
-    user stack, innermost first; exemptions match on it."""
+    user stack, innermost first; exemptions match on it.  The where is the
+    innermost frame whose file contains none of ``skip`` (the collective
+    transport: the frame that asked for the collective)."""
     frames = node.meta.get("pt_frames") or ()
     if not frames:
         return None, {}
-    fname, line, func = frames[0]
+    at = next((f for f in frames if not any(k in f[0] for k in skip)),
+              frames[0])
+    fname, line, func = at[:3]
     short = os.path.join(*fname.split(os.sep)[-2:]) if os.sep in fname \
         else fname
     return f"{short}:{line} ({func})", {
@@ -146,6 +169,9 @@ class Placeholder:
     label: str              # "arg0", "kwarg 'kv_scales'"
     argnum: Optional[int]   # top-level positional index, None for kwargs
     host: bool              # host memory kind (MEM002)
+    #: the global bytes of a ``ShardedTensor`` argument (this rank's
+    #: block is the placeholder), None for a plain tensor
+    global_bytes: Optional[int] = None
 
 
 @dataclasses.dataclass
@@ -161,6 +187,13 @@ class Captured:
     #: storage -> the graph's last node when the Python code dropped a
     #: tensor on it (its eager lifetime)
     deaths: Dict[int, Any] = dataclasses.field(default_factory=dict)
+    #: this rank's global rank and the world size (0 and 1 without a
+    #: process group)
+    rank: int = 0
+    world_size: int = 1
+    #: the collectives in program order (``annotate_collectives``)
+    collectives: List["Collective"] = dataclasses.field(
+        default_factory=list)
 
     @property
     def nodes(self) -> List[Any]:
@@ -188,23 +221,33 @@ def _is_host_leaf(keystr: str, t: torch.Tensor, dev: torch.device) -> bool:
 
 
 def capture(fn: Callable, args: Sequence = (), kwargs: Optional[Dict] = None,
-            device=None) -> Captured:
+            device=None, mesh=None) -> Captured:
     """``make_fx`` of ``fn(*args, **kwargs)`` on fake tensors.  Tensor
     leaves become fakes of themselves (``FakeTensorMode.from_tensor``:
-    nothing allocated, aliasing kept) and the graph's placeholders; every
+    nothing allocated, aliasing kept) and the graph's placeholders (a
+    ``ShardedTensor``'s local block too, rewrapped for the call); every
     other leaf (numpy arrays, Python scalars, configs) is a constant of the
     trace, read as the eager call reads it (a numpy batch becomes a tensor
-    where the step converts it)."""
+    where the step converts it).  Its collective nodes are annotated while
+    the process group is alive (``annotate_collectives``; ``mesh`` names
+    their axes)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.fx.experimental.proxy_tensor import make_fx
+
+    from ..parallel.specs import ShardedTensor
 
     dev = resolve_device(device)
     kwargs = dict(kwargs or {})
     with_path, spec = pytree.tree_flatten_with_path((tuple(args), kwargs))
     leaves = [v for _, v in with_path]
     fake_mode = FakeTensorMode(allow_non_fake_inputs=True)
-    tensor_pos, fakes, meta = [], [], []
+    tensor_pos, fakes, meta, blocks = [], [], [], {}
     for i, (path, v) in enumerate(with_path):
+        if isinstance(v, ShardedTensor):
+            # a block at rest: its local tensor is the input, rewrapped
+            # inside the trace
+            blocks[i] = v
+            v = v.local
         if not isinstance(v, torch.Tensor):
             continue
         v = fake_mode.from_tensor(v)
@@ -212,14 +255,17 @@ def capture(fn: Callable, args: Sequence = (), kwargs: Optional[Dict] = None,
         fakes.append(v)
         key = pytree.keystr(path)
         label, argnum = _label(path)
-        meta.append((key, label, argnum, _is_host_leaf(key, v, dev)))
+        whole = (math.prod(blocks[i].shape) * v.element_size()
+                 if i in blocks else None)
+        meta.append((key, label, argnum, _is_host_leaf(key, v, dev), whole))
     deaths: Dict[int, Any] = {}
     finalizers: List[Any] = []
 
     def flat_fn(*ts):
         full = list(leaves)
         for i, t in zip(tensor_pos, ts):
-            full[i] = t
+            full[i] = blocks[i].with_local(t, blocks[i].partial) \
+                if i in blocks else t
         a, kw = pytree.tree_unflatten(full, spec)
         with _provenance_mode(deaths, finalizers):
             out = fn(*a, **kw)
@@ -239,9 +285,11 @@ def capture(fn: Callable, args: Sequence = (), kwargs: Optional[Dict] = None,
     out_node = next(n for n in gm.graph.nodes if n.op == "output")
     outs = [n.meta.get("val") for n in pytree.tree_leaves(out_node.args)
             if hasattr(n, "meta")]
-    return Captured(gm, placeholders, [o for o in outs
-                                       if isinstance(o, torch.Tensor)],
-                    dev, seconds, deaths)
+    cap = Captured(gm, placeholders, [o for o in outs
+                                      if isinstance(o, torch.Tensor)],
+                   dev, seconds, deaths)
+    annotate_collectives(cap, mesh)
+    return cap
 
 
 # ------------------------------------------------------------------ walkers
@@ -433,6 +481,215 @@ def collective_kind(node) -> Optional[str]:
     return None if name in ("wait_tensor", "barrier") else name
 
 
+# ------------------------------------------------------- above one rank
+
+@contextlib.contextmanager
+def fake_ranks(world_size: int, rank: int):
+    """A ``"fake"`` default process group at ``(world_size, rank)`` for the
+    body of the ``with``: collectives issue and return at once, nothing
+    moves.  The group is destroyed on the way out, on error too, so no
+    group outlives the capture.  Refuses to start over a live group (the
+    default group is global per process)."""
+    import torch.distributed as dist
+    # importing the module registers the "fake" backend
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("fake_ranks: a process group is already live in "
+                           "this process; a capture above one rank needs "
+                           "its own")
+    dist.init_process_group("fake", store=FakeStore(), rank=int(rank),
+                            world_size=int(world_size))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def fake_mesh(shape: Sequence[int], axis_names: Sequence[str],
+              device_type: str = "cpu"):
+    """The port's live ``Mesh`` over ``init_device_mesh`` on the fake group
+    of ``fake_ranks`` (``parallel.specs.init_mesh`` keeps refusing any
+    backend but gloo or NCCL for real runs)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from ..parallel.specs import Mesh
+
+    if not dist.is_initialized() or dist.get_backend() != "fake":
+        raise RuntimeError("fake_mesh needs the group of fake_ranks")
+    dm = init_device_mesh(device_type, tuple(int(n) for n in shape),
+                          mesh_dim_names=tuple(axis_names))
+    return Mesh(shape, axis_names, device_mesh=dm, device_type=device_type)
+
+
+@dataclasses.dataclass
+class Collective:
+    """One collective node of a rank's capture: its kind (the kinds of
+    ``collective_kind``; a send and a recv are ``collectivepermute``), the
+    op's name, the global ranks of its group (ascending), the mesh axes
+    the group spans (``"+"``-joined; None when no mesh was given or the
+    group is no line of it), the peer's global rank of a send or a recv,
+    the payload (the input of a gather, a scatter or an exchange, the
+    buffer of a reduction, a send or a recv) in bytes and its dtype, and
+    the index of the permute a send or a recv belongs to (the sends and
+    recvs of one ``batch_isend_irecv`` share it)."""
+
+    node: Any
+    kind: str
+    op: str
+    group: Tuple[int, ...]
+    axis: Optional[str]
+    peer: Optional[int]
+    nbytes: int
+    dtype: str
+    shape: Tuple[int, ...]
+    permute: Optional[int] = None
+
+    @property
+    def is_p2p(self) -> bool:
+        return self.op in ("send", "recv")
+
+
+def _group_ranks(gm, arg) -> Optional[Tuple[int, ...]]:
+    import torch.distributed as dist
+
+    obj = getattr(gm, arg.target, None) if getattr(arg, "op", None) \
+        == "get_attr" else arg
+    if obj is None:
+        return None
+    try:
+        pg = dist.ProcessGroup.unbox(obj) \
+            if isinstance(obj, torch.ScriptObject) else obj
+        return tuple(sorted(dist.get_process_group_ranks(pg)))
+    except Exception:  # noqa: BLE001 - not a process group
+        return None
+
+
+def _axes_of_group(mesh, ranks: Tuple[int, ...], me: int,
+                   peer: Optional[int]) -> Optional[str]:
+    """The mesh axes whose sub-grid through ``me`` holds the group (for a
+    send or a recv: the axes where ``me`` and ``peer`` differ)."""
+    if mesh is None:
+        return None
+    import numpy as np
+
+    names = mesh.axis_names
+    coords = dict(zip(names, np.unravel_index(me, mesh.devices.shape)))
+    if peer is not None:
+        pc = dict(zip(names, np.unravel_index(peer, mesh.devices.shape)))
+        diff = [a for a in names if pc[a] != coords[a]]
+        return "+".join(diff) if diff else None
+    want = set(ranks)
+    for n in range(1, len(names) + 1):
+        for axes in itertools.combinations(names, n):
+            sub = mesh.devices[tuple(slice(None) if a in axes
+                                     else int(coords[a]) for a in names)]
+            line = {int(r) for r in np.asarray(sub).reshape(-1)}
+            if want <= line:
+                return "+".join(axes)
+    return None
+
+
+def annotate_collectives(cap: Captured, mesh=None) -> None:
+    """Fill ``cap.collectives`` (and each node's ``meta["pt_coll"]``) from
+    the capture's ``c10d`` nodes; the process group must be live."""
+    import torch.distributed as dist
+
+    live = dist.is_available() and dist.is_initialized()
+    cap.rank = dist.get_rank() if live else 0
+    cap.world_size = dist.get_world_size() if live else 1
+    out: List[Collective] = []
+    permute, last_p2p = -1, None
+    nodes = cap.nodes
+    for i, n in enumerate(nodes):
+        kind = collective_kind(n)
+        if kind is None or n.op != "call_function":
+            continue
+        op = n.target._schema.name.partition("::")[2].strip("_")
+        group, peer, payload = None, None, None
+        for a in n.args:
+            if getattr(a, "op", None) == "get_attr":
+                group = group or _group_ranks(cap.gm, a)
+        ts = [t for a in n.args[:2] for t in _arg_tensors(a)]
+        if op in ("allgather_base", "reduce_scatter_base", "alltoall_base",
+                  "all_gather_into_tensor", "reduce_scatter_tensor",
+                  "all_to_all_single"):
+            payload = ts[1:2] if len(ts) > 1 else ts[:1]
+        else:
+            payload = _arg_tensors(n.args[0]) if n.args else []
+        if op in ("send", "recv"):
+            kind = "collectivepermute"
+            r = next((a for a in n.args[2:] if isinstance(a, int)), None)
+            if group is not None and r is not None and r < len(group):
+                peer = group[r]
+            # the sends and recvs of one batch_isend_irecv sit side by
+            # side: only group handles and getitems between them
+            between = nodes[last_p2p + 1:i] if last_p2p is not None else ()
+            if last_p2p is None or any(
+                    m.op == "call_function"
+                    and m.target is not operator.getitem for m in between):
+                permute += 1
+            last_p2p = i
+        nbytes = sum(tensor_bytes(t) for t in payload)
+        dt = str(payload[0].dtype).rsplit(".", 1)[-1] if payload else ""
+        shape = tuple(payload[0].shape) if payload else ()
+        c = Collective(node=n, kind=kind, op=op, group=group or (),
+                       axis=_axes_of_group(mesh, group or (), cap.rank,
+                                           peer) if group else None,
+                       peer=peer, nbytes=int(nbytes), dtype=dt, shape=shape,
+                       permute=permute if op in ("send", "recv") else None)
+        n.meta["pt_coll"] = c
+        out.append(c)
+    cap.collectives = out
+
+
+def _arg_tensors(a) -> List[torch.Tensor]:
+    if isinstance(a, (list, tuple)):
+        return [t for x in a for t in _arg_tensors(x)]
+    if hasattr(a, "meta"):
+        return node_tensors(a)
+    return []
+
+
+def _capture_each(build, world_size, ranks, device):
+    caps: Dict[int, Captured] = {}
+    entries = {}
+    for r in (range(world_size) if ranks is None else ranks):
+        with fake_ranks(world_size, r):
+            fn, args, kwargs, mesh = build(r)
+            caps[r] = capture(fn, args, kwargs, device, mesh=mesh)
+            entries[r] = (fn, args, kwargs, mesh)
+    return caps, entries
+
+
+def capture_ranks(build: Callable, world_size: int, ranks=None,
+                  device=None) -> Dict[int, Captured]:
+    """Capture one program at every rank of ``ranks`` (default: all of
+    ``world_size``): for each, inside ``fake_ranks(world_size, rank)``,
+    ``build(rank)`` returns ``(fn, args, kwargs, mesh)`` (built on that
+    rank's group: ``fake_mesh`` and the step), and ``fn`` is captured with
+    its collectives annotated against ``mesh``."""
+    return _capture_each(build, world_size, ranks, device)[0]
+
+
+def check_ranks(build: Callable, world_size: int, ranks=None,
+                device=None, **check_kw) -> Report:
+    """``check`` over a program captured at every rank of ``ranks``
+    (``capture_ranks``'s ``build``): the report is the first rank's, with
+    the other ranks' captures in ``ctx.ranks`` for the collective-order
+    checks; its mesh names the axes.  ``options`` may be a function of
+    the first rank's ``(fn, args, mesh)`` (a budget that reads the built
+    step's layout)."""
+    caps, entries = _capture_each(build, world_size, ranks, device)
+    first = min(caps)
+    fn, args, kwargs, mesh = entries[first]
+    if callable(check_kw.get("options")):
+        check_kw["options"] = check_kw["options"](fn, args, mesh)
+    return check(fn, *args, kwargs=kwargs, device=device, graph=caps[first],
+                 mesh=mesh, ranks=caps, **check_kw)
+
+
 # ------------------------------------------------------------------ context
 
 class AnalysisContext:
@@ -442,7 +699,8 @@ class AnalysisContext:
 
     def __init__(self, fn, args, kwargs, target: str = "",
                  declared_dtype=None, options: Optional[Dict] = None,
-                 device=None, graph: Optional[Captured] = None):
+                 device=None, graph: Optional[Captured] = None, mesh=None,
+                 ranks: Optional[Dict[int, Captured]] = None):
         self.fn = fn
         self.args = tuple(args)
         self.kwargs = kwargs or {}
@@ -452,6 +710,11 @@ class AnalysisContext:
         self.device = device
         self._graph = graph
         self._peak = None
+        self.mesh = mesh
+        #: captures of the same program at other ranks (``capture_ranks``)
+        #: for the checks that need the whole group; this rank's is
+        #: ``graph``
+        self.ranks = dict(ranks or {})
 
     def opt(self, pass_name: str, key: str, default=None):
         return self.options.get(pass_name, {}).get(key, default)
@@ -460,8 +723,14 @@ class AnalysisContext:
     def graph(self) -> Captured:
         if self._graph is None:
             self._graph = capture(self.fn, self.args, self.kwargs,
-                                  self.device)
+                                  self.device, mesh=self.mesh)
         return self._graph
+
+    def all_ranks(self) -> Dict[int, Captured]:
+        """Every capture of the program: ``ranks`` with this one's."""
+        out = dict(self.ranks)
+        out.setdefault(self.graph.rank, self.graph)
+        return out
 
     @property
     def peak(self) -> Dict[str, int]:
@@ -538,7 +807,8 @@ def capture_error(ctx: AnalysisContext, err: BaseException) -> Finding:
 def check(fn, *args, passes: Optional[Sequence] = None, target: str = "",
           declared_dtype=None, options: Optional[Dict] = None,
           exemptions=None, kwargs: Optional[Dict] = None,
-          device=None, graph: Optional[Captured] = None) -> Report:
+          device=None, graph: Optional[Captured] = None, mesh=None,
+          ranks: Optional[Dict[int, Captured]] = None) -> Report:
     """Run the Graph Doctor over one entry point.
 
     ``fn`` the function to analyse; ``args``/``kwargs`` example arguments
@@ -549,13 +819,16 @@ def check(fn, *args, passes: Optional[Sequence] = None, target: str = "",
     ``{"donation": {"persistent": (0,)}}``; ``exemptions`` the table
     (None = the standing ``EXEMPTIONS``, ``()`` = none); ``device`` the
     capture device (``cuda`` unless ``"cpu"`` is passed); ``graph`` a
-    ``capture`` of this same call, to reuse instead of capturing again.
+    ``capture`` of this same call, to reuse instead of capturing again;
+    ``mesh`` the live mesh the call runs on (its collectives are named by
+    its axes); ``ranks`` captures of the same program at other ranks
+    (``capture_ranks``), for the collective-order checks.
 
     Returns a Report; ``report.ok`` is the gate.  A failed capture is the
     finding MEM000."""
     ctx = AnalysisContext(fn, args, kwargs, target=target,
                           declared_dtype=declared_dtype, options=options,
-                          device=device, graph=graph)
+                          device=device, graph=graph, mesh=mesh, ranks=ranks)
     instances = resolve_passes(passes)
     findings: List[Finding] = []
     skipped: Dict[str, str] = {}
@@ -580,6 +853,9 @@ def check(fn, *args, passes: Optional[Sequence] = None, target: str = "",
 
 
 __all__ = ["ALLOC_BLOCK", "AnalysisContext", "AnalysisPass", "Captured",
+           "Collective", "annotate_collectives", "capture_ranks",
+           "check_ranks",
+           "fake_mesh", "fake_ranks",
            "PASS_REGISTRY", "Placeholder", "SkipPass", "arg_values",
            "call_nodes", "capture", "capture_error", "check",
            "collective_kind", "fn_where", "input_tensors", "node_tensors",

@@ -57,21 +57,6 @@ EXEMPTIONS: Sequence[Exemption] = (
             "Mirror of the JAX entry of the same id; design note: "
             "models/llama.py build_train_step, micro_steps_masked."),
     ),
-    Exemption(
-        id="EX-DON001-functional-train-step",
-        code="DON001",
-        file_pattern="models/llama.py",
-        function="step",
-        reason=(
-            "the one-device train step over a flat or per-tensor optimizer "
-            "state is functional: it builds new params and a new state "
-            "beside the ones the caller holds, so both are resident at the "
-            "end of the update (JAX donates them).  An in-place flat update "
-            "waits on the health guard's contract that a fired gate hands "
-            "back the old params and state bit-identical (ROADMAP C.7); the "
-            "host-resident state (parallel/memory.py) already updates in "
-            "place and is clean."),
-    ),
 )
 
 

@@ -7,10 +7,15 @@ program seeded with one bug of the class its pass hunts and runs the pass
 alone with ``exemptions=()``, so the standing table cannot mask a
 regression in the pass itself: DT001-003, DON001-002, RT001-002, MEM001
 (and its four entry-point variants: the serving prefill chunk, the reshard
-plan, the fleet's delivery, the KV handoff), MEM002, HEALTH001-002.  Every
-graph fixture captures on ``device`` (the CPU by default: the self-check
-runs at debug shapes).  The RACE part runs the lock-discipline pass over
-the same source strings as JAX's.  ``SEEDED`` maps a code (``CODE`` or
+plan, the fleet's delivery, the KV handoff), MEM002, HEALTH001-002, and
+above one rank COLL001-002, COMM001-004 (COMM004 also on the EP dispatch
+and the dropless dispatch), HLO002, SHARD001-005 and SCHED001: each
+captured at one or every rank of a ``"fake"`` process group
+(``core.fake_ranks``, ``core.check_ranks``), or, for the table codes, run
+over hand-written ``SpecLayout`` tables.  Every graph fixture captures on
+``device`` (the CPU by default: the self-check runs at debug shapes).  The
+RACE part runs the lock-discipline pass over the same source strings as
+JAX's.  ``SEEDED`` maps a code (``CODE`` or
 ``CODE[variant]``) to its fixture; reports are memoized per process, as
 JAX's are.
 """
@@ -307,6 +312,347 @@ def seeded_collective_health_probe(device="cpu") -> Report:
             dist.destroy_process_group()
 
 
+# ------------------------------------------------------ above one rank
+
+
+def _line_mesh(n: int, device):
+    """A live ("x",) mesh of ``n`` ranks over the fake group."""
+    from .core import fake_mesh
+
+    return fake_mesh((n,), ("x",), torch.device(device).type)
+
+
+def seeded_collective_order(device="cpu") -> Report:
+    """COLL001: a two-rank program whose Python branch drops the psum on
+    one rank (JAX's ``lax.cond`` with one psumming branch): rank 0 issues
+    an all-reduce its peer never matches."""
+    from ..parallel.compat import all_reduce_raw
+    from .core import check_ranks
+
+    def build(rank):
+        mesh = _line_mesh(2, device)
+
+        def body(v):
+            if mesh.axis_index("x") == 0:              # the bug
+                v = all_reduce_raw(v, "x", mesh)
+            return v * 2.0
+
+        return body, (torch.ones(8, device=device),), {}, mesh
+
+    return check_ranks(build, 2, device=device, passes=["collective_order"],
+                       exemptions=(), target="seeded:COLL001")
+
+
+def seeded_ppermute_race(device="cpu") -> Report:
+    """COLL002: a permute with two sources targeting one destination, perm
+    [(0, 1), (1, 1)]."""
+    from ..parallel.compat import _ppermute_raw
+    from .core import check_ranks
+
+    def build(rank):
+        mesh = _line_mesh(2, device)
+
+        def body(v):
+            return _ppermute_raw(v, "x", [(0, 1), (1, 1)], mesh)
+
+        return body, (torch.ones(4, device=device),), {}, mesh
+
+    return check_ranks(build, 2, device=device, passes=["collective_order"],
+                       exemptions=(), target="seeded:COLL002")
+
+
+def seeded_collective_budget(device="cpu") -> Report:
+    """COMM001: two all-reduces a step against a declared budget of one
+    (the per-leaf collective regression the bucketed engine prevents)."""
+    from ..parallel.compat import all_reduce_raw
+    from .core import check_ranks
+
+    def build(rank):
+        mesh = _line_mesh(2, device)
+
+        def body(a, b):
+            return all_reduce_raw(a, "x", mesh) \
+                + all_reduce_raw(b * 2.0, "x", mesh)
+
+        x = torch.ones((4, 8), device=device)
+        return body, (x, x + 1.0), {}, mesh
+
+    return check_ranks(build, 2, ranks=[0], device=device,
+                       passes=["collective_budget"], exemptions=(),
+                       target="seeded:COMM001",
+                       options={"collective_budget":
+                                {"allreduce": {"count": 1}}})
+
+
+def seeded_unscheduled_collective(device="cpu") -> Report:
+    """COMM002: with an overlap engine declared active, a helper outside
+    the engine and outside the step's code issues a bare psum: traffic
+    the engine never scheduled."""
+    from ..parallel.compat import all_reduce_raw
+    from .core import check_ranks
+
+    def build(rank):
+        mesh = _line_mesh(2, device)
+
+        def rogue_reduce(v):
+            return all_reduce_raw(v, "x", mesh)
+
+        return rogue_reduce, (torch.ones(8, device=device),), {}, mesh
+
+    return check_ranks(build, 2, ranks=[0], device=device,
+                       passes=["collective_budget"], exemptions=(),
+                       target="seeded:COMM002",
+                       options={"collective_budget": {"overlap_active": True}})
+
+
+def seeded_ppermute_ring_order(device="cpu") -> Report:
+    """COMM003: a tick loop whose ring mixes rotation steps (perm [(0, 1),
+    (1, 2), (2, 0), (3, 3)]: +1, +1, +2, 0), so stage pairings drift
+    across ticks."""
+    from ..parallel.compat import _ppermute_raw
+    from .core import check_ranks
+
+    def build(rank):
+        mesh = _line_mesh(4, device)
+
+        def tick(c):
+            return _ppermute_raw(c, "x", [(0, 1), (1, 2), (2, 0), (3, 3)],
+                                 mesh)
+
+        def body(v):
+            for _ in range(2):
+                v = tick(v)
+            return v
+
+        return body, (torch.ones(2, device=device),), {}, mesh
+
+    return check_ranks(build, 4, ranks=[0], device=device,
+                       passes=["collective_budget"], exemptions=(),
+                       target="seeded:COMM003",
+                       options={"collective_budget":
+                                {"ring_functions": ("tick",)}})
+
+
+def _codec_wire_fixture(coded, uncoded, args, target, device) -> Report:
+    """COMM004 on a fake 2-slice axis of 4 (slice map (0, 0, 1, 1)): the
+    declared DCN budget is the coded program's measured bytes, and the
+    program checked is the same one with its codec dropped."""
+    from ..distributed.topology import hierarchical_axis
+    from ..parallel.codec import CollectiveCodec
+    from ..parallel.overlap import register_hier
+    from .core import capture, fake_ranks
+    from .passes.collective_budget import collect_wire_table
+
+    sm = (0, 0, 1, 1)
+    with fake_ranks(4, 0):
+        mesh = _line_mesh(4, device)
+        hier = hierarchical_axis(mesh, "x", slice_map=sm)
+        register_hier(mesh, "x", hier)
+        codec = CollectiveCodec(block=64)
+        good = coded(mesh, hier, codec)
+        budget = collect_wire_table(capture(good, args, device=device,
+                                            mesh=mesh),
+                                    mesh, {"x": list(sm)})["dcn"]["bytes"]
+        return check(uncoded(mesh, hier), *args,
+                     passes=["collective_budget"], exemptions=(),
+                     target=target, device=device, mesh=mesh,
+                     options={"collective_budget":
+                              {"wire": {"dcn_axes": {"x": list(sm)},
+                                        "dcn_bytes": budget}}})
+
+
+def seeded_codec_disabled(device="cpu") -> Report:
+    """COMM004: a two-stage reduce-scatter whose codec is silently
+    dropped, against the DCN budget its coded schedule honours (the packed
+    int8 payload prices at about a quarter of the fp32 bytes)."""
+    from ..parallel.overlap import hier_psum_scatter
+
+    def coded(mesh, hier, codec):
+        return lambda v: hier_psum_scatter(v, "x", hier, codec=codec,
+                                           mesh=mesh)
+
+    def uncoded(mesh, hier):                 # the seeded bug: no codec
+        return lambda v: hier_psum_scatter(v, "x", hier, mesh=mesh)
+
+    return _codec_wire_fixture(coded, uncoded,
+                               (torch.ones((16, 64), device=device),),
+                               "seeded:COMM004", device)
+
+
+def seeded_moe_dispatch_codec_off(device="cpu") -> Report:
+    """COMM004 on the EP dispatch: the expert all-to-all with its codec
+    dropped against the coded dispatch's DCN budget."""
+    from ..parallel.expert import make_ep_all_to_all
+
+    def coded(mesh, hier, codec):
+        return make_ep_all_to_all("x", hier=hier, codec=codec, mesh=mesh)
+
+    def uncoded(mesh, hier):
+        return make_ep_all_to_all("x", hier=hier, mesh=mesh)
+
+    return _codec_wire_fixture(coded, uncoded,
+                               (torch.ones((16, 64), device=device),),
+                               "seeded:COMM004[moe_dispatch]", device)
+
+
+def seeded_moe_dropless_codec_off(device="cpu") -> Report:
+    """COMM004 on the dropless dispatch: the uncoded int32 count exchange
+    then the payload windows, the codec dropped on the payload leg only,
+    against the coded composite's DCN budget."""
+    from ..parallel.expert import make_ep_all_to_all
+
+    def dispatch(mesh, hier, codec):
+        counts = make_ep_all_to_all("x", hier=hier, mesh=mesh)
+        pay = make_ep_all_to_all("x", hier=hier, codec=codec, mesh=mesh)
+        return lambda c, v: (counts(c), pay(v))
+
+    return _codec_wire_fixture(
+        dispatch, lambda mesh, hier: dispatch(mesh, hier, None),
+        (torch.ones((4, 4), dtype=torch.int32, device=device),
+         torch.ones((16, 64), device=device)),
+        "seeded:COMM004[moe_dropless]", device)
+
+
+def seeded_full_param_allgather(device="cpu") -> Report:
+    """HLO002: a stage-3-sharded param gathered wholesale inside the step,
+    against the stage-3 gate of half the param (no gather may exceed the
+    largest per-layer parameter)."""
+    from ..parallel.specs import NamedSharding, P
+    from .core import check_ranks
+
+    def build(rank):
+        mesh = _line_mesh(2, device)
+        p = NamedSharding(mesh, P("x", None)).shard(
+            torch.ones((1024, 64), device=device))
+
+        def bug(a):
+            return a.full() * 2.0             # gathers the whole param
+
+        return bug, (p,), {}, mesh
+
+    return check_ranks(build, 2, ranks=[0], device=device,
+                       passes=["hlo_post_checks"], exemptions=(),
+                       target="seeded:HLO002",
+                       options={"hlo_post_checks": {
+                           "max_allgather_bytes": 1024 * 64 * 4 // 2}})
+
+
+def seeded_unplanned_reshard(device="cpu") -> Report:
+    """SHARD001: the caller's code converts a sharded operand's layout (an
+    all-gather of the whole leaf, then its transposed block) that no step
+    plan issued."""
+    from ..parallel.specs import NamedSharding, P
+    from .core import check_ranks
+
+    def build(rank):
+        mesh = _line_mesh(2, device)
+        x = NamedSharding(mesh, P("x", None)).shard(
+            torch.ones((8, 8), device=device))
+
+        def bug(a):
+            full = a.full() * 2.0                      # the reshard
+            return NamedSharding(mesh, P(None, "x")).shard(full).local.sum()
+
+        return bug, (x,), {}, mesh
+
+    return check_ranks(build, 2, ranks=[0], device=device,
+                       passes=["sharding_consistency"], exemptions=(),
+                       target="seeded:SHARD001",
+                       options={"sharding_consistency":
+                                {"audit_resharding": True}})
+
+
+def seeded_replication_waste(device="cpu") -> Report:
+    """SHARD002: a 1 MB leaf left replicated on a 4-way axis its dims
+    divide: 0.75 MB of residency a rank the plan ignores."""
+    from ..parallel.specs import SpecLayout, TensorSpec
+    from .sharding import check_layout
+
+    layout = SpecLayout(
+        mesh_axes=(("x", 4),),
+        entries={"model.layers.*.mlp.up_proj.weight": TensorSpec(
+            shape=(512, 512), dtype="float32", dim_axes=((), ()))})
+    return check_layout(layout, replicated_min_bytes=256 << 10,
+                        exemptions=(), target="seeded:SHARD002")
+
+
+def seeded_cross_stack_divergence(device="cpu") -> Report:
+    """SHARD003: two stacks placing one logical parameter by transposed
+    specs."""
+    from ..parallel.specs import SpecLayout, TensorSpec
+    from .sharding import check_cross_stack
+
+    key = "model.layers.*.self_attn.q_proj.weight"
+    axes = (("sharding", 2), ("mp", 2))
+    a = SpecLayout(mesh_axes=axes, entries={key: TensorSpec(
+        shape=(64, 64), dtype="float32", dim_axes=(("sharding",), ("mp",)))})
+    b = SpecLayout(mesh_axes=axes, entries={key: TensorSpec(
+        shape=(64, 64), dtype="float32", dim_axes=(("mp",), ("sharding",)))})
+    return check_cross_stack({"mesh": a, "overlap": b}, exemptions=(),
+                             target="seeded:SHARD003")
+
+
+def seeded_shard_padding(device="cpu") -> Report:
+    """SHARD004: a hand-written spec cutting a 129-row leaf 4 ways (every
+    shard pads to 33 rows; the at-rest rule would have replicated it)."""
+    from ..parallel.specs import SpecLayout, TensorSpec
+    from .sharding import check_layout
+
+    layout = SpecLayout(
+        mesh_axes=(("x", 4),),
+        entries={"lm_head.weight": TensorSpec(
+            shape=(129, 64), dtype="float32", dim_axes=(("x",), ()))})
+    return check_layout(layout, exemptions=(), target="seeded:SHARD004")
+
+
+def seeded_unsharded_update(device="cpu") -> Report:
+    """SHARD005: a flat update on a mesh of two whose state is the whole
+    row-major buffer on every rank: the update runs replicated where the
+    step's layout cuts it two ways."""
+    from ..parallel.schedule import FlatUpdateLayout
+    from ..parallel.specs import P
+    from .core import fake_ranks
+
+    n = 1 << 15
+
+    def bug(st, g):                     # the whole buffer on every rank
+        m1 = st["__flat__"]["decay|float32"]["moment1"]
+        m1.mul_(0.9).add_(g, alpha=0.1)
+        return m1.sum()
+
+    state = {"__flat__": {"decay|float32": {
+        "moment1": torch.zeros(n, device=device),
+        "moment2": torch.zeros(n, device=device)}}}
+    with fake_ranks(2, 0):
+        mesh = _line_mesh(2, device)
+        layout = FlatUpdateLayout(mesh, lambda name, shape: P())
+        return check(bug, state, torch.ones(n, device=device), mesh=mesh,
+                     device=device, passes=["sharding_consistency"],
+                     exemptions=(), target="seeded:SHARD005",
+                     options={"sharding_consistency": {
+                         "expect_update_pin": True, "flat_layout": layout,
+                         "update_min_bytes": 1 << 10}})
+
+
+def seeded_schedule_divergence(device="cpu") -> Report:
+    """SCHED001: a hand-written stack table whose q_proj placement is
+    transposed against the schedule's derivation."""
+    from ..parallel.schedule import PartitionSchedule
+    from ..parallel.specs import Mesh, P, SpecLayout, TensorSpec
+    from .sharding import check_schedule_derivation
+
+    mesh = Mesh((2, 2), ("sharding", "mp"))
+    key = "model.layers.*.self_attn.q_proj.weight"
+    sched = PartitionSchedule.from_plan(mesh, {key: (64, 64)},
+                                        lambda n: P("sharding", "mp"))
+    hand = SpecLayout(
+        mesh_axes=(("sharding", 2), ("mp", 2)),
+        entries={key: TensorSpec(shape=(64, 64), dtype="float32",
+                                 dim_axes=(("mp",), ("sharding",)))})
+    return check_schedule_derivation(sched, {"mesh": hand}, exemptions=(),
+                                     target="seeded:SCHED001")
+
+
 # ------------------------------------------------------ lock discipline
 
 
@@ -439,6 +785,21 @@ GRAPH_SEEDED = {
     "MEM001[replica_delivery]": seeded_replica_delivery_over_budget,
     "MEM001[kv_handoff]": seeded_kv_handoff_over_budget,
     "MEM002": seeded_host_round_trip,
+    "COLL001": seeded_collective_order,
+    "COLL002": seeded_ppermute_race,
+    "COMM001": seeded_collective_budget,
+    "COMM002": seeded_unscheduled_collective,
+    "COMM003": seeded_ppermute_ring_order,
+    "COMM004": seeded_codec_disabled,
+    "COMM004[moe_dispatch]": seeded_moe_dispatch_codec_off,
+    "COMM004[moe_dropless]": seeded_moe_dropless_codec_off,
+    "HLO002": seeded_full_param_allgather,
+    "SHARD001": seeded_unplanned_reshard,
+    "SHARD002": seeded_replication_waste,
+    "SHARD003": seeded_cross_stack_divergence,
+    "SHARD004": seeded_shard_padding,
+    "SHARD005": seeded_unsharded_update,
+    "SCHED001": seeded_schedule_divergence,
 }
 
 RACE_SEEDED = {

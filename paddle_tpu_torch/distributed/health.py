@@ -19,12 +19,15 @@ resilient loop's (``resilience.py``); this module survives numeric ones
    transfer; ``ok`` combines them with the ``gates`` cutoffs ([loss,
    grad_norm, update_ratio], +inf = open) on the host, in fp32 as JAX
    compares them on the device.
-2. **The guard** (``guard_tree``): a fired probe hands back the OLD
-   params and optimizer state, bit-identical.  The port's updates return
-   new tensors (the flat AdamW's new master and moments), so the guard
-   picks references by the host ``ok``: no second copy of the state, no
-   ``torch.where``.  An update in place (a host-resident state) cannot be
-   undone and is refused with ``health=``.
+2. **The guard**: a fired probe hands back the OLD params and optimizer
+   state, bit-identical.  Llama's train step updates in place in two
+   passes (``parallel.memory.apply_flat_in_place`` / ``apply_in_place``):
+   the first computes the update's norm and writes nothing, the probe
+   reads it, and only a passing gate runs the second pass, which writes;
+   no copy of the state is made.  Steps that return new tensors (the
+   hybrid and GPT-MoE steps) pick references by the host ``ok``
+   (``guard_tree``).  The host-resident state's update streams through
+   the card in one pass and is refused with ``health=``.
 3. **The ladder** (``HealthMonitor``): skip and quarantine the batch ->
    an lr-backoff window -> rollback to the last checkpoint (the resilient
    loop's recovery, quarantined offsets force-skipped on replay) ->
@@ -185,12 +188,15 @@ def _host_read(t: torch.Tensor) -> np.ndarray:
 
 
 def make_probe(loss, grads, params, new_params, gates=None, *,
-               buckets: int = 8) -> Dict[str, Any]:
+               buckets: int = 8, update_sq=None) -> Dict[str, Any]:
     """The fused health probe (module docstring): ``{"loss",
     "grad_norm", "nonfinite"[buckets], "update_ratio", "ok"}`` as host
     values.  ``ok`` is False when any leaf holds a non-finite value, or
     the loss or the grad norm is non-finite or above its gate, or the
-    update ratio is above its gate (a NaN passes no gate)."""
+    update ratio is above its gate (a NaN passes no gate).  The update's
+    squared norm is ``update_sq`` when given (a 0-d fp32 tensor: an
+    in-place step's first pass computes it before writing anything),
+    else summed leaf by leaf from ``new_params`` against ``params``."""
     gleaves = [g for g in _leaves(grads) if _is_float(g)]
     ref = gleaves[0] if gleaves else None
     dev = (ref.local if isinstance(ref, ShardedTensor) else ref).device \
@@ -199,7 +205,10 @@ def make_probe(loss, grads, params, new_params, gates=None, *,
     terms = [torch.as_tensor(loss, dtype=torch.float32,
                              device=dev).reshape(())]
     upd = pn = None
-    if params is not None and new_params is not None:
+    if params is not None and update_sq is not None:
+        upd = [update_sq.to(dev).reshape(())]
+        pn = [_sq_norm(o) for o in _leaves(params) if _is_float(o)]
+    elif params is not None and new_params is not None:
         olds, news = _leaves(params), _leaves(new_params)
         pairs = [(o, n) for o, n in zip(olds, news) if _is_float(o)]
         upd = [_sq_diff(n, o) for o, n in pairs]
@@ -243,20 +252,16 @@ def normalize_gates(health_gates) -> np.ndarray:
 
 
 def probe_and_guard(loss, grads, params, opt_state, new_params,
-                    new_opt_state, health_gates, cfg: HealthConfig, *,
-                    given=None):
-    """The fused probe and the guard, shared by every health-enabled step:
-    ``(loss, guarded_params, guarded_opt_state, probe)``; a fired gate
-    passes the old params (``given``, the caller's own objects, when the
-    step placed them) and optimizer state through bit-identically."""
+                    new_opt_state, health_gates, cfg: HealthConfig):
+    """The fused probe and the guard of a step whose update returns new
+    tensors: ``(loss, guarded_params, guarded_opt_state, probe)``; a fired
+    gate passes the old params and optimizer state through
+    bit-identically."""
     probe = make_probe(loss, grads, params, new_params,
                        normalize_gates(health_gates),
                        buckets=cfg.nonfinite_buckets)
-    return (loss,
-            guard_tree(probe["ok"], new_params,
-                       params if given is None else given),
-            guard_tree(probe["ok"], new_opt_state, opt_state),
-            probe)
+    return (loss, guard_tree(probe["ok"], new_params, params),
+            guard_tree(probe["ok"], new_opt_state, opt_state), probe)
 
 
 def summarize_probe(probe) -> Dict[str, Any]:

@@ -50,8 +50,8 @@ speculation depth and the prefill budget at run time;
 Unlike the JAX engine, the page pools are updated IN PLACE (indexed
 assignment) instead of being donated through a compiled program: that is
 the donation contract ``analysis_entry`` hands the Graph Doctor, on both
-paths.  The Sharding Doctor's ``param_layout`` is ROADMAP A7 part three
-and raises.
+paths.  ``param_layout`` is the engine's table for the Sharding Doctor
+(``analysis/sharding.py``).
 """
 
 from __future__ import annotations
@@ -1385,10 +1385,12 @@ class ContinuousBatchingEngine:
                                               max(1, pool_bytes // 2))}}
 
     def param_layout(self):
-        raise NotImplementedError(
-            "param_layout (the Sharding Doctor's serving-stack extractor) "
-            "is ROADMAP A7 part three (paddle_tpu.inference.serving has "
-            "it)")
+        """The canonical ``SpecLayout`` of the engine's committed params
+        (the Sharding Doctor's serving-stack table,
+        ``analysis.sharding.extract_serving_layout``)."""
+        from ..analysis.sharding import extract_serving_layout
+
+        return extract_serving_layout(self)
 
     # ---------------- unified serving plane ----------------
 

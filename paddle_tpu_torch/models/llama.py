@@ -927,7 +927,13 @@ def build_train_step(model: LlamaForCausalLM, optimizer, mesh=None,
     """``build_train_step``, on one device or on a mesh:
 
         step(params, opt_state, step_no, lr, input_ids, labels)
-            -> (loss, new_params, new_opt_state)
+            -> (loss, params, opt_state)
+
+    The update is in place, as the JAX step donates both trees: the
+    params' tensors (or blocks) and the optimizer state's are overwritten,
+    and the step returns the objects it was given (a mesh step given
+    plain global tensors returns the ``ShardedTensor`` blocks it cut).  A
+    caller that reads the old values after a step passes copies.
 
     - the float params are cast to ``compute_dtype`` and run through the
       forward (``_forward``) and the cross entropy; the gradients are taken
@@ -951,11 +957,12 @@ def build_train_step(model: LlamaForCausalLM, optimizer, mesh=None,
     - ``memory`` (a ``parallel.memory.MemoryConfig``) owns the remat
       decision (``resolve_remat``) and replaces both flags;
     - the update is ``parallel.memory.apply_flat_offloaded`` for a
-      host-resident state (``init_offloaded_state``; it updates the params
-      and the state in place, as the JAX step donates them),
-      ``optimizer.apply_flat`` for a flat state (``init_flat_state``) and
-      ``optimizer.apply`` otherwise, at Adam step ``step_no + 1``, with
-      ``llama_decay_mask``;
+      host-resident state (``init_offloaded_state``),
+      ``parallel.memory.apply_flat_in_place`` for a flat state
+      (``init_flat_state``; ``optimizer.apply_flat``'s values, in buckets)
+      and ``parallel.memory.apply_in_place`` otherwise
+      (``optimizer.apply``'s values, leaf by leaf), at Adam step
+      ``step_no + 1``, with ``llama_decay_mask``;
     - ``mesh`` (a live ``parallel.specs.Mesh`` named ``("dp", "sharding",
       "mp")``, any sizes) runs the step of every rank over explicit
       collectives, as the JAX step runs GSPMD: ``schedule`` (a
@@ -984,18 +991,18 @@ def build_train_step(model: LlamaForCausalLM, optimizer, mesh=None,
       needs no process group: plain tensors in, plain tensors out, and the
       update of one device on them;
     - ``health`` (a ``distributed.health.HealthConfig``) fuses the health
-      probe and guard (``health.probe_and_guard``): the step takes
+      probe and guard (``health.make_probe``): the step takes
       ``health_gates`` (fp32[3] cutoffs, None: all open) and returns
-      ``(loss, new_params, new_opt_state, probe)``; a fired gate returns
-      the params and optimizer state it was given, bit-identical (the
-      update's new tensors are dropped: no copy of the state is made).
-      The probe's one host transfer is its scalars.  A host-resident
-      state updates in place, which no guard can undo: it is refused
-      with ``health``.
+      ``(loss, params, opt_state, probe)``.  The update runs in two
+      passes: the first computes the update's norm and writes nothing,
+      the probe reads it (its one host transfer is its scalars), and only
+      a passing gate runs the second, which recomputes the same values
+      and writes them; a fired gate leaves the params and optimizer state
+      bit-identical, with no copy of either made.  The host-resident
+      state's update is one pass: it is refused with ``health``.
 
-    PyTorch runs eagerly: no jit and no donation (but for the offloaded
-    update); the step keeps nothing from one call to the next, and the
-    loss stays on the device.  The one
+    PyTorch runs eagerly: no jit; the step keeps nothing from one call to
+    the next, and the loss stays on the device.  The one
     host sync is the mask's negative-id check, once per step, outside the
     accumulation.  ``step.accumulate(params, ids, labels,
     attention_mask=None) -> (loss, grads)`` is the gradient half alone."""
@@ -1200,7 +1207,11 @@ def build_train_step(model: LlamaForCausalLM, optimizer, mesh=None,
                  for k, v in g.items()}
         return loss, grads
 
-    def apply_update(params, grads, opt_state, lr, step_no):
+    def apply_update(params, grads, opt_state, lr, step_no, write=True):
+        """The update of the step, in place: the params' tensors (blocks)
+        and the optimizer state's are overwritten and returned.
+        ``write=False`` writes nothing and returns the global fp32 sum of
+        squares of the update (the health gate's first pass)."""
         if plain:       # the caller's own tensors: the one-device update
             params = {k: v.local for k, v in params.items()}
             grads = {k: v.local for k, v in grads.items()}
@@ -1209,16 +1220,12 @@ def build_train_step(model: LlamaForCausalLM, optimizer, mesh=None,
                 optimizer, params, grads, opt_state, lr, step_no + 1,
                 decay_mask=decay_mask, flat_layout=flat_layout)
         if optimizer.state_is_flat(opt_state):
-            return optimizer.apply_flat(params, grads, opt_state, lr,
-                                        step_no + 1, decay_mask=decay_mask,
-                                        flat_layout=flat_layout)
-        return optimizer.apply(
-            {k: _local(v) for k, v in params.items()},
-            {k: _local(v.complete() if isinstance(v, ShardedTensor) else v)
-             for k, v in grads.items()},
-            {k: {n: _local(t) for n, t in st.items()}
-             for k, st in opt_state.items()},
-            lr, step_no + 1, decay_mask=decay_mask)
+            return _memory.apply_flat_in_place(
+                optimizer, params, grads, opt_state, lr, step_no + 1,
+                decay_mask=decay_mask, flat_layout=flat_layout, write=write)
+        return _memory.apply_in_place(optimizer, params, grads, opt_state,
+                                      lr, step_no + 1, decay_mask=decay_mask,
+                                      write=write)
 
     def as_ids(x):
         return torch.as_tensor(x, device=dev).long()
@@ -1232,22 +1239,10 @@ def build_train_step(model: LlamaForCausalLM, optimizer, mesh=None,
                     torch.as_tensor(v, device=dev))
                 for k, v in params.items()}
 
-    def as_given(at_rest, new_params, new_state):
-        """The update's result in the callers' form: plain tensors without
-        a mesh, else ``ShardedTensor`` blocks of the params' placement."""
-        if plain:
-            return new_params, new_state
-
-        def wrap(k, t):
-            return t if isinstance(t, ShardedTensor) else \
-                at_rest[k].with_local(t)
-
-        new_params = {k: wrap(k, v) for k, v in new_params.items()}
-        if _memory.state_is_offloaded(new_state) \
-                or optimizer.state_is_flat(new_state):
-            return new_params, new_state
-        return new_params, {k: {n: wrap(k, t) for n, t in st.items()}
-                            for k, st in new_state.items()}
+    def as_given(params, at_rest):
+        """The params in the caller's form: its own dict without a mesh
+        (its tensors updated in place), else the at-rest blocks."""
+        return params if plain else at_rest
 
     def accumulate(params, ids, labels, attention_mask=None):
         loss, grads = gradients(placed(params), ids, labels, attention_mask)
@@ -1270,16 +1265,23 @@ def build_train_step(model: LlamaForCausalLM, optimizer, mesh=None,
                 "updated in place, which the guard cannot undo")
         at_rest = placed(params)
         loss, grads = gradients(at_rest, ids, lab, attention_mask)
-        new_params, new_state = apply_update(at_rest, grads, opt_state,
-                                             float(lr), int(step_no))
-        new_params, new_state = as_given(at_rest, new_params, new_state)
+        lr, step_no = float(lr), int(step_no)
         if health is None:
-            return loss, new_params, new_state
-        from ..distributed.health import probe_and_guard
+            apply_update(at_rest, grads, opt_state, lr, step_no)
+            return loss, as_given(params, at_rest), opt_state
+        from ..distributed.health import make_probe, normalize_gates
 
-        return probe_and_guard(loss, grads, at_rest, opt_state, new_params,
-                               new_state, health_gates, health,
-                               given=params)
+        # two passes: the gate reads the update's norm before anything is
+        # written, and only a passing gate writes (a fired one leaves the
+        # caller's params and state untouched, the same objects)
+        usq = apply_update(at_rest, grads, opt_state, lr, step_no,
+                           write=False)
+        probe = make_probe(loss, grads, at_rest, None,
+                           normalize_gates(health_gates),
+                           buckets=health.nonfinite_buckets, update_sq=usq)
+        if probe["ok"]:
+            apply_update(at_rest, grads, opt_state, lr, step_no)
+        return loss, as_given(params, at_rest), opt_state, probe
 
     step.accumulate = accumulate
     step.schedule = schedule

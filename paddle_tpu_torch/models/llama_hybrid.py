@@ -437,8 +437,8 @@ def build_hybrid_train_step(cfg: LlamaConfig, optimizer, mesh,
             x = x_sync(F.embedding(ids.long(), emb))
             outs = pipeline_apply(stage_fn, None, x, axis="pp",
                                   squeeze_stage_dim=False, mesh=mesh)
-            last = torch.tensor(float(mesh.axis_index("pp") == pp - 1),
-                                dtype=outs.dtype, device=dev)
+            last = torch.full((), float(mesh.axis_index("pp") == pp - 1),
+                              dtype=outs.dtype, device=dev)
             h = _compat.psum(outs * last, "pp", mesh=mesh)
             logits = head_logits(outer, h)
             nll = torch.logsumexp(logits.float(), dim=-1) \

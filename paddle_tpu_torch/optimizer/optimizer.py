@@ -420,6 +420,24 @@ class Adam(Optimizer):
             f"init_flat_state(params, ..., flat_layout=...) for this step's "
             f"schedule")
 
+    def _checked_flat_groups(self, who, params, grads, state, decay_mask,
+                             flat_layout):
+        """``_match_flat_groups`` for ``who``'s fused update, with its
+        refusals: an optimizer-level regularizer instance, a grouped param
+        without a gradient."""
+        if self._regularizer is not None:
+            raise NotImplementedError(
+                f"{who}: optimizer-level regularizer instances ride the "
+                f"per-param apply; pass weight_decay as a float")
+        groups = self._match_flat_groups(params, state, decay_mask,
+                                         _check_layout(flat_layout))
+        missing = [k for g in groups for k in g["keys"]
+                   if grads.get(k) is None]
+        if missing:
+            raise ValueError(f"{who}: every grouped param needs a gradient "
+                             f"(missing: {missing[:3]}...)")
+        return groups
+
     @staticmethod
     def _concat_f32(tensors) -> torch.Tensor:
         return torch.cat([t.float().reshape(-1) for t in tensors])
@@ -515,18 +533,9 @@ class Adam(Optimizer):
         if not self.state_is_flat(state):
             raise ValueError("apply_flat needs a state from "
                              "init_flat_state (got per-param state)")
-        if self._regularizer is not None:
-            raise NotImplementedError(
-                "apply_flat: optimizer-level regularizer instances ride "
-                "the per-param apply; pass weight_decay as a float")
         lr = _pin_lr_f32(lr)
-        groups = self._match_flat_groups(params, state, decay_mask,
-                                         _check_layout(flat_layout))
-        missing = [k for g in groups for k in g["keys"]
-                   if grads.get(k) is None]
-        if missing:
-            raise ValueError(f"apply_flat: every grouped param needs a "
-                             f"gradient (missing: {missing[:3]}...)")
+        groups = self._checked_flat_groups("apply_flat", params, grads,
+                                           state, decay_mask, flat_layout)
         sharded = _sharded(params.values())
         new_params = dict(params)
         new_flat = {}

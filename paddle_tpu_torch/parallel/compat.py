@@ -158,7 +158,7 @@ def all_gather_raw(x: torch.Tensor, axis: str, dim: int, mesh, *,
     def post(b):
         b = b.reshape((n,) + shape)
         if order is not None:
-            b = b[torch.as_tensor(np.argsort(order), device=b.device)]
+            b = b[torch.as_tensor(np.argsort(order)).to(b.device)]
         return b.movedim(0, dim).reshape(
             shape[:dim] + (n * shape[dim],) + shape[dim + 1:])
 
@@ -187,7 +187,7 @@ def reduce_scatter_raw(x: torch.Tensor, axis: str, dim: int, mesh, *,
     src = src.reshape(shape[:dim] + (n, blk) + shape[dim + 1:]) \
         .movedim(dim, 0)
     if order is not None:
-        src = src[torch.as_tensor(order, device=src.device)]
+        src = src[torch.as_tensor(order).to(src.device)]
     src = src.contiguous()
     out = torch.empty(src[0].numel(), dtype=src.dtype, device=src.device)
     return _issue(lambda a: _quiet(dist.reduce_scatter_tensor, out,
@@ -219,13 +219,13 @@ def _all_to_all_raw(x, axis, split_axis, concat_axis, mesh, tiled,
                              f"{shape} must equal {axis}={n}")
         blocks = x.movedim(split_axis, 0)
     if order is not None:
-        blocks = blocks[torch.as_tensor(order, device=blocks.device)]
+        blocks = blocks[torch.as_tensor(order).to(blocks.device)]
     src = blocks.contiguous()
 
     def post(out):
         # out[j] is the block the j-th listed member sent here
         if order is not None:
-            out = out[torch.as_tensor(np.argsort(order), device=out.device)]
+            out = out[torch.as_tensor(np.argsort(order)).to(out.device)]
         if tiled:
             return torch.cat(out.unbind(0), dim=concat_axis)
         return out.movedim(0, concat_axis)

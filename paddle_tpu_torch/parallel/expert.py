@@ -211,7 +211,7 @@ def _ep_exchange_impl(x, axis: str, hier, codec, kind: str = "grad", *,
     bs, rest = x.shape[0] // N, tuple(x.shape[1:])
     # stage-1 order: position j*S + s holds the block for ici_groups[s][j]
     ord1 = [hier.ici_groups[s][j] for j in range(K) for s in range(S)]
-    b1 = x.reshape((N, bs) + rest)[torch.as_tensor(ord1, device=x.device)]
+    b1 = x.reshape((N, bs) + rest)[torch.as_tensor(ord1).to(x.device)]
     r1 = _flat_a2a(b1.reshape((N * bs,) + rest), axis, mesh,
                    groups=hier.ici_groups)
     # destination-slice super-blocks: [K, S, ...] -> [S, K, ...]
@@ -224,7 +224,7 @@ def _ep_exchange_impl(x, axis: str, hier, codec, kind: str = "grad", *,
         r2 = _dcn_a2a_coded(b2, axis, hier, codec, rp, mesh)
     # block s*K + j came from axis position ici_groups[s][j]
     src = [hier.ici_groups[s][j] for s in range(S) for j in range(K)]
-    back = torch.as_tensor(np.argsort(src), device=x.device)
+    back = torch.as_tensor(np.argsort(src)).to(x.device)
     return r2.reshape((N, bs) + rest)[back].reshape((N * bs,) + rest)
 
 

@@ -407,6 +407,27 @@ def _rank_groups(groups, params):
     return out
 
 
+def _rank_flat_groups(optimizer, who, params, grads, flat, decay_mask,
+                      flat_layout):
+    """The groups of ``who``'s fused update (``_checked_flat_groups``)
+    with this rank's sizes (``_rank_groups``), each checked against the
+    elements its state ``flat[name]`` covers (a buffer, or a tuple of host
+    buckets)."""
+    groups = _rank_groups(optimizer._checked_flat_groups(
+        who, params, grads, {"__flat__": flat}, decay_mask, flat_layout),
+        params)
+    for g in groups:
+        m1 = flat[g["name"]]["moment1"]
+        n = sum(int(b.shape[0]) for b in m1) if isinstance(m1, tuple) \
+            else int(m1.shape[0])
+        if n != sum(g["sizes"]):
+            raise ValueError(
+                f"{who}: the state of group {g['name']} covers {n} elements "
+                f"but the params flatten to {sum(g['sizes'])}: a state built "
+                f"for another param set")
+    return groups
+
+
 def init_offloaded_state(optimizer, params, decay_mask=None,
                          master_from=None, bucket_bytes: int = 4 << 20,
                          flat_layout=None) -> Dict[str, Any]:
@@ -540,23 +561,12 @@ def apply_flat_offloaded(optimizer, params, grads, state, lr,
     stream runs over this rank's rows of the leaves (``_LeafRows``), made
     as the buckets reach them and written back to the at-rest blocks as
     the buckets pass them."""
-    from ..optimizer.optimizer import _check_layout
-
     if not state_is_offloaded(state):
         raise ValueError("apply_flat_offloaded needs a state from "
                          "init_offloaded_state / offload_flat_state")
-    if optimizer._regularizer is not None:
-        raise NotImplementedError(
-            "apply_flat_offloaded: optimizer-level regularizer instances "
-            "ride the per-param apply; pass weight_decay as a float")
-    groups = optimizer._match_flat_groups(
-        params, {"__flat__": state["__offload__"]}, decay_mask,
-        _check_layout(flat_layout))
-    missing = [k for g in groups for k in g["keys"] if grads.get(k) is None]
-    if missing:
-        raise ValueError(f"apply_flat_offloaded: every grouped param needs "
-                         f"a gradient (missing: {missing[:3]}...)")
-    groups = _rank_groups(groups, params)
+    groups = _rank_flat_groups(optimizer, "apply_flat_offloaded", params,
+                               grads, state["__offload__"], decay_mask,
+                               flat_layout)
     _stream_update(optimizer, groups, _LeafRows(groups, params, grads),
                    state, lr, step)
     return dict(params), state
@@ -570,10 +580,12 @@ class _LeafRows:
     block of a row-major leaf) and drops both rows: the card holds the
     rows of the leaves under the buckets in flight, never all of the
     rank's.  A plain leaf's rows are views of the tensors, updated in
-    place."""
+    place.  ``write=False`` reads only: a released row is dropped, never
+    written back (the gate's first pass of ``apply_flat_in_place``)."""
 
-    def __init__(self, groups, params, grads):
+    def __init__(self, groups, params, grads, write: bool = True):
         self.params, self.grads = params, grads
+        self.write = write
         self.group = {k: g for g in groups for k in g["keys"]}
         self.rows_p: Dict[str, torch.Tensor] = {}
         self.rows_g: Dict[str, torch.Tensor] = {}
@@ -605,7 +617,7 @@ class _LeafRows:
 
         row = self.rows_p.pop(k, None)
         self.rows_g.pop(k, None)
-        if row is None or not self._sharded(k):
+        if row is None or not self.write or not self._sharded(k):
             return
         p, g = self.params[k], self.group[k]
         if "layout" in g:
@@ -616,6 +628,50 @@ class _LeafRows:
         p.local.copy_(block)
 
 
+def _update_sq(new_row: torch.Tensor, old_row: torch.Tensor) -> torch.Tensor:
+    """The fp32 sum of squares of ``new_row - old_row``."""
+    d = new_row.to(torch.float32, copy=True)
+    d.sub_(old_row)
+    s = torch.linalg.vector_norm(d, dtype=torch.float32)
+    return s * s
+
+
+def _bucket_update(optimizer, g, spans, rows: _LeafRows, off: int, size: int,
+                   m1, m2, master, gbuf, pbuf, lr, step, write: bool = True):
+    """One bucket of a flat group's update: the fp32 flat range [off, off +
+    size) of the gradients packed into ``gbuf`` (and of the params into
+    ``pbuf`` when ``master`` is None, a group without a master), then
+    ``_flat_group_update`` over it and the bucket's ``m1``, ``m2`` and
+    ``master``; the new params, cast to their dtype, are written into the
+    leaves' rows (``rows``) and the new moments and master into ``m1``,
+    ``m2`` and ``master``; the rows of the leaves the bucket ends are
+    released.  ``write=False`` writes nothing and returns the fp32 sums of
+    squares of the params' update, one for each leaf piece of the bucket."""
+    if master is None:
+        mst = _pack(pbuf, rows.param, spans, off, size)
+    else:
+        mst = master
+    gsl = _pack(gbuf, rows.grad, spans, off, size)
+    new_master, nm1, nm2 = optimizer._flat_group_update(
+        gsl, m1, m2, mst, lr, step, g["decay"])
+    sq = []
+    for k, src, dst in _pieces(spans, off, size):
+        prow = rows.param(k)[src]
+        if write:
+            prow.copy_(new_master[dst])
+        else:
+            sq.append(_update_sq(new_master[dst].to(prow.dtype), prow))
+    if write:
+        m1.copy_(nm1)
+        m2.copy_(nm2)
+        if master is not None:
+            master.copy_(new_master)
+    for k, _, end in spans:
+        if off < end <= off + size:     # the stream is past this leaf
+            rows.release(k)
+    return sq
+
+
 def _stream_update(optimizer, groups, rows: _LeafRows, state, lr, step):
     """The bucket stream of ``apply_flat_offloaded`` over ``groups`` whose
     leaves' rows (``rows``) concatenate to the state's buffers; updates
@@ -623,14 +679,9 @@ def _stream_update(optimizer, groups, rows: _LeafRows, state, lr, step):
     tasks = []
     for g in groups:
         gs = state["__offload__"][g["name"]]
-        sizes = [int(b.shape[0]) for b in gs["moment1"]]
-        if sum(sizes) != sum(g["sizes"]):
-            raise ValueError(
-                f"offloaded state for group {g['name']} covers {sum(sizes)} "
-                f"elements but the params flatten to {sum(g['sizes'])}: a "
-                f"state built for another param set")
         spans, off = _key_spans(g), 0
-        for i, size in enumerate(sizes):
+        for i, b in enumerate(gs["moment1"]):
+            size = int(b.shape[0])
             tasks.append((g, gs, spans, i, off, size))
             off += size
     if not tasks:
@@ -661,32 +712,140 @@ def _stream_update(optimizer, groups, rows: _LeafRows, state, lr, step):
         if j + 1 < len(tasks):
             fetch(j + 1)
         lanes.wait(lanes.main, came_in[s])
-        m1, m2 = slots[s]["moment1"][:size], slots[s]["moment2"][:size]
-        if "master" in gs:
-            mst = slots[s]["master"][:size]
-        else:
-            if pbuf is None:
-                pbuf = torch.empty(cap, dtype=torch.float32, device=dev)
-            mst = _pack(pbuf, rows.param, spans, off, size)
-        gsl = _pack(gbuf, rows.grad, spans, off, size)
-        new_master, nm1, nm2 = optimizer._flat_group_update(
-            gsl, m1, m2, mst, lr, step, g["decay"])
-        m1.copy_(nm1)
-        m2.copy_(nm2)
-        if "master" in gs:
-            mst.copy_(new_master)
-        for k, src, dst in _pieces(spans, off, size):
-            rows.param(k)[src].copy_(new_master[dst])
-        for k, _, end in spans:
-            if off < end <= off + size:     # the stream is past this leaf
-                rows.release(k)
+        # the slots hold every key of any group: take this group's
+        slot = {key: slots[s][key][:size] for key in gs}
+        if "master" not in gs and pbuf is None:
+            pbuf = torch.empty(cap, dtype=torch.float32, device=dev)
+        _bucket_update(optimizer, g, spans, rows, off, size,
+                       slot["moment1"], slot["moment2"], slot.get("master"),
+                       gbuf, pbuf, lr, step)
         done = lanes.event(lanes.main)
         with lanes.on(lanes.outward):
             lanes.wait(lanes.outward, done)
             for key, bs in gs.items():
-                bs[i].copy_(slots[s][key][:size], non_blocking=lanes.cuda)
+                bs[i].copy_(slot[key], non_blocking=lanes.cuda)
             went_out[s] = lanes.event(lanes.outward)
     lanes.finish()
+
+
+# ------------------------------------------- in-place device-resident updates
+
+#: the bucket cap of the in-place flat update: the most fp32 elements of
+#: one group updated at once (the transients of the Adam arithmetic)
+IN_PLACE_BUCKET_BYTES = 16 << 20
+
+
+def apply_flat_in_place(optimizer, params, grads, state, lr, step: int = 0,
+                        decay_mask=None, flat_layout=None, *,
+                        write: bool = True):
+    """``optimizer.apply_flat`` over a device-resident flat state, in place:
+    each group is updated in buckets of at most ``IN_PLACE_BUCKET_BYTES``
+    of fp32 (``_bucket_update``), the bucket's moments and master written
+    back into the state's own buffers and the new params, cast to their
+    dtype, into the params' own storage (a mesh rank's rows go back to its
+    at-rest blocks as the stream passes each leaf, ``_LeafRows``).  The
+    arithmetic is ``_flat_group_update`` element for element, so the
+    values are ``apply_flat``'s bit for bit; the card holds one bucket of
+    transients beside the state, never a second copy of it.  Returns
+    ``(params, state)``, the objects it was given.
+
+    ``write=False`` is the health gate's first pass: nothing is written,
+    and the return is the global fp32 sum of squares of the params'
+    update (each bucket's new params in their dtype against the old), a
+    0-d tensor on the device; the second pass recomputes the same buckets
+    and writes them."""
+    from . import compat
+
+    if not optimizer.state_is_flat(state):
+        raise ValueError("apply_flat_in_place needs a state from "
+                         "init_flat_state")
+    groups = _rank_flat_groups(optimizer, "apply_flat_in_place", params,
+                               grads, state["__flat__"], decay_mask,
+                               flat_layout)
+    rows = _LeafRows(groups, params, grads, write=write)
+    lr = _pin_lr_f32(lr)
+    sq = []
+    for g in groups:
+        gs = state["__flat__"][g["name"]]
+        spans = _key_spans(g)
+        plan = stream_bucket_plan(sum(g["sizes"]), 4, IN_PLACE_BUCKET_BYTES)
+        dev = gs["moment1"].device
+        cap = max((s for _, s in plan), default=0)
+        gbuf = torch.empty(cap, dtype=torch.float32, device=dev)
+        pbuf = None if "master" in gs else torch.empty(
+            cap, dtype=torch.float32, device=dev)
+        part = []
+        for off, size in plan:
+            m1, m2, mst = (gs[key][off:off + size] if key in gs else None
+                           for key in ("moment1", "moment2", "master"))
+            part += _bucket_update(optimizer, g, spans, rows, off, size, m1,
+                                   m2, mst, gbuf, pbuf, lr, step, write)
+        if part:
+            total = torch.stack(part).sum()
+            # a shard-major group's rows are distinct on every rank of the
+            # layout's axes; a row-major group's are whole on every rank
+            lo = g.get("layout")
+            if lo is not None and rows._sharded(g["keys"][0]):
+                for a in lo.axes:
+                    total = compat.all_reduce_raw(total, a, lo.mesh)
+            sq.append(total)
+    if write:
+        return params, state
+    if not sq:
+        dev = next(iter(state["__flat__"].values()))["moment1"].device \
+            if state["__flat__"] else torch.device("cpu")
+        return torch.zeros((), dtype=torch.float32, device=dev)
+    return torch.stack(sq).sum()
+
+
+def apply_in_place(optimizer, params, grads, state, lr, step: int = 0,
+                   decay_mask=None, *, write: bool = True):
+    """``optimizer.apply`` over a per-tensor state, in place: one leaf at a
+    time, ``optimizer.apply`` of that leaf alone (its block, for a
+    ``ShardedTensor``; a completed gradient block on a mesh), its new value
+    and state copied into the caller's tensors, a state the leaf did not
+    have yet added to ``state``.  Returns ``(params, state)``.
+    ``write=False`` writes nothing and returns the global fp32 sum of
+    squares of the params' update, leaf by leaf as ``health._sq_diff``
+    sums it (the gate's first pass)."""
+    from ..distributed.health import _sq_diff
+    from .specs import ShardedTensor as ST
+
+    def local(t):
+        return t.local if isinstance(t, ST) else t
+
+    sq = []
+    for k, v in params.items():
+        g = grads.get(k)
+        if g is None:
+            continue
+        st = state.get(k)
+        new_p, new_s = optimizer.apply(
+            {k: local(v)}, {k: local(g.complete() if isinstance(g, ST)
+                                     else g)},
+            {k: {n: local(t) for n, t in st.items()}} if st else {},
+            lr, step, decay_mask=decay_mask)
+        nv, ns = new_p[k], new_s[k]
+        if not write:
+            sq.append(_sq_diff(v.with_local(nv) if isinstance(v, ST)
+                               else nv, v))
+            continue
+        local(v).copy_(nv)
+        if st:
+            for n, t in ns.items():
+                if n in st:
+                    if local(st[n]) is not t:
+                        local(st[n]).copy_(t)
+                else:
+                    st[n] = v.with_local(t) if isinstance(v, ST) else t
+        else:
+            state[k] = {n: v.with_local(t) if isinstance(v, ST) else t
+                        for n, t in ns.items()}
+    if write:
+        return params, state
+    if not sq:
+        return torch.zeros((), dtype=torch.float32)
+    return torch.stack(sq).sum()
 
 
 # ------------------------------------------------------- meter and tuner
@@ -772,7 +931,8 @@ def joint_memory_codec_lattice(overlap,
 def tune_memory_config(step_builder: Callable[[Any], Tuple],
                        hbm_bytes: int, lattice: Optional[Sequence] = None,
                        *, dcn_wire_bytes: Optional[int] = None,
-                       dcn_bytes_fn: Optional[Callable] = None):
+                       dcn_bytes_fn: Optional[Callable] = None,
+                       meter: Optional[Callable] = None):
     """Walk ``lattice`` (``MEMORY_LATTICE``: cheapest predicted step time
     first; ``MemoryConfig`` or ``JointConfig`` points), measure each built
     step's peak on the card (``measure_step_memory``) and return
@@ -780,7 +940,9 @@ def tune_memory_config(step_builder: Callable[[Any], Tuple],
     and every point's record.  ``step_builder(cfg)`` returns ``(fn,
     args)``.  ``dcn_wire_bytes`` adds the second budget: each point's
     post-codec inter-slice bytes, measured by ``dcn_bytes_fn(cfg, fn,
-    args)``, must fit too."""
+    args)``, must fit too.  ``meter(fn, *args)`` replaces the card's
+    meter (the Graph Doctor's static peak of a capture, for a walk over
+    ranks of a fake process group)."""
     if dcn_wire_bytes is not None and dcn_bytes_fn is None:
         raise ValueError(
             "tune_memory_config: dcn_wire_bytes declared but no "
@@ -790,7 +952,7 @@ def tune_memory_config(step_builder: Callable[[Any], Tuple],
     records: List[Dict[str, Any]] = []
     for cfg in lattice:
         fn, args = step_builder(cfg)
-        stats = measure_step_memory(fn, *args)
+        stats = (meter or measure_step_memory)(fn, *args)
         rec = {"config": cfg.to_json(), "label": cfg.label(), **stats,
                "fits": stats["peak_bytes"] <= hbm_bytes}
         if dcn_wire_bytes is not None:

@@ -46,10 +46,11 @@ overlap step's bucket leaves by dp, its replicated leaves by dp x
 sharding, the embedding by mp), which AdamW's scale invariance hides from
 its parity tests.  The port keeps the loss's gradients.
 
-What stays in the JAX package: ``OVERLAP_REGION_FUNCS`` names JAX frames
-for the Graph Doctor's collective attribution (COMM002), which is
-ROADMAP A7 part three; the XLA latency-hiding flags have no PyTorch
-counterpart.
+``OVERLAP_REGION_FUNCS`` names the engine's own region functions (and
+the expert-parallel exchange's, ``parallel/expert.py``): the Graph
+Doctor's COMM002 attributes a collective to the engine when one of them
+is in the frames that issued it.  The XLA latency-hiding flags have no
+PyTorch counterpart.
 """
 
 from __future__ import annotations
@@ -170,7 +171,7 @@ def hier_psum_scatter(x: torch.Tensor, axis: str, hier,
     inter-slice stage on the intra-slice residue, coded under ``codec``.
     With ``async_op`` the last collective is left in flight (a
     ``Pending``)."""
-    order = torch.as_tensor(_hier_block_order(hier), device=x.device)
+    order = torch.as_tensor(_hier_block_order(hier)).to(x.device)
     x2 = _split_blocks(x, hier.size)[order].reshape(tuple(x.shape))
     y = reduce_scatter_raw(x2, axis, 0, mesh, groups=hier.ici_groups)
     rp = _codec_resolve(codec, kind)
@@ -223,7 +224,7 @@ def hier_all_gather(x: torch.Tensor, axis: str, hier,
 
     def finish(y):
         z = all_gather_raw(y, axis, 0, mesh, groups=hier.ici_groups)
-        inv = torch.as_tensor(np.argsort(order), device=z.device)
+        inv = torch.as_tensor(np.argsort(order)).to(z.device)
         return _split_blocks(z, hier.size)[inv].reshape(
             (-1,) + tuple(x.shape[1:]))
 
@@ -717,8 +718,7 @@ def ring_collective_matmul(y: torch.Tensor, w_local: torch.Tensor,
             _compat.ppermute(acc, axis, perm, mesh=mesh) + part
     g = _GatherReplicated.apply(acc, axis, mesh)
     order = torch.as_tensor(np.argsort([(i + 2) % size
-                                        for i in range(size)]),
-                            device=g.device)
+                                        for i in range(size)])).to(g.device)
     out = g[order].movedim(0, -2)
     return out.reshape(tuple(y.shape[:-1]) + (n,))
 
@@ -879,6 +879,37 @@ def gathered_layer_scan(layer_fn: Callable, xs_buckets: List[torch.Tensor],
 # ---------------------------------------------------------------------------
 
 
+# Function names, bare or qualified (``Class.method``,
+# ``factory.<locals>.closure``), whose presence in the frames that issued
+# a collective marks it as engine-issued: the Graph Doctor's COMM002 (the
+# collective budget pass) treats a collective outside these regions, and
+# outside the step's own planned code, as one the engine did not schedule
+# while an overlap engine is active.  Names are the engine's own entry
+# points: a generic bare name like "backward" would whitelist unrelated
+# collectives, so methods are listed by their qualified names.
+OVERLAP_REGION_FUNCS = frozenset({
+    # the decoder-stack region: bucket transport, prefetch, gradient syncs
+    "build_overlap_stack.<locals>.stack", "build_overlap_stack.<locals>.grads",
+    "gathered_layer_scan", "decoder_layer_tp", "tp_row_matmul",
+    "ring_collective_matmul", "_BucketGather.forward",
+    "_BucketGather.backward", "BucketTransport.gather",
+    "BucketTransport.reduce", "StackGrads.wait_all", "_GradSync.forward",
+    "_GradSync.backward", "make_grad_sync.<locals>.sync",
+    "_GatherReplicated.forward", "_GatherReplicated.backward",
+    "gather_tree_over_sharding", "slice_tree_own_shard",
+    # the two-stage collectives and the inter-slice codec's exchanges
+    "hier_psum_scatter", "hier_all_gather", "hier_psum",
+    "_dcn_psum_scatter_coded", "_dcn_all_gather_coded",
+    # the expert-parallel exchange (parallel/expert.py), dispatch and
+    # combine, with and without the codec, and its transpose
+    "_ep_exchange_impl", "_dcn_a2a_coded", "_flat_a2a",
+    "_EPExchange.forward", "_EPExchange.backward",
+    "make_ep_all_to_all.<locals>.ep_exchange",
+    "build_moe_ep_forward.<locals>.fwd",
+    "build_moe_ep_dropless_forward.<locals>.fwd",
+})
+
+
 def stack_layout_plan(shapes: Dict[str, Tuple[int, ...]], mesh,
                       spec_for: Callable, oc: OverlapConfig,
                       compute_dtype=torch.bfloat16):
@@ -990,6 +1021,7 @@ def build_overlap_stack(cfg, mesh, shapes: Dict[str, Tuple[int, ...]],
 
 
 __all__ = ["COLLECTIVE_MATMUL_MIN_OUT_ELEMS", "BucketTransport",
+           "OVERLAP_REGION_FUNCS",
            "OverlapConfig", "StackGrads", "build_overlap_stack",
            "chunk_leaf_spec", "decoder_layer_tp",
            "gather_tree_over_sharding", "gathered_layer_scan",

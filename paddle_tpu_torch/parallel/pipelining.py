@@ -59,8 +59,10 @@ def pipeline_apply(stage_fn: Callable, stage_params: Any, x: torch.Tensor,
     perm = [(i, (i + 1) % p) for i in range(p)]
     params = pytree.tree_map(lambda a: a[0], stage_params) \
         if squeeze_stage_dim else stage_params
-    first = torch.tensor(me == 0, device=x.device)
-    last = torch.tensor(me == p - 1, device=x.device)
+    # factory ops, not tensor literals: a capture on fake tensors records
+    # them and allocates nothing
+    first = torch.full((), me == 0, dtype=torch.bool, device=x.device)
+    last = torch.full((), me == p - 1, dtype=torch.bool, device=x.device)
     state = torch.zeros_like(x[0])
     outs = [torch.zeros_like(x[0]) for _ in range(m)]
     for t in range(m + p - 1):

@@ -33,12 +33,11 @@ Port of ``paddle_tpu/parallel/schedule.py``:
   walk one axis richer.
 
 ``from_moe_ep`` is the MoE EP block's schedule (``parallel/expert.py``'s
-plan, the ``ep`` or ``ep_dropless`` tactic).  Two parts of the Graph
-Doctor are not in the port and raise ``NotImplementedError``: the DCN wire
-measurement of a traced step (``measure_dcn_wire_bytes``, the COMM004
-pricing, ROADMAP A7 part three: it needs a capture at a world size above
-one) and the roofline-predicted walk (``tune_schedule_config(
-predict=True)``, A7 part four).
+plan, the ``ep`` or ``ep_dropless`` tactic).  The DCN wire measurement of
+a built step (``measure_dcn_wire_bytes``) is the Graph Doctor's COMM004
+pricing of its capture; the roofline-predicted walk
+(``tune_schedule_config(predict=True)``, A7 part four) raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -748,11 +747,31 @@ def choose_joint_config(records: Sequence[Dict[str, Any]],
 
 
 def measure_dcn_wire_bytes(cfg: JointScheduleConfig, fn, args) -> int:
-    """Post-codec DCN bytes of one built step: the Graph Doctor's COMM004
-    pricing of a traced program, ROADMAP A7 part three (a capture at a
-    world size above one)."""
-    raise _unported("measure_dcn_wire_bytes (the Graph Doctor's COMM004 "
-                    "pricing of a traced step)", "A7 part three")
+    """Post-codec DCN bytes of one built step (the COMM004 cost model of
+    the joint walk): the Graph Doctor captures ``fn(*args)`` once on fake
+    tensors on this rank's process group (a fake one in a rehearsal,
+    ``analysis.core.fake_ranks``) and prices its collectives against the
+    point's slice map (``collect_wire_table``).  The step's mesh names the
+    axes (``fn.schedule.mesh``, else the first ``ShardedTensor`` of the
+    arguments)."""
+    import torch.utils._pytree as pytree
+
+    from ..analysis.core import capture
+    from ..analysis.passes.collective_budget import collect_wire_table
+    from .specs import ShardedTensor
+
+    dcn_axes = cfg.partition.dcn_axes()
+    if not dcn_axes:
+        return 0
+    leaves = pytree.tree_leaves(list(args),
+                                is_leaf=lambda x: isinstance(x,
+                                                             ShardedTensor))
+    mesh = getattr(getattr(fn, "schedule", None), "mesh", None) or next(
+        (x.mesh for x in leaves if isinstance(x, ShardedTensor)), None)
+    dev = next((x.device for x in leaves
+                if isinstance(x, (torch.Tensor, ShardedTensor))), None)
+    cap = capture(fn, tuple(args), device=dev, mesh=mesh)
+    return int(collect_wire_table(cap, mesh, dcn_axes)["dcn"]["bytes"])
 
 
 def tune_schedule_config(step_builder: Callable[[JointScheduleConfig],
@@ -762,24 +781,28 @@ def tune_schedule_config(step_builder: Callable[[JointScheduleConfig],
                          dcn_wire_bytes: Optional[int] = None,
                          predict: bool = False,
                          estimator: Optional[Callable] = None,
-                         top_k: int = 1):
+                         top_k: int = 1, meter: Optional[Callable] = None,
+                         dcn_bytes_fn: Optional[Callable] = None):
     """The joint search: ``memory.tune_memory_config``'s walk (cheapest
-    first, each built step's peak measured on the card, first fit wins)
-    over the partition x memory x overlap lattice; returns ``(chosen,
-    records)``.  A DCN wire budget (measured by ``measure_dcn_wire_bytes``,
-    ROADMAP A7 part three) and ``predict=True`` (the roofline estimator's
-    ranking, A7 part four) raise."""
+    first, each built step's peak measured on the card, or by ``meter``,
+    first fit wins) over the partition x memory x overlap lattice; returns
+    ``(chosen, records)``.  A DCN wire budget is measured by
+    ``measure_dcn_wire_bytes`` (each point's step captured and priced), or
+    by ``dcn_bytes_fn``; ``predict=True`` (the roofline estimator's
+    ranking, A7 part four) raises."""
     from .memory import tune_memory_config
 
     if predict:
         raise _unported("tune_schedule_config(predict=True) (the roofline "
                         "estimator's ranking)", "A7 part four")
-    if dcn_wire_bytes is not None:
-        raise _unported("tune_schedule_config(dcn_wire_bytes=...) (the "
-                        "Graph Doctor's COMM004 pricing of a traced step)",
-                        "A7 part three")
+    if dcn_wire_bytes is None:
+        return tune_memory_config(step_builder, hbm_bytes,
+                                  lattice=tuple(lattice), meter=meter)
     return tune_memory_config(step_builder, hbm_bytes,
-                              lattice=tuple(lattice))
+                              lattice=tuple(lattice),
+                              dcn_wire_bytes=dcn_wire_bytes,
+                              dcn_bytes_fn=dcn_bytes_fn
+                              or measure_dcn_wire_bytes, meter=meter)
 
 
 __all__ = ["FlatUpdateLayout", "JointScheduleConfig", "PartitionPoint",

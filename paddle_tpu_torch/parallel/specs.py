@@ -446,6 +446,17 @@ class TensorSpec:
     def nbytes(self) -> int:
         return math.prod(self.shape) * _itemsize(self.dtype)
 
+    @property
+    def axes_used(self) -> frozenset:
+        return frozenset(a for axes in self.dim_axes for a in axes)
+
+    def restrict(self, keep: frozenset) -> "TensorSpec":
+        """Drop mesh axes outside ``keep`` from every dim (a hybrid table's
+        pp lead is invisible to a stack whose mesh has no pp axis)."""
+        return dataclasses.replace(
+            self, dim_axes=tuple(tuple(a for a in axes if a in keep)
+                                 for axes in self.dim_axes))
+
     def partition_spec(self) -> P:
         return P(*(None if not axes
                    else (axes if len(axes) > 1 else axes[0])
@@ -482,6 +493,9 @@ class SpecLayout:
 
     def items(self):
         return self.entries.items()
+
+    def active_axes(self) -> frozenset:
+        return frozenset(a for a, n in self.mesh_axes if n > 1)
 
     def to_table(self) -> Dict[str, Any]:
         """JSON-able dump (the JAX package's ``canonical_table`` form)."""

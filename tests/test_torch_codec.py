@@ -353,8 +353,9 @@ def _seeded_records():
 def test_choose_joint_config_equals_jax():
     """The same index as JAX's under every pair of budgets on its seeded
     records (the single-budget and joint picks, monotone, None when
-    nothing fits); the tuner's DCN budget and predicted walk raise citing
-    ROADMAP A7 (parts three and four)."""
+    nothing fits); the tuner's DCN budget walks the lattice (an empty one
+    chooses nothing) and its predicted walk raises citing ROADMAP A7 part
+    four."""
     from paddle_tpu.parallel import schedule as JS
     from paddle_tpu_torch.parallel import schedule as S
 
@@ -370,6 +371,8 @@ def test_choose_joint_config_equals_jax():
     assert recs[S.choose_joint_config(
         recs, hbm_bytes=3_300_000, dcn_wire_bytes=172_000)]["label"] \
         == "tp8/on"
-    for kw in ({"dcn_wire_bytes": 1}, {"predict": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue A7"):
-            S.tune_schedule_config(None, 0, (), **kw)
+    assert S.tune_schedule_config(None, 0, (), dcn_wire_bytes=1) == (None,
+                                                                     [])
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP queue A7 part four"):
+        S.tune_schedule_config(None, 0, (), predict=True)

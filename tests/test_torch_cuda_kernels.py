@@ -3124,3 +3124,45 @@ def test_graph_doctor_checks_at_small_width(dev):
         fn, a, kwargs, options = eng.analysis_entry()
         chip_smoke._doctor_target("serving", fn, a, kwargs, options, dev,
                                   want)
+
+
+def test_capture_parity_on_four_cards(tmp_path):
+    """The Graph Doctor's view of a rank against the rank's real NCCL
+    collectives on four cards: each rank's capture on a fake group of 4
+    (fake cuda tensors) lists the collectives (op, group, peer, payload
+    bytes, in order) that the same step then issues over NCCL, counted
+    where ``parallel/compat.py`` hands them to ``torch.distributed``
+    (``_issue``'s calls, ``_ppermute_raw``'s ``batch_isend_irecv``), for
+    the mesh step on (dp, sharding, mp) = (1, 2, 2) and the dropless EP
+    step on (1, 1, 4) (``tests/torch_gang.py``; the gloo rehearsal is
+    tests/test_torch_collective_doctor.py's).  The captures run in this
+    process before the ranks start.  Prints each card's name and power
+    limit and the counts.  Needs four GPUs."""
+    import sys
+    from pathlib import Path
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four NVIDIA GPUs")
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from torch_gang import capture_parity_rank, parity_captures
+
+    for line in _card_names():
+        print(line)
+    _build.build()                      # once, before the ranks load it
+    parity_captures(str(tmp_path), 4, "cuda")    # here: no real group
+    torch.multiprocessing.spawn(capture_parity_rank,
+                                args=(4, str(tmp_path), "cuda"), nprocs=4,
+                                join=True)
+    summary = {}
+    for rank in range(4):
+        out = torch.load(tmp_path / f"parity.{rank}.pt")
+        for name, rec in out.items():
+            assert rec["want"], (rank, name)
+            assert rec["got"] == rec["want"], (rank, name, rec)
+            kinds = {}
+            for op, _, _, nbytes in rec["got"]:
+                k = kinds.setdefault(op, [0, 0])
+                k[0] += 1
+                k[1] += nbytes
+            summary[f"{name}.rank{rank}"] = kinds
+    print("capture_parity_four_cards: " + json.dumps(summary))

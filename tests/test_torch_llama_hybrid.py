@@ -417,11 +417,11 @@ def test_no_stale_a6_pointers():
 
 
 def test_no_stale_a7_pointers():
-    """Since the Graph Doctor's one-rank half is in (ROADMAP A7's second
-    part), a port line that names A7 names part three (what needs a world
-    size above one) or part four (the roofline), and the hooks it ported
-    (the reshard plan's, the fleet's and the handoff's MEM001 budgets, the
-    serving entry) neither raise nor point at a later slice."""
+    """Since the Graph Doctor above one rank is in (ROADMAP A7's third
+    part), a port line that names A7 names part four (the roofline), and
+    the hooks it ported (the reshard plan's, the fleet's and the handoff's
+    MEM001 budgets, the serving entry and its ``param_layout``) neither
+    raise nor point at a later slice."""
     import inspect
 
     from paddle_tpu_torch.inference import disagg, fleet, serving
@@ -434,7 +434,7 @@ def test_no_stale_a7_pointers():
         text = path.read_text()
         for i, line in enumerate(text.splitlines()):
             if re.search(r"\bA7\b", line) and not re.search(
-                    r"A7 part (three|four)", line):
+                    r"A7 part four", line):
                 hits.append(f"{path.name}:{i + 1}: {line.strip()}")
         for node in ast.walk(ast.parse(text)):
             if isinstance(node, ast.Raise) and node.exc is not None:
@@ -445,7 +445,8 @@ def test_no_stale_a7_pointers():
                fleet.ReplicaSet.check_delivery_budget,
                disagg.KVHandoffPlanner.check_handoff_budget,
                serving.ContinuousBatchingEngine.analysis_entry,
-               serving.ContinuousBatchingEngine._unified_analysis_entry):
+               serving.ContinuousBatchingEngine._unified_analysis_entry,
+               serving.ContinuousBatchingEngine.param_layout):
         src = inspect.getsource(fn)
         if "NotImplementedError" in src or "later slice" in src:
             hits.append(fn.__qualname__)

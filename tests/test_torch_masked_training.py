@@ -151,7 +151,8 @@ def test_masked_train_step_trajectory_matches_jax(pair, accum):
     opt = AdamW(learning_rate=lr, multi_precision=True)
     step = build_train_step(model, opt, compute_dtype=torch.float32,
                             accum_steps=accum)
-    tp = model.functional_state()
+    # the step updates its params in place: leave the shared model alone
+    tp = {k: v.clone() for k, v in model.functional_state().items()}
     tst = opt_state_from_jax(jax.tree_util.tree_map(np.asarray, jst), "cpu")
     jl, tl = [], []
     for i in range(5):

@@ -351,8 +351,9 @@ def _moe_ep_cfg():
 
 
 # the names A5.1 left raising; since A5.2 the overlap engine's are ported,
-# since A5.3 ``from_moe_ep`` (item None: the call returns) and what still
-# raises cites its item
+# since A5.3 ``from_moe_ep``, since A7's third part the DCN wire
+# measurement (item None: the call returns) and what still raises cites
+# its item
 @pytest.mark.parametrize("call,item", [
     (lambda s: s.stack_plan(), None),
     (lambda s: tsched.StackSchedule({}, [], [], 1, ()), None),
@@ -363,12 +364,15 @@ def _moe_ep_cfg():
         tsched.PartitionPoint("x", ()), None), None),
     (lambda s: tsched.joint_schedule_lattice(()), None),
     (lambda s: tsched.choose_joint_config([]), None),
-    (lambda s: tsched.measure_dcn_wire_bytes(None, None, ()), "A7"),
+    (lambda s: tsched.measure_dcn_wire_bytes(tsched.JointScheduleConfig(
+        tsched.PartitionPoint("x", ()), None), None, ()), None),
     (lambda s: tsched.tune_schedule_config(None, 0, (),
-                                           dcn_wire_bytes=1), "A7"),
+                                           dcn_wire_bytes=1), None),
+    (lambda s: tsched.tune_schedule_config(None, 0, (), predict=True),
+     "A7 part four"),
 ], ids=["stack_plan", "StackSchedule", "from_moe_ep", "PartitionPoint",
         "JointScheduleConfig", "joint_schedule_lattice", "choose_joint_config",
-        "measure_dcn_wire_bytes", "tune_schedule_config"])
+        "measure_dcn_wire_bytes", "tune_schedule_config", "predict"])
 def test_later_parts_raise_citing_a5(models, call, item):
     _, model = models
     sched = tsched.PartitionSchedule.from_model(model, Mesh((1, 2, 2), AXES))

@@ -369,15 +369,22 @@ def test_engine_later_slices_raise(pair, kw, match):
 
 def test_engine_later_methods_raise(pair):
     """The Graph Doctor's entry is ported (tests/test_torch_doctor_budgets.py
-    sweeps it); the Sharding Doctor's ``param_layout`` is ROADMAP A7 part
-    three and raises citing it."""
-    _, _, cfg, _, params = pair
+    sweeps it), and so is the Sharding Doctor's ``param_layout``: the
+    serving table equals JAX's engine's on the same weights (replicated,
+    one entry a layer role)."""
+    jm, jstate, cfg, _, params = pair
     eng = _port_engine(cfg, params, prefill_token_budget=8)
     fn, args, kwargs, options = eng.analysis_entry()
     assert callable(fn) and len(args) == 7
     assert options["donation"]["persistent"] == (0, 5, 6)
-    with pytest.raises(NotImplementedError, match="A7 part three"):
-        eng.param_layout()
+    got = eng.param_layout().to_table()
+    jparams = {k: jnp.asarray(v) for k, v in jstate.items()}
+    want = JaxEngine(jm.cfg, jparams, max_slots=3, num_pages=33,
+                     page_size=16, max_seq_len=128,
+                     prefill_token_budget=8).param_layout().to_table()
+    assert got["tensors"] == want["tensors"]
+    assert all(not any(d) for t in got["tensors"].values()
+               for d in t["dim_axes"])
 
 
 # ------------------------------------------- allocator and prefix cache units

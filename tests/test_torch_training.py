@@ -12,6 +12,8 @@ versions, so the model-level comparisons also cross two attention
 formulations.  Each tolerance is stated where it is used.
 """
 
+import json
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -223,9 +225,9 @@ def _train(jm, jstate, cfg, model, accum, steps, lr=1e-3):
         jl.append(float(loss))
         loss, tp, tst = step(tp, tst, i, lr, ids, lab)
         tl.append(float(loss))
-        if i == 0:
+        if i == 0:      # the port's step updates tp in place: copy it
             after1 = ({k: np.asarray(v) for k, v in jp.items()},
-                      {k: _np(v) for k, v in tp.items()})
+                      {k: _np(v).copy() for k, v in tp.items()})
     return np.array(jl), np.array(tl), after1
 
 
@@ -468,9 +470,12 @@ def test_masked_routes_raise():
     opt = AdamW(1e-3)
     step = build_train_step(model, opt, compute_dtype=torch.float32)
     params = model.functional_state()
-    masked = step(params, opt.init_state(params), 0, 1e-3, ids, ids,
+    # the step updates its params in place: each call gets its own copy
+    masked = step({k: v.clone() for k, v in params.items()},
+                  opt.init_state(params), 0, 1e-3, ids, ids,
                   attention_mask=mask)[0]
-    plain = step(params, opt.init_state(params), 0, 1e-3, ids, ids)[0]
+    plain = step({k: v.clone() for k, v in params.items()},
+                 opt.init_state(params), 0, 1e-3, ids, ids)[0]
     assert abs(float(masked) - float(plain)) <= 1e-5 * abs(float(plain))
 
 
@@ -492,3 +497,214 @@ def test_optimizer_later_options_raise():
     st = opt.init_flat_state(p)
     with pytest.raises(TypeError, match="FlatUpdateLayout"):
         opt.apply_flat(p, p, st, 1e-3, 1, flat_layout=object())
+
+
+# ----------------------------------------------- the in-place update (C.7)
+
+
+def _functional_twin(step, opt, decay_mask):
+    """The update as it was before it went in place: the step's gradient
+    half, then the optimizer's functional ``apply_flat`` / ``apply``, which
+    build new params and state beside the caller's."""
+    def run(params, state, step_no, lr, ids, labels):
+        loss, grads = step.accumulate(params, ids, labels)
+        apply = opt.apply_flat if opt.state_is_flat(state) else opt.apply
+        new_p, new_s = apply(params, grads, state, float(lr), step_no + 1,
+                             decay_mask=decay_mask)
+        return loss, new_p, new_s
+    return run
+
+
+def _tensors(tree):
+    from torch.utils._pytree import tree_leaves
+
+    return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+def _c7_case(accum, flat, dtype=torch.float32):
+    model = LlamaForCausalLM(LlamaConfig.debug(), device="cpu",
+                             dtype=dtype,
+                             generator=torch.Generator().manual_seed(7))
+    opt = AdamW(learning_rate=1e-3, weight_decay=0.01)
+    mask = llama_decay_mask(model)
+    step = build_train_step(model, opt, compute_dtype=torch.bfloat16,
+                            accum_steps=accum)
+    shape = (accum, 2, 16) if accum > 1 else (2, 16)
+    rng = np.random.default_rng(11 + accum)
+    ids = torch.from_numpy(rng.integers(0, model.cfg.vocab_size, shape))
+    lab = torch.from_numpy(rng.integers(0, model.cfg.vocab_size, shape))
+    params = {k: v.detach().clone()
+              for k, v in model.functional_state().items()}
+    state = (opt.init_flat_state(params, decay_mask=mask) if flat
+             else opt.init_state(params))
+    return model, opt, mask, step, ids, lab, params, state
+
+
+@pytest.mark.parametrize("flat", [True, False], ids=["flat", "per_tensor"])
+@pytest.mark.parametrize("accum", [1, 4])
+def test_in_place_step_is_bit_equal_to_the_functional_step(accum, flat):
+    """Five steps of the in-place step against its functional twin from
+    the same params and state (bf16 params: the flat state's fp32 masters
+    and the per-tensor state's): losses, params and every state tensor
+    bit-equal; the step returns the caller's objects, overwritten."""
+    _, opt, mask, step, ids, lab, p, st = _c7_case(accum, flat,
+                                                   torch.bfloat16)
+    twin = _functional_twin(step, opt, mask)
+    tp = {k: v.clone() for k, v in p.items()}
+    tst = {"__flat__": {g: {n: t.clone() for n, t in gs.items()}
+                        for g, gs in st["__flat__"].items()}} if flat \
+        else {k: {n: t.clone() for n, t in s.items()} for k, s in st.items()}
+    ptrs = [t.data_ptr() for t in _tensors((p, st))]
+    for i in range(5):
+        loss, p2, st2 = step(p, st, i, 1e-3, ids, lab)
+        assert p2 is p and st2 is st
+        tloss, tp, tst = twin(tp, tst, i, 1e-3, ids, lab)
+        assert torch.equal(loss, tloss), i
+        for a, b in zip(_tensors((p, st)), _tensors((tp, tst))):
+            assert a.dtype == b.dtype and torch.equal(a, b), i
+    assert [t.data_ptr() for t in _tensors((p, st))] == ptrs
+
+
+@pytest.mark.parametrize("flat", [True, False], ids=["flat", "per_tensor"])
+def test_fired_gate_leaves_the_callers_tensors_untouched(flat):
+    """With ``health=``, a forced fired gate (a loss cutoff below the loss)
+    returns the caller's params and state, the same objects, bit-identical;
+    an open gate equals the unguarded step bit for bit, and its probe's
+    update ratio is the functional update's (summed bucket by bucket)."""
+    from paddle_tpu_torch.distributed.health import (HealthConfig,
+                                                     make_probe)
+
+    model, opt, mask, step, ids, lab, p, st = _c7_case(1, flat)
+    hstep = build_train_step(model, opt, compute_dtype=torch.bfloat16,
+                             health=HealthConfig())
+    before = [t.clone() for t in _tensors((p, st))]
+    loss, p2, st2, probe = hstep(p, st, 0, 1e-3, ids, lab,
+                                 health_gates=np.array([-1.0, np.inf,
+                                                        np.inf]))
+    assert not probe["ok"] and p2 is p and st2 is st
+    for a, b in zip(_tensors((p, st)), before):
+        assert torch.equal(a, b)
+    # the open gate: the same update as the step without health
+    twin_p = {k: v.clone() for k, v in p.items()}
+    twin_st = {"__flat__": {g: {n: t.clone() for n, t in gs.items()}
+                            for g, gs in st["__flat__"].items()}} if flat \
+        else {k: {n: t.clone() for n, t in s.items()} for k, s in st.items()}
+    _, twin_grads = step.accumulate(twin_p, ids, lab)
+    apply = opt.apply_flat if flat else opt.apply
+    fp, _ = apply(twin_p, twin_grads, twin_st, 1e-3, 1, decay_mask=mask)
+    want = make_probe(loss, twin_grads, twin_p, fp)
+    hloss, _, _, probe = hstep(p, st, 0, 1e-3, ids, lab)
+    loss1, p1, st1 = step(twin_p, twin_st, 0, 1e-3, ids, lab)
+    assert probe["ok"] and torch.equal(hloss, loss1)
+    for a, b in zip(_tensors((p, st)), _tensors((p1, st1))):
+        assert torch.equal(a, b)
+    np.testing.assert_allclose(probe["update_ratio"], want["update_ratio"],
+                               rtol=1e-5)
+    assert probe["grad_norm"] == want["grad_norm"]
+
+
+# the in-place update's bucket edges: buckets of 997 fp32 elements, whose
+# edges fall inside the debug model's leaves (the default 16 MB bucket
+# holds a whole debug group)
+_SMALL_BUCKET_BYTES = 4 * 997
+
+
+@pytest.mark.parametrize("health", [False, True], ids=["plain", "health"])
+@pytest.mark.parametrize("flat,dtype", [(True, torch.bfloat16),
+                                        (True, torch.float32),
+                                        (False, torch.bfloat16)],
+                         ids=["flat_bf16", "flat_fp32", "per_tensor"])
+def test_in_place_step_across_bucket_edges(flat, dtype, health,
+                                           monkeypatch):
+    """The in-place update in small buckets, leaf spans crossing them (bf16
+    params with fp32 masters, fp32 params without): three steps bit-equal
+    to the functional twin; under ``health=`` a fired gate leaves every
+    tensor bit-identical and an open one is the twin's update, its update
+    ratio the twin's to 1e-5 (the bucketed first pass sums the same
+    squares in another order)."""
+    from paddle_tpu_torch.distributed.health import (HealthConfig,
+                                                     make_probe)
+    from paddle_tpu_torch.parallel import memory as M
+
+    monkeypatch.setattr(M, "IN_PLACE_BUCKET_BYTES", _SMALL_BUCKET_BYTES)
+    model, opt, mask, step, ids, lab, p, st = _c7_case(1, flat, dtype)
+    if flat:        # the premise: bucket edges inside leaves
+        edges = crossing = 0
+        for g in opt._flat_groups(p, mask):
+            plan = M.stream_bucket_plan(sum(g["sizes"]), 4,
+                                        M.IN_PLACE_BUCKET_BYTES)
+            edges += len(plan) - 1
+            crossing += sum(any(a < off < b for off, _ in plan[1:])
+                            for _, a, b in M._key_spans(g))
+        assert edges > 10 and crossing > 10, (edges, crossing)
+    twin = _functional_twin(step, opt, mask)
+
+    def copies(p, st):
+        return ({k: v.clone() for k, v in p.items()},
+                {"__flat__": {g: {n: t.clone() for n, t in gs.items()}
+                              for g, gs in st["__flat__"].items()}} if flat
+                else {k: {n: t.clone() for n, t in s.items()}
+                      for k, s in st.items()})
+
+    tp, tst = copies(p, st)
+    if not health:
+        for i in range(3):
+            loss, p2, st2 = step(p, st, i, 1e-3, ids, lab)
+            assert p2 is p and st2 is st
+            tloss, tp, tst = twin(tp, tst, i, 1e-3, ids, lab)
+            assert torch.equal(loss, tloss), i
+            for a, b in zip(_tensors((p, st)), _tensors((tp, tst))):
+                assert a.dtype == b.dtype and torch.equal(a, b), i
+        return
+    hstep = build_train_step(model, opt, compute_dtype=torch.bfloat16,
+                             health=HealthConfig())
+    _, p2, st2, probe = hstep(p, st, 0, 1e-3, ids, lab,
+                              health_gates=np.array([-1.0, np.inf, np.inf]))
+    assert not probe["ok"] and p2 is p and st2 is st
+    for a, b in zip(_tensors((p, st)), _tensors((tp, tst))):
+        assert torch.equal(a, b)
+    tloss, tgrads = step.accumulate(tp, ids, lab)
+    apply = opt.apply_flat if flat else opt.apply
+    fp, fst = apply(tp, tgrads, tst, 1e-3, 1, decay_mask=mask)
+    want = make_probe(tloss, tgrads, tp, fp)
+    loss, p2, st2, probe = hstep(p, st, 0, 1e-3, ids, lab)
+    assert probe["ok"] and p2 is p and st2 is st
+    assert torch.equal(loss, tloss)
+    for a, b in zip(_tensors((p, st)), _tensors((fp, fst))):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    np.testing.assert_allclose(probe["update_ratio"], want["update_ratio"],
+                               rtol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def in_place_mesh(tmp_path_factory):
+    """The four gloo ranks of ``torch_gang.in_place_rank``: their checks."""
+    from torch_gang import in_place_rank, run_gang
+
+    root = run_gang("in_place_mesh", in_place_rank, 4, tmp_path_factory)
+    return [json.loads((root / f"in_place.{r}.json").read_text())
+            for r in range(4)]
+
+
+@pytest.mark.parametrize("case", ["flat_bf16", "flat_fp32", "per_tensor",
+                                  "flat_bf16_health", "flat_fp32_health",
+                                  "per_tensor_health"])
+def test_in_place_mesh_update_across_bucket_edges(in_place_mesh, case):
+    """On a (1, 2, 2) gloo mesh in small buckets (each rank's shard-major
+    rows crossing bucket edges, written back to the at-rest blocks as the
+    stream passes them): three steps bit-equal to the functional
+    ``apply_flat`` / ``apply`` on every rank; under ``health=`` a fired
+    gate leaves every block bit-identical and an open one is the twin's
+    update, its update ratio (the first pass's per-piece squares summed
+    over the layout's axes) the twin's to 1e-5."""
+    assert not torch.distributed.is_initialized()
+    for rank, out in enumerate(in_place_mesh):
+        rec = out[case]
+        if case.startswith("flat"):
+            assert rec["buckets"] > 4 and rec["crossing"] > 4, (rank, rec)
+        if case.endswith("health"):
+            assert rec["fired_untouched"] and rec["open_bit_equal"], rank
+            got, want = rec["ratio"]
+            assert want > 0 and abs(got - want) <= 1e-5 * want, (rank, rec)
+        else:
+            assert rec["bit_equal"], rank
