@@ -241,7 +241,22 @@ and GPT-MoE on dp2 x ep2 x mp2, each captured at rank GD_RANK of a fake
 process group of GD_WORLD on fake cuda tensors at full width (the Llama
 stacks at GD_RANK_LAYERS layers; nothing allocated or launched), swept
 with no active finding; each prints its capture seconds, nodes,
-collectives by axis and kind and its ICI/DCN wire table.
+collectives by axis and kind and its ICI/DCN wire table.  The same child
+then runs the roofline above one rank (``roofline_ranks``): the joint
+partition x memory x codec walk over the debug flagship's fake two-slice
+lattice on fake cuda tensors, the drift gate against its records and the
+predicted walk, which must build only its choice.
+
+The ``roofline`` phase follows: the ``"h100"`` row's one-card constants
+measured now (a bf16 GEMM's rate, a device copy's bytes a second, the
+card's capacity; ``roofline_constants``), each within RF_SPEC_TOL of the
+source's table or the phase raises, and the estimate of the train cell's
+step on that row beside the ``train`` phase's measured ms, with their
+ratio (a reading).  The Llama-3-8B phase ends with ROADMAP C.9: a guarded
+step over the host-resident state, timed beside the phase's warm plain
+step, then a guarded step whose gate fires, after which the host buckets
+and the params must be bit-identical (digests of their bits on the card,
+before and after).
 
 The ``serving_fleet`` phase follows the graph doctor: the 8B weights
 moved to the host (a checkpoint's form) feed ``inference/fleet.py``'s
@@ -4096,15 +4111,97 @@ def _checked_offloaded_update(dev, picks, report):
     return update
 
 
+def _bit_digest(tensors, dev):
+    """Two int64 digests of each tensor's bits, computed on the card (a
+    host tensor is copied there first): the sum of its 16- or 32-bit words
+    and their sum weighted by position (mod 65521, plus one).  Equal
+    digests before and after a step say the bits did not move without a
+    second copy of the tensors; a [n, 2] CPU tensor."""
+    import torch
+
+    out = []
+    for t in tensors:
+        x = t.to(dev, non_blocking=True).reshape(-1)
+        x = x.view(torch.int16 if x.element_size() == 2 else torch.int32)
+        x = x.to(torch.int64)
+        w = torch.arange(x.numel(), device=dev, dtype=torch.int64) \
+            % 65521 + 1
+        out.append(torch.stack([x.sum(), (x * w).sum()]))
+        del x, w
+    return torch.stack(out).cpu()
+
+
+def _guarded_8b_steps(dev, model, opt, params, state, mc, first, ids,
+                      labels, plain_ms):
+    """C.9 at 8B: a guarded step (``health=``, open gates) over the
+    host-resident state under ``mc``, timed beside ``plain_ms``, the
+    phase's warm plain step under the same ``mc`` (the guard's first pass
+    streams the state to the card once more), every B1/B2 call of it a
+    launch; then a guarded step whose loss gate fires, after which the
+    host buckets and the params must be bit-identical (``_bit_digest`` of
+    each, before and after)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.distributed.health import HealthConfig
+    from paddle_tpu_torch.models import build_train_step
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    layers = model.cfg.num_hidden_layers
+    guarded = build_train_step(model, opt, compute_dtype=torch.bfloat16,
+                               memory=mc, health=HealthConfig())
+    _sync()
+    with plain_call_counter() as plain_calls:
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        gloss, params, state, probe = guarded(params, state, first,
+                                              EIGHT_B_LR, ids, labels)
+        _sync()
+        guarded_ms = (time.perf_counter() - t0) * 1e3
+        counts = dict(fa.LAUNCHES)
+    check_launches("llama3_8b guarded step", counts, dict(plain_calls),
+                   flash_attention_fwd=2 * layers,
+                   flash_attention_bwd=layers)
+    if not probe["ok"] or not np.isfinite(gloss.item()):
+        raise AssertionError(f"llama3_8b guarded step: probe {probe}")
+    host = [b for _, gs in sorted(state["__offload__"].items())
+            for _, bs in sorted(gs.items()) for b in bs]
+    keys = sorted(params)
+    before = (_bit_digest(host, dev), _bit_digest([params[k] for k in keys],
+                                                  dev))
+    t0 = time.perf_counter()
+    _, params, state, fired = guarded(
+        params, state, first + 1, EIGHT_B_LR, ids, labels,
+        health_gates=np.array([-1.0, np.inf, np.inf], np.float32))
+    _sync()
+    fired_ms = (time.perf_counter() - t0) * 1e3
+    after = (_bit_digest(host, dev), _bit_digest([params[k] for k in keys],
+                                                 dev))
+    same = all(torch.equal(a, b) for a, b in zip(before, after))
+    out = {"memory": mc.label(), "plain_ms": plain_ms,
+           "guarded_ms": guarded_ms, "fired_ms": fired_ms,
+           "guarded_over_plain": guarded_ms / plain_ms,
+           "guarded_loss": gloss.item(),
+           "probe": {"ok": bool(probe["ok"]),
+                     **{k: float(probe[k]) for k in ("loss", "grad_norm",
+                                                     "update_ratio")}},
+           "fired_ok": bool(fired["ok"]), "host_buckets": len(host),
+           "bit_identical_after_fired": same, "launches": counts}
+    if fired["ok"] or not same:
+        raise AssertionError(f"llama3_8b fired gate: ok {fired['ok']}, "
+                             f"host state and params unchanged: {same}")
+    return out, params, state
+
+
 def llama3_8b_phase(dev):
     """Llama-3-8B at full width, EIGHT_B_LAYERS deep (the host-RAM cut),
     on one card: bf16 params from SEED, seq EIGHT_B_SEQ, batch 1, AdamW
     with the fp32 state in pinned host memory (EIGHT_B_BUCKET_BYTES
     buckets): two steps under MemoryConfig(remat="full",
     optimizer_residency="host"), then one under remat="offload" on the same
-    state.  Before the second step three buckets (the first and last of the
+    state.  In the third step three buckets (the first and last of the
     decay group, the no-decay group's) are recomputed on the card and must
-    equal the streamed result bit for bit.  Every B1/B2 call a kernel
+    equal the streamed result bit for bit; the second, warm and unchecked,
+    is C.9's plain step (``_guarded_8b_steps``).  Every B1/B2 call a kernel
     launch (B1 twice per layer, B2 once), losses finite.  Prints peak
     device bytes, pinned host bytes, ms per step, tokens/s and MFU (6 N per
     token over 989 TFLOP/s), and first the host link's copy rates
@@ -4152,7 +4249,7 @@ def llama3_8b_phase(dev):
         step = build_train_step(model, opt, compute_dtype=torch.bfloat16,
                                 memory=mc)
         real = M.apply_flat_offloaded
-        if i == 1:
+        if i == 2:
             M.apply_flat_offloaded = _checked_offloaded_update(
                 dev, [("decay|bfloat16", 0), ("decay|bfloat16", -1),
                       ("nodecay|bfloat16", 0)], checked)
@@ -4175,6 +4272,9 @@ def llama3_8b_phase(dev):
                      "launches": counts})
     if len(checked) != 3:
         raise AssertionError(f"llama3_8b: {len(checked)} buckets checked")
+    guard, params, state = _guarded_8b_steps(
+        dev, model, opt, params, state, schedule[1], len(schedule), ids,
+        labels, runs[1]["ms"])
     peak = torch.cuda.max_memory_allocated()
     del model, params, state, step, opt, carry
     torch.cuda.empty_cache()
@@ -4185,7 +4285,7 @@ def llama3_8b_phase(dev):
             EIGHT_B_BUCKET_BYTES, "buckets": buckets,
             "pinned_host_bytes": host_bytes, "state_init_s": init_s,
             "peak_device_bytes": peak, "steps": runs,
-            "checked_buckets": checked, "host_link": link}
+            "checked_buckets": checked, "host_link": link, "guard": guard}
 
 
 # ------------------------------------------------ the MoE left-outs
@@ -6251,7 +6351,9 @@ def graph_doctor_phase(dev, cfg=None, params=None):
            if not r["peak_rel_err"] <= GD_PEAK_TOL}
     rec["c7"] = c7_readings(dev, rec["targets"]["train"])
     above = _ranks_in_child()
-    rec["c10d_probe"], rec["ranks"] = above["c10d_probe"], above["ranks"]
+    rec["c10d_probe"] = above["graph_doctor_ranks"]["c10d_probe"]
+    rec["ranks"] = above["graph_doctor_ranks"]["ranks"]
+    rec["roofline_ranks"] = above["roofline_ranks"]
     rec["reduced"] += (f"; the stacks above one rank at {GD_RANK_LAYERS} "
                        f"of {TRAIN_CFG['num_hidden_layers']} layers")
     rec["host_cost"] = host_cost_phase(dev, cfg, params)
@@ -6583,26 +6685,31 @@ def _rank_targets(dev):
     )
 
 
+RANKS_CHILD_PHASES = ("graph_doctor_ranks", "roofline_ranks")
+
+
 def _ranks_in_child():
-    """``c10d_probe`` and ``graph_doctor_ranks`` in a process of their own
-    (``--phase-worker``): their fake process groups never share a process
-    with the later phases' NCCL groups (an NCCL group started after another
-    group was destroyed in the same process has crashed on this machine's
-    torch 2.11).  Prints the child's readings; returns its record."""
+    """``c10d_probe``, ``graph_doctor_ranks`` and ``roofline_ranks`` in a
+    process of their own (``--phase-worker``): their fake process groups
+    never share a process with the later phases' NCCL groups (an NCCL
+    group after a fake one crashed in four-card runs of an earlier
+    version; ROADMAP C.10).  Prints the child's readings; returns {phase:
+    record}."""
     out = subprocess.run(
         [sys.executable, str(Path(__file__).resolve()), "--phase-worker",
-         str(HERE), "--phases", "graph_doctor_ranks"], capture_output=True,
-        text=True, cwd=str(HERE), timeout=1200)
-    rec = None
+         str(HERE), "--phases", ",".join(RANKS_CHILD_PHASES)],
+        capture_output=True, text=True, cwd=str(HERE), timeout=1200)
+    recs = {}
     for line in out.stdout.splitlines():
         if line.startswith("TURN "):
-            rec = json.loads(line[5:])["record"]
-        elif line.startswith("graph_doctor"):
+            turn = json.loads(line[5:])
+            recs[turn["phase"]] = turn["record"]
+        elif line.startswith(("graph_doctor", "roofline")):
             print(line, flush=True)
-    if out.returncode or rec is None:
+    if out.returncode or set(recs) != set(RANKS_CHILD_PHASES):
         raise AssertionError("graph_doctor ranks: the child failed "
                              f"({out.returncode}):\n" + out.stderr[-6000:])
-    return rec
+    return recs
 
 
 def graph_doctor_ranks(dev):
@@ -6659,6 +6766,134 @@ def graph_doctor_ranks(dev):
                                  f"findings\n" + rep.summary())
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------ the roofline
+
+RF_GEMM = 8192                  # one bf16 [n, n] @ [n, n] product
+RF_COPY_BYTES = 2 << 30         # one device-to-device copy of 2 GiB
+RF_REPS = 10
+RF_SPEC_TOL = 0.10              # the source's "h100" row against this run
+
+
+def _event_ms(fn, reps):
+    """Milliseconds a call of ``fn`` over ``reps`` calls between two CUDA
+    events, after two warm-up calls."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    _sync()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def roofline_constants(dev):
+    """The three one-card constants of the roofline's ``"h100"`` row, as
+    ``parallel/roofline.py``'s CHIP_SOURCES names them: the bf16 rate of one
+    RF_GEMM-cubed ``torch.matmul`` (2 n^3 over its time), the HBM rate of a
+    device-to-device ``copy_`` of RF_COPY_BYTES (bytes read plus bytes
+    written over its time) and the card's capacity
+    (``torch.cuda.mem_get_info``).  Prints them with the card's name and
+    power limit."""
+    import torch
+
+    card = _card_line()
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    a, b = (torch.randn(RF_GEMM, RF_GEMM, device=dev, generator=g,
+                        dtype=torch.bfloat16) for _ in range(2))
+    gemm_ms = _event_ms(lambda: torch.matmul(a, b), RF_REPS)
+    del a, b
+    src = torch.empty(RF_COPY_BYTES, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    copy_ms = _event_ms(lambda: dst.copy_(src), RF_REPS)
+    del src, dst
+    torch.cuda.empty_cache()
+    out = {"card": card,
+           "peak_bf16_flops": 2.0 * RF_GEMM ** 3 / (gemm_ms * 1e-3),
+           "hbm_bytes_per_s": 2.0 * RF_COPY_BYTES / (copy_ms * 1e-3),
+           "hbm_bytes": int(torch.cuda.mem_get_info(dev)[1]),
+           "gemm_ms": gemm_ms, "gemm_n": RF_GEMM, "copy_ms": copy_ms,
+           "copy_bytes": RF_COPY_BYTES, "reps": RF_REPS}
+    print("roofline constants: " + json.dumps(out), flush=True)
+    return out
+
+
+def roofline_ranks(dev):
+    """The roofline's checks above one rank, on fake cuda tensors, in the
+    ranks child (``_ranks_in_child``): the joint walk over the debug
+    flagship's two-slice lattice (``joint_schedule_section``, five
+    captures at rank 0 of a fake group of 8), the drift gate against its
+    records (``roofline_drift_section``) and the predicted walk, which must
+    build only its choice (``predicted_joint_walk``).  Raises if one is
+    red."""
+    from paddle_tpu_torch.analysis.self_check import (
+        joint_schedule_section, predicted_joint_walk, roofline_drift_section)
+
+    t0 = time.perf_counter()
+    joint = joint_schedule_section(dev)
+    drift = roofline_drift_section(joint, device=dev)
+    walk = predicted_joint_walk(dev)
+    out = {"s": time.perf_counter() - t0,
+           "joint": {"ok": joint["ok"], "chosen_label": joint["chosen_label"],
+                     "records": [{k: r[k] for k in ("label", "peak_bytes",
+                                                    "dcn_wire_bytes")}
+                                 for r in joint["records"]]},
+           "drift": {k: drift.get(k) for k in (
+               "ok", "chip", "measured_source", "predicted_winner",
+               "measured_pick", "frontier_parity", "max_dcn_wire_rel_err",
+               "calibration_offset", "predicted_order")},
+           "predict_walk": walk}
+    print("roofline ranks: " + json.dumps(out), flush=True)
+    if not (joint["ok"] and drift["ok"] and walk["ok"]):
+        raise AssertionError(f"roofline ranks: joint {joint['ok']}, drift "
+                             f"{drift}, predicted walk {walk}")
+    return out
+
+
+def roofline_phase(dev, train=None, ranks=None):
+    """The roofline on the card: the ``"h100"`` row's one-card constants
+    measured now (``roofline_constants``) against the source's table, each
+    within RF_SPEC_TOL (a stale table fails); ``estimate_step_time`` on
+    ``"h100"`` for the train cell (TRAIN_CFG, TRAIN_ACCUM x TRAIN_BATCH
+    sequences of TRAIN_SEQ, every axis 1) beside the ``train`` phase's
+    measured ms a step and their ratio (a reading, not a gate); and the
+    ranks child's drift gate and predicted walk (``roofline_ranks``)."""
+    from paddle_tpu_torch.models import LlamaConfig
+    from paddle_tpu_torch.parallel import roofline as rf
+
+    const = roofline_constants(dev)
+    table = rf.CHIP_SPECS["h100"]
+    off = {f: const[f] / getattr(table, f) - 1.0
+           for f in ("peak_bf16_flops", "hbm_bytes_per_s", "hbm_bytes")}
+    est = rf.estimate_step_time(
+        (("dp", 1), ("sharding", 1), ("mp", 1)), None,
+        LlamaConfig(**TRAIN_CFG).cost_sheet(),
+        batch=TRAIN_ACCUM * TRAIN_BATCH, seq=TRAIN_SEQ, chip="h100")
+    measured = train["ms_per_step"] if train else None
+    out = {"card": const["card"], "constants": const,
+           "table": dataclasses.asdict(table), "table_rel_off": off,
+           "train_estimate": est.to_json(),
+           "train_estimate_ms": est.total_s * 1e3,
+           "train_measured_ms": measured,
+           "measured_over_estimate": (measured / (est.total_s * 1e3)
+                                      if measured else None),
+           "ranks": ranks}
+    print("roofline: " + json.dumps({k: out[k] for k in (
+        "table_rel_off", "train_estimate_ms", "train_measured_ms",
+        "measured_over_estimate")}) + f" compute_s={est.compute_s} "
+        f"hbm_s={est.hbm_s} ({const['card']})", flush=True)
+    stale = {f: v for f, v in off.items() if not abs(v) <= RF_SPEC_TOL}
+    if stale:
+        raise AssertionError(f"roofline: CHIP_SPECS['h100'] is off this "
+                             f"card's measurement by more than "
+                             f"{RF_SPEC_TOL}: {stale}")
     return out
 
 
@@ -6745,7 +6980,8 @@ def main() -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
     record = {"card": card, "torch": torch.__version__,
-              "cuda": torch.version.cuda}
+              "cuda": torch.version.cuda, "phase_s": {}}
+    time_phases(sys.modules[__name__], record["phase_s"])
     t0 = time.perf_counter()
     record["build_s"] = _build.build()
     print(f"build: {record['build_s']:.1f} s (nvcc, sm_90a)", flush=True)
@@ -6925,6 +7161,8 @@ def main() -> int:
                                          "collectives")}
                    for k, v in gd["ranks"].items()}}) + f" ({card})",
           flush=True)
+    record["roofline"] = roofline_phase(dev, record["train"],
+                                        gd["roofline_ranks"])
     host = host_weights(params)
     del model, params
     gc.collect()
@@ -6960,6 +7198,9 @@ def main() -> int:
               f"{r['memory']}: loss={r['loss']:.4f} ms={r['ms']:.1f} "
               f"tokens_per_s={r['tokens_per_s']:.1f} mfu={r['mfu']:.4f} "
               f"({card})", flush=True)
+    print("llama3_8b guarded (C.9): " + json.dumps(
+        {k: v for k, v in big["guard"].items() if k != "launches"})
+        + f" ({card})", flush=True)
     print(f"llama3_8b: n_params={big['n_params']} peak_device_bytes="
           f"{big['peak_device_bytes']} pinned_host_bytes="
           f"{big['pinned_host_bytes']} ({big['buckets']} buckets of "
@@ -7043,6 +7284,8 @@ def main() -> int:
                             "launches_per_execution", "wall_s")})
         + f" ({card})", flush=True)
     record["wall_s"] = time.perf_counter() - t0
+    print(f"wall {record['wall_s']:.1f} s; phase seconds: "
+          + json.dumps(record["phase_s"]), flush=True)
     out_dir = HERE / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
@@ -7266,6 +7509,74 @@ def main() -> int:
     return 0
 
 
+# the functions main() calls as phases, and some of their parts: each
+# one's wall seconds, summed over its calls (a part's inside its phase's),
+# go into the record's "phase_s"
+TIMED_PHASES = (
+    "build_report", "kernel_cases", "serve_chunked", "serve_unified",
+    "serve_generate", "teacher_forced", "profile_decode", "flash_cases",
+    "train_phase", "masked_cases", "masked_train_phase",
+    "long_context_phase", "mesh_train_phase", "overlap_train_phase",
+    "codec_phase", "gmm_cases", "moe_train_phase", "moe_serving_phase",
+    "paged_routes", "serving_extras", "graph_doctor_phase",
+    "capture_probes", "c7_readings", "_ranks_in_child", "host_cost_phase",
+    "roofline_phase", "host_weights", "serving_fleet_phase",
+    "optimizer_phase", "attention_mask_phase", "memory_lattice_phase",
+    "llama3_8b_phase", "_guarded_8b_steps", "gpt_moe_train_phase",
+    "moe_layer_phase", "moe_capacity_phase", "moe_ep_phase",
+    "hybrid_train_phase", "resilient_train_phase")
+
+
+def time_phases(module, sink):
+    """Wrap each function of TIMED_PHASES that ``module`` (a chip_smoke
+    module: this one, or another checkout's) defines, so that each call
+    adds its wall seconds to ``sink[name]``."""
+    for name in TIMED_PHASES:
+        fn = getattr(module, name, None)
+        if fn is None:
+            continue
+
+        def timed(*args, _fn=fn, _name=name, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*args, **kw)
+            finally:
+                sink[_name] = sink.get(_name, 0.0) \
+                    + time.perf_counter() - t0
+
+        setattr(module, name, timed)
+
+
+def timed_main(root: str) -> int:
+    """``--timed OTHER_ROOT``: the checkout at OTHER_ROOT's whole script
+    (its ``main``, on its own package) with TIMED_PHASES timed by this
+    script's clock, for a per-phase comparison with this checkout's
+    record.  Prints ``PHASE_S`` and the seconds as JSON after the
+    script's own output, and writes them to chiprun_out/timed_phase_s.json
+    under this checkout."""
+    import importlib.util
+
+    root = str(Path(root).resolve())
+    sys.path.insert(0, root)
+    os.chdir(root)
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(root, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    sys.modules["chip_smoke"] = cs      # what a spawned child imports
+    spec.loader.exec_module(cs)
+    sink = {}
+    time_phases(cs, sink)
+    t0 = time.perf_counter()
+    rc = cs.main()
+    out = {"root": root, "rc": rc, "wall_s": time.perf_counter() - t0,
+           "phase_s": sink}
+    print("PHASE_S " + json.dumps(out), flush=True)
+    record = HERE / "chiprun_out" / "timed_phase_s.json"
+    record.parent.mkdir(exist_ok=True)
+    record.write_text(json.dumps(out, indent=1))
+    return rc
+
+
 # phase name -> its call on a chip_smoke module, for --turns
 TURN_PHASES = {
     "moe_train": lambda cs, dev, flush: cs.moe_train_phase(dev),
@@ -7278,9 +7589,14 @@ TURN_PHASES = {
     # checkout's chip_smoke.py has no such phase
     "host_cost": lambda cs, dev, flush: host_cost_phase(dev),
     "train": lambda cs, dev, flush: cs.train_phase(dev),
+    "masked_train": lambda cs, dev, flush: cs.masked_train_phase(dev),
+    "long_context": lambda cs, dev, flush: cs.long_context_phase(dev),
     "graph_doctor": lambda cs, dev, flush: cs.graph_doctor_phase(dev),
     "graph_doctor_ranks": lambda cs, dev, flush: {
         "c10d_probe": cs.c10d_probe(dev), "ranks": cs.graph_doctor_ranks(dev)},
+    "roofline_ranks": lambda cs, dev, flush: cs.roofline_ranks(dev),
+    "roofline": lambda cs, dev, flush: cs.roofline_phase(dev),
+    "llama3_8b": lambda cs, dev, flush: cs.llama3_8b_phase(dev),
 }
 
 
@@ -7326,14 +7642,22 @@ def phase_worker(root: str, phases) -> int:
 
 def turns_main(argv) -> int:
     """``--turns OTHER_ROOT --phases a,b``: the phases of OTHER_ROOT, this
-    checkout, this checkout, OTHER_ROOT, each turn a fresh process."""
+    checkout, this checkout, OTHER_ROOT, each turn a fresh process.
+    ``--timed OTHER_ROOT``: OTHER_ROOT's whole script, phases timed
+    (``timed_main``)."""
     import argparse
 
     ap = argparse.ArgumentParser(prog="chip_smoke.py")
     ap.add_argument("--turns", help="the other checkout's root")
+    ap.add_argument("--timed", help="the other checkout's root, whose "
+                    "whole script runs with its phases timed")
     ap.add_argument("--phase-worker", help=argparse.SUPPRESS)
-    ap.add_argument("--phases", required=True)
+    ap.add_argument("--phases")
     args = ap.parse_args(argv)
+    if args.timed:
+        return timed_main(args.timed)
+    if not args.phases:
+        ap.error("--phases is required with --turns")
     phases = args.phases.split(",")
     unknown = [p for p in phases if p not in TURN_PHASES]
     if unknown:

@@ -22,9 +22,11 @@
 - The Concurrency Doctor: the lock-discipline pass over the host-side
   control plane (``concurrency.py``, ``passes/lock_discipline.py``) and
   its runtime half (``lock_sanitizer.py``), with the seeded RACE fixtures.
-
-The roofline and ``tune_schedule_config(predict=True)`` are ROADMAP
-A7 part four."""
+  With a process group live, ``check_ranks`` captures in a spawned
+  child.
+- The roofline's drift gate (``self_check.roofline_drift_section``): the
+  estimator of ``parallel/roofline.py`` against the joint walk's measured
+  records."""
 
 from .concurrency import (ALLOWLIST_PATH, CONTROL_PLANE_MODULES,
                           load_allowlist, sweep_control_plane)

@@ -2,7 +2,8 @@
 
 Runs every seeded fixture (each pass must fire exactly its intended code),
 the clean flagship sweeps (no active finding) and the exemption-liveness
-check, plus the Concurrency Doctor's block; prints a JSON report and exits
+check, the sections above one rank and the roofline's drift gate, plus
+the Concurrency Doctor's block; prints a JSON report and exits
 non-zero on any failure.  ``--seeded-only`` skips the flagship sweeps (the
 quick mode).  ``--device cuda`` runs it on the card (default: the CPU, at
 the debug shapes).

@@ -497,7 +497,8 @@ def fake_ranks(world_size: int, rank: int):
     if dist.is_initialized():
         raise RuntimeError("fake_ranks: a process group is already live in "
                            "this process; a capture above one rank needs "
-                           "its own")
+                           "its own (check_ranks isolates one in a child "
+                           "process)")
     dist.init_process_group("fake", store=FakeStore(), rank=int(rank),
                             world_size=int(world_size))
     try:
@@ -680,7 +681,29 @@ def check_ranks(build: Callable, world_size: int, ranks=None,
     the other ranks' captures in ``ctx.ranks`` for the collective-order
     checks; its mesh names the axes.  ``options`` may be a function of
     the first rank's ``(fn, args, mesh)`` (a budget that reads the built
-    step's layout)."""
+    step's layout).
+
+    When a process group is live here (a rank of a running job checking
+    its own step, over which ``fake_ranks`` cannot start), the captures
+    and the check run in a child process started with ``spawn``, which
+    returns the report: the live group stays out of the child.  Then
+    ``build`` and the keywords cross the process boundary by pickle: a
+    module-level function, or a ``functools.partial`` of one
+    (``self_check._llama_build`` and its siblings), not a closure."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        import concurrent.futures
+        import multiprocessing
+
+        with concurrent.futures.ProcessPoolExecutor(
+                1, mp_context=multiprocessing.get_context("spawn")) as pool:
+            return pool.submit(_check_ranks_here, build, world_size, ranks,
+                               device, check_kw).result()
+    return _check_ranks_here(build, world_size, ranks, device, check_kw)
+
+
+def _check_ranks_here(build, world_size, ranks, device, check_kw) -> Report:
     caps, entries = _capture_each(build, world_size, ranks, device)
     first = min(caps)
     fn, args, kwargs, mesh = entries[first]

@@ -30,8 +30,10 @@ from .findings import Report
 from .passes.retrace import retrace_sentinel
 
 
-def _gen(seed: int = 20260803) -> torch.Generator:
-    return torch.Generator().manual_seed(seed)
+def _gen(seed: int = 20260803, device="cpu") -> torch.Generator:
+    """A seeded generator on ``device``'s type (a card's draws need a card
+    generator)."""
+    return torch.Generator(device=torch.device(device)).manual_seed(seed)
 
 
 # ---------------------------------------------------------------- dtype
@@ -172,7 +174,7 @@ def _flagship_model(device="cpu"):
     cfg = LlamaConfig.debug(vocab=128, hidden=64, layers=2, heads=4,
                             kv_heads=2, inter=128, max_pos=64)
     model = LlamaForCausalLM(cfg, device=device, dtype=torch.float32,
-                             generator=_gen())
+                             generator=_gen(device=device))
     return cfg, model
 
 

@@ -38,6 +38,8 @@ Codes:
   model on its real payload dtype (an int8 packed payload bills a byte
   an element) and staged against the declared per-axis slice maps
   (``_wire_stage``: a group whose positions span two slices crosses DCN).
+  The ring cost model is ``parallel.roofline.ring_wire_cost``, the one
+  copy the roofline's predicted wire table also prices with.
   ``collect_wire_table`` and ``collect_wire_by_axis`` are the reusable
   tallies (``parallel.schedule.measure_dcn_wire_bytes`` reads them).
 """
@@ -52,6 +54,7 @@ import numpy as np
 from ..core import (AnalysisContext, AnalysisPass, SkipPass, node_where,
                     register_pass)
 from ..findings import Finding
+from ...parallel.roofline import ring_wire_cost
 
 KINDS = ("allreduce", "allgather", "reducescatter", "collectivepermute",
          "alltoall")
@@ -66,25 +69,6 @@ _LIBS = (os.sep + "site-packages" + os.sep, os.sep + "dist-packages" + os.sep)
 # frames reach first is planned
 _ANALYSIS = _PKG + "analysis" + os.sep
 _PIPELINE = os.sep + os.path.join("parallel", "pipelining.py")
-
-
-def ring_wire_cost(kind: str, nbytes: int, g: int) -> int:
-    """Bytes each participant sends under the ring cost model, from the
-    input buffer's size (the port's copy of JAX's ``ring_wire_cost``): a
-    gather moves the input to g-1 peers, a reduce-scatter and an
-    all-to-all (g-1)/g of it, an all-reduce both, a permute the buffer
-    once."""
-    if g <= 1:
-        return 0
-    if kind == "allgather":
-        return nbytes * (g - 1)
-    if kind == "reducescatter":
-        return nbytes * (g - 1) // g
-    if kind == "allreduce":
-        return 2 * nbytes * (g - 1) // g
-    if kind == "alltoall":
-        return nbytes * (g - 1) // g
-    return nbytes                       # collectivepermute
 
 
 def ring_steps(perm, size: int) -> List[int]:

@@ -31,9 +31,12 @@ sanitizer self-test), and the layers above one rank, each captured on a
 7. the wire table of the flagship two-slice step with the codec off and
    on, the canonical tables, and the joint partition x memory x codec walk
    (``unified_schedule``), with the Graph Doctor's static peak as its
-   meter.
+   meter;
+8. the roofline's drift gate (``roofline_drift``): the estimator's
+   predicted winner of that walk, its fit frontier and its DCN bytes
+   against the walk's measured records.
 
-Left out: the roofline drift (ROADMAP A7 part four).
+Nothing is left out (``left_out`` is empty).
 
 Every budget below is the port's own, measured by ``static_peak`` on the
 CPU capture of its target (the CPU counts every storage, unrounded) and
@@ -44,6 +47,7 @@ pinned with the headroom its comment gives.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import numpy as np
@@ -342,51 +346,55 @@ def _llama_build(shape, device="cpu", overlap=None, accum_steps=1,
     """``build(rank)`` of the debug flagship's mesh step on a fake mesh of
     ``shape`` (dp, sharding, mp): the model sharded over it, the step
     (``overlap`` the engine's config), a per-tensor state or, with
-    ``flat``, the flat state in the step's shard-major layout."""
+    ``flat``, the flat state in the step's shard-major layout.  A
+    ``functools.partial`` of a module-level function, so that
+    ``check_ranks`` can send it to a spawned child (a group live)."""
+    return functools.partial(_llama_rank, shape, device, overlap,
+                             accum_steps, flat)
+
+
+def _llama_rank(shape, device, overlap, accum_steps, flat, rank):
     from ..models import build_train_step
     from ..models.llama import apply_llama_sharding, llama_decay_mask
     from .core import fake_mesh
 
-    def build(rank):
-        cfg, model, opt, _, ids, labels = _flagship(device)
-        mesh = fake_mesh(shape, ("dp", "sharding", "mp"),
-                         torch.device(device).type)
-        apply_llama_sharding(model, mesh)
-        step = build_train_step(model, opt, mesh=mesh,
-                                compute_dtype=torch.bfloat16,
-                                accum_steps=accum_steps, overlap=overlap)
-        params = model.functional_state()
-        state = opt.init_flat_state(
-            params, decay_mask=llama_decay_mask(model),
-            flat_layout=step.flat_layout) if flat \
-            else opt.init_state(params)
-        if accum_steps > 1:
-            ids = ids.reshape(accum_steps, -1, ids.shape[-1])
-            labels = labels.reshape(accum_steps, -1, labels.shape[-1])
-        return step, (params, state, 0, 1e-4, ids, labels), {}, mesh
-
-    return build
+    cfg, model, opt, _, ids, labels = _flagship(device)
+    mesh = fake_mesh(shape, ("dp", "sharding", "mp"),
+                     torch.device(device).type)
+    apply_llama_sharding(model, mesh)
+    step = build_train_step(model, opt, mesh=mesh,
+                            compute_dtype=torch.bfloat16,
+                            accum_steps=accum_steps, overlap=overlap)
+    params = model.functional_state()
+    state = opt.init_flat_state(
+        params, decay_mask=llama_decay_mask(model),
+        flat_layout=step.flat_layout) if flat \
+        else opt.init_state(params)
+    if accum_steps > 1:
+        ids = ids.reshape(accum_steps, -1, ids.shape[-1])
+        labels = labels.reshape(accum_steps, -1, labels.shape[-1])
+    return step, (params, state, 0, 1e-4, ids, labels), {}, mesh
 
 
 def _hybrid_build(schedule, device="cpu"):
     """``build(rank)`` of the hybrid step (pp2 x sharding2 x mp2) over the
     debug flagship's stacked state."""
+    return functools.partial(_hybrid_rank, schedule, device)
+
+
+def _hybrid_rank(schedule, device, rank):
     from ..models.llama_hybrid import (HYBRID_AXES, build_hybrid_train_step,
                                        init_hybrid_state)
     from .core import fake_mesh
 
-    def build(rank):
-        cfg, model, opt, _, ids, labels = _flagship(device)
-        mesh = fake_mesh((2, 1, 2, 1, 2), HYBRID_AXES,
-                         torch.device(device).type)
-        state = init_hybrid_state(model, mesh)
-        step = build_hybrid_train_step(cfg, opt, mesh, num_microbatches=2,
-                                       compute_dtype=torch.float32,
-                                       schedule=schedule)
-        return step, (state, opt.init_state(state), 0, 1e-4, ids,
-                      labels), {}, mesh
-
-    return build
+    cfg, model, opt, _, ids, labels = _flagship(device)
+    mesh = fake_mesh((2, 1, 2, 1, 2), HYBRID_AXES, torch.device(device).type)
+    state = init_hybrid_state(model, mesh)
+    step = build_hybrid_train_step(cfg, opt, mesh, num_microbatches=2,
+                                   compute_dtype=torch.float32,
+                                   schedule=schedule)
+    return step, (state, opt.init_state(state), 0, 1e-4, ids, labels), {}, \
+        mesh
 
 
 def _moe_ep_cfg():
@@ -399,6 +407,10 @@ def _moe_ep_cfg():
 def _moe_ep_build(dropless, device="cpu", codec=True):
     """``build(rank)`` of the EP train step (JAX's ``_moe_ep_flagship``):
     dp1 x sharding2 x ep4, the fake two-slice map on ep, the codec on."""
+    return functools.partial(_moe_ep_rank, dropless, device, codec)
+
+
+def _moe_ep_rank(dropless, device, codec, rank):
     from ..parallel.codec import CollectiveCodec
     from ..parallel.expert import (build_moe_ep_dropless_train_step,
                                    build_moe_ep_train_step,
@@ -406,24 +418,20 @@ def _moe_ep_build(dropless, device="cpu", codec=True):
     from ..parallel.overlap import OverlapConfig
     from .core import fake_mesh
 
-    def build(rank):
-        cfg = _moe_ep_cfg()
-        mesh = fake_mesh((1, 2, 4), ("dp", "sharding", "ep"),
-                         torch.device(device).type)
-        params = init_moe_ep_params(cfg, mesh, device=device)
-        oc = OverlapConfig(hierarchical="on", slice_map=MOE_SLICE_MAP,
-                           codec=CollectiveCodec(block=64) if codec
-                           else None)
-        make_step = build_moe_ep_dropless_train_step if dropless \
-            else build_moe_ep_train_step
-        rng = np.random.default_rng(7)
-        x2d = torch.from_numpy(rng.standard_normal((64, 16),
-                                                   np.float32)).to(device)
-        tgt = torch.from_numpy(rng.standard_normal((64, 16),
-                                                   np.float32)).to(device)
-        return make_step(cfg, mesh, oc=oc), (params, x2d, tgt), {}, mesh
-
-    return build
+    cfg = _moe_ep_cfg()
+    mesh = fake_mesh((1, 2, 4), ("dp", "sharding", "ep"),
+                     torch.device(device).type)
+    params = init_moe_ep_params(cfg, mesh, device=device)
+    oc = OverlapConfig(hierarchical="on", slice_map=MOE_SLICE_MAP,
+                       codec=CollectiveCodec(block=64) if codec else None)
+    make_step = build_moe_ep_dropless_train_step if dropless \
+        else build_moe_ep_train_step
+    rng = np.random.default_rng(7)
+    x2d = torch.from_numpy(rng.standard_normal((64, 16),
+                                               np.float32)).to(device)
+    tgt = torch.from_numpy(rng.standard_normal((64, 16),
+                                               np.float32)).to(device)
+    return make_step(cfg, mesh, oc=oc), (params, x2d, tgt), {}, mesh
 
 
 def _overlap_targets(device="cpu"):
@@ -707,50 +715,64 @@ def joint_schedule_points():
                            slice_map=JOINT_SLICE_MAPS["tp8"]))
 
 
-def joint_schedule_section(device="cpu", hbm_bytes=None,
-                           dcn_wire_bytes=None) -> dict:
-    """The joint partition x memory x codec walk
-    (``parallel.schedule.tune_schedule_config``) over the fake two-slice
-    lattice under the pinned budgets, each point's step captured at rank 0
-    of a fake group of 8 (JAX's ``joint_schedule_section``)."""
-    import contextlib
+def joint_flagship_config():
+    """The joint walk's debug flagship (JAX's ``joint_flagship_config``):
+    vocab 512, hidden 128, so that partitioning moves real bytes."""
+    from ..models import LlamaConfig
 
-    from ..models import LlamaConfig, LlamaForCausalLM, build_train_step
-    from ..models.llama import apply_llama_sharding
-    from ..optimizer import AdamW
+    return LlamaConfig.debug(vocab=512, hidden=128, layers=2, heads=8,
+                             kv_heads=4, inter=256, max_pos=64)
+
+
+JOINT_FLAGSHIP_BATCH, JOINT_FLAGSHIP_SEQ = 8, 16
+
+
+def joint_lattice():
+    """The joint lattice: JAX's two partition points, remat "none", the
+    codec off and on."""
     from ..parallel.codec import CollectiveCodec
     from ..parallel.memory import MemoryConfig
-    from ..parallel.schedule import (choose_joint_config,
-                                     joint_schedule_lattice,
-                                     tune_schedule_config)
+    from ..parallel.schedule import joint_schedule_lattice
+
+    return joint_schedule_lattice(
+        joint_schedule_points(), memory_lattice=(MemoryConfig(remat="none"),),
+        codec_points=(None, CollectiveCodec()))
+
+
+def _joint_walk(device="cpu", **walk_kw):
+    """``tune_schedule_config`` over ``joint_lattice`` (``walk_kw``: the
+    budgets, ``predict``, ``estimator``, ``top_k``), each point's step
+    built and captured at rank 0 of a fake group of 8: the meter is the
+    capture's static peak, the DCN bytes are read from the same capture.
+    Returns ``(chosen, records, built)``, ``built`` the labels in the
+    order they were built."""
+    import contextlib
+
+    from ..models import LlamaForCausalLM, build_train_step
+    from ..models.llama import apply_llama_sharding
+    from ..optimizer import AdamW
+    from ..parallel.schedule import tune_schedule_config
     from .core import capture, fake_mesh, fake_ranks, static_peak
     from .fixtures import _gen
     from .passes.collective_budget import collect_wire_table
 
-    hbm = JOINT_HBM_BUDGET if hbm_bytes is None else hbm_bytes
-    dcn = JOINT_DCN_WIRE_BUDGET if dcn_wire_bytes is None else dcn_wire_bytes
-    key = (str(torch.device(device)), hbm, dcn)
-    if key in _JOINT_MEMO:
-        return _JOINT_MEMO[key]
-    cfg = LlamaConfig.debug(vocab=512, hidden=128, layers=2, heads=8,
-                            kv_heads=4, inter=256, max_pos=64)
+    cfg = joint_flagship_config()
     rng = np.random.default_rng(5)
-    ids = rng.integers(0, cfg.vocab_size, (8, 16)).astype(np.int64)
-    labels = rng.integers(0, cfg.vocab_size, (8, 16)).astype(np.int64)
-    lattice = joint_schedule_lattice(
-        joint_schedule_points(), memory_lattice=(MemoryConfig(remat="none"),),
-        codec_points=(None, CollectiveCodec()))
+    shape = (JOINT_FLAGSHIP_BATCH, JOINT_FLAGSHIP_SEQ)
+    ids = rng.integers(0, cfg.vocab_size, shape).astype(np.int64)
+    labels = rng.integers(0, cfg.vocab_size, shape).astype(np.int64)
     group = contextlib.ExitStack()
-    caps = {}
+    caps, built = {}, []
 
     def build_point(jc):
         group.close()                   # the previous point's group
         group.enter_context(fake_ranks(WORLD, 0))
+        built.append(jc.label())
         pt = jc.partition
         mesh = fake_mesh([n for _, n in pt.axes], [a for a, _ in pt.axes],
                          torch.device(device).type)
         model = LlamaForCausalLM(cfg, device=device, dtype=torch.float32,
-                                 generator=_gen(20260804))
+                                 generator=_gen(20260804, device))
         apply_llama_sharding(model, mesh)
         opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
         step = build_train_step(model, opt, mesh=mesh,
@@ -770,11 +792,29 @@ def joint_schedule_section(device="cpu", hbm_bytes=None,
 
     try:
         chosen, records = tune_schedule_config(
-            build_point, hbm if hbm is not None else 1 << 62, lattice,
-            dcn_wire_bytes=dcn if dcn is not None else 1 << 62,
-            meter=meter, dcn_bytes_fn=dcn_bytes)
+            build_point, walk_kw.pop("hbm_bytes"), joint_lattice(),
+            meter=meter, dcn_bytes_fn=dcn_bytes, **walk_kw)
     finally:
         group.close()
+    return chosen, records, built
+
+
+def joint_schedule_section(device="cpu", hbm_bytes=None,
+                           dcn_wire_bytes=None) -> dict:
+    """The joint partition x memory x codec walk
+    (``parallel.schedule.tune_schedule_config``) over the fake two-slice
+    lattice under the pinned budgets, each point's step captured at rank 0
+    of a fake group of 8 (JAX's ``joint_schedule_section``)."""
+    from ..parallel.schedule import choose_joint_config
+
+    hbm = JOINT_HBM_BUDGET if hbm_bytes is None else hbm_bytes
+    dcn = JOINT_DCN_WIRE_BUDGET if dcn_wire_bytes is None else dcn_wire_bytes
+    key = (str(torch.device(device)), hbm, dcn)
+    if key in _JOINT_MEMO:
+        return _JOINT_MEMO[key]
+    chosen, records, _ = _joint_walk(
+        device, hbm_bytes=hbm if hbm is not None else 1 << 62,
+        dcn_wire_bytes=dcn if dcn is not None else 1 << 62)
     hbm_only = choose_joint_config(records, hbm_bytes=hbm)
     dcn_only = choose_joint_config(records, dcn_wire_bytes=dcn)
     joint = choose_joint_config(records, hbm_bytes=hbm, dcn_wire_bytes=dcn)
@@ -802,6 +842,143 @@ def joint_schedule_section(device="cpu", hbm_bytes=None,
     if ok:
         _JOINT_MEMO[key] = out
     return out
+
+
+def _joint_fits(rec) -> bool:
+    """One record against both pinned joint budgets."""
+    return (rec["peak_bytes"] <= JOINT_HBM_BUDGET
+            and (rec.get("dcn_wire_bytes") or 0) <= JOINT_DCN_WIRE_BUDGET)
+
+
+#: The joint walk's records as the port's capture measures them (the CPU
+#: capture of rank 0 of a fake group of 8: static peaks and the capture's
+#: DCN bytes), in lattice order: the drift section's paper trail when no
+#: memoized joint section is at hand.  They must track
+#: ``joint_schedule_section``'s records (tests/test_torch_roofline.py
+#: holds them to it).  JAX's XLA peaks are not these.
+RECORDED_JOINT_RECORDS = (
+    {"label": "hybrid4(dp2xsharding2xmp2)[2slice]/none/device/codec-off",
+     "peak_bytes": 2_235_232, "dcn_wire_bytes": 460_292},
+    {"label": "hybrid4(dp2xsharding2xmp2)[2slice]/none/device/"
+              "codec[g=int8/sr,w=fp8,b=256]",
+     "peak_bytes": 5_784_520, "dcn_wire_bytes": 313_480},
+    {"label": "tp8(sharding4xmp2)[2slice]/none/device/codec-off",
+     "peak_bytes": 1_531_176, "dcn_wire_bytes": 395_526},
+    {"label": "tp8(sharding4xmp2)[2slice]/none/device/"
+              "codec[g=int8/sr,w=fp8,b=256]",
+     "peak_bytes": 3_252_408, "dcn_wire_bytes": 321_354},
+)
+
+#: The chip the drift gate prices the lattice on: the reference's v5e row,
+#: because the h100 row has no measured DCN rate and an estimate with
+#: inter-slice bytes refuses it.
+DRIFT_CHIP = "v5e"
+
+
+def _drift_estimator(records):
+    """(sheet, calibration offset, estimator) of the drift gate and the
+    predicted walk: the cost sheet of the joint flagship, the
+    peak calibrated on ``records[0]``, the pinned budgets, DRIFT_CHIP."""
+    from ..parallel import roofline as rf
+
+    sheet = rf.llama_cost_sheet(joint_flagship_config())
+    cal = rf.calibration_offset_from(
+        records[0], joint_lattice()[0], sheet, batch=JOINT_FLAGSHIP_BATCH,
+        seq=JOINT_FLAGSHIP_SEQ)
+    return sheet, cal, rf.joint_estimator(
+        sheet, batch=JOINT_FLAGSHIP_BATCH, seq=JOINT_FLAGSHIP_SEQ,
+        chip=DRIFT_CHIP, hbm_budget=JOINT_HBM_BUDGET,
+        dcn_budget=JOINT_DCN_WIRE_BUDGET, calibration_offset=cal)
+
+
+def roofline_drift_section(joint=None, device="cpu") -> dict:
+    """The estimator-against-measurement drift gate (JAX's
+    ``roofline_drift_section``): the roofline re-ranks the joint lattice,
+    and its predicted winner (the cheapest point whose predicted peak and
+    DCN bytes fit the pinned budgets, the peak calibrated on the first
+    measured record) must be the joint walk's pick; each record's predicted
+    fit must agree with the measured one; the predicted DCN bytes must be
+    within 10 % of the measured.  The estimate prices the collectives the
+    port's capture counts, some of which JAX's four pins never saw
+    (``roofline.predict_wire_table``): drift means the engine's schedule
+    and the estimator's terms parted.
+
+    The measured records are the memoized ``joint_schedule_section``'s (or
+    ``joint``'s), else RECORDED_JOINT_RECORDS, named in
+    ``measured_source``.  Priced on DRIFT_CHIP."""
+    if joint is None:
+        joint = _JOINT_MEMO.get((str(torch.device(device)), JOINT_HBM_BUDGET,
+                                 JOINT_DCN_WIRE_BUDGET))
+    records = (joint or {}).get("records")
+    source = "the port's capture (joint_schedule_section: static peaks)"
+    if not records:
+        records = [dict(r) for r in RECORDED_JOINT_RECORDS]
+        source = ("the port's recorded capture "
+                  "(self_check.RECORDED_JOINT_RECORDS: static peaks)")
+    measured_pick = next((r["label"] for r in records if _joint_fits(r)),
+                         None)
+    by_label = {jc.label(): jc for jc in joint_lattice()}
+    if set(by_label) != {r["label"] for r in records}:
+        return {"ok": False, "target": "roofline:drift",
+                "error": "lattice/record label mismatch",
+                "lattice": sorted(by_label),
+                "records": [r["label"] for r in records]}
+    _, cal, estimate = _drift_estimator(records)
+    ests = {r["label"]: estimate(by_label[r["label"]]) for r in records}
+    order = sorted(records, key=lambda r: ests[r["label"]].total_s)
+    predicted_pick = next((r["label"] for r in order
+                           if ests[r["label"]].fits), None)
+    table, frontier_ok, max_wire_err = [], True, 0.0
+    for rec in records:
+        e = ests[rec["label"]]
+        meas_fit = _joint_fits(rec)
+        frontier_ok = frontier_ok and e.fits == meas_fit
+        md = rec.get("dcn_wire_bytes") or 0
+        if md:
+            max_wire_err = max(max_wire_err,
+                               abs(e.dcn_wire_bytes - md) / md)
+        table.append({"label": rec["label"], "predicted": e.to_json(),
+                      "measured": {"peak_bytes": rec["peak_bytes"],
+                                   "dcn_wire_bytes": md,
+                                   "fits": meas_fit}})
+    ok = (predicted_pick is not None and predicted_pick == measured_pick
+          and frontier_ok and max_wire_err <= 0.10)
+    return {"ok": bool(ok), "target": "roofline:drift",
+            "chip": DRIFT_CHIP,
+            "chip_note": "priced on the reference's v5e row: the h100 row "
+                         "has no measured DCN rate, and this lattice puts "
+                         "bytes across slices",
+            "measured_source": source,
+            "predicted_winner": predicted_pick,
+            "measured_pick": measured_pick,
+            "frontier_parity": bool(frontier_ok),
+            "max_dcn_wire_rel_err": max_wire_err,
+            "calibration_offset": cal,
+            "predicted_order": [r["label"] for r in order],
+            "table": table}
+
+
+def predicted_joint_walk(device="cpu", top_k=1) -> dict:
+    """``tune_schedule_config(predict=True)`` over the joint lattice: the
+    drift gate's estimator (calibrated on the joint section's first
+    record) orders the points, and the walk builds, captures and measures
+    at most ``top_k`` of them under the pinned budgets (the static-peak
+    meter and the capture's DCN bytes).  Green when it built only its
+    choice and chose the joint walk's pick."""
+    joint = joint_schedule_section(device)
+    _, cal, estimate = _drift_estimator(joint["records"])
+    chosen, records, built = _joint_walk(
+        device, hbm_bytes=JOINT_HBM_BUDGET,
+        dcn_wire_bytes=JOINT_DCN_WIRE_BUDGET, predict=True,
+        estimator=estimate, top_k=top_k)
+    label = chosen.label() if chosen is not None else None
+    return {"ok": bool(chosen is not None and built == [label]
+                       and label == joint["chosen_label"]),
+            "built": built, "chosen_label": label,
+            "joint_pick": joint["chosen_label"], "calibration_offset": cal,
+            "records": [{k: r.get(k) for k in (
+                "label", "predicted_rank", "compiled", "fits", "peak_bytes",
+                "dcn_wire_bytes")} for r in records]}
 
 
 _SEEDED_MEMO: Dict = {}
@@ -866,7 +1043,9 @@ def self_check(clean: bool = True, device="cpu") -> dict:
                          lambda: flagship_sharding_table(device)),
                         ("moe_ep_canonical_table", moe_ep_sharding_table),
                         ("unified_schedule",
-                         lambda: joint_schedule_section(device))):
+                         lambda: joint_schedule_section(device)),
+                        ("roofline_drift",
+                         lambda: roofline_drift_section(device=device))):
             try:
                 result[key] = fn()
             except Exception as e:  # noqa: BLE001
@@ -880,13 +1059,16 @@ def self_check(clean: bool = True, device="cpu") -> dict:
                                  "concurrency", "overlap", "moe_ep",
                                  "sharding")) \
         and all(result[k].get("ok", True) for k in
-                ("comm_wire", "unified_schedule") if k in result)
-    result["left_out"] = {"roofline_drift": "ROADMAP A7 part four"}
+                ("comm_wire", "unified_schedule", "roofline_drift")
+                if k in result)
+    result["left_out"] = {}
     result["device"] = str(torch.device(device))
     return result
 
 
 __all__ = ["ALL_PASSES", "DONATION_MIN_BYTES", "FAST_PASSES",
            "FLAGSHIP_HBM_BUDGET", "FLAGSHIP_STREAM_BUDGET",
-           "HEALTH_PROBE_OVERHEAD", "SERVING_HBM_BUDGET", "clean_section",
-           "exemption_liveness", "seeded_section", "self_check"]
+           "HEALTH_PROBE_OVERHEAD", "RECORDED_JOINT_RECORDS",
+           "SERVING_HBM_BUDGET", "clean_section", "exemption_liveness",
+           "predicted_joint_walk", "roofline_drift_section",
+           "seeded_section", "self_check"]

@@ -27,7 +27,8 @@ resilient loop's (``resilience.py``); this module survives numeric ones
    no copy of the state is made.  Steps that return new tensors (the
    hybrid and GPT-MoE steps) pick references by the host ``ok``
    (``guard_tree``).  The host-resident state's update streams through
-   the card in one pass and is refused with ``health=``.
+   the card in the same two passes (``apply_flat_offloaded``: the first
+   copies each bucket in and nothing back).
 3. **The ladder** (``HealthMonitor``): skip and quarantine the batch ->
    an lr-backoff window -> rollback to the last checkpoint (the resilient
    loop's recovery, quarantined offsets force-skipped on replay) ->

@@ -66,6 +66,14 @@ class LlamaConfig:
     def head_dim(self) -> int:
         return self.hidden_size // self.num_attention_heads
 
+    def cost_sheet(self):
+        """The roofline's ``ModelCostSheet`` of this config: the per-layer
+        weight, FLOP and collective-element counts the partitioning search
+        prices points with (a lazy delegate: the models package does not
+        import the parallel stack when it is imported)."""
+        from ..parallel.roofline import llama_cost_sheet
+        return llama_cost_sheet(self)
+
     @staticmethod
     def llama3_8b() -> "LlamaConfig":
         return LlamaConfig(vocab_size=128256, hidden_size=4096,
@@ -998,8 +1006,10 @@ def build_train_step(model: LlamaForCausalLM, optimizer, mesh=None,
       the probe reads it (its one host transfer is its scalars), and only
       a passing gate runs the second, which recomputes the same values
       and writes them; a fired gate leaves the params and optimizer state
-      bit-identical, with no copy of either made.  The host-resident
-      state's update is one pass: it is refused with ``health``.
+      bit-identical, with no copy of either made.  A host-resident
+      state's first pass streams its buckets to the card and back to
+      nothing (``apply_flat_offloaded(write=False)``): the guard costs one
+      more host-to-card pass over the state, never a copy of it.
 
     PyTorch runs eagerly: no jit; the step keeps nothing from one call to
     the next, and the loss stays on the device.  The one
@@ -1218,7 +1228,7 @@ def build_train_step(model: LlamaForCausalLM, optimizer, mesh=None,
         if _memory.state_is_offloaded(opt_state):
             return _memory.apply_flat_offloaded(
                 optimizer, params, grads, opt_state, lr, step_no + 1,
-                decay_mask=decay_mask, flat_layout=flat_layout)
+                decay_mask=decay_mask, flat_layout=flat_layout, write=write)
         if optimizer.state_is_flat(opt_state):
             return _memory.apply_flat_in_place(
                 optimizer, params, grads, opt_state, lr, step_no + 1,
@@ -1259,10 +1269,6 @@ def build_train_step(model: LlamaForCausalLM, optimizer, mesh=None,
             raise ValueError(f"input_ids {tuple(ids.shape)} / labels "
                              f"{tuple(lab.shape)}: expected "
                              f"{'[accum_steps, b, s]' if want == 3 else '[b, s]'}")
-        if health is not None and _memory.state_is_offloaded(opt_state):
-            raise NotImplementedError(
-                "build_train_step(health=...): a host-resident state is "
-                "updated in place, which the guard cannot undo")
         at_rest = placed(params)
         loss, grads = gradients(at_rest, ids, lab, attention_mask)
         lr, step_no = float(lr), int(step_no)

@@ -541,7 +541,8 @@ class _Lanes:
 
 def apply_flat_offloaded(optimizer, params, grads, state, lr,
                          step: int = 0, decay_mask=None,
-                         flat_sharding=None, flat_layout=None):
+                         flat_sharding=None, flat_layout=None, *,
+                         write: bool = True):
     """Fused Adam/AdamW over a host-resident bucketed state, with the
     numbers of ``optimizer.apply_flat``: each bucket's moments (and master)
     are copied to the card, updated by the optimizer's own
@@ -560,16 +561,27 @@ def apply_flat_offloaded(optimizer, params, grads, state, lr,
     copies to overlap.  With ``ShardedTensor`` params (a mesh rank) the
     stream runs over this rank's rows of the leaves (``_LeafRows``), made
     as the buckets reach them and written back to the at-rest blocks as
-    the buckets pass them."""
+    the buckets pass them.
+
+    ``write=False`` is the health gate's first pass (as in
+    ``apply_flat_in_place``): each bucket still streams to the card and its
+    update is computed, but nothing is copied back to the host and nothing
+    is written into the params; the return is the global fp32 sum of
+    squares of the params' update, a 0-d tensor on the device.  The pass
+    moves the state's bytes host to device a second time; no copy of the
+    state is made."""
     if not state_is_offloaded(state):
         raise ValueError("apply_flat_offloaded needs a state from "
                          "init_offloaded_state / offload_flat_state")
     groups = _rank_flat_groups(optimizer, "apply_flat_offloaded", params,
                                grads, state["__offload__"], decay_mask,
                                flat_layout)
-    _stream_update(optimizer, groups, _LeafRows(groups, params, grads),
-                   state, lr, step)
-    return dict(params), state
+    rows = _LeafRows(groups, params, grads, write=write)
+    parts = _stream_update(optimizer, groups, rows, state, lr, step, write)
+    if write:
+        return dict(params), state
+    return _group_sq_total(groups, rows, parts,
+                           next(iter(params.values())).device)
 
 
 class _LeafRows:
@@ -581,7 +593,8 @@ class _LeafRows:
     rows of the leaves under the buckets in flight, never all of the
     rank's.  A plain leaf's rows are views of the tensors, updated in
     place.  ``write=False`` reads only: a released row is dropped, never
-    written back (the gate's first pass of ``apply_flat_in_place``)."""
+    written back (the gate's first pass of ``apply_flat_in_place`` and
+    ``apply_flat_offloaded``)."""
 
     def __init__(self, groups, params, grads, write: bool = True):
         self.params, self.grads = params, grads
@@ -672,10 +685,13 @@ def _bucket_update(optimizer, g, spans, rows: _LeafRows, off: int, size: int,
     return sq
 
 
-def _stream_update(optimizer, groups, rows: _LeafRows, state, lr, step):
+def _stream_update(optimizer, groups, rows: _LeafRows, state, lr, step,
+                   write: bool = True) -> Dict[str, list]:
     """The bucket stream of ``apply_flat_offloaded`` over ``groups`` whose
     leaves' rows (``rows``) concatenate to the state's buffers; updates
-    the params (through ``rows``) and ``state`` in place."""
+    the params (through ``rows``) and ``state`` in place.  ``write=False``
+    streams the buckets in only and returns, per group, the sums of
+    squares of its update's pieces (``_bucket_update``)."""
     tasks = []
     for g in groups:
         gs = state["__offload__"][g["name"]]
@@ -684,8 +700,9 @@ def _stream_update(optimizer, groups, rows: _LeafRows, state, lr, step):
             size = int(b.shape[0])
             tasks.append((g, gs, spans, i, off, size))
             off += size
+    parts: Dict[str, list] = {g["name"]: [] for g in groups}
     if not tasks:
-        return
+        return parts
     dev = rows.params[groups[0]["keys"][0]].device
     cap = max(t[5] for t in tasks)
     keys = {k for t in tasks for k in t[1]}
@@ -716,16 +733,46 @@ def _stream_update(optimizer, groups, rows: _LeafRows, state, lr, step):
         slot = {key: slots[s][key][:size] for key in gs}
         if "master" not in gs and pbuf is None:
             pbuf = torch.empty(cap, dtype=torch.float32, device=dev)
-        _bucket_update(optimizer, g, spans, rows, off, size,
-                       slot["moment1"], slot["moment2"], slot.get("master"),
-                       gbuf, pbuf, lr, step)
+        parts[g["name"]] += _bucket_update(
+            optimizer, g, spans, rows, off, size, slot["moment1"],
+            slot["moment2"], slot.get("master"), gbuf, pbuf, lr, step, write)
         done = lanes.event(lanes.main)
+        if not write:           # the slot is free once the bucket is read
+            went_out[s] = done
+            continue
         with lanes.on(lanes.outward):
             lanes.wait(lanes.outward, done)
             for key, bs in gs.items():
                 bs[i].copy_(slot[key], non_blocking=lanes.cuda)
             went_out[s] = lanes.event(lanes.outward)
     lanes.finish()
+    return parts
+
+
+def _group_sq_total(groups, rows: _LeafRows, parts: Dict[str, list],
+                    device) -> torch.Tensor:
+    """The global fp32 sum of squares of an update from its groups' pieces
+    (``_bucket_update(write=False)``): each group's sum, completed over
+    the layout's axes for a shard-major group (whose rows are distinct on
+    every rank of them; a row-major group's are whole on every rank), then
+    the sum over the groups; a 0-d zero on ``device`` when nothing was
+    updated."""
+    from . import compat
+
+    sq = []
+    for g in groups:
+        part = parts.get(g["name"])
+        if not part:
+            continue
+        total = torch.stack(part).sum()
+        lo = g.get("layout")
+        if lo is not None and rows._sharded(g["keys"][0]):
+            for a in lo.axes:
+                total = compat.all_reduce_raw(total, a, lo.mesh)
+        sq.append(total)
+    if not sq:
+        return torch.zeros((), dtype=torch.float32, device=device)
+    return torch.stack(sq).sum()
 
 
 # ------------------------------------------- in-place device-resident updates
@@ -754,8 +801,6 @@ def apply_flat_in_place(optimizer, params, grads, state, lr, step: int = 0,
     update (each bucket's new params in their dtype against the old), a
     0-d tensor on the device; the second pass recomputes the same buckets
     and writes them."""
-    from . import compat
-
     if not optimizer.state_is_flat(state):
         raise ValueError("apply_flat_in_place needs a state from "
                          "init_flat_state")
@@ -764,7 +809,7 @@ def apply_flat_in_place(optimizer, params, grads, state, lr, step: int = 0,
                                flat_layout)
     rows = _LeafRows(groups, params, grads, write=write)
     lr = _pin_lr_f32(lr)
-    sq = []
+    parts: Dict[str, list] = {}
     for g in groups:
         gs = state["__flat__"][g["name"]]
         spans = _key_spans(g)
@@ -774,28 +819,17 @@ def apply_flat_in_place(optimizer, params, grads, state, lr, step: int = 0,
         gbuf = torch.empty(cap, dtype=torch.float32, device=dev)
         pbuf = None if "master" in gs else torch.empty(
             cap, dtype=torch.float32, device=dev)
-        part = []
+        part = parts.setdefault(g["name"], [])
         for off, size in plan:
             m1, m2, mst = (gs[key][off:off + size] if key in gs else None
                            for key in ("moment1", "moment2", "master"))
             part += _bucket_update(optimizer, g, spans, rows, off, size, m1,
                                    m2, mst, gbuf, pbuf, lr, step, write)
-        if part:
-            total = torch.stack(part).sum()
-            # a shard-major group's rows are distinct on every rank of the
-            # layout's axes; a row-major group's are whole on every rank
-            lo = g.get("layout")
-            if lo is not None and rows._sharded(g["keys"][0]):
-                for a in lo.axes:
-                    total = compat.all_reduce_raw(total, a, lo.mesh)
-            sq.append(total)
     if write:
         return params, state
-    if not sq:
-        dev = next(iter(state["__flat__"].values()))["moment1"].device \
-            if state["__flat__"] else torch.device("cpu")
-        return torch.zeros((), dtype=torch.float32, device=dev)
-    return torch.stack(sq).sum()
+    dev = next(iter(state["__flat__"].values()))["moment1"].device \
+        if state["__flat__"] else torch.device("cpu")
+    return _group_sq_total(groups, rows, parts, dev)
 
 
 def apply_in_place(optimizer, params, grads, state, lr, step: int = 0,

@@ -35,9 +35,8 @@ Port of ``paddle_tpu/parallel/schedule.py``:
 ``from_moe_ep`` is the MoE EP block's schedule (``parallel/expert.py``'s
 plan, the ``ep`` or ``ep_dropless`` tactic).  The DCN wire measurement of
 a built step (``measure_dcn_wire_bytes``) is the Graph Doctor's COMM004
-pricing of its capture; the roofline-predicted walk
-(``tune_schedule_config(predict=True)``, A7 part four) raises
-``NotImplementedError``.
+pricing of its capture; ``tune_schedule_config(predict=True)`` ranks the
+lattice by ``roofline``'s estimate and builds only the top K.
 """
 
 from __future__ import annotations
@@ -56,11 +55,6 @@ from .specs import (Mesh, NamedSharding, P, ShardedTensor,
                     filter_divisible_spec, filter_spec_to_mesh,
                     layout_mesh_axes,
                     mesh_axis_sizes, spec_to_dim_axes)
-
-
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} belongs to ROADMAP queue {item}, not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -788,21 +782,87 @@ def tune_schedule_config(step_builder: Callable[[JointScheduleConfig],
     first fit wins) over the partition x memory x overlap lattice; returns
     ``(chosen, records)``.  A DCN wire budget is measured by
     ``measure_dcn_wire_bytes`` (each point's step captured and priced), or
-    by ``dcn_bytes_fn``; ``predict=True`` (the roofline estimator's
-    ranking, A7 part four) raises."""
+    by ``dcn_bytes_fn``.
+
+    ``predict=True`` ranks the lattice by the roofline's estimate first and
+    builds only the top K (``_predicted_walk``): ``estimator`` (a callable
+    JointScheduleConfig -> StepTimeEstimate, ``roofline.joint_estimator``)
+    orders the points and, when it renders a budget verdict
+    (``estimate.fits``), skips the points it predicts do not fit; the
+    measured peak and DCN bytes stay the verdict on every point built.
+    Records come back in lattice order, each with its ``predicted``
+    estimate and ``predicted_rank``; ``compiled`` says whether the point
+    was built and measured (the reference's word for it), and only those
+    carry the measured ``peak_bytes`` and ``fits``.  Without an estimator
+    it raises ``ValueError``: a ranking with no estimate would silently
+    fall back to lattice order."""
     from .memory import tune_memory_config
 
+    dcn_fn = dcn_bytes_fn or measure_dcn_wire_bytes
     if predict:
-        raise _unported("tune_schedule_config(predict=True) (the roofline "
-                        "estimator's ranking)", "A7 part four")
+        if estimator is None:
+            raise ValueError(
+                "tune_schedule_config(predict=True) needs an estimator "
+                "(roofline.joint_estimator): a predicted ranking with no "
+                "estimate would silently fall back to lattice order")
+        return _predicted_walk(step_builder, hbm_bytes, tuple(lattice),
+                               estimator, dcn_wire_bytes=dcn_wire_bytes,
+                               top_k=max(1, int(top_k)), meter=meter,
+                               dcn_bytes_fn=dcn_fn)
     if dcn_wire_bytes is None:
         return tune_memory_config(step_builder, hbm_bytes,
                                   lattice=tuple(lattice), meter=meter)
     return tune_memory_config(step_builder, hbm_bytes,
                               lattice=tuple(lattice),
                               dcn_wire_bytes=dcn_wire_bytes,
-                              dcn_bytes_fn=dcn_bytes_fn
-                              or measure_dcn_wire_bytes, meter=meter)
+                              dcn_bytes_fn=dcn_fn, meter=meter)
+
+
+def _predicted_walk(step_builder, hbm_bytes, lattice, estimator, *,
+                    dcn_wire_bytes=None, top_k=1, meter=None,
+                    dcn_bytes_fn=measure_dcn_wire_bytes):
+    """The predict-mode walk: estimate every point, visit them in predicted
+    order (cheapest first) skipping those the estimator predicts do not
+    fit, build and measure at most ``top_k`` (``meter``, else the card's
+    ``measure_step_memory``) and stop at the first whose measured peak,
+    and DCN bytes when budgeted, fit."""
+    from .memory import measure_step_memory
+
+    ests = [estimator(jc) for jc in lattice]
+
+    def _total(e):
+        return e.total_s if hasattr(e, "total_s") else e["total_s"]
+
+    order = sorted(range(len(lattice)), key=lambda i: _total(ests[i]))
+    records = []
+    for i, (jc, est) in enumerate(zip(lattice, ests)):
+        ej = est.to_json() if hasattr(est, "to_json") else dict(est)
+        records.append({"config": jc.to_json(), "label": jc.label(),
+                        "predicted": ej,
+                        "predicted_rank": order.index(i),
+                        "compiled": False})
+    chosen = None
+    built = 0
+    for idx in order:
+        if built >= top_k:
+            break
+        if records[idx]["predicted"].get("fits") is False:
+            continue            # predicted not to fit: not worth a build
+        jc = lattice[idx]
+        fn, args = step_builder(jc)
+        stats = (meter or measure_step_memory)(fn, *args)
+        rec = records[idx]
+        rec.update(stats, compiled=True,
+                   fits=stats["peak_bytes"] <= hbm_bytes)
+        if dcn_wire_bytes is not None:
+            dcn = int(dcn_bytes_fn(jc, fn, args))
+            rec["dcn_wire_bytes"] = dcn
+            rec["fits"] = bool(rec["fits"] and dcn <= dcn_wire_bytes)
+        built += 1
+        if rec["fits"]:
+            chosen = jc
+            break
+    return chosen, records
 
 
 __all__ = ["FlatUpdateLayout", "JointScheduleConfig", "PartitionPoint",

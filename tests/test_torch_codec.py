@@ -354,8 +354,8 @@ def test_choose_joint_config_equals_jax():
     """The same index as JAX's under every pair of budgets on its seeded
     records (the single-budget and joint picks, monotone, None when
     nothing fits); the tuner's DCN budget walks the lattice (an empty one
-    chooses nothing) and its predicted walk raises citing ROADMAP A7 part
-    four."""
+    chooses nothing) and its predicted walk, as JAX's, refuses to run
+    without an estimator."""
     from paddle_tpu.parallel import schedule as JS
     from paddle_tpu_torch.parallel import schedule as S
 
@@ -373,6 +373,5 @@ def test_choose_joint_config_equals_jax():
         == "tp8/on"
     assert S.tune_schedule_config(None, 0, (), dcn_wire_bytes=1) == (None,
                                                                      [])
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue A7 part four"):
+    with pytest.raises(ValueError, match="estimator"):
         S.tune_schedule_config(None, 0, (), predict=True)

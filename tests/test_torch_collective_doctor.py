@@ -314,7 +314,7 @@ def test_measure_dcn_wire_bytes_and_the_joint_walk():
                                           mesh=mesh), mesh,
                                   pt.dcn_axes())["dcn"]["bytes"]
     assert got == want > 0
-    with pytest.raises(NotImplementedError, match="A7 part four"):
+    with pytest.raises(ValueError, match="estimator"):
         tune_schedule_config(None, 1, (jc,), predict=True)
 
 

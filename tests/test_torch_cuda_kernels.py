@@ -3166,3 +3166,162 @@ def test_capture_parity_on_four_cards(tmp_path):
                 k[1] += nbytes
             summary[f"{name}.rank{rank}"] = kinds
     print("capture_parity_four_cards: " + json.dumps(summary))
+
+
+# ------------------------------------------------ the roofline's link rate
+
+#: one rank's shard of the all-gather (bf16); the all-reduce runs over the
+#: gathered LINK_SHARD_BYTES x world
+LINK_SHARD_BYTES = 256 << 20
+LINK_WARMUP, LINK_REPS = 3, 10
+
+
+def _link_rank(rank, world, root):
+    """One rank of ``test_link_rate_on_four_cards``: NCCL over a FileStore,
+    an all-gather of a LINK_SHARD_BYTES shard and an all-reduce of the
+    gathered buffer, each timed over LINK_REPS calls between CUDA events
+    after LINK_WARMUP; rank 0 saves every rank's milliseconds."""
+    import os
+
+    import torch.distributed as dist
+
+    torch.cuda.set_device(rank)
+    dev = torch.device("cuda", rank)
+    store = dist.FileStore(os.path.join(root, "store"), world)
+    dist.init_process_group("nccl", store=store, rank=rank,
+                            world_size=world, device_id=dev)
+    shard = torch.ones(LINK_SHARD_BYTES // 2, dtype=torch.bfloat16,
+                       device=dev)
+    full = torch.empty(world * shard.numel(), dtype=torch.bfloat16,
+                       device=dev)
+
+    def timed(fn):
+        for _ in range(LINK_WARMUP):
+            fn()
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(LINK_REPS):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / LINK_REPS
+
+    ms = torch.tensor([timed(lambda: dist.all_gather_into_tensor(full,
+                                                                 shard)),
+                       timed(lambda: dist.all_reduce(full))], device=dev)
+    every = [torch.empty_like(ms) for _ in range(world)]
+    dist.all_gather(every, ms)
+    if rank == 0:
+        torch.save(torch.stack(every).cpu(), os.path.join(root, "link.pt"))
+    dist.destroy_process_group()
+
+
+def test_link_rate_on_four_cards(tmp_path):
+    """The ``"h100"`` row's ICI rate (``parallel/roofline.py``
+    CHIP_SOURCES): an NCCL all-gather of a LINK_SHARD_BYTES bf16 shard on
+    four cards, priced in the ring model's own currency,
+    ``ring_wire_cost("allgather", shard, 4)`` over the slowest rank's time
+    (NCCL's bus bandwidth), so that ``collective_time`` gives the measured
+    time back; the all-reduce of the gathered buffer the same way beside
+    it.  Prints each card's name and power limit and the rates.  Needs four
+    GPUs."""
+    from paddle_tpu_torch.parallel.roofline import (CHIP_SPECS,
+                                                    collective_time,
+                                                    ring_wire_cost)
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four NVIDIA GPUs")
+    cards = _card_names()[:4]
+    torch.multiprocessing.spawn(_link_rank, args=(4, str(tmp_path)),
+                                nprocs=4, join=True)
+    ms = torch.load(tmp_path / "link.pt")
+    ag_ms, ar_ms = (float(ms[:, i].max()) for i in range(2))
+    full = 4 * LINK_SHARD_BYTES
+    ici = ring_wire_cost("allgather", LINK_SHARD_BYTES, 4) / (ag_ms * 1e-3)
+    ar = ring_wire_cost("allreduce", full, 4) / (ar_ms * 1e-3)
+    back = collective_time(full, 4, kind="all_gather",
+                           link_bytes_per_s=ici)
+    print("link_rate_four_cards: " + json.dumps({
+        "cards": cards, "shard_bytes": LINK_SHARD_BYTES, "reps": LINK_REPS,
+        "allgather_ms": ag_ms, "allreduce_ms": ar_ms,
+        "per_rank_ms": ms.tolist(), "ici_bytes_per_s": ici,
+        "allreduce_bus_bytes_per_s": ar,
+        "table_ici_bytes_per_s": CHIP_SPECS["h100"].ici_bytes_per_s}))
+    assert math.isfinite(ici) and ici > 0 and math.isfinite(ar) and ar > 0
+    assert abs(back - ag_ms * 1e-3) <= 1e-9 * ag_ms
+
+
+# ---------------------------------------------- C.10: NCCL after a check
+
+def _c10_check(dev):
+    """The Graph Doctor's two-rank check of the debug mesh step on
+    ``dev`` (``check_ranks``: in this process when no group is live here,
+    else in a spawned child)."""
+    from paddle_tpu_torch.analysis import check_ranks
+    from paddle_tpu_torch.analysis.self_check import _llama_build
+
+    rep = check_ranks(_llama_build((1, 2, 1), dev), 2, device=dev,
+                      passes=["collective_order"])
+    assert rep.ok, rep.summary()
+
+
+def test_nccl_after_check_ranks(dev, tmp_path):
+    """C.10 on one card: the check in this process, then NCCL here and an
+    all-reduce that gives its input back; with that group live, the check
+    again (now in a spawned child) and a second all-reduce."""
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    _c10_check(dev)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1, device_id=dev)
+    try:
+        for again in (False, True):
+            if again:
+                _c10_check(dev)
+            x = torch.arange(8, dtype=torch.float32, device=dev)
+            y = x.clone()
+            dist.all_reduce(y)
+            torch.cuda.synchronize()
+            assert torch.equal(x, y)
+    finally:
+        dist.destroy_process_group()
+
+
+def _c10_rank(rank, world, root):
+    """One rank of ``test_check_ranks_then_nccl_on_four_cards``: the check
+    on this rank's card in this process, then NCCL over all ``world``
+    ranks (a FileStore under ``root``) and one all-reduce, whose sum is
+    checked."""
+    import datetime
+    import os
+
+    import torch.distributed as dist
+
+    torch.cuda.set_device(rank)
+    dev = torch.device("cuda", rank)
+    _c10_check(dev)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(root, "store"), world),
+        rank=rank, world_size=world, device_id=dev,
+        timeout=datetime.timedelta(seconds=120))
+    x = torch.full((8,), float(rank + 1), device=dev)
+    dist.all_reduce(x)
+    torch.cuda.synchronize()
+    dist.destroy_process_group()
+    assert x[0].item() == world * (world + 1) / 2, x
+
+
+def test_check_ranks_then_nccl_on_four_cards(tmp_path):
+    """C.10 on four cards, the setting in which NCCL once crashed after a
+    fake group: each rank, a process of its own, checks the debug mesh
+    step in its own process and then joins a four-rank NCCL group for one
+    all-reduce.  Prints each card's name and power limit.  Needs four
+    GPUs."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four NVIDIA GPUs")
+    _build.build()
+    print("c10_four_cards: " + json.dumps({"cards": _card_names()[:4]}))
+    torch.multiprocessing.spawn(_c10_rank, args=(4, str(tmp_path)),
+                                nprocs=4, join=True)

@@ -80,9 +80,10 @@ def test_self_check_cli_is_green():
 
     res = self_check()
     assert res["ok"], {k: v for k, v in res.items() if k != "left_out"}
-    # only the roofline (part four) is left out: the sections above one
-    # rank run on fake process groups
-    assert res["left_out"] == {"roofline_drift": "ROADMAP A7 part four"}
+    # nothing is left out: the sections above one rank run on fake process
+    # groups, and the roofline's drift gate is in
+    assert res["left_out"] == {}
+    assert res["roofline_drift"]["ok"], res["roofline_drift"]
     for key in ("overlap", "moe_ep", "sharding"):
         assert res[key] and all(v["ok"] for v in res[key].values()), key
     assert res["comm_wire"]["ok"] and res["unified_schedule"]["ok"]

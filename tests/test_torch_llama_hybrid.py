@@ -417,11 +417,10 @@ def test_no_stale_a6_pointers():
 
 
 def test_no_stale_a7_pointers():
-    """Since the Graph Doctor above one rank is in (ROADMAP A7's third
-    part), a port line that names A7 names part four (the roofline), and
-    the hooks it ported (the reshard plan's, the fleet's and the handoff's
-    MEM001 budgets, the serving entry and its ``param_layout``) neither
-    raise nor point at a later slice."""
+    """Since the roofline is in (ROADMAP A7's fourth and last part), no
+    port line names A7, and the hooks its third part ported (the reshard
+    plan's, the fleet's and the handoff's MEM001 budgets, the serving entry
+    and its ``param_layout``) neither raise nor point at a later slice."""
     import inspect
 
     from paddle_tpu_torch.inference import disagg, fleet, serving
@@ -433,8 +432,7 @@ def test_no_stale_a7_pointers():
                        if "_build" not in p.relative_to(root).parts):
         text = path.read_text()
         for i, line in enumerate(text.splitlines()):
-            if re.search(r"\bA7\b", line) and not re.search(
-                    r"A7 part four", line):
+            if re.search(r"\bA7\b", line):
                 hits.append(f"{path.name}:{i + 1}: {line.strip()}")
         for node in ast.walk(ast.parse(text)):
             if isinstance(node, ast.Raise) and node.exc is not None:

@@ -351,8 +351,8 @@ def _moe_ep_cfg():
 
 
 # the names A5.1 left raising; since A5.2 the overlap engine's are ported,
-# since A5.3 ``from_moe_ep``, since A7's third part the DCN wire
-# measurement (item None: the call returns) and what still raises cites
+# since A5.3 ``from_moe_ep``, then the DCN wire measurement and the
+# predicted walk (item None: the call returns); what still raises cites
 # its item
 @pytest.mark.parametrize("call,item", [
     (lambda s: s.stack_plan(), None),
@@ -368,8 +368,8 @@ def _moe_ep_cfg():
         tsched.PartitionPoint("x", ()), None), None, ()), None),
     (lambda s: tsched.tune_schedule_config(None, 0, (),
                                            dcn_wire_bytes=1), None),
-    (lambda s: tsched.tune_schedule_config(None, 0, (), predict=True),
-     "A7 part four"),
+    (lambda s: tsched.tune_schedule_config(None, 0, (), predict=True,
+                                           estimator=lambda jc: None), None),
 ], ids=["stack_plan", "StackSchedule", "from_moe_ep", "PartitionPoint",
         "JointScheduleConfig", "joint_schedule_lattice", "choose_joint_config",
         "measure_dcn_wire_bytes", "tune_schedule_config", "predict"])

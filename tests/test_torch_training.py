@@ -688,7 +688,7 @@ def in_place_mesh(tmp_path_factory):
 
 @pytest.mark.parametrize("case", ["flat_bf16", "flat_fp32", "per_tensor",
                                   "flat_bf16_health", "flat_fp32_health",
-                                  "per_tensor_health"])
+                                  "per_tensor_health", "host_fp32_health"])
 def test_in_place_mesh_update_across_bucket_edges(in_place_mesh, case):
     """On a (1, 2, 2) gloo mesh in small buckets (each rank's shard-major
     rows crossing bucket edges, written back to the at-rest blocks as the
@@ -696,7 +696,8 @@ def test_in_place_mesh_update_across_bucket_edges(in_place_mesh, case):
     ``apply_flat`` / ``apply`` on every rank; under ``health=`` a fired
     gate leaves every block bit-identical and an open one is the twin's
     update, its update ratio (the first pass's per-piece squares summed
-    over the layout's axes) the twin's to 1e-5."""
+    over the layout's axes) the twin's to 1e-5; the host-resident state's
+    buckets (C.9) the same way, through both of its streamed passes."""
     assert not torch.distributed.is_initialized()
     for rank, out in enumerate(in_place_mesh):
         rec = out[case]

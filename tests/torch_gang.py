@@ -217,7 +217,10 @@ IN_PLACE_CASES = (("flat_bf16", torch.bfloat16, "flat", False),
                   ("per_tensor", torch.bfloat16, "per_tensor", False),
                   ("flat_bf16_health", torch.bfloat16, "flat", True),
                   ("flat_fp32_health", torch.float32, "flat", True),
-                  ("per_tensor_health", torch.bfloat16, "per_tensor", True))
+                  ("per_tensor_health", torch.bfloat16, "per_tensor", True),
+                  # the host-resident state (C.9): its buckets stream
+                  # through both passes of the guarded step
+                  ("host_fp32_health", torch.float32, "host", True))
 
 
 def _leaf_crossings(opt, params, mask, layout):
@@ -269,8 +272,17 @@ def in_place_rank(rank, world, root):
     def loc(t):
         return t.local if isinstance(t, ShardedTensor) else t
 
+    def as_flat(s):
+        """A host-resident state's buckets as the flat state they cut."""
+        if "__offload__" not in s:
+            return s
+        return {"__flat__": {g: {n: torch.cat(list(bs))
+                                 for n, bs in gs.items()}
+                             for g, gs in s["__offload__"].items()}}
+
     def flat_tensors(p, s):
         out = [p[k].local for k in sorted(p)]
+        s = as_flat(s)
         if "__flat__" in s:
             return out + [s["__flat__"][g][n] for g in sorted(s["__flat__"])
                           for n in sorted(s["__flat__"][g])]
@@ -278,6 +290,7 @@ def in_place_rank(rank, world, root):
 
     def clone(p, s):
         p = {k: v.with_local(v.local.clone()) for k, v in p.items()}
+        s = as_flat(s)
         if "__flat__" in s:
             return p, {"__flat__": {g: {n: t.clone() for n, t in gs.items()}
                                     for g, gs in s["__flat__"].items()}}
@@ -304,14 +317,19 @@ def in_place_rank(rank, world, root):
             step = build_train_step(model, opt, mesh=mesh,
                                     compute_dtype=torch.float32)
             p = model.functional_state()
-            s = (opt.init_flat_state(p, decay_mask=mask,
-                                     flat_layout=step.flat_layout)
-                 if kind == "flat" else opt.init_state(p))
+            if kind == "host":
+                s = M.init_offloaded_state(opt, p, decay_mask=mask,
+                                           bucket_bytes=SMALL_BUCKET_BYTES,
+                                           flat_layout=step.flat_layout)
+            else:
+                s = (opt.init_flat_state(p, decay_mask=mask,
+                                         flat_layout=step.flat_layout)
+                     if kind == "flat" else opt.init_state(p))
 
             def twin(p, s, i):
                 """The functional update: new blocks, the old untouched."""
                 loss, grads = step.accumulate(p, ids, ids)
-                if kind == "flat":
+                if kind in ("flat", "host"):
                     new_p, new_s = opt.apply_flat(
                         p, grads, s, lr, i + 1, decay_mask=mask,
                         flat_layout=step.flat_layout)
